@@ -1,0 +1,25 @@
+"""nomad_tpu_torch — the PyTorch/CUDA port of nomad_tpu.
+
+The scheduling framework of ``nomad_tpu`` (a Nomad-class workload
+orchestrator whose per-evaluation placement runs as dense device
+programs), rebuilt on PyTorch with hand-written kernels for an NVIDIA
+H100. The host control plane (structs, state store, reconciler, plan
+applier) is carried over as plain Python; the device programs are
+CUDA C++ (``csrc/``) and Triton kernels, each beside a plain PyTorch
+version that the CPU runs.
+
+Layer map of this slice:
+
+- ``nomad_tpu_torch.structs``   — the shared data model.
+- ``nomad_tpu_torch.state``     — MVCC snapshot state store.
+- ``nomad_tpu_torch.device``    — cluster flattening + placement kernels.
+- ``nomad_tpu_torch.scheduler`` — reconciler + generic scheduler + Harness.
+- ``nomad_tpu_torch.broker``    — plan verification.
+- ``nomad_tpu_torch.backend``   — device resolution, kernel builds.
+- ``nomad_tpu_torch.interop``   — build port objects from plain records.
+
+Entry points run on the card unless the caller passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"
+SCHEDULER_VERSION = 1  # mirrors scheduler/scheduler.go:18 (SchedulerVersion)

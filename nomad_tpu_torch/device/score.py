@@ -1,0 +1,899 @@
+"""The batched placement kernels, on PyTorch and CUDA.
+
+Ports the main path of ``nomad_tpu/device/score.py``: the closed-form
+top-k placement for groups with no cross-node coupling, and the dense
+[G, N] score matrix. The scoring semantics are the reference's,
+component by component (see that module's docstring for each
+component's citation):
+
+- binpack/spread fit from 10^x of the cpu and memory free fractions,
+  normalized by ``BINPACK_MAX_SCORE``;
+- job anti-affinity, −(collisions+1)/desired_count on nodes already
+  holding the job;
+- the reschedule penalty, −1;
+- node affinity, pre-normalized on the host;
+- the mean over contributing components.
+
+Each device function has two halves in this module: a plain PyTorch
+version, which is what a CPU tensor runs, and a wrapper that launches
+the hand-written kernel on a CUDA tensor (``csrc/closed_form.cu`` and
+``score_triton.py``). A CUDA tensor never runs the plain version here:
+the wrapper launches its kernel or raises.
+
+Groups coupled through spread blocks or distinct_property caps (the
+reference's value-scan, chunked and one-per-value kernels) are not
+ported yet; ``PlacementKernel.place`` raises for them (ROADMAP A5).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..backend import (
+    check_launch,
+    cuda_library,
+    current_stream,
+    resolve_device,
+    same_device,
+)
+from ..obs.trace import global_tracer as _tracer
+from ..structs.resources import BINPACK_MAX_SCORE
+
+_LN10 = 2.302585092994046
+
+# value-block kinds (ValueBlocks.kinds; see flatten.py)
+BLOCK_TARGET_SPREAD = 0
+BLOCK_EVEN_SPREAD = 1
+BLOCK_DISTINCT_CAP = 2
+BLOCK_INACTIVE = -1
+
+# extra greedy candidates emitted beyond ``count`` per lane, consumed by
+# repair_batch_conflicts when optimistic batch lanes collide on a node
+OVERFLOW_CANDIDATES = 16
+
+# Device memory one closed-form launch may hold. The reference budgeted
+# ~4 GB of live f32 [chunk, N, J] planes on a 16 GB v5e; the port's
+# kernel keeps no plane (it recomputes each node's column per pass), so
+# per lane it holds only its 8-byte top-k slots and the dense [G, N]
+# inputs, 14 bytes per node (eligible and penalty as bytes, job_counts
+# i32, affinity and slot caps f32). 8 GiB is a tenth of the H100's
+# 80 GB: at the headline shape (16,384 padded nodes, k 1,024: 0.24 MB per
+# lane) that is ~36,000 lanes per launch, so a pass splits only for
+# group counts far beyond any batch the schedulers build.
+SCRATCH_BUDGET_BYTES = 8 << 30
+
+
+def _pow10(x):
+    return torch.exp(_LN10 * x)
+
+
+def _div(x, c: float):
+    """``x / c`` as one IEEE division. PyTorch's CUDA division by a
+    Python (or CPU) scalar multiplies by the rounded reciprocal instead,
+    one ulp off the kernels' and the reference's quotient; a 0-dim
+    tensor on ``x``'s device takes the true division."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+def _lane(x, dtype=None):
+    """[G] per-lane scalars as a [G, 1, 1] broadcast against planes."""
+    return x[:, None, None] if dtype is None else x.to(dtype)[:, None, None]
+
+
+# -- score matrix (dense [G, N], no sequential state) ------------------------
+
+
+def component_scores(
+    capacity,  # f32[N, D]
+    used,  # f32[N, D]
+    asks,  # f32[G, D]
+    eligible,  # bool[G, N]
+    job_counts,  # i32[G, N]
+    desired_totals,  # f32[G] anti-affinity denominators
+    penalty_nodes,  # bool[G, N]
+    affinity_scores,  # f32[G, N]
+    has_affinities,  # bool[G]
+    distinct_hosts,  # bool[G]
+    algorithm_spread: bool,
+    throughputs=None,  # f32[G, N] normalized [0, 1] class-throughput share
+):
+    """Per-(group, node) normalized score for placing one instance of
+    each group's ask: the reference ``component_scores`` with the group
+    axis written out, and the plain PyTorch version of ``score_matrix``. The spread component is always off on this path
+    (the reference passes a zero boost), so it is not carried. Returns
+    (final f32[G, N] with −inf infeasible, fits bool[G, N])."""
+    proposed = used[None, :, :] + asks[:, None, :]  # [G, N, D]
+    fits = torch.all(proposed <= capacity[None], dim=-1) & eligible
+    fits &= torch.where(distinct_hosts[:, None], job_counts == 0, True)
+    if throughputs is not None:
+        fits &= throughputs > 0.0
+
+    cap = capacity[None]
+    free_frac = torch.where(
+        cap > 0, (cap - proposed) / torch.clamp(cap, min=1e-9), 1.0
+    )
+    pow_sum = _pow10(free_frac[..., 0]) + _pow10(free_frac[..., 1])
+    binpack = torch.clamp(20.0 - pow_sum, 0.0, BINPACK_MAX_SCORE)
+    spread_fit = torch.clamp(pow_sum - 2.0, 0.0, BINPACK_MAX_SCORE)
+    fit_score = _div(spread_fit if algorithm_spread else binpack, BINPACK_MAX_SCORE)
+
+    collisions = job_counts.to(torch.float32)
+    anti = torch.where(
+        job_counts > 0,
+        -(collisions + 1.0) / torch.clamp(desired_totals, min=1.0)[:, None],
+        0.0,
+    )
+    resched = torch.where(penalty_nodes, -1.0, 0.0)
+    aff = torch.where(has_affinities[:, None], affinity_scores, 0.0)
+    n_comp = (
+        1.0
+        + (job_counts > 0)
+        + penalty_nodes
+        + torch.where(has_affinities, 1.0, 0.0)[:, None]
+    )
+    total = fit_score + anti + resched + aff
+    if throughputs is not None:
+        total = total + throughputs
+        n_comp = n_comp + 1.0
+    final = total / n_comp
+    return torch.where(fits, final, -torch.inf), fits
+
+
+def score_matrix(
+    capacity,  # f32[N, D]
+    used,  # f32[N, D]
+    asks,  # f32[G, D]
+    eligible,  # bool[G, N]
+    job_counts,  # i32[G, N]
+    desired_totals,  # f32[G]
+    penalty_nodes,  # bool[G, N]
+    affinity_scores,  # f32[G, N]
+    has_affinities,  # bool[G]
+    distinct_hosts,  # bool[G]
+    algorithm_spread: bool,
+    throughputs=None,  # f32[G, N] or None
+):
+    """The dense groups×nodes score matrix — the port of
+    ``score_matrix_kernel``: (final f32[G, N], fits bool[G, N]). CPU
+    tensors run the plain version; CUDA tensors run the Triton kernel
+    (``score_triton.score_matrix_triton``)."""
+    if capacity.device.type == "cpu":
+        return component_scores(
+            capacity, used, asks, eligible, job_counts, desired_totals,
+            penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+            algorithm_spread, throughputs,
+        )
+    from .score_triton import score_matrix_triton
+
+    return score_matrix_triton(
+        capacity, used, asks, eligible, job_counts, desired_totals,
+        penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+        algorithm_spread, throughputs,
+    )
+
+
+# -- closed-form greedy ------------------------------------------------------
+#
+# For one group placing ``count`` identical asks with no per-value
+# coupling, the score of "the (j+1)-th instance on node n" is closed
+# form, and the per-node sequence made monotone by a running-min clamp
+# turns greedy placement into one top-k over the node-major [N·J] plane
+# (reference: device/score.py place_closed_form_kernel).
+
+
+def _score_planes(
+    capacity,  # f32[N, D]
+    used0,  # f32[N, D]
+    asks,  # f32[G, D]
+    elig,  # bool[G, N]
+    jc0,  # i32[G, N]
+    dt,  # f32[G] anti-affinity denominators
+    pen,  # bool[G, N]
+    aff,  # f32[G, N]
+    has_aff,  # bool[G]
+    dh,  # bool[G] distinct_hosts
+    caps,  # f32[G, N] per-node device-slot caps
+    algorithm_spread: bool,
+    max_j: int,
+    jitter=None,  # f32[N] tie-break noise
+):
+    """The [G, N, J] candidate planes: numerator (sum of components),
+    denominator (contributing-component count) and feasibility — the
+    reference ``_score_planes`` with the group axis written out."""
+    dev = capacity.device
+    js = torch.arange(max_j, dtype=torch.float32, device=dev)  # [J]
+    mult = js + 1.0
+    # used0 + (j+1)·ask ≤ cap in every dim ⇔ j < min_d floor((cap−used0)/ask);
+    # the 1e-6 nudge absorbs float division round-down on exact fits
+    free0 = capacity - used0  # [N, D]
+    ask = asks[:, None, :]  # [G, 1, D]
+    per_dim = torch.where(
+        ask > 0,
+        torch.floor(free0[None] / torch.clamp(ask, min=1e-9) + 1e-6),
+        torch.inf,
+    )
+    jmax = per_dim.amin(dim=-1)  # [G, N]
+    jmax = torch.where(elig, jmax, 0.0)
+    jmax = torch.minimum(jmax, caps)
+    jmax = torch.where(
+        dh[:, None],
+        torch.where(jc0 == 0, torch.clamp(jmax, max=1.0), 0.0),
+        jmax,
+    )
+    fits = js[None, None, :] < jmax[:, :, None]  # [G, N, J]
+
+    pow_sum = torch.zeros(fits.shape, dtype=torch.float32, device=dev)
+    for d in (0, 1):  # cpu, mem drive the fit score
+        cap_d = capacity[None, :, d : d + 1]  # [1, N, 1]
+        prop_d = used0[None, :, d : d + 1] + mult[None, None, :] * _lane(asks[:, d])
+        free_d = torch.where(
+            cap_d > 0, (cap_d - prop_d) / torch.clamp(cap_d, min=1e-9), 1.0
+        )
+        pow_sum = pow_sum + _pow10(free_d)
+    binpack = torch.clamp(20.0 - pow_sum, 0.0, BINPACK_MAX_SCORE)
+    spread_fit = torch.clamp(pow_sum - 2.0, 0.0, BINPACK_MAX_SCORE)
+    fit_score = _div(spread_fit if algorithm_spread else binpack, BINPACK_MAX_SCORE)
+
+    coll = jc0.to(torch.float32)[:, :, None] + js  # after j placed
+    has_coll = coll > 0
+    anti = torch.where(
+        has_coll, -(coll + 1.0) / _lane(torch.clamp(dt, min=1.0)), 0.0
+    )
+    resched = torch.where(pen[:, :, None], -1.0, 0.0)
+    aff_c = torch.where(_lane(has_aff), aff[:, :, None], 0.0)
+    num = fit_score + anti + resched + aff_c
+    if jitter is not None:
+        num = num + jitter[None, :, None]
+    den = 1.0 + has_coll + pen[:, :, None] + _lane(has_aff, torch.float32)
+    return num, den, fits
+
+
+def place_closed_form_plain(
+    capacity, used0, asks, eligible, job_counts, desired_totals,
+    penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+    slot_caps, algorithm_spread: bool, max_j: int, k: int, jitter=None,
+):
+    """The plain PyTorch version of ``place_closed_form``. The top-k is a
+    stable descending sort: ``lax.top_k`` orders by (value desc, index
+    asc) and ``torch.topk`` promises no order among ties, which the
+    homogeneous clusters have everywhere."""
+    num, den, fits = _score_planes(
+        capacity, used0, asks, eligible, job_counts, desired_totals,
+        penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+        slot_caps, algorithm_spread, max_j, jitter=jitter,
+    )
+    s_raw = torch.where(fits, num / den, -torch.inf)
+    # selection runs on the running-min clamp: it restores the prefix
+    # rule "(n, j) requires (n, j-1)" that a plain top-k needs
+    s_sel = torch.cummin(s_raw, dim=2).values
+    g = s_raw.shape[0]
+    flat_sel = s_sel.reshape(g, -1)
+    flat_raw = s_raw.reshape(g, -1)
+    k_eff = min(k, flat_sel.shape[1])
+    top_sel, top_idx = torch.sort(flat_sel, dim=1, descending=True, stable=True)
+    top_sel, top_idx = top_sel[:, :k_eff], top_idx[:, :k_eff]
+    if k_eff < k:
+        pad = k - k_eff
+        top_sel = torch.cat(
+            [top_sel, top_sel.new_full((g, pad), -torch.inf)], dim=1
+        )
+        top_idx = torch.cat([top_idx, top_idx.new_zeros((g, pad))], dim=1)
+    # report the TRUE (unclamped) score of each chosen (n, j)
+    top_raw = torch.gather(flat_raw, 1, top_idx)
+    node_rows = torch.div(top_idx, max_j, rounding_mode="floor").to(torch.int32)
+    ok = top_sel > -torch.inf
+    choices = torch.where(ok, node_rows, -1).to(torch.int32)
+    scores = torch.where(ok, top_raw, -torch.inf)
+    return choices, scores
+
+
+_CLOSED_FORM_ARGTYPES = (
+    [ctypes.c_void_p] * 12  # capacity … jitter
+    + [ctypes.c_int] * 7  # algorithm_spread, g, n, j, k, k_eff, kpad
+    + [ctypes.c_void_p] * 4  # cand, choices, scores, stream
+)
+
+
+def _closed_form_library():
+    lib = cuda_library("closed_form")
+    fn = lib.nomad_place_closed_form
+    if fn.argtypes is None:
+        fn.argtypes = _CLOSED_FORM_ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_closed_form_inputs(capacity, used0, asks, eligible, job_counts,
+                              desired_totals, penalty_nodes, affinity_scores,
+                              has_affinities, distinct_hosts, slot_caps,
+                              jitter):
+    n = capacity.shape[0]
+    g = asks.shape[0]
+    want = [
+        ("capacity", capacity, torch.float32, (n, 4)),
+        ("used0", used0, torch.float32, (n, 4)),
+        ("asks", asks, torch.float32, (g, 4)),
+        ("eligible", eligible, torch.bool, (g, n)),
+        ("job_counts", job_counts, torch.int32, (g, n)),
+        ("desired_totals", desired_totals, torch.float32, (g,)),
+        ("penalty_nodes", penalty_nodes, torch.bool, (g, n)),
+        ("affinity_scores", affinity_scores, torch.float32, (g, n)),
+        ("has_affinities", has_affinities, torch.bool, (g,)),
+        ("distinct_hosts", distinct_hosts, torch.bool, (g,)),
+        ("slot_caps", slot_caps, torch.float32, (g, n)),
+    ]
+    if jitter is not None:
+        want.append(("jitter", jitter, torch.float32, (n,)))
+    for name, t, dtype, shape in want:
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(
+                f"place_closed_form: {name} must be {dtype} {shape}, "
+                f"got {t.dtype} {tuple(t.shape)}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"place_closed_form: {name} must be contiguous")
+
+
+def place_closed_form(
+    capacity,  # f32[N, 4] shared
+    used0,  # f32[N, 4] shared snapshot usage
+    asks,  # f32[G, 4]
+    eligible,  # bool[G, N]
+    job_counts,  # i32[G, N]
+    desired_totals,  # f32[G]
+    penalty_nodes,  # bool[G, N]
+    affinity_scores,  # f32[G, N]
+    has_affinities,  # bool[G]
+    distinct_hosts,  # bool[G]
+    slot_caps,  # f32[G, N] (+inf where uncapped)
+    algorithm_spread: bool,
+    max_j: int,  # most instances of one group per node
+    k: int,  # top-k width (≥ max count in batch + overflow)
+    jitter=None,  # f32[N] tie-break noise, shared across lanes
+):
+    """Returns (choices i32[G, k], scores f32[G, k]) in greedy order —
+    the port of ``place_closed_form_kernel``. Entries past a lane's
+    feasible candidates are −1/−inf; entries in [count, k) are overflow
+    candidates for conflict repair. CPU tensors run the plain version;
+    CUDA tensors launch ``csrc/closed_form.cu``."""
+    dev = capacity.device
+    if dev.type == "cpu":
+        return place_closed_form_plain(
+            capacity, used0, asks, eligible, job_counts, desired_totals,
+            penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+            slot_caps, algorithm_spread, max_j, k, jitter,
+        )
+    inputs = (
+        capacity, used0, asks, eligible, job_counts, desired_totals,
+        penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+        slot_caps, jitter,
+    )
+    same_device(inputs, dev, "place_closed_form")
+    _check_closed_form_inputs(*inputs)
+    g, n = eligible.shape
+    m = n * max_j
+    if m >= 2**32 - 1 or max_j < 1 or k < 1:
+        raise ValueError(
+            f"place_closed_form: unsupported shape N={n} J={max_j} k={k}"
+        )
+    k_eff = min(k, m)
+    kpad = 1
+    while kpad < k_eff:
+        kpad <<= 1
+    cand = torch.empty((g, kpad), dtype=torch.int64, device=dev)
+    choices = torch.empty((g, k), dtype=torch.int32, device=dev)
+    scores = torch.empty((g, k), dtype=torch.float32, device=dev)
+    if g == 0:
+        return choices, scores
+    fn = _closed_form_library()
+    status = fn(
+        *[None if t is None else t.data_ptr() for t in inputs],
+        int(bool(algorithm_spread)), g, n, max_j, k, k_eff, kpad,
+        cand.data_ptr(), choices.data_ptr(), scores.data_ptr(),
+        current_stream(dev),
+    )
+    check_launch(status, "place_closed_form")
+    place_closed_form.launches += 1
+    return choices, scores
+
+
+place_closed_form.launches = 0
+
+
+def _steps_bucket(n: int) -> int:
+    b = 1
+    while b < n:
+        b <<= 1
+    return b
+
+
+def _dummy_ask(pn: int):
+    """Zero-count padding lane for the group axis: eligible nowhere, so
+    the kernel places nothing and its lane is dropped on unpack."""
+    from .flatten import GroupAsk
+
+    return GroupAsk(
+        job_id="",
+        tg_name="",
+        count=0,
+        desired_total=1,
+        ask=np.zeros(4, dtype=np.float32),
+        eligible=np.zeros(pn, dtype=bool),
+        job_counts=np.zeros(pn, dtype=np.int32),
+        penalty_nodes=np.zeros(pn, dtype=bool),
+        affinity_scores=np.zeros(pn, dtype=np.float32),
+        has_affinities=False,
+        distinct_hosts=False,
+    )
+
+
+def _pad_group_axis(asks: list, pn: int) -> list:
+    """Pad the ask list so the group axis takes only two kinds of size:
+    1 (single-eval path) or a power of two ≥ 16 (batched path), as the
+    reference buckets it. Kept so both packages run the same lanes."""
+    n = len(asks)
+    g = 1 if n == 1 else max(16, _steps_bucket(n))
+    if g == n:
+        return asks
+    dummy = _dummy_ask(pn)
+    return asks + [dummy] * (g - n)
+
+
+def _shared_batch(asks: list, pn: int) -> dict:
+    """Host-side assembly of the dense kernel inputs. The reference
+    bit-packs masks and collapses degenerate lanes to [G, 1] for its
+    tunnel-attached TPU; here every per-node input is a dense [G, N]
+    array, which is what the kernels take."""
+    caps = np.stack(
+        [
+            a.slot_caps
+            if a.slot_caps is not None
+            else np.full(pn, np.inf, dtype=np.float32)
+            for a in asks
+        ]
+    ).astype(np.float32)
+    return dict(
+        asks=np.stack([a.ask for a in asks]).astype(np.float32),
+        eligible=np.stack([a.eligible for a in asks]).astype(bool),
+        job_counts=np.stack([a.job_counts for a in asks]).astype(np.int32),
+        desired_totals=np.array(
+            [a.desired_total for a in asks], dtype=np.float32
+        ),
+        penalty_nodes=np.stack([a.penalty_nodes for a in asks]).astype(bool),
+        affinity_scores=np.stack(
+            [a.affinity_scores for a in asks]
+        ).astype(np.float32),
+        has_affinities=np.array([a.has_affinities for a in asks], dtype=bool),
+        distinct_hosts=np.array([a.distinct_hosts for a in asks], dtype=bool),
+        slot_caps=caps,
+    )
+
+
+def _device_batch(batch: dict, device: torch.device) -> dict:
+    """Move a host batch dict onto ``device`` (fresh arrays from
+    ``_shared_batch``, so aliasing them on the CPU is safe)."""
+    return {
+        k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+        for k, v in batch.items()
+    }
+
+
+@dataclass
+class PlacementResult:
+    """Host-side result for one group: chosen node rows (−1 = failed) and
+    their normalized scores, in placement order; plus overflow candidates
+    (the next entries greedy would have taken) for conflict repair."""
+
+    node_rows: np.ndarray
+    scores: np.ndarray
+    overflow_rows: np.ndarray = field(
+        default_factory=lambda: np.empty(0, dtype=np.int32)
+    )
+    overflow_scores: np.ndarray = field(
+        default_factory=lambda: np.empty(0, dtype=np.float32)
+    )
+    # score provenance (obs/explain.PlacementExplanation), attached only
+    # when the pass ran with explain=True; purely observational
+    explanation: Optional[object] = None
+
+
+class PlacementKernel:
+    """Host wrapper: pads a list of GroupAsks into batch tensors on
+    ``device``, runs the closed-form kernel, unpacks results."""
+
+    def __init__(
+        self,
+        algorithm: str = "binpack",
+        force_scan: bool = False,
+        mesh=None,
+        device="cuda",
+    ):
+        if mesh is not None:
+            raise NotImplementedError(
+                "nomad_tpu_torch: node-axis sharding over a mesh is not "
+                "ported yet (ROADMAP A13)"
+            )
+        if force_scan:
+            raise NotImplementedError(
+                "nomad_tpu_torch: the exact value-scan kernel is not "
+                "ported yet (ROADMAP A5)"
+            )
+        self.device = resolve_device(device)
+        self.algorithm = algorithm
+        self.algorithm_spread = algorithm == "spread"
+
+    def _capacity_dev(self, cluster):
+        """The DeviceStateCache's resident capacity tensor when one rode
+        along on the tensors; else a fresh upload."""
+        dev = getattr(cluster, "device_capacity", None)
+        if isinstance(dev, torch.Tensor) and dev.device == self.device:
+            return dev
+        return torch.from_numpy(
+            np.ascontiguousarray(cluster.capacity, dtype=np.float32)
+        ).to(self.device)
+
+    def place(
+        self,
+        cluster,
+        asks: list,
+        *,
+        overflow: int = OVERFLOW_CANDIDATES,
+        explain: bool = False,  # attach score provenance (obs/explain)
+    ) -> list[PlacementResult]:
+        """``overflow`` = extra greedy candidates emitted per lane for
+        conflict repair."""
+        if not asks:
+            return []
+        for a in asks:
+            if a.blocks is not None and a.blocks.num_blocks > 0:
+                raise NotImplementedError(
+                    "nomad_tpu_torch: groups with spread blocks or "
+                    "distinct_property caps need the value-scan/chunked/"
+                    "one-per-value kernels, not ported yet (ROADMAP A5)"
+                )
+        used0 = np.asarray(cluster.used)
+        with _tracer.span("kernel.place", tags={"lanes": len(asks), "fast": len(asks)}):
+            out = self._place_closed_form(cluster, asks, overflow, used0)
+        if explain:
+            from ..obs.explain import explain_group
+
+            for a, res in zip(asks, out):
+                res.explanation = explain_group(
+                    cluster, a, used0,
+                    algorithm=self.algorithm,
+                    algorithm_spread=self.algorithm_spread,
+                )
+        return out
+
+    @staticmethod
+    def _j_bucket(n: int) -> int:
+        """Multiples of 16 up to 128, then multiples of 64 (the
+        reference's buckets, so both packages build the same planes)."""
+        if n <= 16:
+            return 16
+        if n <= 24:
+            return 24
+        if n <= 128:
+            return -(-n // 16) * 16
+        return -(-n // 64) * 64
+
+    def _max_j(self, cluster, asks: list) -> int:
+        """J bound: most instances of one identical ask any node could
+        hold, bucketed (see _j_bucket)."""
+        cap_max = np.asarray(cluster.capacity).max(axis=0)  # [D]
+        max_j = 1
+        for a in asks:
+            pos = a.ask > 0
+            if pos.any():
+                j = int(np.floor(np.min(cap_max[pos] / a.ask[pos]))) + 1
+            else:
+                j = a.count
+            max_j = max(max_j, min(j, a.count))
+        return self._j_bucket(max_j)
+
+    def _place_closed_form(
+        self, cluster, asks: list, overflow: int, used0,
+    ) -> list[PlacementResult]:
+        pn = cluster.padded_n
+        max_count = max(a.count for a in asks)
+        k = _steps_bucket(max(max_count + overflow, 1))
+        max_j = self._max_j(cluster, asks)
+
+        # chunk the group axis so one launch's scratch stays within
+        # SCRATCH_BUDGET_BYTES (derivation at its definition)
+        bytes_per_lane = k * 8 + pn * 14
+        chunk = max(1, SCRATCH_BUDGET_BYTES // bytes_per_lane)
+        if len(asks) > chunk:
+            out: list[PlacementResult] = []
+            for i in range(0, len(asks), chunk):
+                out.extend(
+                    self._place_closed_form(
+                        cluster, asks[i:i + chunk], overflow, used0
+                    )
+                )
+            return out
+
+        real_n = len(asks)
+        asks = _pad_group_axis(asks, pn)
+        batch = _shared_batch(asks, pn)
+        dev = self.device
+        choices_t, scores_t = place_closed_form(
+            self._capacity_dev(cluster),
+            torch.from_numpy(np.ascontiguousarray(used0, dtype=np.float32)).to(dev),
+            **_device_batch(batch, dev),
+            algorithm_spread=self.algorithm_spread,
+            max_j=max_j,
+            k=k,
+        )
+        # writable host copies: repair mutates rows in place
+        choices = choices_t.cpu().numpy().copy()
+        scores = scores_t.cpu().numpy().copy()
+        return [
+            PlacementResult(
+                node_rows=choices[gi, : a.count],
+                scores=scores[gi, : a.count],
+                overflow_rows=choices[gi, a.count :],
+                overflow_scores=scores[gi, a.count :],
+            )
+            for gi, a in enumerate(asks[:real_n])
+        ]
+
+
+def _host_block_tables(c, blocks):
+    """NumPy mirror of _block_tables for one lane's [B, V] count state."""
+    boost = np.zeros_like(c)
+    allow = np.ones_like(c, dtype=bool)
+    for b in range(blocks.num_blocks):
+        kind = blocks.kinds[b]
+        if kind == BLOCK_TARGET_SPREAD:
+            d = blocks.desired[b]
+            boost[b] = np.where(
+                d > 0,
+                (d - (c[b] + 1.0)) / np.maximum(d, 1e-9) * blocks.weights[b],
+                -1.0,
+            )
+        elif kind == BLOCK_EVEN_SPREAD:
+            pos = c[b] > 0
+            if pos.any():
+                minc = float(c[b][pos].min())
+                maxc = float(c[b][pos].max())
+                at_min = c[b] == minc
+                boost[b] = np.where(
+                    at_min,
+                    -1.0 if minc == maxc else (maxc - minc) / max(minc, 1e-9),
+                    (minc - c[b]) / max(minc, 1e-9),
+                )
+        elif kind == BLOCK_DISTINCT_CAP:
+            allow[b] = c[b] < blocks.caps[b]
+    return boost, allow
+
+
+def _rescore_pick(capacity, used, a, placed_on_node, counts, algorithm_spread):
+    """Exact host-side argmax for one additional placement of ``a``
+    against a usage overlay — the same component semantics as the device
+    kernels (see module docstring), in one vectorized NumPy pass. Used by
+    repair when a lane's precomputed overflow candidates run out, so a
+    conflicted placement is re-placed instead of aborting the whole eval.
+    Returns (row, score) with row −1 when nothing fits."""
+    prop = used + a.ask[None, :]
+    fits = np.all(prop <= capacity, axis=1) & a.eligible
+    jc = a.job_counts + placed_on_node
+    if a.distinct_hosts:
+        fits &= jc == 0
+    if a.slot_caps is not None:
+        fits &= placed_on_node < a.slot_caps
+    blocks = a.blocks
+    boost = np.zeros(capacity.shape[0], dtype=np.float32)
+    has_spread_any = False
+    if blocks is not None:
+        tbl_boost, tbl_allow = _host_block_tables(counts, blocks)
+        for b in range(blocks.num_blocks):
+            vids = blocks.value_ids[b]
+            safe = np.maximum(vids, 0)
+            if blocks.kinds[b] == BLOCK_DISTINCT_CAP:
+                fits &= np.where(vids >= 0, tbl_allow[b][safe], True)
+            elif blocks.kinds[b] in (BLOCK_TARGET_SPREAD, BLOCK_EVEN_SPREAD):
+                has_spread_any = True
+                boost += np.where(vids >= 0, tbl_boost[b][safe], -1.0)
+    if not fits.any():
+        return -1, -np.inf
+    free = np.where(
+        capacity > 0, (capacity - prop) / np.maximum(capacity, 1e-9), 1.0
+    )
+    pow_sum = 10.0 ** free[:, 0] + 10.0 ** free[:, 1]
+    binpack = np.clip(20.0 - pow_sum, 0.0, BINPACK_MAX_SCORE)
+    spread_fit = np.clip(pow_sum - 2.0, 0.0, BINPACK_MAX_SCORE)
+    fit_score = (spread_fit if algorithm_spread else binpack) / BINPACK_MAX_SCORE
+    coll = jc.astype(np.float32)
+    anti = np.where(jc > 0, -(coll + 1.0) / max(a.desired_total, 1.0), 0.0)
+    resched = np.where(a.penalty_nodes, -1.0, 0.0)
+    aff = a.affinity_scores if a.has_affinities else 0.0
+    spread_on = has_spread_any & (boost != 0.0)
+    num = fit_score + anti + resched + aff + np.where(spread_on, boost, 0.0)
+    den = (
+        1.0
+        + (jc > 0)
+        + a.penalty_nodes
+        + (1.0 if a.has_affinities else 0.0)
+        + spread_on
+    )
+    score = np.where(fits, num / den, -np.inf)
+    row = int(np.argmax(score))
+    return row, float(score[row])
+
+
+def repair_batch_conflicts(
+    cluster,
+    asks: list,
+    results: list,
+    algorithm_spread: bool = False,
+    fail_on_contention: bool = False,
+    lane_groups: Optional[list] = None,
+    used_override=None,  # [pn, D] optimistic base usage (pipelined passes)
+) -> list[bool]:
+    """Host-side optimistic-conflict resolution for one batched pass.
+
+    Every lane scored against the same snapshot ``used0``, so lanes can
+    pile onto the same best nodes (true argmax removes the decorrelation
+    the reference gets from per-worker shuffle sampling, stack.go:74-90;
+    the reference's lane striping, not ported yet, removes most of it up
+    front). Walk
+    the lanes in order with a usage overlay: placements that no longer
+    fit move to the lane's next overflow candidate, and when overflow
+    runs out an exact NumPy re-score places them directly — only the
+    *conflicted placement* is re-placed, never the whole eval. Kernel
+    failures (row −1, e.g. a lane whose candidates ran out) get the same
+    re-score. The plan applier's per-node AllocsFit re-check
+    (plan_apply.go:638-689) remains the authority.
+
+    Mutates each PlacementResult in place. Returns per-lane ``ok`` —
+    False only when a placement is unplaceable under the batch overlay
+    but WOULD fit without the other lanes' placements (true cross-eval
+    contention): that eval should re-run individually against fresh
+    state, where preemption and retries apply. Intrinsically infeasible
+    placements (caps exhausted, cluster full even alone) stay −1 with
+    ok=True — they'd fail individually too, and become blocked evals.
+
+    ``lane_groups`` (optional, parallel to ``asks``) marks lanes that
+    belong to one EVAL (a multi-task-group eval spans several lanes and
+    the caller discards the whole eval when any lane fails): a contention
+    failure releases the overlay reservations of EVERY processed lane in
+    the group and skips its remaining lanes — sibling placements of a
+    discarded plan must not stay reserved against later lanes.
+    """
+    capacity = np.asarray(cluster.capacity)
+    used0 = (
+        np.asarray(cluster.used)
+        if used_override is None
+        else np.asarray(used_override)
+    )
+    used = used0.copy()
+    ok_lanes: list[bool] = []
+    # group id -> [(placed_on_node, ask), ...] commit journal for rollback
+    group_commits: dict = {}
+    failed_groups: set = set()
+    for lane_idx, (a, res) in enumerate(zip(asks, results)):
+        group = lane_groups[lane_idx] if lane_groups is not None else lane_idx
+        if group in failed_groups:
+            # a sibling lane of this eval already hit contention: the
+            # whole eval re-runs individually, so don't reserve anything
+            ok_lanes.append(False)
+            continue
+        ok = True
+        # within-lane placements per node (distinct_hosts, slot caps,
+        # anti-affinity collisions all key off it)
+        placed_on_node: dict[int, int] = {}
+        blocks = a.blocks
+        counts = blocks.counts0.copy() if blocks is not None else None
+        overflow = list(
+            zip(res.overflow_rows.tolist(), res.overflow_scores.tolist())
+        )
+        of_idx = 0
+        dead = False  # lane-intrinsic infeasibility: stop re-scoring
+
+        def commit(row: int) -> None:
+            used[row] += a.ask
+            placed_on_node[row] = placed_on_node.get(row, 0) + 1
+            if blocks is not None:
+                for b in range(blocks.num_blocks):
+                    v = blocks.value_ids[b, row]
+                    if v >= 0:
+                        counts[b, v] += 1
+
+        def acceptable(row: int) -> bool:
+            if row < 0:
+                return False
+            if not np.all(used[row] + a.ask <= capacity[row]):
+                return False
+            mine = placed_on_node.get(row, 0)
+            if a.distinct_hosts and (a.job_counts[row] + mine) > 0:
+                return False
+            if a.slot_caps is not None and mine >= a.slot_caps[row]:
+                return False
+            if blocks is not None:
+                for b in range(blocks.num_blocks):
+                    if blocks.kinds[b] != BLOCK_DISTINCT_CAP:
+                        continue
+                    v = blocks.value_ids[b, row]
+                    if v >= 0 and counts[b, v] >= blocks.caps[b, v]:
+                        return False
+            return True
+
+        def rescore(i: int) -> str:
+            """Exact re-place of placement ``i``. Returns 'placed',
+            'contention' (fits alone, not under the overlay), or
+            'intrinsic'."""
+            pm = np.zeros(capacity.shape[0], dtype=np.float32)
+            for r, m in placed_on_node.items():
+                pm[r] = m
+            row, sc = _rescore_pick(
+                capacity, used, a, pm, counts, algorithm_spread
+            )
+            if row >= 0:
+                res.node_rows[i] = row
+                res.scores[i] = sc
+                commit(row)
+                return "placed"
+            # would it fit with only this lane's own placements applied?
+            lane_used = used0 + pm[:, None] * a.ask[None, :]
+            row, _sc = _rescore_pick(
+                capacity, lane_used, a, pm, counts, algorithm_spread
+            )
+            return "contention" if row >= 0 else "intrinsic"
+
+        for i, row in enumerate(res.node_rows.tolist()):
+            if row >= 0 and acceptable(row):
+                commit(row)
+                continue
+            if dead:
+                res.node_rows[i] = -1
+                res.scores[i] = -np.inf
+                continue
+            # conflicted or unplaced: advance through overflow candidates
+            repl = -1
+            while of_idx < len(overflow):
+                cand, sc = overflow[of_idx]
+                of_idx += 1
+                if acceptable(cand):
+                    repl = cand
+                    res.node_rows[i] = cand
+                    res.scores[i] = sc
+                    commit(cand)
+                    break
+            if repl >= 0:
+                continue
+            outcome = rescore(i)
+            if outcome == "contention" and not fail_on_contention:
+                # this eval re-runs individually on fresh state — its plan
+                # is NOT submitted, so its already-committed placements
+                # must not stay reserved in the shared overlay (phantom
+                # reservations would cascade later lanes into serial
+                # fallbacks a fresh-state rerun would avoid). Release this
+                # lane AND every processed sibling lane of the same eval.
+                for r, m in placed_on_node.items():
+                    used[r] -= m * a.ask
+                for sib_placed, sib_ask in group_commits.get(group, ()):
+                    for r, m in sib_placed.items():
+                        used[r] -= m * sib_ask
+                failed_groups.add(group)
+                ok = False
+                break
+            if outcome in ("intrinsic", "contention"):
+                # fail_on_contention (single-eval path): there is no
+                # fresher state to retry against, so an unplaceable
+                # placement becomes a recorded failure instead of a
+                # shipped-overcommitted row the applier would bounce
+                res.node_rows[i] = -1
+                res.scores[i] = -np.inf
+                dead = True
+        if ok and lane_groups is not None:
+            group_commits.setdefault(group, []).append(
+                (placed_on_node, a.ask)
+            )
+        ok_lanes.append(ok)
+    return ok_lanes

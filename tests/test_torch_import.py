@@ -1,0 +1,194 @@
+"""The port's package boundary: nomad_tpu_torch imports with JAX blocked,
+loads no module of the JAX package, and runs on the card unless the
+caller asks for the CPU.
+
+No numeric tolerance applies here: every check is exact (module sets,
+import graphs, raised exceptions)."""
+
+import ast
+import pathlib
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import nomad_tpu_torch
+
+PKG_DIR = pathlib.Path(nomad_tpu_torch.__file__).parent
+REPO = PKG_DIR.parent
+
+
+def _submodules():
+    return sorted(
+        m.name
+        for m in pkgutil.walk_packages([str(PKG_DIR)], prefix="nomad_tpu_torch.")
+    )
+
+
+def test_imports_with_jax_blocked():
+    mods = _submodules()
+    assert "nomad_tpu_torch.device.score" in mods
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k == 'nomad_tpu' or k.startswith('nomad_tpu.')\n"
+        "             or k == 'jax' and sys.modules[k] is not None)\n"
+        "print(bad)\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PKG_DIR.rglob("*.py")),
+    ids=lambda p: str(p.relative_to(PKG_DIR)),
+)
+def test_no_jax_or_reference_import(path):
+    for name in _imports(path):
+        root = name.split(".")[0]
+        assert root != "jax", f"{path} imports {name}"
+        assert root != "nomad_tpu", f"{path} imports {name}"
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    names = set(_imports(REPO / "chip_smoke.py"))
+    assert not any(n.split(".")[0] in ("jax", "nomad_tpu") for n in names)
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from nomad_tpu_torch.device.cache import DeviceStateCache
+    from nomad_tpu_torch.device.score import PlacementKernel
+    from nomad_tpu_torch.scheduler import Harness
+    from nomad_tpu_torch.scheduler.algorithms import make_kernel
+
+    _no_cuda(monkeypatch)
+    for build in (
+        Harness,
+        DeviceStateCache,
+        PlacementKernel,
+        lambda: make_kernel("binpack"),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+
+
+def test_score_group_raises_without_cuda(monkeypatch):
+    import numpy as np
+
+    from nomad_tpu_torch.device.flatten import ClusterTensors, GroupAsk
+    from nomad_tpu_torch.scheduler.algorithms import score_group
+
+    _no_cuda(monkeypatch)
+    ct = ClusterTensors(
+        node_ids=["a"], index=1, num_nodes=1,
+        capacity=np.ones((8, 4), np.float32), used=np.zeros((8, 4), np.float32),
+        ready=np.ones(8, bool), dc_ids=np.zeros(8, np.int32),
+        class_ids=np.zeros(8, np.int32), dc_vocab={}, class_vocab={},
+        class_rep=[0],
+    )
+    ga = GroupAsk(
+        job_id="j", tg_name="t", count=1, desired_total=1,
+        ask=np.zeros(4, np.float32), eligible=np.ones(8, bool),
+        job_counts=np.zeros(8, np.int32), penalty_nodes=np.zeros(8, bool),
+        affinity_scores=np.zeros(8, np.float32), has_affinities=False,
+        distinct_hosts=False,
+    )
+    with pytest.raises(RuntimeError, match="CUDA"):
+        score_group(ct, ga, 1)
+
+
+def test_unported_paths_raise_not_implemented():
+    from nomad_tpu_torch.device.score import PlacementKernel
+    from nomad_tpu_torch.scheduler import new_scheduler
+    from nomad_tpu_torch.scheduler.algorithms import make_kernel
+
+    with pytest.raises(NotImplementedError, match="A10"):
+        make_kernel("hetero-maxmin", device="cpu")
+    with pytest.raises(NotImplementedError, match="A11"):
+        make_kernel("cp-pack", device="cpu")
+    with pytest.raises(NotImplementedError, match="A13"):
+        PlacementKernel(mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="A8"):
+        new_scheduler("system", None, None)
+
+
+def _fake_nvcc(tmp_path, body):
+    home = tmp_path / "cuda"
+    (home / "bin").mkdir(parents=True)
+    nvcc = home / "bin" / "nvcc"
+    nvcc.write_text("#!/bin/sh\n" + body)
+    nvcc.chmod(0o755)
+    return home
+
+
+@pytest.fixture
+def build_tree(tmp_path, monkeypatch):
+    from nomad_tpu_torch import backend
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text("// a\n")
+    (csrc / "b.cu").write_text("// b\n")
+    monkeypatch.setattr(backend, "CSRC_DIR", csrc)
+    monkeypatch.setattr(backend, "BUILD_DIR", tmp_path / "build")
+    return backend
+
+
+def test_build_all_runs_one_nvcc_per_source_and_reuses_builds(
+    tmp_path, monkeypatch, build_tree
+):
+    """Every csrc/*.cu gets its own nvcc with the sm_90a flags; a second
+    call finds the hashed libraries and runs nothing."""
+    log = tmp_path / "calls"
+    home = _fake_nvcc(
+        tmp_path,
+        f'echo "$@" >> {log}\n'
+        'while [ "$1" != "-o" ]; do shift; done; touch "$2"\n',
+    )
+    monkeypatch.setenv("CUDA_HOME", str(home))
+    out = build_tree.build_all()
+    assert sorted(out) == ["a", "b"]
+    assert all(p.exists() and p.parent == tmp_path / "build" for p in out.values())
+    calls = log.read_text().splitlines()
+    assert len(calls) == 2
+    assert all("arch=compute_90a,code=sm_90a" in c and "-fmad=false" in c for c in calls)
+    assert build_tree.build_all() == out
+    assert len(log.read_text().splitlines()) == 2
+    # an edited source hashes to a new library name and is rebuilt
+    (tmp_path / "csrc" / "a.cu").write_text("// a, edited\n")
+    assert build_tree.build_all()["a"] != out["a"]
+    assert len(log.read_text().splitlines()) == 3
+
+
+def test_build_all_raises_with_the_compiler_output(tmp_path, monkeypatch, build_tree):
+    home = _fake_nvcc(tmp_path, 'echo "error: expected a ;" ; exit 2\n')
+    monkeypatch.setenv("CUDA_HOME", str(home))
+    with pytest.raises(RuntimeError, match="expected a ;"):
+        build_tree.build_all(["a"])
+    assert not list((tmp_path / "build").glob("*.so"))
