@@ -11,7 +11,8 @@ needs: where the tensors live, and how the device programs are built.
   ``cuda_library(name)`` compiles ``csrc/<name>.cu`` with ``nvcc`` into
   a shared library under ``build/nomad_tpu_torch/`` at first use and
   loads it with ``ctypes``. The library's file name carries a hash of the
-  source and the flags, so an edited source never loads a stale build.
+  source, of every shared header (``csrc/*.cuh``) and of the flags, so
+  an edited source or header never loads a stale build.
 - **Launch counters** are plain ints on each kernel wrapper
   (``wrapper.launches``); a wrapper adds one where it launches its
   kernel and nowhere else.
@@ -81,10 +82,11 @@ def nvcc_path() -> str:
 
 def _library_path(name: str) -> tuple[Path, Path]:
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=None) -> dict[str, Path]:

@@ -38,13 +38,10 @@
 //    to 4,096 slots, in the lane's scratch beyond -- and the raw score
 //    recomputed for each pick from its (n, j).
 //
-// Numerics: IEEE division (__fdiv_rn), expf (not __expf), no fast math,
-// and the build passes -fmad=false, so used0 + (j+1)*ask and the score
-// sums round exactly as the separately-rounded reference ops do.
+// Numerics: the per-candidate arithmetic is candidate.cuh's (IEEE
+// division, expf, no FMA contraction), shared with the coupled kernels.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "candidate.cuh"
 
 namespace {
 
@@ -52,101 +49,10 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBins = 2048;          // 11-bit radix digits
 constexpr int kSmemSortMax = 4096;   // top-k slots sorted in shared memory
-constexpr float kLn10 = 2.302585092994046f;
-constexpr float kMaxScore = 18.0f;   // BINPACK_MAX_SCORE
-
-struct Inputs {
-  const float* capacity;        // [N, 4]
-  const float* used0;           // [N, 4]
-  const float* asks;            // [G, 4]
-  const uint8_t* eligible;      // [G, N]
-  const int32_t* job_counts;    // [G, N]
-  const float* desired_totals;  // [G]
-  const uint8_t* penalty;       // [G, N]
-  const float* affinity;        // [G, N]
-  const uint8_t* has_aff;       // [G]
-  const uint8_t* distinct;      // [G]
-  const float* slot_caps;       // [G, N]
-  const float* jitter;          // [N] or null
-  int algorithm_spread;
-  int n;
-  int j;
-};
-
-// Total order on floats as u32: a larger float gives a larger key. -0
-// folds onto +0, which compare equal as floats.
-__device__ __forceinline__ uint32_t order_key(float x) {
-  const uint32_t u = __float_as_uint(x == 0.0f ? 0.0f : x);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float key_value(uint32_t k) {
-  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
-}
 
 __device__ __forceinline__ unsigned long long compose(uint32_t key, uint32_t idx) {
   // descending order of this word = key desc, then index asc
   return (static_cast<unsigned long long>(key) << 32) | (0xffffffffu - idx);
-}
-
-// Feasible instance count of lane g on node n (reference _score_planes:
-// min over asked dims of floor((cap - used0) / ask + 1e-6), masked by
-// eligibility, capped by slot caps and distinct_hosts).
-__device__ float feasible_columns(const Inputs& in, int g, int n) {
-  const float* cap = in.capacity + 4 * n;
-  const float* used = in.used0 + 4 * n;
-  const float* ask = in.asks + 4 * g;
-  float jmax = INFINITY;
-  for (int d = 0; d < 4; ++d) {
-    if (ask[d] > 0.0f) {
-      const float q = floorf(__fadd_rn(
-          __fdiv_rn(__fsub_rn(cap[d], used[d]), fmaxf(ask[d], 1e-9f)), 1e-6f));
-      jmax = fminf(jmax, q);
-    }
-  }
-  const size_t gn = static_cast<size_t>(g) * in.n + n;
-  if (!in.eligible[gn]) jmax = 0.0f;
-  jmax = fminf(jmax, in.slot_caps[gn]);
-  if (in.distinct[g]) jmax = in.job_counts[gn] == 0 ? fminf(jmax, 1.0f) : 0.0f;
-  return jmax;
-}
-
-// Unclamped score of the (j+1)-th instance of lane g on node n; -inf
-// when it does not fit.
-__device__ float raw_score(const Inputs& in, int g, int n, int j, float jmax) {
-  const float jf = static_cast<float>(j);
-  if (!(jf < jmax)) return -INFINITY;
-  const float* cap = in.capacity + 4 * n;
-  const float* used = in.used0 + 4 * n;
-  const float* ask = in.asks + 4 * g;
-  const float mult = __fadd_rn(jf, 1.0f);
-  float pow_sum = 0.0f;
-  for (int d = 0; d < 2; ++d) {  // cpu, mem drive the fit score
-    const float prop = __fadd_rn(used[d], __fmul_rn(mult, ask[d]));
-    const float fr = cap[d] > 0.0f
-        ? __fdiv_rn(__fsub_rn(cap[d], prop), fmaxf(cap[d], 1e-9f))
-        : 1.0f;
-    pow_sum = __fadd_rn(pow_sum, expf(__fmul_rn(kLn10, fr)));
-  }
-  const float fit_raw = in.algorithm_spread
-      ? fminf(fmaxf(__fsub_rn(pow_sum, 2.0f), 0.0f), kMaxScore)
-      : fminf(fmaxf(__fsub_rn(20.0f, pow_sum), 0.0f), kMaxScore);
-  const float fit = __fdiv_rn(fit_raw, kMaxScore);
-  const size_t gn = static_cast<size_t>(g) * in.n + n;
-  const float coll = __fadd_rn(static_cast<float>(in.job_counts[gn]), jf);
-  const bool has_coll = coll > 0.0f;
-  const float anti = has_coll
-      ? __fdiv_rn(-__fadd_rn(coll, 1.0f), fmaxf(in.desired_totals[g], 1.0f))
-      : 0.0f;
-  const bool pen = in.penalty[gn] != 0;
-  const bool haff = in.has_aff[g] != 0;
-  float num = __fadd_rn(fit, anti);
-  num = __fadd_rn(num, pen ? -1.0f : 0.0f);
-  num = __fadd_rn(num, haff ? in.affinity[gn] : 0.0f);
-  if (in.jitter != nullptr) num = __fadd_rn(num, in.jitter[n]);
-  const float den = 1.0f + (has_coll ? 1.0f : 0.0f) + (pen ? 1.0f : 0.0f) +
-                    (haff ? 1.0f : 0.0f);
-  return __fdiv_rn(num, den);
 }
 
 // Scanning bins from the top, find the bin holding the rem-th largest

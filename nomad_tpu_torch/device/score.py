@@ -1,7 +1,10 @@
 """The batched placement kernels, on PyTorch and CUDA.
 
-Ports the main path of ``nomad_tpu/device/score.py``: the closed-form
-top-k placement for groups with no cross-node coupling, and the dense
+Ports ``nomad_tpu/device/score.py``'s placement and scoring programs:
+the closed-form top-k placement for groups with no cross-node coupling,
+the three coupled placements for groups whose spread blocks or
+distinct_property caps couple nodes through per-value counts (the exact
+value scan, the chunked scan and the one-per-value scan), and the dense
 [G, N] score matrix. The scoring semantics are the reference's,
 component by component (see that module's docstring for each
 component's citation):
@@ -12,17 +15,17 @@ component's citation):
   holding the job;
 - the reschedule penalty, −1;
 - node affinity, pre-normalized on the host;
+- spread: one component summing per-block boosts (target and even
+  modes), joining the mean only where the total boost is nonzero;
+- distinct_property: not a score, a per-value cap carried through the
+  scan's count state;
 - the mean over contributing components.
 
 Each device function has two halves in this module: a plain PyTorch
 version, which is what a CPU tensor runs, and a wrapper that launches
-the hand-written kernel on a CUDA tensor (``csrc/closed_form.cu`` and
-``score_triton.py``). A CUDA tensor never runs the plain version here:
-the wrapper launches its kernel or raises.
-
-Groups coupled through spread blocks or distinct_property caps (the
-reference's value-scan, chunked and one-per-value kernels) are not
-ported yet; ``PlacementKernel.place`` raises for them (ROADMAP A5).
+the hand-written kernel on a CUDA tensor (``csrc/closed_form.cu``,
+``csrc/coupled.cu`` and ``score_triton.py``). A CUDA tensor never runs
+the plain version here: the wrapper launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -55,6 +58,12 @@ BLOCK_INACTIVE = -1
 # extra greedy candidates emitted beyond ``count`` per lane, consumed by
 # repair_batch_conflicts when optimistic batch lanes collide on a node
 OVERFLOW_CANDIDATES = 16
+
+# exact stepwise scan only for small groups; larger spread groups place in
+# chunks (boost tables frozen for CHUNK placements — spread counts move
+# slowly, and the host repair walk re-verifies every placement anyway)
+EXACT_SCAN_MAX_COUNT = 32
+CHUNK = 16
 
 # Device memory one closed-form launch may hold. The reference budgeted
 # ~4 GB of live f32 [chunk, N, J] planes on a 16 GB v5e; the port's
@@ -308,10 +317,11 @@ def _closed_form_library():
     return fn
 
 
-def _check_closed_form_inputs(capacity, used0, asks, eligible, job_counts,
-                              desired_totals, penalty_nodes, affinity_scores,
-                              has_affinities, distinct_hosts, slot_caps,
-                              jitter):
+def _lane_specs(capacity, used0, asks, eligible, job_counts, desired_totals,
+                penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+                slot_caps, jitter):
+    """(name, tensor, dtype, shape) of the inputs every placement kernel
+    takes."""
     n = capacity.shape[0]
     g = asks.shape[0]
     want = [
@@ -329,14 +339,18 @@ def _check_closed_form_inputs(capacity, used0, asks, eligible, job_counts,
     ]
     if jitter is not None:
         want.append(("jitter", jitter, torch.float32, (n,)))
+    return want
+
+
+def _check_inputs(what: str, want) -> None:
     for name, t, dtype, shape in want:
         if t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(
-                f"place_closed_form: {name} must be {dtype} {shape}, "
+                f"{what}: {name} must be {dtype} {shape}, "
                 f"got {t.dtype} {tuple(t.shape)}"
             )
         if not t.is_contiguous():
-            raise ValueError(f"place_closed_form: {name} must be contiguous")
+            raise ValueError(f"{what}: {name} must be contiguous")
 
 
 def place_closed_form(
@@ -374,7 +388,7 @@ def place_closed_form(
         slot_caps, jitter,
     )
     same_device(inputs, dev, "place_closed_form")
-    _check_closed_form_inputs(*inputs)
+    _check_inputs("place_closed_form", _lane_specs(*inputs))
     g, n = eligible.shape
     m = n * max_j
     if m >= 2**32 - 1 or max_j < 1 or k < 1:
@@ -403,6 +417,497 @@ def place_closed_form(
 
 
 place_closed_form.launches = 0
+
+
+# -- coupled placement (spread / distinct_property groups) -------------------
+#
+# Groups whose spread blocks or distinct_property caps couple nodes
+# through per-value counts place greedily step by step: each step reads
+# every node's next column of the [N, J] planes, adds the per-value boost
+# table derived from the counts so far, and picks (reference:
+# device/score.py place_value_scan_kernel, place_spread_chunked_kernel,
+# place_spread_opv_kernel). The plain versions below are Python loops
+# over those steps with no host synchronization, so a CUDA graph can
+# capture them whole.
+
+
+def _block_tables(c, desired, caps, weights, kinds):
+    """Per-(block, value) boost and allowance tables from the count state
+    ``c`` [..., B, V] (reference ``_block_tables``).
+
+    Target mode: boost = (desired − (c+1))/desired × weight (weight is
+    already w/Σw); desired ≤ 0 marks an untargeted value, flat −1. Even
+    mode: from the min/max of *positive* counts — at the minimum
+    (max−min)/min, or −1 where min = max; elsewhere (min−c)/min; 0 when
+    no count is positive. Distinct caps: allow = c < cap."""
+    t_boost = torch.where(
+        desired > 0,
+        (desired - (c + 1.0)) / torch.clamp(desired, min=1e-9) * weights[..., None],
+        -1.0,
+    )
+    pos = c > 0
+    any_pos = pos.any(dim=-1, keepdim=True)
+    minc = torch.where(pos, c, torch.inf).amin(dim=-1, keepdim=True)
+    maxc = torch.where(pos, c, -torch.inf).amax(dim=-1, keepdim=True)
+    e_boost = torch.where(
+        c == minc,
+        torch.where(
+            minc == maxc, -1.0, (maxc - minc) / torch.clamp(minc, min=1e-9)
+        ),
+        (minc - c) / torch.clamp(minc, min=1e-9),
+    )
+    e_boost = torch.where(any_pos, e_boost, 0.0)
+    boost = torch.where(
+        (kinds == BLOCK_TARGET_SPREAD)[..., None],
+        t_boost,
+        torch.where((kinds == BLOCK_EVEN_SPREAD)[..., None], e_boost, 0.0),
+    )
+    allow = torch.where((kinds == BLOCK_DISTINCT_CAP)[..., None], c < caps, True)
+    return boost, allow
+
+
+def _first_argmax(x):
+    """(index, value) of the max over the last dim, the first index on
+    ties — ``jnp.argmax``'s order, spelled out (an all −inf row gives 0)."""
+    m = x.amax(dim=-1, keepdim=True)
+    ar = torch.arange(x.shape[-1], device=x.device)
+    idx = torch.where(x == m, ar, x.shape[-1]).amin(dim=-1)
+    return idx, m[..., 0]
+
+
+class _Coupling:
+    """The per-lane block inputs of one coupled pass, in the shapes the
+    plain versions index: value ids as int64 [G, B, N], their clamped
+    gather indices, and the block-kind masks."""
+
+    def __init__(self, vids, kinds):
+        self.vids = vids.long()
+        self.safe = self.vids.clamp(min=0)
+        self.has_value = self.vids >= 0
+        is_spread = (kinds == BLOCK_TARGET_SPREAD) | (kinds == BLOCK_EVEN_SPREAD)
+        self.is_spread = is_spread[..., None]  # [G, B, 1]
+        self.has_spread_any = is_spread.any(dim=1)[:, None]  # [G, 1]
+        self.capped = (kinds == BLOCK_DISTINCT_CAP)[..., None] & self.has_value
+
+    def node_terms(self, tbl, allow):
+        """Summed spread boost f32[G, N] (blocks in index order from 0.0,
+        −1 for a node with no value) and distinct allowance bool[G, N]."""
+        contrib = torch.where(self.has_value, torch.gather(tbl, 2, self.safe), -1.0)
+        contrib = torch.where(self.is_spread, contrib, 0.0)
+        boost = torch.zeros_like(contrib[:, 0])
+        for b in range(contrib.shape[1]):
+            boost = boost + contrib[:, b]
+        allowed = torch.where(
+            self.capped, torch.gather(allow, 2, self.safe), True
+        ).all(dim=1)
+        return boost, allowed
+
+    def scores(self, head_num, head_den, head_ok, boost, allowed):
+        """(num + boost)/(den + 1) where the boost is on, num/den
+        elsewhere; −inf where the head does not fit or a cap is full."""
+        spread_on = self.has_spread_any & (boost != 0.0)
+        den_t = head_den + torch.where(spread_on, 1.0, 0.0)
+        score = (head_num + torch.where(spread_on, boost, 0.0)) / den_t
+        return torch.where(head_ok & allowed, score, -torch.inf)
+
+    def bump(self, c, rows, take):
+        """c + one count per taken pick's value in every block; ``rows``
+        and ``take`` are [G, P]."""
+        g, nb, _ = self.vids.shape
+        picked = torch.gather(self.vids, 2, rows[:, None, :].expand(g, nb, rows.shape[1]))
+        upd = take[:, None, :] & (picked >= 0)
+        ar_v = torch.arange(c.shape[2], device=c.device)
+        onehot = (picked[..., None] == ar_v) & upd[..., None]  # [G, B, P, V]
+        return c + onehot.sum(dim=2).to(c.dtype)
+
+
+def _heads(num, den, fits, jn, max_j: int):
+    """Each node's numerator, denominator and fit at its next column."""
+    head_j = jn.clamp(max=max_j - 1)[..., None]
+    head_fit = torch.gather(fits, 2, head_j)[..., 0] & (jn < max_j)
+    return (
+        torch.gather(num, 2, head_j)[..., 0],
+        torch.gather(den, 2, head_j)[..., 0],
+        head_fit,
+    )
+
+
+def place_value_scan_plain(
+    capacity, used0, asks, eligible, job_counts, desired_totals,
+    penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+    slot_caps, block_value_ids, block_counts0, block_desired, block_caps,
+    block_weights, block_kinds, algorithm_spread: bool, counts,
+    max_j: int, max_steps: int, jitter=None,
+):
+    """The plain PyTorch version of ``place_value_scan``: exact stepwise
+    greedy, the tables re-derived from the counts before every step."""
+    num, den, fits = _score_planes(
+        capacity, used0, asks, eligible, job_counts, desired_totals,
+        penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+        slot_caps, algorithm_spread, max_j, jitter=jitter,
+    )
+    g, n = eligible.shape
+    cp = _Coupling(block_value_ids, block_kinds)
+    ar = torch.arange(n, device=capacity.device)
+    jn = torch.zeros((g, n), dtype=torch.int64, device=capacity.device)
+    c = block_counts0.clone()
+    choices, scores = [], []
+    for i in range(max_steps):
+        head_num, head_den, head_fit = _heads(num, den, fits, jn, max_j)
+        boost, allowed = cp.node_terms(
+            *_block_tables(c, block_desired, block_caps, block_weights, block_kinds)
+        )
+        score = cp.scores(head_num, head_den, head_fit, boost, allowed)
+        best, best_val = _first_argmax(score)
+        ok = (best_val > -torch.inf) & (i < counts)
+        jn = jn + ((ar == best[:, None]) & ok[:, None])
+        c = cp.bump(c, best[:, None], ok[:, None])
+        choices.append(torch.where(ok, best, -1))
+        scores.append(torch.where(ok, best_val, -torch.inf))
+    return (
+        torch.stack(choices, dim=1).to(torch.int32),
+        torch.stack(scores, dim=1),
+    )
+
+
+def place_spread_chunked_plain(
+    capacity, used0, asks, eligible, job_counts, desired_totals,
+    penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+    slot_caps, block_value_ids, block_counts0, block_desired, block_caps,
+    block_weights, block_kinds, algorithm_spread: bool, counts,
+    max_j: int, chunk: int, n_chunks: int, jitter=None,
+):
+    """The plain PyTorch version of ``place_spread_chunked``: per step,
+    the tables frozen, the [N, J] plane re-scored from each node's next
+    column under a running-min clamp, and its top ``chunk`` taken
+    (value desc, flat index asc; a stable sort, as for the closed form);
+    each pick reports its unclamped score."""
+    num, den, fits = _score_planes(
+        capacity, used0, asks, eligible, job_counts, desired_totals,
+        penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+        slot_caps, algorithm_spread, max_j, jitter=jitter,
+    )
+    g, n = eligible.shape
+    dev = capacity.device
+    cp = _Coupling(block_value_ids, block_kinds)
+    ar = torch.arange(n, device=dev)
+    js = torch.arange(max_j, device=dev)
+    ar_chunk = torch.arange(chunk, device=dev)
+    jn = torch.zeros((g, n), dtype=torch.int64, device=dev)
+    c = block_counts0.clone()
+    n_placed = torch.zeros(g, dtype=torch.int64, device=dev)
+    choices, scores = [], []
+    for _ in range(n_chunks):
+        boost, allowed = cp.node_terms(
+            *_block_tables(c, block_desired, block_caps, block_weights, block_kinds)
+        )
+        spread_on = cp.has_spread_any & (boost != 0.0)
+        den_t = den + torch.where(spread_on, 1.0, 0.0)[..., None]
+        s_raw = (num + torch.where(spread_on, boost, 0.0)[..., None]) / den_t
+        consumed = js < jn[..., None]
+        feas = fits & allowed[..., None] & ~consumed
+        # consumed columns (j < jn) must not poison the running min
+        s_for_min = torch.where(
+            consumed, torch.inf, torch.where(feas, s_raw, -torch.inf)
+        )
+        s_sel = torch.where(feas, torch.cummin(s_for_min, dim=2).values, -torch.inf)
+        vals, idx = torch.sort(
+            s_sel.reshape(g, -1), dim=1, descending=True, stable=True
+        )
+        vals, idx = vals[:, :chunk], idx[:, :chunk]
+        take = (ar_chunk + n_placed[:, None] < counts[:, None]) & (vals > -torch.inf)
+        rows = torch.div(idx, max_j, rounding_mode="floor")
+        true_scores = torch.gather(s_raw.reshape(g, -1), 1, idx)
+        jn = jn + ((ar == rows[..., None]) & take[..., None]).sum(dim=1)
+        c = cp.bump(c, rows, take)
+        n_placed = n_placed + take.sum(dim=1)
+        choices.append(torch.where(take, rows, -1))
+        scores.append(torch.where(take, true_scores, -torch.inf))
+    return (
+        torch.cat(choices, dim=1).to(torch.int32),
+        torch.cat(scores, dim=1),
+    )
+
+
+def place_spread_opv_plain(
+    capacity, used0, asks, eligible, job_counts, desired_totals,
+    penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+    slot_caps, block_value_ids, block_counts0, block_desired, block_caps,
+    block_weights, block_kinds, enforce_idx, algorithm_spread: bool, counts,
+    max_j: int, k_seg: int, n_chunks: int, jitter=None,
+):
+    """The plain PyTorch version of ``place_spread_opv``. Per step: the
+    first pick by argmax under the frozen tables, its values counted, the
+    tables re-derived; then one more pick per value segment of the
+    enforced block (value-less nodes form segment V), the first pick's
+    segment excluded, behind the rotation guard: the top ``k_seg − 1``
+    segment maxima (value desc, segment asc), each taking the first-index
+    argmax inside its segment."""
+    num, den, fits = _score_planes(
+        capacity, used0, asks, eligible, job_counts, desired_totals,
+        penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+        slot_caps, algorithm_spread, max_j, jitter=jitter,
+    )
+    g, n = eligible.shape
+    nv = block_counts0.shape[2]
+    dev = capacity.device
+    cp = _Coupling(block_value_ids, block_kinds)
+    ar = torch.arange(n, device=dev)
+    ar_v = torch.arange(nv, device=dev)
+    ar_r = torch.arange(k_seg - 1, device=dev)
+    eidx = enforce_idx.long()
+    evids = torch.gather(cp.vids, 1, eidx[:, None, None].expand(g, 1, n))[:, 0]
+    seg = torch.where(evids >= 0, evids, nv)  # [G, N]; nv = no-value segment
+    seg_plane = seg[:, None, :] == torch.arange(nv + 1, device=dev)[:, None]
+    # enforce-block values held by an eligible node: V is padded to a
+    # power of two, and a phantom value must not read as empty
+    present_v = ((evids[:, None, :] == ar_v[:, None]) & eligible[:, None, :]).any(dim=2)
+    even_enforce = torch.gather(block_kinds, 1, eidx[:, None])[:, 0] == BLOCK_EVEN_SPREAD
+    value_less = torch.ones((g, 1), dtype=torch.bool, device=dev)
+
+    def node_scores(head, c):
+        return cp.scores(*head, *cp.node_terms(
+            *_block_tables(c, block_desired, block_caps, block_weights, block_kinds)
+        ))
+
+    jn = torch.zeros((g, n), dtype=torch.int64, device=dev)
+    c = block_counts0.clone()
+    n_placed = torch.zeros(g, dtype=torch.int64, device=dev)
+    choices, scores = [], []
+    for _ in range(n_chunks):
+        head = _heads(num, den, fits, jn, max_j)
+        score0 = node_scores(head, c)
+        first, first_val = _first_argmax(score0)
+        ok0 = (first_val > -torch.inf) & (n_placed < counts)
+        v_first = torch.gather(seg, 1, first[:, None])
+        c1 = cp.bump(c, first[:, None], ok0[:, None])
+
+        score1 = torch.where(seg == v_first, -torch.inf, node_scores(head, c1))
+        # rotation guard over the enforced block's counts after the bump
+        ecounts = torch.gather(c1, 1, eidx[:, None, None].expand(g, 1, nv))[:, 0]
+        pos1 = ecounts > 0
+        minc1 = torch.where(pos1, ecounts, torch.inf).amin(dim=1, keepdim=True)
+        maxc1 = torch.where(pos1, ecounts, -torch.inf).amax(dim=1, keepdim=True)
+        empty_v = ~pos1 & present_v
+        no_empty = ~empty_v.any(dim=1, keepdim=True)
+        rotate_ok = torch.where(
+            no_empty, pos1 & (ecounts <= minc1) & (maxc1 > minc1), empty_v
+        )
+        seg_allowed = torch.cat(
+            [torch.where(even_enforce[:, None], rotate_ok, True), value_less], dim=1
+        )
+        seg_max = torch.where(seg_plane, score1[:, None, :], -torch.inf).amax(dim=2)
+        seg_max = torch.where(seg_allowed, seg_max, -torch.inf)
+        vals, vsel = torch.sort(seg_max, dim=1, descending=True, stable=True)
+        vals, vsel = vals[:, : k_seg - 1], vsel[:, : k_seg - 1]
+        take_r = (
+            (ar_r + n_placed[:, None] + ok0[:, None].long() < counts[:, None])
+            & (vals > -torch.inf)
+            & ok0[:, None]
+        )
+        in_seg = seg[:, None, :] == vsel[..., None]  # [G, k_seg−1, N]
+        rows_r, _ = _first_argmax(torch.where(in_seg, score1[:, None, :], -torch.inf))
+
+        rows = torch.cat([first[:, None], rows_r], dim=1)
+        take = torch.cat([ok0[:, None], take_r], dim=1)
+        vals_all = torch.cat([first_val[:, None], vals], dim=1)
+        jn = jn + ((ar == rows[..., None]) & take[..., None]).sum(dim=1)
+        c = cp.bump(c1, rows_r, take_r)
+        n_placed = n_placed + take.sum(dim=1)
+        choices.append(torch.where(take, rows, -1))
+        scores.append(torch.where(take, vals_all, -torch.inf))
+    return (
+        torch.cat(choices, dim=1).to(torch.int32),
+        torch.cat(scores, dim=1),
+    )
+
+
+# The coupled kernels' C entry points share a leading parameter list:
+# the lane inputs, the block inputs, jitter and counts (19 pointers),
+# then algorithm_spread, G, N, J, B and V.
+_COUPLED_HEAD = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 6
+_COUPLED_TAIL = [ctypes.c_void_p] * 4  # scratch, choices, scores, stream
+_COUPLED_ARGTYPES = {
+    "nomad_place_value_scan": _COUPLED_HEAD + [ctypes.c_int] + _COUPLED_TAIL,
+    "nomad_place_spread_chunked": _COUPLED_HEAD + [ctypes.c_int] * 2 + _COUPLED_TAIL,
+    "nomad_place_spread_opv": (
+        _COUPLED_HEAD + [ctypes.c_void_p] + [ctypes.c_int] * 2 + _COUPLED_TAIL
+    ),
+}
+
+
+def _coupled_library(symbol: str):
+    lib = cuda_library("coupled")
+    fn = getattr(lib, symbol)
+    if fn.argtypes is None:
+        fn.argtypes = _COUPLED_ARGTYPES[symbol]
+        fn.restype = ctypes.c_int
+        lib.nomad_coupled_scratch_bytes.argtypes = [ctypes.c_int] * 4 + [
+            ctypes.POINTER(ctypes.c_size_t)
+        ]
+        lib.nomad_coupled_scratch_bytes.restype = ctypes.c_int
+    return lib, fn
+
+
+def coupled_scratch_bytes(symbol: str, n: int, nb: int, nv: int) -> int:
+    """Global scratch bytes per lane that the coupled kernel ``symbol``
+    needs at N nodes, B blocks and V values: 0 where the lane's working
+    state fits in the block's shared memory."""
+    lib, _ = _coupled_library(symbol)
+    out = ctypes.c_size_t(0)
+    status = lib.nomad_coupled_scratch_bytes(
+        int(symbol == "nomad_place_spread_opv"), n, nb, nv, ctypes.byref(out)
+    )
+    check_launch(status, symbol)
+    return out.value
+
+
+def _launch_coupled(what, symbol, lane, blocks, counts, algorithm_spread,
+                    max_j, slots, extra, jitter):
+    """Check a coupled kernel's inputs, allocate its outputs (and its
+    scratch where the working state does not fit in shared memory), launch
+    it on the current stream and count the launch on the wrapper ``what``.
+    ``lane`` holds the eleven lane inputs in kernel order, ``blocks`` the
+    six block inputs, ``extra`` the kernel's own arguments between the
+    shared head and the scratch (the enforce index tensor or ints)."""
+    vids, counts0, desired, caps, weights, kinds = blocks
+    dev = lane[0].device  # capacity
+    g, n = lane[3].shape  # eligible
+    nb, nv = counts0.shape[1], counts0.shape[2]
+    want = _lane_specs(*lane, jitter) + [
+        ("block_value_ids", vids, torch.int32, (g, nb, n)),
+        ("block_counts0", counts0, torch.float32, (g, nb, nv)),
+        ("block_desired", desired, torch.float32, (g, nb, nv)),
+        ("block_caps", caps, torch.float32, (g, nb, nv)),
+        ("block_weights", weights, torch.float32, (g, nb)),
+        ("block_kinds", kinds, torch.int32, (g, nb)),
+        ("counts", counts, torch.int32, (g,)),
+    ] + [
+        ("enforce_idx", e, torch.int32, (g,))
+        for e in extra if isinstance(e, torch.Tensor)
+    ]
+    same_device([t for _, t, _, _ in want], dev, what)
+    _check_inputs(what, want)
+    # the kernels keep a node's next column in 16 bits
+    if not 1 <= max_j < 2**16 or nb < 1 or nv < 1 or n < 1:
+        raise ValueError(f"{what}: unsupported shape N={n} J={max_j} B={nb} V={nv}")
+    choices = torch.empty((g, slots), dtype=torch.int32, device=dev)
+    scores = torch.empty((g, slots), dtype=torch.float32, device=dev)
+    if g == 0 or slots == 0:
+        return choices, scores
+    _, fn = _coupled_library(symbol)
+    per_lane = coupled_scratch_bytes(symbol, n, nb, nv)
+    scratch = (
+        torch.empty((g, per_lane), dtype=torch.uint8, device=dev) if per_lane else None
+    )
+    ptrs = [t.data_ptr() for t in lane + blocks]
+    status = fn(
+        *ptrs, None if jitter is None else jitter.data_ptr(), counts.data_ptr(),
+        int(bool(algorithm_spread)), g, n, max_j, nb, nv,
+        *[e.data_ptr() if isinstance(e, torch.Tensor) else int(e) for e in extra],
+        None if scratch is None else scratch.data_ptr(),
+        choices.data_ptr(), scores.data_ptr(), current_stream(dev),
+    )
+    check_launch(status, what)
+    # the module-level name, so a stand-in for the wrapper sees the count
+    globals()[what].launches += 1
+    return choices, scores
+
+
+def place_value_scan(
+    capacity, used0, asks, eligible, job_counts, desired_totals,
+    penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+    slot_caps, block_value_ids, block_counts0, block_desired, block_caps,
+    block_weights, block_kinds, algorithm_spread: bool, counts,
+    max_j: int, max_steps: int, jitter=None,
+):
+    """Greedy sequential placement with per-value count coupling — the
+    port of ``place_value_scan_kernel``: (choices i32[G, max_steps],
+    scores f32[G, max_steps]), −1/−inf in steps that took nothing. CPU
+    tensors run the plain version; CUDA tensors launch
+    ``csrc/coupled.cu``."""
+    args = (
+        capacity, used0, asks, eligible, job_counts, desired_totals,
+        penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+        slot_caps, block_value_ids, block_counts0, block_desired, block_caps,
+        block_weights, block_kinds,
+    )
+    if capacity.device.type == "cpu":
+        return place_value_scan_plain(
+            *args, algorithm_spread, counts, max_j, max_steps, jitter
+        )
+    return _launch_coupled(
+        "place_value_scan", "nomad_place_value_scan", args[:11], args[11:],
+        counts, algorithm_spread, max_j, max_steps, [max_steps], jitter,
+    )
+
+
+place_value_scan.launches = 0
+
+
+def place_spread_chunked(
+    capacity, used0, asks, eligible, job_counts, desired_totals,
+    penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+    slot_caps, block_value_ids, block_counts0, block_desired, block_caps,
+    block_weights, block_kinds, algorithm_spread: bool, counts,
+    max_j: int, chunk: int, n_chunks: int, jitter=None,
+):
+    """Chunked greedy placement for large spread-coupled groups — the
+    port of ``place_spread_chunked_kernel``: (choices i32[G, n_chunks ·
+    chunk], scores f32[…]). CPU tensors run the plain version; CUDA
+    tensors launch ``csrc/coupled.cu``."""
+    args = (
+        capacity, used0, asks, eligible, job_counts, desired_totals,
+        penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+        slot_caps, block_value_ids, block_counts0, block_desired, block_caps,
+        block_weights, block_kinds,
+    )
+    if capacity.device.type == "cpu":
+        return place_spread_chunked_plain(
+            *args, algorithm_spread, counts, max_j, chunk, n_chunks, jitter
+        )
+    return _launch_coupled(
+        "place_spread_chunked", "nomad_place_spread_chunked", args[:11],
+        args[11:], counts, algorithm_spread, max_j, n_chunks * chunk,
+        [chunk, n_chunks], jitter,
+    )
+
+
+place_spread_chunked.launches = 0
+
+
+def place_spread_opv(
+    capacity, used0, asks, eligible, job_counts, desired_totals,
+    penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+    slot_caps, block_value_ids, block_counts0, block_desired, block_caps,
+    block_weights, block_kinds, enforce_idx, algorithm_spread: bool, counts,
+    max_j: int, k_seg: int, n_chunks: int, jitter=None,
+):
+    """One-per-value chunked placement for even-mode spread groups — the
+    port of ``place_spread_opv_kernel``: (choices i32[G, n_chunks ·
+    k_seg], scores f32[…]). CPU tensors run the plain version; CUDA
+    tensors launch ``csrc/coupled.cu``."""
+    args = (
+        capacity, used0, asks, eligible, job_counts, desired_totals,
+        penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+        slot_caps, block_value_ids, block_counts0, block_desired, block_caps,
+        block_weights, block_kinds,
+    )
+    if capacity.device.type == "cpu":
+        return place_spread_opv_plain(
+            *args, enforce_idx, algorithm_spread, counts, max_j, k_seg,
+            n_chunks, jitter,
+        )
+    if not 2 <= k_seg <= min(CHUNK, block_counts0.shape[2] + 1):
+        raise ValueError(f"place_spread_opv: k_seg {k_seg} outside [2, min(CHUNK, V+1)]")
+    return _launch_coupled(
+        "place_spread_opv", "nomad_place_spread_opv", args[:11], args[11:],
+        counts, algorithm_spread, max_j, n_chunks * k_seg,
+        [enforce_idx, k_seg, n_chunks], jitter,
+    )
+
+
+place_spread_opv.launches = 0
 
 
 def _steps_bucket(n: int) -> int:
@@ -504,7 +1009,8 @@ class PlacementResult:
 
 class PlacementKernel:
     """Host wrapper: pads a list of GroupAsks into batch tensors on
-    ``device``, runs the closed-form kernel, unpacks results."""
+    ``device``, routes each group to its placement kernel, unpacks
+    results."""
 
     def __init__(
         self,
@@ -518,14 +1024,10 @@ class PlacementKernel:
                 "nomad_tpu_torch: node-axis sharding over a mesh is not "
                 "ported yet (ROADMAP A13)"
             )
-        if force_scan:
-            raise NotImplementedError(
-                "nomad_tpu_torch: the exact value-scan kernel is not "
-                "ported yet (ROADMAP A5)"
-            )
         self.device = resolve_device(device)
         self.algorithm = algorithm
         self.algorithm_spread = algorithm == "spread"
+        self.force_scan = force_scan  # parity testing: disable the fast path
 
     def _capacity_dev(self, cluster):
         """The DeviceStateCache's resident capacity tensor when one rode
@@ -543,22 +1045,56 @@ class PlacementKernel:
         asks: list,
         *,
         overflow: int = OVERFLOW_CANDIDATES,
+        used_override=None,  # [pn, D] usage to score against instead
         explain: bool = False,  # attach score provenance (obs/explain)
     ) -> list[PlacementResult]:
         """``overflow`` = extra greedy candidates emitted per lane for
-        conflict repair."""
+        conflict repair. ``used_override`` replaces the cluster's usage
+        as the pass's base (the parity stream commits its own placements
+        there)."""
         if not asks:
             return []
-        for a in asks:
-            if a.blocks is not None and a.blocks.num_blocks > 0:
-                raise NotImplementedError(
-                    "nomad_tpu_torch: groups with spread blocks or "
-                    "distinct_property caps need the value-scan/chunked/"
-                    "one-per-value kernels, not ported yet (ROADMAP A5)"
-                )
-        used0 = np.asarray(cluster.used)
-        with _tracer.span("kernel.place", tags={"lanes": len(asks), "fast": len(asks)}):
-            out = self._place_closed_form(cluster, asks, overflow, used0)
+        used0 = np.asarray(
+            cluster.used if used_override is None else used_override
+        )
+        # routing: uncoupled groups → closed-form top-k; large
+        # spread-coupled groups → chunked (one-per-value variant when an
+        # even block is present); small / capped groups → exact scan
+        fast, chunked, opv, scan = [], [], [], []
+        for i, a in enumerate(asks):
+            coupled = a.blocks is not None and a.blocks.num_blocks > 0
+            if self.force_scan or (coupled and self._needs_exact_scan(a)):
+                scan.append(i)
+            elif coupled:
+                if bool((a.blocks.kinds == BLOCK_EVEN_SPREAD).any()):
+                    opv.append(i)
+                else:
+                    chunked.append(i)
+            else:
+                fast.append(i)
+        out: list[Optional[PlacementResult]] = [None] * len(asks)
+        # the span carries the routing split so a trace shows which
+        # kernel scored each pass
+        with _tracer.span(
+            "kernel.place",
+            tags={
+                "lanes": len(asks),
+                "fast": len(fast),
+                "chunked": len(chunked),
+                "opv": len(opv),
+                "scan": len(scan),
+            },
+        ):
+            for idxs, fn in (
+                (fast, self._place_closed_form),
+                (chunked, self._place_spread_chunked),
+                (opv, self._place_spread_opv),
+                (scan, self._place_scan_batch),
+            ):
+                if idxs:
+                    results = fn(cluster, [asks[i] for i in idxs], overflow, used0)
+                    for i, r in zip(idxs, results):
+                        out[i] = r
         if explain:
             from ..obs.explain import explain_group
 
@@ -569,6 +1105,15 @@ class PlacementKernel:
                     algorithm_spread=self.algorithm_spread,
                 )
         return out
+
+    @staticmethod
+    def _needs_exact_scan(a) -> bool:
+        """Cap (distinct_property) blocks can overshoot a per-value
+        budget within one chunk, and small groups make short exact scans
+        anyway — both stay on the stepwise path."""
+        if a.count <= EXACT_SCAN_MAX_COUNT:
+            return True
+        return bool((a.blocks.kinds == BLOCK_DISTINCT_CAP).any())
 
     @staticmethod
     def _j_bucket(n: int) -> int:
@@ -642,6 +1187,149 @@ class PlacementKernel:
             )
             for gi, a in enumerate(asks[:real_n])
         ]
+
+
+    def _coupled_batch(self, cluster, asks: list, used0) -> dict:
+        """Device tensors of a coupled pass: the lane inputs, the padded
+        value blocks, capacity and the base usage."""
+        from .flatten import pad_value_blocks
+
+        pn = cluster.padded_n
+        batch = _shared_batch(asks, pn)
+        batch.update(pad_value_blocks([a.blocks for a in asks], pn))
+        out = _device_batch(batch, self.device)
+        out["capacity"] = self._capacity_dev(cluster)
+        out["used0"] = torch.from_numpy(
+            np.ascontiguousarray(used0, dtype=np.float32)
+        ).to(self.device)
+        return out
+
+    def _lane_counts(self, asks: list, overflow: int, cap: int):
+        """Placements each lane emits: its count plus the overflow slots,
+        at most ``cap``; zero-count padding lanes stay inert."""
+        counts = np.array([a.count for a in asks], dtype=np.int64)
+        return torch.from_numpy(
+            np.where(counts > 0, np.minimum(counts + overflow, cap), 0).astype(np.int32)
+        ).to(self.device)
+
+    def _place_scan_batch(
+        self, cluster, asks: list, overflow: int, used0,
+    ) -> list[PlacementResult]:
+        real_n = len(asks)
+        asks = _pad_group_axis(asks, cluster.padded_n)
+        max_count = max(a.count for a in asks)
+        max_steps = _steps_bucket(max(max_count + overflow, 1))
+        max_j = self._max_j(cluster, asks)
+        choices, scores = place_value_scan(
+            **self._coupled_batch(cluster, asks, used0),
+            algorithm_spread=self.algorithm_spread,
+            counts=self._lane_counts(asks, overflow, max_steps),
+            max_j=max_j,
+            max_steps=max_steps,
+        )
+        return self._unpack_coupled(choices, scores, asks[:real_n], overflow)
+
+    def _place_spread_chunked(
+        self, cluster, asks: list, overflow: int, used0,
+    ) -> list[PlacementResult]:
+        real_n = len(asks)
+        asks = _pad_group_axis(asks, cluster.padded_n)
+        max_count = max(a.count for a in asks)
+        max_j = self._max_j(cluster, asks)
+        # round the chunk count to a multiple of 4, not a power of two:
+        # the sequential depth is the dominant cost
+        n_chunks = max(4, -(-max(-(-(max_count + overflow) // CHUNK), 1) // 4) * 4)
+        choices, scores = place_spread_chunked(
+            **self._coupled_batch(cluster, asks, used0),
+            algorithm_spread=self.algorithm_spread,
+            counts=self._lane_counts(asks, overflow, n_chunks * CHUNK),
+            max_j=max_j,
+            chunk=CHUNK,
+            n_chunks=n_chunks,
+        )
+        return self._unpack_coupled(choices, scores, asks[:real_n], overflow)
+
+    def _place_spread_opv(
+        self, cluster, asks: list, overflow: int, used0,
+    ) -> list[PlacementResult]:
+        real_n = len(asks)
+        asks = _pad_group_axis(asks, cluster.padded_n)
+        max_j = self._max_j(cluster, asks)
+        batch = self._coupled_batch(cluster, asks, used0)
+        nv = batch["block_counts0"].shape[2]
+        k_seg = min(CHUNK, nv + 1)
+
+        # per lane: the dominant even block, and how many picks one chunk
+        # can yield (values of that block held by an eligible node, +1
+        # for eligible value-less nodes) — lanes with few values need
+        # more sequential chunks
+        enforce_idx = np.zeros(len(asks), dtype=np.int32)
+        lane_steps = 1
+        for gi, a in enumerate(asks):
+            b = a.blocks
+            if b is None or a.count <= 0:
+                continue
+            even = np.flatnonzero(b.kinds == BLOCK_EVEN_SPREAD)
+            if even.size:
+                enforce_idx[gi] = even[np.argmax(b.weights[even])]
+            ev = b.value_ids[enforce_idx[gi]]
+            elig = a.eligible
+            v_act = len(np.unique(ev[(ev >= 0) & elig])) + int(
+                ((ev < 0) & elig).any()
+            )
+            per_chunk = max(1, min(k_seg, v_act))
+            lane_steps = max(lane_steps, -(-(a.count + overflow) // per_chunk))
+        # multiple-of-4 rounding; +2 slack chunks: the rotation guard makes
+        # a chunk starting from uneven counts yield fewer than v_act picks
+        n_chunks = max(4, -(-(lane_steps + 2) // 4) * 4)
+        # each step picks distinct nodes, so a node gains at most one
+        # instance per step: its column never passes n_chunks
+        max_j = min(max_j, self._j_bucket(n_chunks + 1))
+        choices, scores = place_spread_opv(
+            **batch,
+            enforce_idx=torch.from_numpy(enforce_idx).to(self.device),
+            algorithm_spread=self.algorithm_spread,
+            counts=self._lane_counts(asks, overflow, n_chunks * k_seg),
+            max_j=max_j,
+            k_seg=k_seg,
+            n_chunks=n_chunks,
+        )
+        return self._unpack_coupled(choices, scores, asks[:real_n], overflow)
+
+    @staticmethod
+    def _unpack_coupled(choices, scores, asks, overflow):
+        """Compact each lane's valid picks (greedy emission order) into
+        count primary + overflow slots. The one-per-value kernel can leave
+        empty slots between chunks (a chunk is capped at one pick per
+        value, not by feasibility), so valid picks are compacted rather
+        than sliced positionally."""
+        choices = choices.cpu().numpy()
+        scores = scores.cpu().numpy()
+        out = []
+        for gi, a in enumerate(asks):
+            row = choices[gi]
+            valid = row >= 0
+            vrows = row[valid]
+            vscores = scores[gi][valid]
+            node_rows = np.full(a.count, -1, dtype=np.int32)
+            sc = np.full(a.count, -np.inf, dtype=np.float32)
+            n_primary = min(a.count, vrows.shape[0])
+            node_rows[:n_primary] = vrows[:n_primary]
+            sc[:n_primary] = vscores[:n_primary]
+            of_rows = np.full(overflow, -1, dtype=np.int32)
+            of_sc = np.full(overflow, -np.inf, dtype=np.float32)
+            n_of = min(overflow, max(0, vrows.shape[0] - a.count))
+            of_rows[:n_of] = vrows[a.count : a.count + n_of]
+            of_sc[:n_of] = vscores[a.count : a.count + n_of]
+            out.append(
+                PlacementResult(
+                    node_rows=node_rows,
+                    scores=sc,
+                    overflow_rows=of_rows,
+                    overflow_scores=of_sc,
+                )
+            )
+        return out
 
 
 def _host_block_tables(c, blocks):

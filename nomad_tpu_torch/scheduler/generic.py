@@ -12,9 +12,8 @@ allocations from the chosen rows (SURVEY.md §7 steps 3+5).
 The port binds this control flow to the PyTorch device layer: the
 scheduler's ``device`` reaches the kernel factory and the device-state
 cache. Branches whose kernels are not ported yet raise
-``NotImplementedError`` naming their ROADMAP item: preemption (A7), the
-coupled spread/distinct_property kernels (A5, raised by the placement
-kernel) and the hetero/CP algorithms (A10, A11, raised by the registry).
+``NotImplementedError`` naming their ROADMAP item: preemption (A7) and
+the hetero/CP algorithms (A10, A11, raised by the registry).
 The server's batched multi-eval pass (``prepare_batch_attempt`` and the
 merged commit) belongs with the server and is not ported yet (A9).
 """

@@ -186,6 +186,31 @@ def test_build_all_runs_one_nvcc_per_source_and_reuses_builds(
     assert len(log.read_text().splitlines()) == 3
 
 
+def test_build_all_rebuilds_every_source_when_a_shared_header_changes(
+    tmp_path, monkeypatch, build_tree
+):
+    """A csrc/*.cuh header is part of every library's hash: editing it
+    rebuilds each source, and a build that includes no edit is reused."""
+    log = tmp_path / "calls"
+    home = _fake_nvcc(
+        tmp_path,
+        f'echo "$@" >> {log}\n'
+        'while [ "$1" != "-o" ]; do shift; done; touch "$2"\n',
+    )
+    monkeypatch.setenv("CUDA_HOME", str(home))
+    header = tmp_path / "csrc" / "shared.cuh"
+    header.write_text("// shared\n")
+    out = build_tree.build_all()
+    assert len(log.read_text().splitlines()) == 2
+    assert build_tree.build_all() == out
+    assert len(log.read_text().splitlines()) == 2
+    header.write_text("// shared, edited\n")
+    rebuilt = build_tree.build_all()
+    assert all(rebuilt[n] != out[n] for n in ("a", "b"))
+    assert all(p.exists() for p in rebuilt.values())
+    assert len(log.read_text().splitlines()) == 4
+
+
 def test_build_all_raises_with_the_compiler_output(tmp_path, monkeypatch, build_tree):
     home = _fake_nvcc(tmp_path, 'echo "error: expected a ;" ; exit 2\n')
     monkeypatch.setenv("CUDA_HOME", str(home))

@@ -236,17 +236,36 @@ def test_score_group_matches_score_matrix_row():
     assert ex.top_candidates and ex.top_candidates[0].node_row == int(np.argmax(finals))
 
 
-def test_coupled_groups_raise_not_implemented():
-    ct, asks = ref_parity.build_config3(n_nodes=100, n_jobs=1, count=10)
-    from nomad_tpu_torch.interop import asks_from_numpy, cluster_from_numpy
+def test_coupled_groups_raise_not_implemented(monkeypatch):
+    """Coupled groups and ``force_scan`` place: the config-3 input, and a
+    ``force_scan=True`` kernel on it, give the reference's placements
+    (its side under the scoped C-R1 shim of test_torch_e2e.py)."""
     import dataclasses
 
+    import jax
+    import jax._src.core
+
+    from nomad_tpu.utils import backend as ref_backend
+    from nomad_tpu_torch.interop import asks_from_numpy, cluster_from_numpy
+
+    ct, asks = ref_parity.build_config3(n_nodes=100, n_jobs=1, count=10)
+    with monkeypatch.context() as mp:
+        mp.setattr(
+            jax.core, "trace_state_clean", jax._src.core.trace_state_clean,
+            raising=False,
+        )
+        mp.setattr(ref_backend, "_mesh_config", ref_backend.MeshConfig(None, 1, 1, "test"))
+        ref = ref_score.PlacementKernel().place(ct, asks)
+        ref_scan = ref_score.PlacementKernel(force_scan=True).place(ct, asks)
     pct = cluster_from_numpy({f.name: getattr(ct, f.name) for f in dataclasses.fields(ct)})
     pasks = asks_from_numpy([dataclasses.asdict(a) for a in asks])
-    with pytest.raises(NotImplementedError, match="A5"):
-        port_score.PlacementKernel(device="cpu").place(pct, pasks)
-    with pytest.raises(NotImplementedError, match="A5"):
-        port_score.PlacementKernel(force_scan=True, device="cpu")
+    port = port_score.PlacementKernel(device="cpu").place(pct, pasks)
+    port_scan = port_score.PlacementKernel(force_scan=True, device="cpu").place(pct, pasks)
+    for r, p in ((ref[0], port[0]), (ref_scan[0], port_scan[0])):
+        assert (p.node_rows >= 0).all()
+        np.testing.assert_array_equal(p.node_rows, r.node_rows)
+        np.testing.assert_array_equal(p.overflow_rows, r.overflow_rows)
+        np.testing.assert_allclose(p.scores, r.scores, rtol=RTOL, atol=ATOL)
 
 
 def test_cpu_tensors_never_launch_kernels():
