@@ -4,10 +4,10 @@
 
 Builds the port's kernels from the sources in this checkout, holds each
 against its plain PyTorch version on the card at the shapes the main
-paths give it, then schedules service, spread and distinct_property jobs
-end to end through the port's ``Harness(device="cuda")`` and checks what
-lands in the state store. It imports nothing of JAX and nothing of the
-JAX package.
+paths give it, then schedules service, spread, distinct_property,
+preempting and system jobs end to end through the port's
+``Harness(device="cuda")`` and checks what lands in the state store. It
+imports nothing of JAX and nothing of the JAX package.
 
 Phases (none is wrapped in a ``try``; any failure exits non-zero):
 
@@ -41,14 +41,30 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
    - "wide_values": on the spread path's cluster, one job per coupled
      route keyed on ``${node.unique.id}`` (V 16,384), whose working
      state does not fit in shared memory and runs from global scratch;
+   - "preempt": 10,000 mock nodes filled by direct store upserts with
+     3-6 ballast allocs each (600-1,200 MHz, 512-2,048 MiB, from batch
+     jobs at priorities 20, 30 and 40 and a service at 75; under 1,000
+     MHz left on every node), then, with service and batch preemption
+     on, 20 service jobs at priority 80 and 4 batch jobs at priority 60,
+     16 allocs of 1,000 MHz / 1,024 MiB each: every placement evicts
+     (one find-preemption and one choose-preemption-node launch per
+     failed group, the victims chosen on the host);
+   - "system": on that cluster with the default configuration (system
+     preemption on), one system job at priority 50 (500 MHz / 512 MiB)
+     and one sysbatch job at priority 50 (one score-matrix launch per
+     task group, victims chosen on the host);
    every kernel call of each path is recorded, and after the counters
    are read each recorded call is replayed through the kernel and its
-   plain version (choices and scores compared); every coupled call's
-   kernel is timed, and the last call of each kernel in full;
+   plain version (choices and scores compared); every coupled and
+   preemption call's kernel is timed, and the last call of each kernel
+   in full;
 6. the port's parity suite (``device/parity.py``) at full size on the
    card: each coupled config's placements against the stepwise host
    oracle, within the reference's 0.5 % score bar;
-7. one JSON line of per-kernel results, then the device line last.
+7. the preemption kernels alone at N 16,384 with seeded integer victims
+   at V 8 (the warp form), 64 and 256 (the block form) and a tie-heavy
+   case, every output identical to the plain version;
+8. one JSON line of per-kernel results, then the device line last.
 
 Times, kernels and plain versions alike, are device times per launch
 from a CUDA-graph replay of 20 launches (3 for the coupled plain
@@ -60,10 +76,12 @@ run's data made it take ("steps_per_launch").
 Tolerances: the kernels and their plain versions run the same IEEE
 float32 operations in the same order (no FMA contraction, IEEE
 division, the same libdevice ``expf``), so choices and fits must be
-identical and scores agree within ``MAX_ABS_ERR`` (the coupled kernels:
-exactly). The parity suite holds the coupled placements to the
-reference's own bar against its oracle, ``|score_delta_pct| <= 0.5``
-and no placement the oracle made and the card did not.
+identical and scores agree within ``MAX_ABS_ERR`` (the coupled and
+preemption kernels: exactly, on the integer-valued resources every path
+gives them, where the prefix sums' order cannot matter). The parity
+suite holds the coupled placements to the reference's own bar against
+its oracle, ``|score_delta_pct| <= 0.5`` and no placement the oracle
+made and the card did not.
 """
 
 from __future__ import annotations
@@ -103,10 +121,28 @@ COUPLED_OPS_PER_NODE = 8
 # f32 operations per (block, value) table entry and step (count add,
 # min/max, target or even boost: sub, add, max, div, mul)
 COUPLED_OPS_PER_TABLE_ENTRY = 8
+# f32 operations per real victim of the preemption pass: the distance
+# (per dimension sub, max, div, mul, add: 20; sqrt), the key (min, mul,
+# add), the prefix adds (4) and the fit test (per dimension sub, add,
+# compare: 12); and of the choice: the freed sum (4 per victim) and per
+# node the two free fractions with their 10^x (sub, add, sub, max, div,
+# mul, exp: 14), the fit (2 subs, clip 2, div) and the penalty (sub, div,
+# exp, add, div) times the fit
+PREEMPT_OPS_PER_VICTIM = 40
+CHOOSE_OPS_PER_VICTIM = 4
+CHOOSE_OPS_PER_NODE = 25
 PARITY_BAR_PCT = 0.5
 SPREAD_NODES = 10_000
 SPREAD_RACKS = 25
 DISTINCT_CAP = 10
+PREEMPT_NODES = 10_000
+# (priority, batch?) of the ballast jobs filling the preempt path's nodes
+BALLAST = ((20, True), (30, True), (40, True), (75, False))
+PREEMPTORS = ((80, False, 20), (60, True, 4))  # (priority, batch?, jobs)
+PREEMPTOR_COUNT = 16
+PREEMPTOR_ASK = (1000, 1024)  # MHz, MiB
+SYSTEM_PRIORITY = 50
+KERNEL_PHASE_NODES = 16_384
 
 
 def log(msg: str) -> None:
@@ -530,6 +566,27 @@ def recording(module, name):
         setattr(module, name, rec.real)
 
 
+@contextlib.contextmanager
+def timing(module, name, seconds: dict):
+    """Stands in for the host function ``module.name`` while a path runs
+    and adds the host-clock seconds of its calls (device work it waits
+    for included) to ``seconds[name]``."""
+    real = getattr(module, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kwargs)
+        finally:
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+
+    setattr(module, name, timed)
+    try:
+        yield seconds
+    finally:
+        setattr(module, name, real)
+
+
 # the coupled kernels' wrappers, by the kernel.place span tag of their route
 COUPLED = {
     "place_spread_opv": "opv",
@@ -538,7 +595,12 @@ COUPLED = {
 }
 
 
+# the preemption kernels' wrappers in nomad_tpu_torch.device.preempt
+PREEMPT = ("find_preemption", "choose_preemption_node")
+
+
 def counters() -> dict:
+    from nomad_tpu_torch.device import preempt as P
     from nomad_tpu_torch.device import score as S
     from nomad_tpu_torch.device import score_triton as ST
 
@@ -546,10 +608,12 @@ def counters() -> dict:
         "place_closed_form": S.place_closed_form.launches,
         "score_matrix": ST.score_matrix_triton.launches,
         **{name: getattr(S, name).launches for name in COUPLED},
+        **{name: getattr(P, name).launches for name in PREEMPT},
     }
 
 
 def zero_counters() -> None:
+    from nomad_tpu_torch.device import preempt as P
     from nomad_tpu_torch.device import score as S
     from nomad_tpu_torch.device import score_triton as ST
 
@@ -557,6 +621,8 @@ def zero_counters() -> None:
     ST.score_matrix_triton.launches = 0
     for name in COUPLED:
         getattr(S, name).launches = 0
+    for name in PREEMPT:
+        getattr(P, name).launches = 0
 
 
 CLOSED_FORM_INPUTS = (
@@ -592,20 +658,20 @@ def replay_closed_form(calls):
     return out
 
 
-def replay_score_matrix(calls):
-    """Every score-matrix launch of the score_group path, through the
-    kernel and the plain version on the same inputs; the last one timed."""
+def replay_score_matrix(calls, path="score_group"):
+    """Every score-matrix launch of a path, through the kernel and the
+    plain version on the same inputs; the last one timed."""
     worst = {"max_abs_err": 0.0, "choice_mismatches": 0}
     for i, c in enumerate(calls):
         out = check_score_matrix(
-            f"score_group call {i}", [c[key] for key in SCORE_MATRIX_INPUTS],
+            f"{path} call {i}", [c[key] for key in SCORE_MATRIX_INPUTS],
             c["algorithm_spread"], c["throughputs"], timed=i == len(calls) - 1,
         )
         worst["max_abs_err"] = max(worst["max_abs_err"], out["max_abs_err"])
         worst["choice_mismatches"] += out["choice_mismatches"]
     g, n = c["eligible"].shape
     out.update(worst)
-    out["shape"] = f"G={g} N={n} (last score_group call)"
+    out["shape"] = f"G={g} N={n} (last {path} call)"
     return out
 
 
@@ -693,7 +759,7 @@ def main_path(dev, n_nodes=10_000, n_jobs=10, count=1000):
     assert rejected == 0, "a plan had rejected nodes"
     assert over == 0, "a node is over-committed in the store"
     assert statuses == ["complete"]
-    idle = {name: 0 for name in COUPLED}
+    idle = {name: 0 for name in (*COUPLED, *PREEMPT)}
     assert schedule == {"place_closed_form": passes, "score_matrix": 0, **idle} and passes > 0
     assert annotate == {"place_closed_form": 0, "score_matrix": n_jobs, **idle}
     assert len(cf_calls) == passes and len(sm_calls) == n_jobs
@@ -839,6 +905,7 @@ def spread_path(dev, n_nodes=SPREAD_NODES):
     assert statuses == ["complete"]
     assert worst_rack <= DISTINCT_CAP, "a distinct_property cap was exceeded"
     assert launches["place_closed_form"] == 0 and launches["score_matrix"] == 0
+    assert all(launches[name] == 0 for name in PREEMPT)
     assert split["fast"] == 0
     for name, route in COUPLED.items():
         assert launches[name] == split[route], (name, launches[name], split[route])
@@ -1046,6 +1113,397 @@ def full_parity(dev) -> dict:
     return res
 
 
+# -- phase 5, "preempt" and "system" paths, and phase 7 ------------------------
+
+
+def fill_cluster(h, n_nodes=PREEMPT_NODES, seed=23):
+    """``n_nodes`` mock nodes (4,000 MHz / 8,192 MiB, 100 / 256 reserved),
+    each filled by direct store upserts with 3-6 ballast allocs from the
+    ``BALLAST`` jobs, of 600-1,200 MHz (in steps of 100, together over
+    2,900 of the 3,900 usable, so under 1,000 MHz stays free) and
+    512-2,048 MiB (together at most the 7,936 usable). Returns the
+    ballast jobs and the number of allocs."""
+    from nomad_tpu_torch import mock
+
+    rng = np.random.default_rng(seed)
+    ballast = []
+    for prio, batch in BALLAST:
+        j = (mock.batch_job if batch else mock.job)(priority=prio)
+        j.id = f"ballast-{prio}"
+        h.store.upsert_job(h.next_index(), j)
+        ballast.append(j)
+    allocs = []
+    for i in range(n_nodes):
+        node = mock.node()
+        h.store.upsert_node(h.next_index(), node)
+        c = int(rng.integers(3, 7))
+        lo, hi = max(30, 6 * c), min(39, 12 * c)  # hundreds of MHz
+        cpu = np.full(c, 6)
+        for _ in range(int(rng.integers(lo, hi + 1)) - 6 * c):
+            cpu[rng.choice(np.flatnonzero(cpu < 12))] += 1
+        mem = rng.integers(1, 5, c)
+        while mem.sum() * 512 > 7936:
+            mem[np.argmax(mem)] -= 1
+        for k in range(c):
+            j = ballast[int(rng.integers(0, len(ballast)))]
+            a = mock.alloc(j, node)
+            a.name = f"{j.id}.{a.task_group}[{6 * i + k}]"
+            a.client_status = "running"
+            a.resources = dataclasses.replace(
+                a.resources, cpu=int(cpu[k]) * 100, memory_mb=int(mem[k]) * 512
+            )
+            allocs.append(a)
+    h.store.upsert_allocs(h.next_index(), allocs)
+    return ballast, len(allocs)
+
+
+def preempt_path(dev, n_nodes=PREEMPT_NODES):
+    """The "preempt" path: high-priority service and batch jobs on a
+    cluster full of lower-priority work, service and batch preemption
+    on. Returns the Harness, the launch counts, the recorded calls of the
+    two preemption kernels and the rank_preemption_nodes calls."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.device import preempt as P
+    from nomad_tpu_torch.scheduler import Harness
+    from nomad_tpu_torch.scheduler import preempt_host as PH
+    from nomad_tpu_torch.state import SchedulerConfiguration
+
+    t0 = time.perf_counter()
+    h = Harness(device=dev)
+    h.store.set_scheduler_config(h.next_index(), SchedulerConfiguration(
+        preemption_service_enabled=True, preemption_batch_enabled=True,
+    ))
+    ballast, n_ballast = fill_cluster(h, n_nodes)
+    jobs = []
+    for prio, batch, n_jobs in PREEMPTORS:
+        for i in range(n_jobs):
+            j = (mock.batch_job if batch else mock.job)(priority=prio)
+            j.id = f"preemptor-{prio}-{i}"
+            tg = j.task_groups[0]
+            tg.count = PREEMPTOR_COUNT
+            tg.tasks[0].resources.cpu, tg.tasks[0].resources.memory_mb = PREEMPTOR_ASK
+            h.store.upsert_job(h.next_index(), j)
+            jobs.append(j)
+    log(
+        f"[preempt] set-up {time.perf_counter() - t0:.3f} s ({n_nodes} nodes, "
+        f"{n_ballast} ballast allocs of priorities {[j.priority for j in ballast]}, "
+        f"{len(jobs)} preempting jobs)"
+    )
+
+    lat = []
+    host = {}
+    first_result = len(h.results)
+    zero_counters()
+    with contextlib.ExitStack() as stack:
+        calls = {name: stack.enter_context(recording(P, name)) for name in PREEMPT}
+        ranks = stack.enter_context(recording(P, "rank_preemption_nodes"))
+        stack.enter_context(timing(P, "build_victim_tensors", host))
+        stack.enter_context(timing(P, "rank_preemption_nodes", host))
+        stack.enter_context(timing(PH, "select_victims", host))
+        t_run = time.perf_counter()
+        for j in jobs:
+            ev = mock.eval_for(j)
+            h.store.upsert_evals(h.next_index(), [ev])
+            t1 = time.perf_counter()
+            h.process(ev)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t1)
+        run_s = time.perf_counter() - t_run
+    launches = counters()
+
+    prio_of = {j.id: j.priority for j in ballast + jobs}
+    want = len(jobs) * PREEMPTOR_COUNT
+    placed, victims, bad_victims = 0, 0, 0
+    for j in jobs:
+        for a in h.store.allocs_by_job(j.namespace, j.id):
+            if a.terminal_status():
+                continue
+            placed += 1
+            for vid in a.preempted_allocations:
+                victim = h.store.alloc_by_id(vid)
+                victims += 1
+                ok = (
+                    victim.desired_status == "evict"
+                    and prio_of[victim.job_id] <= j.priority - 10
+                )
+                bad_victims += not ok
+    results = h.results[first_result:]
+    rejected = sum(len(r.rejected_nodes) for r in results)
+    victim_jobs = sum(
+        len({(a.namespace, a.job_id) for allocs in r.node_preemptions.values() for a in allocs})
+        for r in results
+    )
+    followups = [e for e in h.created_evals if e.triggered_by == "preemption"]
+    over = committed_overcommit(h.store)
+    statuses = sorted({e.status for e in h.evals})
+    lat_ms = np.array(lat) * 1e3
+    log(
+        f"[preempt] placed {placed}/{want} allocs evicting {victims} (victims at "
+        f"or above their preemptor's priority - 10: {bad_victims}); rejected plan "
+        f"nodes {rejected}; over-committed nodes {over}; follow-up evals "
+        f"{len(followups)} for {victim_jobs} (plan, victim job) pairs; eval "
+        f"statuses {statuses}"
+    )
+    log(
+        f"[preempt] {len(jobs)} evals in {run_s:.3f} s: evals/s={len(jobs) / run_s!r} "
+        f"allocs/s={placed / run_s!r} eval p50_ms={float(np.percentile(lat_ms, 50))!r} "
+        f"p99_ms={float(np.percentile(lat_ms, 99))!r}"
+    )
+    log(f"[preempt] launches {launches}; rank_preemption_nodes calls {len(ranks)}")
+    log(
+        f"[preempt] host seconds of the run in rank_preemption_nodes "
+        f"{host['rank_preemption_nodes']!r} (building the victim tensors "
+        f"{host['build_victim_tensors']!r}), in select_victims "
+        f"{host['select_victims']!r}"
+    )
+    assert placed == want, "not every alloc was placed"
+    assert victims >= want and bad_victims == 0, "a victim broke the priority delta"
+    assert rejected == 0, "a plan had rejected nodes"
+    assert over == 0, "a node is over-committed in the store"
+    assert statuses == ["complete"]
+    assert len(followups) == victim_jobs > 0, "not one follow-up eval per victim job"
+    assert {e.job_id for e in followups} <= {j.id for j in ballast}
+    assert len(ranks) >= len(jobs)
+    for name in PREEMPT:
+        assert launches[name] == len(ranks) == len(calls[name]), (name, launches[name])
+    assert launches["place_closed_form"] >= len(jobs) and launches["score_matrix"] == 0
+    assert all(launches[name] == 0 for name in COUPLED)
+    assert calls["choose_preemption_node"][0]["victim_prio"].shape[1] == 8
+    return h, launches, calls, {
+        "evals": len(jobs), "placed": placed, "seconds": run_s,
+        "p50_ms": float(np.percentile(lat_ms, 50)),
+        "p99_ms": float(np.percentile(lat_ms, 99)), "host_seconds": host,
+    }
+
+
+def system_path(h):
+    """The "system" path, on the preempt path's cluster with the default
+    scheduler configuration (system preemption on): one system job and
+    one sysbatch job at priority ``SYSTEM_PRIORITY``. Returns the launch
+    counts and the recorded score-matrix calls."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.device import score_triton as ST
+    from nomad_tpu_torch.scheduler import preempt_host as PH
+    from nomad_tpu_torch.scheduler import system as SYS
+    from nomad_tpu_torch.state import SchedulerConfiguration
+
+    h.store.set_scheduler_config(h.next_index(), SchedulerConfiguration())
+    sysjob = mock.system_job(priority=SYSTEM_PRIORITY)
+    sysjob.task_groups[0].tasks[0].resources.cpu = 500
+    sysjob.task_groups[0].tasks[0].resources.memory_mb = 512
+    sysbatch = mock.system_job(priority=SYSTEM_PRIORITY, type="sysbatch")
+    sysbatch.id = sysbatch.id.replace("sysjob", "sysbatch")
+    jobs = [sysjob, sysbatch]
+    for j in jobs:
+        h.store.upsert_job(h.next_index(), j)
+    prio_of = {j.id: j.priority for j in h.store.jobs()}
+    eligible = sum(1 for n in h.store.nodes() if n.ready())
+
+    first_result = len(h.results)
+    lat = []
+    host = {}
+    zero_counters()
+    with contextlib.ExitStack() as stack:
+        sm_calls = stack.enter_context(recording(ST, "score_matrix_triton"))
+        stack.enter_context(timing(SYS, "score_group", host))
+        stack.enter_context(timing(PH, "select_victims", host))
+        for j in jobs:
+            ev = mock.eval_for(j)
+            h.store.upsert_evals(h.next_index(), [ev])
+            t1 = time.perf_counter()
+            h.process(ev)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t1)
+    launches = counters()
+
+    rejected = sum(len(r.rejected_nodes) for r in h.results[first_result:])
+    report = {}
+    for j, ev in zip(jobs, h.evals[-2:]):
+        live = [a for a in h.store.allocs_by_job(j.namespace, j.id) if not a.terminal_status()]
+        nodes = {a.node_id for a in live}
+        failed = sum(m.coalesced_failures + 1 for m in ev.failed_tg_allocs.values())
+        victims = [h.store.alloc_by_id(v) for a in live for v in a.preempted_allocations]
+        worst = max((prio_of[v.job_id] for v in victims), default=None)
+        report[j.type] = (len(live), failed, len(victims), worst)
+        assert ev.status == "complete", ev.status
+        assert len(nodes) == len(live), f"{j.type}: two allocs on one node"
+        assert len(live) + failed == eligible, (j.type, len(live), failed, eligible)
+        assert worst is None or worst <= SYSTEM_PRIORITY - 10, (j.type, worst)
+        assert all(v.desired_status == "evict" for v in victims)
+    assert report["system"][2] > 0, "the system job preempted nothing"
+    over = committed_overcommit(h.store)
+    log(
+        f"[system] {eligible} eligible nodes; per job (placed, failed nodes, "
+        f"victims, highest victim priority): {report}; rejected plan nodes "
+        f"{rejected}; over-committed nodes {over}; eval ms "
+        f"{[round(t * 1e3, 1) for t in lat]}; launches {launches}"
+    )
+    log(
+        f"[system] host seconds of the two evals in score_group "
+        f"{host['score_group']!r}, in select_victims {host['select_victims']!r}"
+    )
+    assert rejected == 0 and over == 0
+    # one pass per eval, one task group each: one score-matrix launch each
+    assert launches["score_matrix"] == len(jobs) == len(sm_calls)
+    assert all(launches[name] == 0 for name in ("place_closed_form", *COUPLED, *PREEMPT))
+    return launches, sm_calls, {"eval_ms": [t * 1e3 for t in lat], "host_seconds": host}
+
+
+PREEMPT_INPUTS = (
+    "capacity", "used", "ask", "eligible", "victim_res", "victim_prio", "victim_mask",
+)
+PREEMPT_OUTPUTS = {
+    "find_preemption": ("feasible", "k", "net", "order"),
+    "choose_preemption_node": ("best", "feasible", "k", "net", "order", "score"),
+}
+
+
+def sector_bytes(mask, itemsize):
+    """Bytes of the 32-byte sectors that hold the elements of an array of
+    ``itemsize``-byte elements where ``mask`` is set: what reading only
+    those elements costs."""
+    flat = torch.nonzero(mask.reshape(-1)).reshape(-1)
+    return int(torch.unique(flat * itemsize // 32).numel()) * 32
+
+
+def preempt_bound(name, c, outs):
+    """The least time for the function on these inputs: the bytes it must
+    move over HBM, or its f32 operations on this data's real victims over
+    the f32 rate, whichever is larger. It must read the mask, ``eligible``
+    and the ask in full, but ``victim_res`` and ``victim_prio`` only where
+    the mask is set and ``capacity`` and ``used`` only on rows that hold a
+    victim (a row without one is infeasible whatever its usage), each in
+    32-byte sectors; it writes every output in full."""
+    mask = c["victim_mask"]
+    n, _ = mask.shape
+    victims = int(mask.sum())
+    rows = mask.any(dim=1)
+    in_bytes = (
+        nbytes(mask, c["eligible"], c["ask"])
+        + sector_bytes(mask, 16) + sector_bytes(mask, 4)
+        + 2 * sector_bytes(rows, 16)
+    )
+    t_bytes = (in_bytes + nbytes(*outs)) / HBM_BYTES_PER_S * 1e3
+    ops = victims * PREEMPT_OPS_PER_VICTIM
+    if name == "choose_preemption_node":
+        ops += victims * CHOOSE_OPS_PER_VICTIM + n * CHOOSE_OPS_PER_NODE
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_preempt(name, c, timed, label=""):
+    """One call of a preemption kernel through the kernel and its plain
+    version on the same inputs: every output identical (scores exact);
+    the kernel timed by graph replay, with ``timed`` the plain version
+    and the bound too."""
+    from nomad_tpu_torch.device import preempt as P
+
+    kernel = getattr(P, name)
+    plain = getattr(P, f"{name}_plain")
+    args = [c[k] for k in PREEMPT_INPUTS]
+    got = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    for out, g, w in zip(PREEMPT_OUTPUTS[name], got, want):
+        assert torch.equal(g, w.to(g.dtype)), f"{name}{label}: {out} differs from plain"
+    err = 0.0
+    if name == "choose_preemption_node":
+        score, plain_score = got[-1], want[-1]
+        fin = torch.isfinite(plain_score)
+        err = float((score - plain_score).abs()[fin].max()) if bool(fin.any()) else 0.0
+    assert err == 0.0, f"{name}{label}: |score error| {err}"
+    launch = lambda: kernel(*args)  # noqa: E731
+    out = {"max_abs_err": err, "choice_mismatches": 0, "ms": graph_ms(launch)}
+    if timed:
+        run_plain = lambda: plain(*args)  # noqa: E731
+        bound, by = preempt_bound(name, dict(zip(PREEMPT_INPUTS, args)), got)
+        n, v = c["victim_prio"].shape
+        out.update({
+            "stream_ms": cuda_ms(launch),
+            "plain_ms": graph_ms(run_plain),
+            "plain_stream_ms": cuda_ms(run_plain),
+            "bound_ms": bound,
+            "bound_by": by,
+            "feasible_nodes": int(got[-4 if name == "find_preemption" else 1].sum()),
+            "victims": int(c["victim_mask"].sum()),
+            "shape": f"N={n} V={v}{label}",
+        })
+        log(
+            f"[{name}{label}] kernel_ms={out['ms']!r} plain_ms={out['plain_ms']!r} "
+            f"(graph replay; back to back on the stream {out['stream_ms']!r} and "
+            f"{out['plain_stream_ms']!r}) bound_ms={out['bound_ms']!r} ({by}); "
+            f"{out['victims']} victims, {out['feasible_nodes']} feasible nodes"
+        )
+    return out
+
+
+def replay_preempt(name, calls):
+    """Every recorded call of one preemption kernel on the preempt path,
+    through the kernel and the plain version; each call's kernel timed
+    ("path_ms" is their sum), the last one in full."""
+    per_call = []
+    for i, c in enumerate(calls):
+        out = check_preempt(name, c, timed=i == len(calls) - 1, label=" (last path call)")
+        per_call.append(out["ms"])
+    log(
+        f"[{name}] {len(calls)} recorded calls replayed, all identical to plain; "
+        f"kernel time over the calls path_ms={sum(per_call)!r} "
+        f"(per call {[round(t, 4) for t in per_call]})"
+    )
+    out["path_ms"] = sum(per_call)
+    return out
+
+
+def preempt_inputs(dev, v, ties=False, n=KERNEL_PHASE_NODES, seed=31):
+    """Seeded integer-valued inputs of the preemption kernels: mock-node
+    capacities, 0..V victims a node at four batch priorities, a tenth of
+    the nodes ineligible; ``ties``: every victim 600 MHz / 1,024 MiB at
+    priority 30, so every key of a row ties and index order decides."""
+    rng = np.random.default_rng(seed + v)
+    cap = np.tile(np.array([3900, 7936, 98304, 1000], np.float32), (n, 1))
+    nv = rng.integers(0, v + 1, n)
+    mask = np.arange(v)[None, :] < nv[:, None]
+    if ties:
+        res = np.tile(np.array([600, 1024, 300, 0], np.float32), (n, v, 1))
+        prio = np.full((n, v), 30, np.int32)
+    else:
+        res = np.stack([
+            rng.integers(100, 1500, (n, v)), rng.integers(128, 2048, (n, v)),
+            rng.integers(0, 4000, (n, v)), rng.integers(0, 100, (n, v)),
+        ], -1).astype(np.float32)
+        prio = rng.choice([10, 20, 30, 40], (n, v)).astype(np.int32)
+    res[~mask] = 0.0
+    prio[~mask] = 0
+    used = res.sum(axis=1) * (1.0 / max(v / 8, 1)) + np.array([100, 256, 4096, 0])
+    arrays = {
+        "capacity": cap,
+        "used": np.floor(used).astype(np.float32),
+        "ask": np.array([1000, 1024, 300, 10], np.float32),
+        "eligible": rng.random(n) < 0.9,
+        "victim_res": res,
+        "victim_prio": prio,
+        "victim_mask": mask,
+    }
+    return {k: torch.from_numpy(np.ascontiguousarray(a)).to(dev) for k, a in arrays.items()}
+
+
+def preempt_kernel_phase(dev):
+    """Both preemption kernels alone at N 16,384: V 8 (the warp form, the
+    preempt path's width), 64 and 256 (the block form), and V 8 with
+    every key tied."""
+    out = {}
+    for label, v, ties in (("v8", 8, False), ("v64", 64, False),
+                           ("v256", 256, False), ("v8_ties", 8, True)):
+        c = preempt_inputs(dev, v, ties)
+        for name in PREEMPT:
+            r = check_preempt(name, c, timed=True, label=f" phase 7 {label}")
+            out.setdefault(name, {})[label] = {k: r[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "feasible_nodes", "victims", "shape",
+            )}
+    return out
+
+
 def kernel_entry(name, route, source, replaces, path, by_path, main, extra):
     keys = ("max_abs_err", "choice_mismatches", "ms", "plain_ms", "bound_ms",
             "bound_by", "stream_ms", "plain_stream_ms", "shape")
@@ -1121,9 +1579,18 @@ def main() -> int:
     by_path["wide_values"], wide_calls = wide_values_path(h)
     wide = {name: replay_coupled(name, wide_calls[name]) for name in COUPLED}
     del h, wide_calls
+    h, by_path["preempt"], preempt_calls, _ = preempt_path(dev)
+    preempt_main = {name: replay_preempt(name, preempt_calls[name]) for name in PREEMPT}
+    del preempt_calls
+    by_path["system"], system_calls, _ = system_path(h)
+    sm_system = replay_score_matrix(system_calls, path="system")
+    del h, system_calls
 
     # phase 6: the coupled placements against the stepwise oracle
     full_parity(dev)
+
+    # phase 7: the preemption kernels alone, both forms and a tied case
+    preempt_phase = preempt_kernel_phase(dev)
 
     def headline(r, shape):
         return {
@@ -1137,9 +1604,13 @@ def main() -> int:
     )
     cf_main["choice_mismatches"] += cf["choice_mismatches"] + cf_ex["choice_mismatches"]
     sm_main["max_abs_err"] = max(
-        sm_main["max_abs_err"], sm["max_abs_err"], sm_tp["max_abs_err"]
+        sm_main["max_abs_err"], sm["max_abs_err"], sm_tp["max_abs_err"],
+        sm_system["max_abs_err"],
     )
-    sm_main["choice_mismatches"] += sm["choice_mismatches"] + sm_tp["choice_mismatches"]
+    sm_main["choice_mismatches"] += (
+        sm["choice_mismatches"] + sm_tp["choice_mismatches"]
+        + sm_system["choice_mismatches"]
+    )
     kernels = [
         kernel_entry(
             "place_closed_form", "cuda", "nomad_tpu_torch/csrc/closed_form.cu",
@@ -1152,6 +1623,7 @@ def main() -> int:
             {
                 "headline": headline(sm, "G=128 N=16384"),
                 "headline_throughputs": headline(sm_tp, "G=128 N=16384"),
+                "system": headline(sm_system, sm_system["shape"]),
             },
         ),
     ] + [
@@ -1172,6 +1644,21 @@ def main() -> int:
             ("place_value_scan", "nomad_tpu/device/score.py:430"),
             ("place_spread_chunked", "nomad_tpu/device/score.py:545"),
             ("place_spread_opv", "nomad_tpu/device/score.py:690"),
+        )
+    ] + [
+        kernel_entry(
+            name, "cuda", "nomad_tpu_torch/csrc/preempt.cu", replaces, "preempt",
+            by_path, preempt_main[name],
+            {
+                **{k: preempt_main[name][k] for k in (
+                    "path_ms", "feasible_nodes", "victims",
+                )},
+                "kernel_phase": preempt_phase[name],
+            },
+        )
+        for name, replaces in (
+            ("find_preemption", "nomad_tpu/device/preempt.py:61"),
+            ("choose_preemption_node", "nomad_tpu/device/preempt.py:116"),
         )
     ]
     log(json.dumps({"kernels": kernels}))

@@ -1,0 +1,413 @@
+// Preemption search on Hopper (sm_90a).
+//
+// Replaces nomad_tpu/device/preempt.py:find_preemption_kernel and
+// choose_preemption_node_kernel.
+//
+// find_preemption, one pass per node row: key each victim by
+// prio * 1e4 + min(dist, 9e3) (1e9 for padding), where dist is the L2
+// norm of (victim - ask) / max(ask, 1) over the four dimensions; sort the
+// row by the composite (order_key(key) << 32 | index), which is
+// jnp.argsort's stable order (ties by index); prefix-sum the sorted,
+// masked victim resources and priorities; the first prefix after which
+// used - freed + ask <= capacity in every dimension gives k (and the net
+// priority at k - 1); a node is feasible when one exists and the node is
+// eligible.
+//
+// choose_preemption_node, on the pass's outputs: per feasible node, the
+// binpack fit after freeing every masked victim (not the prefix: the
+// reference's own approximation) and placing the ask, clip((20 - 10^ff0)
+// - 10^ff1, 0, 18) / 18, times 1 / (1 + exp((net - 2048) / 256)); -inf on
+// infeasible nodes; then the first-index argmax over nodes.
+//
+// What bounds it on the H100: bytes. Each victim is 21 bytes of input
+// (four f32 resources, an i32 priority, a mask byte) plus a 4-byte order
+// entry written, and the arithmetic per victim (a distance, a sort step
+// per network stage, a prefix add) is a few dozen operations, far under
+// the f32 rate. At the path's shape (16,384 nodes, V 8) that is ~3.3 MB,
+// about a microsecond at 3.35 TB/s; the launches' own latency is larger.
+//
+// Design:
+//  - V <= 32 (the common case: a handful of allocations per node): one
+//    warp holds 32 / Vp rows, Vp the next power of two of V, one victim a
+//    lane. A bitonic network of register shuffles sorts each row's
+//    segment, shuffle scans give the prefixes, and a ballot finds the
+//    first fitting prefix. Nothing touches shared memory.
+//  - 32 < V <= 4,096: one block per row sorts the row's Vp composite keys
+//    in shared memory (bitonic), each thread scans a contiguous chunk of
+//    the sorted row on top of a block scan of the chunk totals, and the
+//    first fitting slot is a shared 64-bit atomicMin on (slot << 32 |
+//    net priority).
+//  - choose: one thread per node; the argmax is a block reduction of
+//    (order_key(score) << 32 | ~row) words and a 64-bit atomicMax across
+//    blocks (the largest score, then the lowest row, whatever the
+//    atomics' order); the last block to finish decodes it.
+//
+// Numerics: IEEE division, sqrt and expf (no fast math) and the build's
+// -fmad=false, so the key, the free fractions and the score round as the
+// separately rounded reference ops do. The prefix sums add in scan order,
+// not sequentially: exact on the integer-valued resources (MHz, MiB below
+// 2^24) schedulers hand it.
+
+#include "candidate.cuh"
+
+namespace {
+
+constexpr int kMaxVictims = 4096;
+constexpr int kWarpThreads = 256;   // warp form: 8 warps a block
+constexpr int kChooseThreads = 256;
+constexpr int kMaxBlockThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned long long kPadWord = ~0ULL;
+
+struct Pass {
+  const float* capacity;       // [N, 4]
+  const float* used;           // [N, 4]
+  const float* ask;            // [4]
+  const uint8_t* eligible;     // [N]
+  const float* victim_res;     // [N, V, 4]
+  const int32_t* victim_prio;  // [N, V]
+  const uint8_t* victim_mask;  // [N, V]
+  int n;
+  int v;
+  uint8_t* feasible;           // [N]
+  int32_t* k;                  // [N]
+  float* net;                  // [N]
+  int32_t* order;              // [N, V]
+};
+
+// Sort word of victim i of a row: its key's order, then its index.
+__device__ unsigned long long victim_word(const Pass& p, int row, int i) {
+  const size_t rv = static_cast<size_t>(row) * p.v + i;
+  float key = 1e9f;
+  if (p.victim_mask[rv]) {
+    const float* res = p.victim_res + 4 * rv;
+    float sum = 0.0f;
+    for (int d = 0; d < 4; ++d) {
+      const float rel =
+          __fdiv_rn(__fsub_rn(res[d], p.ask[d]), fmaxf(p.ask[d], 1.0f));
+      sum = __fadd_rn(sum, __fmul_rn(rel, rel));
+    }
+    const float dist = __fsqrt_rn(sum);
+    key = __fadd_rn(__fmul_rn(static_cast<float>(p.victim_prio[rv]), 1e4f),
+                    fminf(dist, 9e3f));
+  }
+  return (static_cast<unsigned long long>(order_key(key)) << 32) |
+         static_cast<unsigned>(i);
+}
+
+// Does the ask fit on `row` once `freed` is released?
+__device__ bool fits_after(const Pass& p, int row, const float* freed) {
+  bool ok = true;
+  for (int d = 0; d < 4; ++d) {
+    const float left =
+        __fadd_rn(__fsub_rn(p.used[4 * row + d], freed[d]), p.ask[d]);
+    ok = ok && left <= p.capacity[4 * row + d];
+  }
+  return ok;
+}
+
+__device__ void write_row(const Pass& p, int row, bool any, int first,
+                          int net) {
+  p.feasible[row] = any ? 1 : 0;
+  p.k[row] = any ? first + 1 : 0;
+  p.net[row] = any ? static_cast<float>(net) : 0.0f;
+}
+
+// V <= 32: each warp holds 32 / width rows, `width` a power of two >= V.
+__global__ void __launch_bounds__(kWarpThreads)
+find_warp_kernel(Pass p, int width) {
+  const int lane = threadIdx.x & 31;
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int seg = lane / width;
+  const int sub = lane & (width - 1);
+  const int row = warp * (32 / width) + seg;
+  const bool in_row = row < p.n;
+  const bool slot = in_row && sub < p.v;
+
+  unsigned long long w = slot ? victim_word(p, row, sub) : kPadWord;
+  for (int size = 2; size <= width; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const unsigned long long o = __shfl_xor_sync(kFull, w, stride);
+      const bool ascending = (sub & size) == 0;
+      const bool lower = (sub & stride) == 0;
+      w = (lower == ascending) ? (o < w ? o : w) : (o > w ? o : w);
+    }
+  }
+  // padding words sort last, so slot `sub` holds the sub-th real victim
+  const int idx = static_cast<int>(w & 0xffffffffu);
+  const size_t rv = static_cast<size_t>(row) * p.v + idx;
+  const bool real = slot && p.victim_mask[rv];
+  float freed[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  int prio = 0;
+  if (real) {
+    for (int d = 0; d < 4; ++d) freed[d] = p.victim_res[4 * rv + d];
+    prio = p.victim_prio[rv];
+  }
+  if (slot) p.order[static_cast<size_t>(row) * p.v + sub] = idx;
+  for (int off = 1; off < width; off <<= 1) {
+    float up[4];
+    for (int d = 0; d < 4; ++d) up[d] = __shfl_up_sync(kFull, freed[d], off, width);
+    const int up_prio = __shfl_up_sync(kFull, prio, off, width);
+    if (sub >= off) {
+      for (int d = 0; d < 4; ++d) freed[d] = __fadd_rn(freed[d], up[d]);
+      prio += up_prio;
+    }
+  }
+  const bool fit = real && fits_after(p, row, freed);
+  const unsigned bits = __ballot_sync(kFull, fit);
+  const unsigned seg_bits =
+      (bits >> (seg * width)) & (width == 32 ? kFull : ((1u << width) - 1u));
+  const int first = __ffs(seg_bits) - 1;
+  const int net = __shfl_sync(kFull, prio, seg * width + (first < 0 ? 0 : first));
+  if (in_row && sub == 0) {
+    write_row(p, row, seg_bits != 0 && p.eligible[row] != 0, first, net);
+  }
+}
+
+// 32 < V <= 4,096: one block of `blockDim.x` threads per row, the row's
+// `vp` sort words in dynamic shared memory.
+__global__ void __launch_bounds__(kMaxBlockThreads)
+find_block_kernel(Pass p, int vp) {
+  extern __shared__ unsigned long long words[];
+  __shared__ float warp_freed[4][kMaxBlockThreads / 32];
+  __shared__ int warp_prio[kMaxBlockThreads / 32];
+  __shared__ unsigned long long hit;
+  const int row = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int threads = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  for (int i = tid; i < vp; i += threads) {
+    words[i] = i < p.v ? victim_word(p, row, i) : kPadWord;
+  }
+  if (tid == 0) hit = kPadWord;
+  __syncthreads();
+  for (int size = 2; size <= vp; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = tid; i < vp / 2; i += threads) {
+        const int lo = 2 * i - (i & (stride - 1));
+        const int hi = lo + stride;
+        const bool ascending = (lo & size) == 0;
+        const unsigned long long a = words[lo];
+        const unsigned long long b = words[hi];
+        if ((a > b) == ascending) {
+          words[lo] = b;
+          words[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  // this thread's chunk of the sorted row: its total first
+  const int per = vp / threads;
+  const int base = tid * per;
+  float total[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  int total_prio = 0;
+  for (int e = 0; e < per; ++e) {
+    const int s = base + e;
+    if (s >= p.v) break;
+    const size_t rv = static_cast<size_t>(row) * p.v +
+                      static_cast<int>(words[s] & 0xffffffffu);
+    if (p.victim_mask[rv]) {
+      for (int d = 0; d < 4; ++d) {
+        total[d] = __fadd_rn(total[d], p.victim_res[4 * rv + d]);
+      }
+      total_prio += p.victim_prio[rv];
+    }
+  }
+  // inclusive scan of the chunk totals: in the warp, then over the warps
+  float inc[4] = {total[0], total[1], total[2], total[3]};
+  int inc_prio = total_prio;
+  for (int off = 1; off < 32; off <<= 1) {
+    float up[4];
+    for (int d = 0; d < 4; ++d) up[d] = __shfl_up_sync(kFull, inc[d], off);
+    const int up_prio = __shfl_up_sync(kFull, inc_prio, off);
+    if (lane >= off) {
+      for (int d = 0; d < 4; ++d) inc[d] = __fadd_rn(inc[d], up[d]);
+      inc_prio += up_prio;
+    }
+  }
+  if (lane == 31) {
+    for (int d = 0; d < 4; ++d) warp_freed[d][warp] = inc[d];
+    warp_prio[warp] = inc_prio;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int w = 1; w < threads / 32; ++w) {
+      for (int d = 0; d < 4; ++d) {
+        warp_freed[d][w] = __fadd_rn(warp_freed[d][w - 1], warp_freed[d][w]);
+      }
+      warp_prio[w] += warp_prio[w - 1];
+    }
+  }
+  __syncthreads();
+  // exclusive prefix of this chunk, then the chunk walked in order
+  float freed[4];
+  int prio;
+  {
+    float ex[4];
+    for (int d = 0; d < 4; ++d) ex[d] = __shfl_up_sync(kFull, inc[d], 1);
+    int ex_prio = __shfl_up_sync(kFull, inc_prio, 1);
+    if (lane == 0) {
+      for (int d = 0; d < 4; ++d) ex[d] = 0.0f;
+      ex_prio = 0;
+    }
+    for (int d = 0; d < 4; ++d) {
+      freed[d] = warp > 0 ? __fadd_rn(warp_freed[d][warp - 1], ex[d]) : ex[d];
+    }
+    prio = (warp > 0 ? warp_prio[warp - 1] : 0) + ex_prio;
+  }
+  bool hit_here = false;
+  for (int e = 0; e < per; ++e) {
+    const int s = base + e;
+    if (s >= p.v) break;
+    const int idx = static_cast<int>(words[s] & 0xffffffffu);
+    p.order[static_cast<size_t>(row) * p.v + s] = idx;
+    const size_t rv = static_cast<size_t>(row) * p.v + idx;
+    if (hit_here || !p.victim_mask[rv]) continue;
+    for (int d = 0; d < 4; ++d) {
+      freed[d] = __fadd_rn(freed[d], p.victim_res[4 * rv + d]);
+    }
+    prio += p.victim_prio[rv];
+    if (fits_after(p, row, freed)) {
+      atomicMin(&hit, (static_cast<unsigned long long>(s) << 32) |
+                          static_cast<unsigned>(prio));
+      hit_here = true;
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {
+    const bool found = hit != kPadWord;
+    write_row(p, row, found && p.eligible[row] != 0,
+              found ? static_cast<int>(hit >> 32) : -1,
+              static_cast<int>(static_cast<unsigned>(hit & 0xffffffffu)));
+  }
+}
+
+struct Choose {
+  const float* capacity;       // [N, 4]
+  const float* used;           // [N, 4]
+  const float* ask;            // [4]
+  const float* victim_res;     // [N, V, 4]
+  const uint8_t* victim_mask;  // [N, V]
+  const uint8_t* feasible;     // [N]
+  const float* net;            // [N]
+  int n;
+  int v;
+  unsigned long long* scratch;  // [2] zeroed: best word, finished blocks
+  int32_t* best;               // []
+  float* score;                // [N]
+};
+
+__device__ float choose_score(const Choose& c, int row) {
+  float freed[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int i = 0; i < c.v; ++i) {
+    const size_t rv = static_cast<size_t>(row) * c.v + i;
+    if (c.victim_mask[rv]) {
+      for (int d = 0; d < 4; ++d) {
+        freed[d] = __fadd_rn(freed[d], c.victim_res[4 * rv + d]);
+      }
+    }
+  }
+  float pow_sum_terms[2];
+  for (int d = 0; d < 2; ++d) {  // cpu, mem drive the fit
+    const float cap = c.capacity[4 * row + d];
+    const float proposed =
+        __fadd_rn(__fsub_rn(c.used[4 * row + d], freed[d]), c.ask[d]);
+    const float ff = cap > 0.0f
+        ? __fdiv_rn(__fsub_rn(cap, proposed), fmaxf(cap, 1e-9f))
+        : 1.0f;
+    pow_sum_terms[d] = expf(__fmul_rn(kLn10, ff));
+  }
+  const float fit_raw = fminf(
+      fmaxf(__fsub_rn(__fsub_rn(20.0f, pow_sum_terms[0]), pow_sum_terms[1]),
+            0.0f),
+      kMaxScore);
+  const float fit = __fdiv_rn(fit_raw, kMaxScore);
+  const float penalty = __fdiv_rn(
+      1.0f,
+      __fadd_rn(1.0f,
+                expf(__fdiv_rn(__fsub_rn(c.net[row], 2048.0f), 256.0f))));
+  return __fmul_rn(fit, penalty);
+}
+
+__global__ void __launch_bounds__(kChooseThreads)
+choose_kernel(Choose c) {
+  __shared__ unsigned long long warp_best[kChooseThreads / 32];
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  unsigned long long word = 0;
+  if (row < c.n) {
+    const float s = c.feasible[row] ? choose_score(c, row) : -INFINITY;
+    c.score[row] = s;
+    word = (static_cast<unsigned long long>(order_key(s)) << 32) |
+           (0xffffffffu - static_cast<unsigned>(row));
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    const unsigned long long o = __shfl_xor_sync(kFull, word, off);
+    word = o > word ? o : word;
+  }
+  if (lane == 0) warp_best[warp] = word;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kChooseThreads / 32; ++w) {
+      word = warp_best[w] > word ? warp_best[w] : word;
+    }
+    atomicMax(&c.scratch[0], word);
+    __threadfence();
+    const unsigned long long done = atomicAdd(&c.scratch[1], 1ULL);
+    if (done == gridDim.x - 1) {
+      // every block's maximum has landed: decode the winner's row
+      __threadfence();
+      const unsigned long long won = atomicMax(&c.scratch[0], 0ULL);
+      *c.best = static_cast<int32_t>(0xffffffffu -
+                                     static_cast<unsigned>(won & 0xffffffffu));
+    }
+  }
+}
+
+}  // namespace
+
+// C entry points, bound with ctypes (nomad_tpu_torch/device/preempt.py).
+// Each launches on `stream`, allocates nothing, and returns
+// cudaGetLastError() so a refused launch is reported to the caller.
+extern "C" int nomad_find_preemption(
+    const float* capacity, const float* used, const float* ask,
+    const uint8_t* eligible, const float* victim_res,
+    const int32_t* victim_prio, const uint8_t* victim_mask, int n, int v,
+    uint8_t* feasible, int32_t* k, float* net, int32_t* order, void* stream) {
+  if (n < 1 || v < 1 || v > kMaxVictims) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Pass p{capacity, used,  ask,  eligible, victim_res, victim_prio,
+               victim_mask, n, v,  feasible, k,          net,
+               order};
+  int vp = 1;
+  while (vp < v) vp <<= 1;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vp <= 32) {
+    const long long warps = (static_cast<long long>(n) + 32 / vp - 1) / (32 / vp);
+    const int blocks = static_cast<int>((warps * 32 + kWarpThreads - 1) / kWarpThreads);
+    find_warp_kernel<<<blocks, kWarpThreads, 0, s>>>(p, vp);
+  } else {
+    const int threads = vp < kMaxBlockThreads ? vp : kMaxBlockThreads;
+    find_block_kernel<<<n, threads, vp * sizeof(unsigned long long), s>>>(p, vp);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int nomad_choose_preemption_node(
+    const float* capacity, const float* used, const float* ask,
+    const float* victim_res, const uint8_t* victim_mask,
+    const uint8_t* feasible, const float* net, int n, int v,
+    unsigned long long* scratch, int32_t* best, float* score, void* stream) {
+  if (n < 1 || v < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Choose c{capacity, used, ask,     victim_res, victim_mask, feasible,
+                 net,      n,    v,       scratch,    best,        score};
+  const int blocks = (n + kChooseThreads - 1) / kChooseThreads;
+  choose_kernel<<<blocks, kChooseThreads, 0, static_cast<cudaStream_t>(stream)>>>(c);
+  return static_cast<int>(cudaGetLastError());
+}

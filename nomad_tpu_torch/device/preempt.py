@@ -1,0 +1,395 @@
+"""Vectorized preemption, on PyTorch and CUDA — the knapsack relaxation of
+the reference's greedy victim search.
+
+Ports ``nomad_tpu/device/preempt.py``. Reference semantics
+(scheduler/preemption.go):
+
+- eligibility: victim priority ≤ job priority − 10
+  (filterAndGroupPreemptibleAllocs :663-697);
+- victim choice per node: by priority ascending, then nearest resource
+  distance first (PreemptForTaskGroup :198-265, basicResourceDistance
+  :608-624), taken until the ask fits;
+- scoring: preempting options are down-ranked by a logistic of the summed
+  victim priorities, inflection at net priority 2048
+  (rank.go:775-844 PreemptionScoringIterator / preemptionScore).
+
+All nodes are evaluated at once. Victims are padded to ``[N, V]``; one
+pass per node sorts them by (priority, distance), prefix-sums the freed
+resources in that order, finds the minimal prefix k after which the ask
+fits and the net priority of that prefix; the node choice scores the fit
+after freeing every victim times the logistic penalty and takes the
+first-index argmax over nodes.
+
+Each device function has two halves here: a plain PyTorch version, which
+is what a CPU tensor runs (and what ``chip_smoke.py`` holds the kernels
+against), and a wrapper that launches the hand-written kernel of
+``csrc/preempt.cu`` on a CUDA tensor or raises. The host drivers
+(``build_victim_tensors``, ``rank_preemption_nodes``,
+``find_preemptions``) take ``device``, default ``"cuda"``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..backend import (
+    check_launch,
+    cuda_library,
+    current_stream,
+    resolve_device,
+    same_device,
+)
+from .score import _check_inputs, _div, _first_argmax, _pow10, capacity_on
+
+# Priority delta a preemptor must have over its victims
+# (preemption.go:673: delta ≥ 10).
+PREEMPTION_PRIORITY_DELTA = 10
+# Logistic inflection point for the net-priority penalty (rank.go:842).
+NET_PRIORITY_INFLECTION = 2048.0
+# Most victims per node the kernels take: the block form sorts a row's
+# padded victims (8 bytes each) in the default 48 KB of shared memory.
+MAX_VICTIMS = 4096
+_PAD_KEY = 1e9
+
+
+def preemption_score(net_priority):
+    """Down-weight for preempting options: ≈1 for cheap preemptions, →0 as
+    summed victim priority passes the inflection (rank.go:834-844)."""
+    return torch.reciprocal(
+        1.0 + torch.exp(_div(net_priority - NET_PRIORITY_INFLECTION, 256.0))
+    )
+
+
+def resource_distance(ask, victim):
+    """basicResourceDistance (preemption.go:608-624) as the kernel takes
+    it: L2 over the relative deltas of all four dimensions, summed in
+    dimension order (the host's ``preempt_host.basic_resource_distance``
+    is a different function: three dimensions, zero asks skipped)."""
+    rel = (victim - ask) / torch.clamp(ask, min=1.0)
+    sq = rel * rel
+    return torch.sqrt(((sq[..., 0] + sq[..., 1]) + sq[..., 2]) + sq[..., 3])
+
+
+# -- the per-node pass --------------------------------------------------------
+
+
+def find_preemption_plain(
+    capacity, used, ask, eligible, victim_res, victim_prio, victim_mask
+):
+    """Plain PyTorch version of ``find_preemption``, op for op the
+    reference body: a stable argsort, ``cumsum`` prefixes, the first
+    fitting prefix."""
+    n, v, _ = victim_res.shape
+    dist = resource_distance(ask[None, None, :], victim_res)
+    key = victim_prio.to(torch.float32) * 1e4 + torch.clamp(dist, max=9e3)
+    key = torch.where(victim_mask, key, _PAD_KEY)
+    order = torch.argsort(key, dim=1, stable=True)
+
+    sorted_res = torch.take_along_dim(victim_res, order[:, :, None], dim=1)
+    sorted_prio = torch.take_along_dim(
+        torch.where(victim_mask, victim_prio, 0), order, dim=1
+    )
+    sorted_mask = torch.take_along_dim(victim_mask, order, dim=1)
+
+    freed = torch.cumsum(
+        torch.where(sorted_mask[:, :, None], sorted_res, 0.0), dim=1
+    )
+    fits_after = (
+        used[:, None, :] - freed + ask[None, None, :] <= capacity[:, None, :]
+    ).all(dim=-1) & sorted_mask
+
+    any_fit = fits_after.any(dim=1) & eligible
+    ar = torch.arange(v, device=victim_res.device)
+    first = torch.where(fits_after, ar, v).amin(dim=1)
+    k = torch.where(any_fit, first + 1, 0)
+    prio_prefix = torch.cumsum(sorted_prio * sorted_mask, dim=1)
+    net = torch.where(
+        any_fit,
+        torch.take_along_dim(
+            prio_prefix, torch.clamp(k - 1, min=0)[:, None], dim=1
+        )[:, 0].to(torch.float32),
+        0.0,
+    )
+    return any_fit, k.to(torch.int32), net, order.to(torch.int32)
+
+
+def choose_preemption_node_plain(
+    capacity, used, ask, eligible, victim_res, victim_prio, victim_mask
+):
+    """Plain PyTorch version of ``choose_preemption_node``."""
+    feasible, k, net, order = find_preemption_plain(
+        capacity, used, ask, eligible, victim_res, victim_prio, victim_mask
+    )
+    # fit after preempting + placing (approximate: every victim freed)
+    freed = torch.where(victim_mask[:, :, None], victim_res, 0.0).sum(dim=1)
+    proposed = used - freed + ask
+    free_frac = torch.where(
+        capacity > 0,
+        (capacity - proposed) / torch.clamp(capacity, min=1e-9),
+        1.0,
+    )
+    fit = _div(
+        torch.clamp(
+            (20.0 - _pow10(free_frac[:, 0])) - _pow10(free_frac[:, 1]),
+            0.0, 18.0,
+        ),
+        18.0,
+    )
+    score = fit * preemption_score(net)
+    score = torch.where(feasible, score, -torch.inf)
+    best, _ = _first_argmax(score)
+    return best.to(torch.int32), feasible, k, net, order, score
+
+
+def _pass_specs(capacity, used, ask, eligible, victim_res, victim_prio,
+                victim_mask):
+    n, v = victim_prio.shape
+    return [
+        ("capacity", capacity, torch.float32, (n, 4)),
+        ("used", used, torch.float32, (n, 4)),
+        ("ask", ask, torch.float32, (4,)),
+        ("eligible", eligible, torch.bool, (n,)),
+        ("victim_res", victim_res, torch.float32, (n, v, 4)),
+        ("victim_prio", victim_prio, torch.int32, (n, v)),
+        ("victim_mask", victim_mask, torch.bool, (n, v)),
+    ]
+
+
+def _check_pass(what: str, inputs) -> None:
+    same_device(inputs, inputs[0].device, what)
+    _check_inputs(what, _pass_specs(*inputs))
+    n, v = inputs[5].shape
+    if n < 1 or not 1 <= v <= MAX_VICTIMS:
+        raise ValueError(
+            f"{what}: unsupported shape N={n} V={v} (the kernels take "
+            f"1 ≤ V ≤ {MAX_VICTIMS} victims per node)"
+        )
+
+
+def _library(symbol: str, argtypes):
+    fn = getattr(cuda_library("preempt"), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+_FIND_ARGTYPES = (
+    [ctypes.c_void_p] * 7  # capacity … victim_mask
+    + [ctypes.c_int] * 2  # n, v
+    + [ctypes.c_void_p] * 5  # feasible, k, net, order, stream
+)
+_CHOOSE_ARGTYPES = (
+    [ctypes.c_void_p] * 7  # capacity, used, ask, victim_res, victim_mask,
+    # feasible, net
+    + [ctypes.c_int] * 2  # n, v
+    + [ctypes.c_void_p] * 4  # scratch, best, score, stream
+)
+
+
+def find_preemption(
+    capacity,  # f32[N, 4]
+    used,  # f32[N, 4] (incl. victims)
+    ask,  # f32[4]
+    eligible,  # bool[N] (constraint/dc mask, ignoring resource fit)
+    victim_res,  # f32[N, V, 4] resources per candidate victim
+    victim_prio,  # i32[N, V] victim priorities (already delta-filtered)
+    victim_mask,  # bool[N, V] real victims vs padding
+):
+    """For every node, the minimal sorted victim prefix that frees room —
+    the port of ``find_preemption_kernel``. Returns (feasible bool[N],
+    k i32[N] victims needed, net_priority f32[N], order i32[N, V] victim
+    index order). CPU tensors run the plain version; CUDA tensors launch
+    ``csrc/preempt.cu``."""
+    inputs = (capacity, used, ask, eligible, victim_res, victim_prio, victim_mask)
+    if capacity.device.type == "cpu":
+        return find_preemption_plain(*inputs)
+    return _launch_find(inputs)
+
+
+def _launch_find(inputs):
+    """Check the pass's inputs, allocate its outputs, launch
+    ``nomad_find_preemption`` on the current stream and count the launch
+    on ``find_preemption``."""
+    _check_pass("find_preemption", inputs)
+    dev = inputs[0].device
+    n, v = inputs[5].shape
+    feasible = torch.empty(n, dtype=torch.bool, device=dev)
+    k = torch.empty(n, dtype=torch.int32, device=dev)
+    net = torch.empty(n, dtype=torch.float32, device=dev)
+    order = torch.empty((n, v), dtype=torch.int32, device=dev)
+    fn = _library("nomad_find_preemption", _FIND_ARGTYPES)
+    status = fn(
+        *[t.data_ptr() for t in inputs], n, v, feasible.data_ptr(),
+        k.data_ptr(), net.data_ptr(), order.data_ptr(), current_stream(dev),
+    )
+    check_launch(status, "find_preemption")
+    find_preemption.launches += 1
+    return feasible, k, net, order
+
+
+find_preemption.launches = 0
+
+
+def choose_preemption_node(
+    capacity, used, ask, eligible, victim_res, victim_prio, victim_mask
+):
+    """The best node to preempt on: the binpack fit after freeing every
+    victim and placing the ask, scaled by the preemption penalty — the
+    port of ``choose_preemption_node_kernel``. Returns (best i32,
+    feasible, k, net, order, score f32[N]), −inf scores on infeasible
+    rows, best 0 when none is feasible. On CUDA tensors: the per-node pass
+    of ``find_preemption`` (its own launch and count), then this
+    wrapper's kernel for the score and the first-index argmax."""
+    inputs = (capacity, used, ask, eligible, victim_res, victim_prio, victim_mask)
+    if capacity.device.type == "cpu":
+        return choose_preemption_node_plain(*inputs)
+    return _launch_choose(inputs)
+
+
+def _launch_choose(inputs):
+    """``find_preemption``'s pass through the module-level wrapper (which
+    checks the inputs), then ``nomad_choose_preemption_node`` on its
+    outputs, counted on ``choose_preemption_node``."""
+    feasible, k, net, order = find_preemption(*inputs)
+    capacity, used, ask, _, victim_res, victim_prio, victim_mask = inputs
+    dev = capacity.device
+    n, v = victim_prio.shape
+    scratch = torch.zeros(2, dtype=torch.int64, device=dev)
+    best = torch.empty((), dtype=torch.int32, device=dev)
+    score = torch.empty(n, dtype=torch.float32, device=dev)
+    fn = _library("nomad_choose_preemption_node", _CHOOSE_ARGTYPES)
+    status = fn(
+        capacity.data_ptr(), used.data_ptr(), ask.data_ptr(),
+        victim_res.data_ptr(), victim_mask.data_ptr(), feasible.data_ptr(),
+        net.data_ptr(), n, v, scratch.data_ptr(), best.data_ptr(),
+        score.data_ptr(), current_stream(dev),
+    )
+    check_launch(status, "choose_preemption_node")
+    choose_preemption_node.launches += 1
+    return best, feasible, k, net, order, score
+
+
+choose_preemption_node.launches = 0
+
+
+# -- host drivers ---------------------------------------------------------------
+
+
+def _victim_bucket(n: int) -> int:
+    """Pad the victim axis to a power of two (the reference's policy
+    against recompilation; the kernels' sorting networks want it too)."""
+    b = 1
+    while b < n:
+        b <<= 1
+    return b
+
+
+def build_victim_tensors(ct, snap, job, exclude_ids=frozenset(), device="cuda"):
+    """Flatten preemption candidates: for every node row, the allocs whose
+    priority is ≤ job.priority − 10 (preemption.go:663-697), padded to a
+    power-of-two victim bucket. ``exclude_ids`` drops allocs already
+    preempted by the in-flight plan (their capacity is freed once, not
+    twice). The placing job's own allocs stay, as in the reference.
+    Returns (victim_res, victim_prio, victim_mask) on ``device`` and
+    victim_ids, a list of alloc ids per node row."""
+    dev = resolve_device(device)
+    pn = ct.padded_n
+    max_prio = job.priority - PREEMPTION_PRIORITY_DELTA
+    per_node: list[list] = [[] for _ in range(pn)]
+    for row, node_id in enumerate(ct.node_ids):
+        for a in snap.allocs_by_node(node_id):
+            if a.terminal_status() or a.id in exclude_ids:
+                continue
+            prio = a.job.priority if a.job is not None else 50
+            if prio <= max_prio:
+                per_node[row].append((a, prio))
+    v = _victim_bucket(max((len(x) for x in per_node), default=1) or 1)
+    victim_res = np.zeros((pn, v, 4), dtype=np.float32)
+    victim_prio = np.zeros((pn, v), dtype=np.int32)
+    victim_mask = np.zeros((pn, v), dtype=bool)
+    victim_ids: list[list[str]] = [[] for _ in range(pn)]
+    for row, cands in enumerate(per_node):
+        for j, (a, prio) in enumerate(cands):
+            victim_res[row, j] = a.comparable_resources().to_vector()
+            victim_prio[row, j] = prio
+            victim_mask[row, j] = True
+            victim_ids[row].append(a.id)
+    return (
+        torch.from_numpy(victim_res).to(dev),
+        torch.from_numpy(victim_prio).to(dev),
+        torch.from_numpy(victim_mask).to(dev),
+        victim_ids,
+    )
+
+
+def _choose(ct, snap, job, ask_vec, eligible, exclude_ids, dev):
+    """The device pass over every node, or None when no node holds a
+    victim. The usage is uploaded on every call: the scheduler updates
+    ``ct.used`` on the host after each preemption."""
+    victim_res, victim_prio, victim_mask, victim_ids = build_victim_tensors(
+        ct, snap, job, exclude_ids=exclude_ids, device=dev
+    )
+    if not any(victim_ids):
+        return None
+    def t(x, dtype):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(dev)
+
+    out = choose_preemption_node(
+        capacity_on(ct, dev),
+        t(ct.used, np.float32),
+        t(ask_vec, np.float32),
+        t(eligible, bool),
+        victim_res,
+        victim_prio,
+        victim_mask,
+    )
+    return out, victim_ids
+
+
+def rank_preemption_nodes(
+    ct, snap, job, ask_vec, eligible, exclude_ids=frozenset(), top: int = 16,
+    device="cuda",
+):
+    """One [N, V] device pass ranking every node by post-preemption fit ×
+    preemption penalty; returns up to ``top`` feasible node rows, best
+    first (a stable host sort of the scores). The exact victim set per
+    node is then chosen on the host by
+    ``scheduler/preempt_host.select_victims``: the kernel narrows the
+    cluster to a shortlist, the host pays exactness only on it."""
+    dev = resolve_device(device)
+    chosen = _choose(ct, snap, job, ask_vec, eligible, exclude_ids, dev)
+    if chosen is None:
+        return []
+    (_best, feasible, _k, _net, _order, score), _ids = chosen
+    feasible = feasible.cpu().numpy()
+    score = score.cpu().numpy()
+    rows = np.flatnonzero(feasible)
+    if rows.size == 0:
+        return []
+    return rows[np.argsort(-score[rows], kind="stable")][:top].tolist()
+
+
+def find_preemptions(
+    ct, snap, job, ask_vec, eligible, exclude_ids=frozenset(), device="cuda"
+):
+    """Host driver: one device pass, then map the chosen node's sorted
+    victim prefix back to allocation ids. Returns (node_row, [alloc ids])
+    or (None, [])."""
+    dev = resolve_device(device)
+    chosen = _choose(ct, snap, job, ask_vec, eligible, exclude_ids, dev)
+    if chosen is None:
+        return None, []
+    (best, feasible, k, _net, order, _score), victim_ids = chosen
+    best = int(best)
+    if not bool(feasible[best]):
+        return None, []
+    kk = int(k[best])
+    ids = []
+    for idx in order[best, :kk].tolist():
+        if idx < len(victim_ids[best]):
+            ids.append(victim_ids[best][idx])
+    return best, ids

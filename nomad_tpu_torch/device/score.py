@@ -1007,6 +1007,18 @@ class PlacementResult:
     explanation: Optional[object] = None
 
 
+def capacity_on(cluster, device: torch.device) -> torch.Tensor:
+    """The cluster's f32[N, 4] capacity on ``device``: the
+    DeviceStateCache's resident tensor when one rode along on the tensors
+    and lies there, else a fresh upload."""
+    dev = cluster.device_capacity
+    if isinstance(dev, torch.Tensor) and dev.device == device:
+        return dev
+    return torch.from_numpy(
+        np.ascontiguousarray(cluster.capacity, dtype=np.float32)
+    ).to(device)
+
+
 class PlacementKernel:
     """Host wrapper: pads a list of GroupAsks into batch tensors on
     ``device``, routes each group to its placement kernel, unpacks
@@ -1028,16 +1040,6 @@ class PlacementKernel:
         self.algorithm = algorithm
         self.algorithm_spread = algorithm == "spread"
         self.force_scan = force_scan  # parity testing: disable the fast path
-
-    def _capacity_dev(self, cluster):
-        """The DeviceStateCache's resident capacity tensor when one rode
-        along on the tensors; else a fresh upload."""
-        dev = getattr(cluster, "device_capacity", None)
-        if isinstance(dev, torch.Tensor) and dev.device == self.device:
-            return dev
-        return torch.from_numpy(
-            np.ascontiguousarray(cluster.capacity, dtype=np.float32)
-        ).to(self.device)
 
     def place(
         self,
@@ -1168,7 +1170,7 @@ class PlacementKernel:
         batch = _shared_batch(asks, pn)
         dev = self.device
         choices_t, scores_t = place_closed_form(
-            self._capacity_dev(cluster),
+            capacity_on(cluster, self.device),
             torch.from_numpy(np.ascontiguousarray(used0, dtype=np.float32)).to(dev),
             **_device_batch(batch, dev),
             algorithm_spread=self.algorithm_spread,
@@ -1198,7 +1200,7 @@ class PlacementKernel:
         batch = _shared_batch(asks, pn)
         batch.update(pad_value_blocks([a.blocks for a in asks], pn))
         out = _device_batch(batch, self.device)
-        out["capacity"] = self._capacity_dev(cluster)
+        out["capacity"] = capacity_on(cluster, self.device)
         out["used0"] = torch.from_numpy(
             np.ascontiguousarray(used0, dtype=np.float32)
         ).to(self.device)

@@ -32,6 +32,7 @@ from .structs import (
 )
 from .structs.deployment import AllocDeploymentStatus
 from .structs.job import Service, ServiceCheck
+from .structs.resources import AllocatedDeviceResource
 
 # device-side handles of the other runtime: never carried across
 _DEVICE_FIELDS = frozenset({"device_capacity", "score_cache"})
@@ -43,6 +44,7 @@ _UNTYPED_FIELDS = {
     (Task, "services"): Service,
     (Service, "checks"): ServiceCheck,
     (Allocation, "allocated_networks"): AllocatedNetwork,
+    (Allocation, "allocated_devices"): AllocatedDeviceResource,
     (Allocation, "deployment_status"): AllocDeploymentStatus,
 }
 

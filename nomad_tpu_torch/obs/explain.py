@@ -523,6 +523,40 @@ def finalize_explanations(cluster, asks, results, used_override=None) -> None:
                 )
 
 
+def score_meta_for_row(
+    cluster, a, used0, row: int, *, algorithm_spread: bool = False,
+    desired_total=None,
+) -> NodeScoreMeta:
+    """First-instance breakdown for one committed row — the system
+    scheduler's per-alloc ScoreMetaData (a system job places at most one
+    alloc per node, so the first-instance view IS the instance view).
+    Normalizes the heterogeneity axis exactly like score_group so the
+    throughput component matches the recorded final."""
+    throughputs = None
+    if a.has_throughputs and a.throughputs is not None:
+        tp = np.asarray(a.throughputs, dtype=np.float32)
+        best = float(np.max(np.where(a.eligible, tp, 0.0)))
+        if best > 0.0:
+            throughputs = tp / np.float32(best)
+    counts = a.blocks.counts0 if a.blocks is not None else None
+    ((comps, final),) = _components_at(
+        np.asarray(cluster.capacity),
+        np.asarray(used0),
+        a,
+        [int(row)],
+        [0],
+        counts,
+        algorithm_spread,
+        throughputs,
+        desired_total,
+    )
+    return NodeScoreMeta(
+        node_id=cluster.node_ids[int(row)],
+        scores={k: float(v) for k, v in comps.items()},
+        norm_score=float(final),
+    )
+
+
 def candidates_as_score_meta(ex: PlacementExplanation) -> list[NodeScoreMeta]:
     """Top-k candidates as AllocMetric.score_meta rows (the reference's
     ScoreMetaData shape) — stamped onto failed placements so blocked

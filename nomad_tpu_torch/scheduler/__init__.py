@@ -1,8 +1,8 @@
 """L2 scheduler layer: pure business logic — snapshot in, plan out.
 
-Importing this package registers the service and batch schedulers. The
-system and sysbatch schedulers are not ported yet: their factories raise
-``NotImplementedError`` (ROADMAP A8)."""
+Importing this package registers the builtin schedulers
+(service/batch/system/sysbatch), mirroring BuiltinSchedulers
+(scheduler/scheduler.go:23-28)."""
 
 from .scheduler import BUILTIN_SCHEDULERS, Planner, new_scheduler, register_scheduler
 from .reconcile import (
@@ -13,16 +13,9 @@ from .reconcile import (
     tasks_updated,
 )
 from .generic import GenericScheduler, tainted_nodes
+from .system import SystemScheduler
 from .feasible import check_constraint, check_constraint_values
 from .testing import Harness
-
-
-@register_scheduler("system")
-@register_scheduler("sysbatch")
-def _system_scheduler(snapshot, planner, **kw):
-    raise NotImplementedError(
-        "nomad_tpu_torch: the system scheduler is not ported yet (ROADMAP A8)"
-    )
 
 
 __all__ = [
@@ -36,6 +29,7 @@ __all__ = [
     "StopRequest",
     "ReconcileResults",
     "GenericScheduler",
+    "SystemScheduler",
     "tainted_nodes",
     "check_constraint",
     "check_constraint_values",

@@ -10,10 +10,11 @@ per (job, task group): flatten → greedy placement scan on device → build
 allocations from the chosen rows (SURVEY.md §7 steps 3+5).
 
 The port binds this control flow to the PyTorch device layer: the
-scheduler's ``device`` reaches the kernel factory and the device-state
-cache. Branches whose kernels are not ported yet raise
-``NotImplementedError`` naming their ROADMAP item: preemption (A7) and
-the hetero/CP algorithms (A10, A11, raised by the registry).
+scheduler's ``device`` reaches the kernel factory, the device-state
+cache and the preemption search (``device/preempt.py``). Branches whose
+kernels are not ported yet raise ``NotImplementedError`` naming their
+ROADMAP item: the hetero/CP algorithms (A10, A11, raised by the
+registry).
 The server's batched multi-eval pass (``prepare_batch_attempt`` and the
 merged commit) belongs with the server and is not ported yet (A9).
 """
@@ -631,15 +632,127 @@ class GenericScheduler:
         )
 
     def _try_preempt(self, ct, pr, tg_name, ga, comparable) -> bool:
-        """Preemption fallback for one failed placement
-        (generic_sched.go:773-792 selectNextOption). Off by default for
-        service and batch jobs; with it on, the victim search needs the
-        preemption kernels, which are not ported yet."""
+        """Preemption fallback for one failed placement: one device pass
+        per GROUP ranks every node's cheapest feasible victim set
+        (device/preempt.py — the shortlist is cached across this plan's
+        failures, so G failed placements cost one [N, V] kernel pass, not
+        G); the final victim set on a shortlisted node is chosen by the
+        reference-exact host greedy (preempt_host.select_victims:
+        maxParallel penalty, reserved ports, device instances). Victims
+        are evicted in-plan and the placement lands on their node
+        (generic_sched.go:795 handlePreemptions)."""
         if not self._preemption_enabled() or self.job is None:
             return False
-        raise NotImplementedError(
-            "nomad_tpu_torch: preemption is not ported yet (ROADMAP A7)"
+        from ..device.preempt import (
+            PREEMPTION_PRIORITY_DELTA,
+            rank_preemption_nodes,
         )
+        from .preempt_host import select_victims
+
+        if self.job.priority < PREEMPTION_PRIORITY_DELTA:
+            return False
+        # hard constraints still bind under preemption: distinct_hosts
+        # excludes nodes already holding this job (snapshot + in-plan)
+        eligible = ga.eligible
+        if ga.distinct_hosts:
+            eligible = eligible & (ga.job_counts == 0)
+            for node_id, allocs in self.plan.node_allocation.items():
+                if any(a.job_id == self.job.id for a in allocs):
+                    r = ct.node_row.get(node_id)
+                    if r is not None:
+                        eligible = eligible.copy()
+                        eligible[r] = False
+        # allocs already evicted by this plan free capacity exactly once
+        already_preempted = {
+            a.id
+            for allocs in self.plan.node_preemptions.values()
+            for a in allocs
+        }
+        cache = getattr(self, "_preempt_rank_cache", None)
+        if cache is None:
+            cache = self._preempt_rank_cache = {}
+        shortlist = cache.get(tg_name)
+        if shortlist is None:
+            shortlist = rank_preemption_nodes(
+                ct,
+                self.snapshot,
+                self.job,
+                ga.ask,
+                eligible,
+                exclude_ids=already_preempted,
+                device=self.device,
+            )
+            cache[tg_name] = shortlist
+        tg = self.job.lookup_task_group(tg_name)
+        row, victim_ids = None, []
+        for cand_row in shortlist:
+            # the shortlist is cached per group, but eligibility is
+            # recomputed per failure (distinct_hosts excludes nodes this
+            # plan already used) — stale rows are skipped, not trusted
+            if not eligible[cand_row]:
+                continue
+            ids = select_victims(
+                ct,
+                self.snapshot,
+                self.job,
+                tg,
+                ga.ask,
+                cand_row,
+                plan=self.plan,
+                exclude_ids=already_preempted,
+            )
+            if ids:
+                row, victim_ids = cand_row, ids
+                break
+        if row is None or not victim_ids:
+            return False
+        node_id = ct.node_ids[row]
+        alloc_id = new_id()
+        victim_total = None
+        for vid in victim_ids:
+            victim = self.snapshot.alloc_by_id(vid)
+            if victim is None:
+                return False
+            self.plan.append_preempted_alloc(victim, alloc_id)
+            vec = victim.comparable_resources().to_vector()
+            victim_total = vec if victim_total is None else victim_total + vec
+        metric = AllocMetric(nodes_evaluated=ct.num_nodes)
+        metric.scores[f"{node_id}.preemption"] = 1.0
+        alloc = Allocation(
+            id=alloc_id,
+            namespace=self.job.namespace,
+            eval_id=self.eval.id,
+            name=pr.name,
+            node_id=node_id,
+            job_id=self.job.id,
+            job=self.job,
+            job_version=self.job.version,
+            task_group=tg_name,
+            resources=comparable.copy(),
+            desired_status=ALLOC_DESIRED_RUN,
+            client_status="pending",
+            metrics=metric,
+            preempted_allocations=list(victim_ids),
+        )
+        if pr.previous_alloc is not None:
+            alloc.previous_allocation = pr.previous_alloc.id
+        tg = self.job.lookup_task_group(tg_name)
+        if tg is not None:
+            devices, dev_ok = self._assign_devices(tg, node_id)
+            if not dev_ok:
+                # victims chosen by resource distance didn't free the
+                # needed device instances — abandon this preemption
+                # rather than shipping a device-less alloc
+                from .device import rollback_plan_preemptions
+
+                rollback_plan_preemptions(self.plan, node_id, victim_ids)
+                return False
+            if devices:
+                alloc.allocated_devices = devices
+        self.plan.append_alloc(alloc)
+        # keep the device-resident usage honest for subsequent fallbacks
+        ct.used[row] += ga.ask - (victim_total if victim_total is not None else 0)
+        return True
 
     def _record_failure(self, tg_name: str, metric: AllocMetric) -> None:
         existing = self.failed_tg_allocs.get(tg_name)

@@ -20,12 +20,12 @@ see jax as it is.
 """
 
 import collections
+import contextlib
 import dataclasses
 
 import jax
 import jax._src.core
 import numpy as np
-import pytest
 
 from nomad_tpu import mock as ref_mock
 from nomad_tpu.scheduler import Harness as RefHarness
@@ -100,6 +100,18 @@ def _drive(harness, eval_for, jobs, eval_ids):
         harness.process(ev)
 
 
+@contextlib.contextmanager
+def reference_runtime(monkeypatch):
+    """The reference's traced_jit path on this jax, for one block only."""
+    with monkeypatch.context() as mp:
+        mp.setattr(
+            jax.core, "trace_state_clean", jax._src.core.trace_state_clean,
+            raising=False,
+        )
+        mp.setattr(ref_backend, "_mesh_config", ref_backend.MeshConfig(None, 1, 1, "test"))
+        yield
+
+
 def _run_reference(nodes, jobs, existing, eval_ids, monkeypatch):
     store = RefStore()
     for n in nodes:
@@ -113,12 +125,7 @@ def _run_reference(nodes, jobs, existing, eval_ids, monkeypatch):
         [dataclasses.asdict(a) for a in existing],
     )
     h = RefHarness(store)
-    with monkeypatch.context() as mp:
-        mp.setattr(
-            jax.core, "trace_state_clean", jax._src.core.trace_state_clean,
-            raising=False,
-        )
-        mp.setattr(ref_backend, "_mesh_config", ref_backend.MeshConfig(None, 1, 1, "test"))
+    with reference_runtime(monkeypatch):
         _drive(h, ref_mock.eval_for, jobs, eval_ids)
     return h, records
 
@@ -179,17 +186,70 @@ def test_reference_sees_jax_unpatched():
     assert not hasattr(jax.core, "trace_state_clean")
 
 
-def test_preemption_raises_not_implemented():
+def test_preemption_raises_not_implemented(monkeypatch):
+    """Preemption is ported: on the same store (64 nodes full of ballast
+    from jobs at priorities 20, 40 and 75), a priority-80 service job of
+    24 allocs through both Harnesses evicts the same allocs, by id, for
+    placements on the same nodes, and rolls the same follow-up evals."""
+    from nomad_tpu.state import SchedulerConfiguration as RefConfig
     from nomad_tpu_torch.state import SchedulerConfiguration
 
-    h = PortHarness(device="cpu")
-    h.store.upsert_node(h.next_index(), port_mock.node())
-    h.store.set_scheduler_config(
-        h.next_index(), SchedulerConfiguration(preemption_service_enabled=True)
+    rng = np.random.default_rng(17)
+    nodes = [ref_mock.node() for _ in range(64)]
+    ballast = []
+    for prio in (20, 40, 75):
+        j = ref_mock.job(priority=prio)
+        j.task_groups[0].tasks[0].resources.cpu = 1200
+        j.task_groups[0].tasks[0].resources.memory_mb = 2048
+        ballast.append(j)
+    existing = []
+    for i, n in enumerate(nodes):
+        for k in range(3):
+            a = ref_mock.alloc(ballast[int(rng.integers(0, 3))], n)
+            a.name = f"{a.job_id}.web[{3 * i + k}]"
+            existing.append(a)
+    high = ref_mock.job(priority=80)
+    high.task_groups[0].count = 24
+    high.task_groups[0].tasks[0].resources.cpu = 1000
+    high.task_groups[0].tasks[0].resources.memory_mb = 1024
+    jobs = ballast + [high]
+
+    records = (
+        [dataclasses.asdict(n) for n in nodes],
+        [dataclasses.asdict(j) for j in jobs],
+        [dataclasses.asdict(a) for a in existing],
     )
-    job = port_mock.job()
-    job.task_groups[0].count = 20  # more than one node holds
-    h.store.upsert_job(h.next_index(), job)
-    ev = port_mock.eval_for(job)
-    with pytest.raises(NotImplementedError, match="A7"):
-        h.process(ev)
+    ref_store = RefStore()
+    ref_store.set_scheduler_config(1, RefConfig(preemption_service_enabled=True))
+    for n in nodes:
+        ref_store.upsert_node(2, n)
+    for j in jobs:
+        ref_store.upsert_job(3, j)
+    ref_store.upsert_allocs(4, existing)
+    ref = RefHarness(ref_store)
+    with reference_runtime(monkeypatch):
+        _drive(ref, ref_mock.eval_for, [high], ["eval-high"])
+    port_store = interop.store_from_records(*records)
+    port_store.set_scheduler_config(2, SchedulerConfiguration(preemption_service_enabled=True))
+    port = PortHarness(port_store, device="cpu")
+    _drive(port, port_mock.eval_for, [port_store.job_by_id(high.namespace, high.id)],
+           ["eval-high"])
+
+    def plan(h):
+        placed = sorted(
+            (a.node_id, a.name, tuple(sorted(a.preempted_allocations)))
+            for a in h.store.allocs_by_job(high.namespace, high.id)
+        )
+        evicted = sorted(
+            (a.id, a.node_id) for a in h.store.allocs() if a.desired_status == "evict"
+        )
+        created = sorted((e.triggered_by, e.job_id) for e in h.created_evals)
+        return placed, evicted, created
+
+    assert plan(port) == plan(ref)
+    placed, evicted, created = plan(ref)
+    assert len(placed) == 24 and all(victims for _, _, victims in placed)
+    prio_of = {j.id: j.priority for j in jobs}
+    victim_jobs = {ref.store.alloc_by_id(aid).job_id for aid, _ in evicted}
+    assert victim_jobs and all(prio_of[j] <= 70 for j in victim_jobs)
+    assert sorted(j for t, j in created if t == "preemption") == sorted(victim_jobs)

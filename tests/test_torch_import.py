@@ -29,7 +29,13 @@ def _submodules():
 
 def test_imports_with_jax_blocked():
     mods = _submodules()
-    assert "nomad_tpu_torch.device.score" in mods
+    for m in (
+        "nomad_tpu_torch.device.score",
+        "nomad_tpu_torch.device.preempt",
+        "nomad_tpu_torch.scheduler.preempt_host",
+        "nomad_tpu_torch.scheduler.system",
+    ):
+        assert m in mods
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -84,7 +90,7 @@ def _no_cuda(monkeypatch):
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from nomad_tpu_torch.device.cache import DeviceStateCache
     from nomad_tpu_torch.device.score import PlacementKernel
-    from nomad_tpu_torch.scheduler import Harness
+    from nomad_tpu_torch.scheduler import Harness, new_scheduler
     from nomad_tpu_torch.scheduler.algorithms import make_kernel
 
     _no_cuda(monkeypatch)
@@ -93,6 +99,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         DeviceStateCache,
         PlacementKernel,
         lambda: make_kernel("binpack"),
+        lambda: new_scheduler("system", None, None),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()
@@ -124,8 +131,11 @@ def test_score_group_raises_without_cuda(monkeypatch):
 
 
 def test_unported_paths_raise_not_implemented():
+    """The unported algorithms and the mesh raise naming their ROADMAP
+    item; the system and sysbatch schedulers (ported) construct on the
+    device asked for."""
     from nomad_tpu_torch.device.score import PlacementKernel
-    from nomad_tpu_torch.scheduler import new_scheduler
+    from nomad_tpu_torch.scheduler import SystemScheduler, new_scheduler
     from nomad_tpu_torch.scheduler.algorithms import make_kernel
 
     with pytest.raises(NotImplementedError, match="A10"):
@@ -134,8 +144,10 @@ def test_unported_paths_raise_not_implemented():
         make_kernel("cp-pack", device="cpu")
     with pytest.raises(NotImplementedError, match="A13"):
         PlacementKernel(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        new_scheduler("system", None, None)
+    for name in ("system", "sysbatch"):
+        sched = new_scheduler(name, None, None, device="cpu")
+        assert isinstance(sched, SystemScheduler)
+        assert sched.device == torch.device("cpu")
 
 
 def _fake_nvcc(tmp_path, body):
