@@ -5,7 +5,7 @@
 Builds the port's kernels from the sources in this checkout, holds each
 against its plain PyTorch version on the card at the shapes the main
 paths give it, then schedules service, spread, distinct_property,
-preempting and system jobs end to end through the port's
+preempting, system, heterogeneity-aware, CP and gang jobs end to end through the port's
 ``Harness(device="cuda")`` and checks what lands in the state store. It
 imports nothing of JAX and nothing of the JAX package.
 
@@ -53,6 +53,25 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
      preemption on), one system job at priority 50 (500 MHz / 512 MiB)
      and one sysbatch job at priority 50 (one score-matrix launch per
      task group, victims chosen on the host);
+   - "hetero": 10,000 mock nodes on ``build_mixed_fleet``'s recipe (a
+     seeded device class of tpu-v5e / tpu-v4 / gpu-a100 / cpu, 4,000 /
+     8,000 / 16,000 MHz and 8,192 / 16,384 / 32,768 MiB by class index
+     mod 3), 12 jobs with ``build_mixed_asks``'s throughput profiles, 250
+     allocs of 500-2,000 MHz each, four under each of hetero-maxmin,
+     hetero-makespan and hetero-cost (one hetero-greedy launch per eval);
+   - "cp": on that cluster with cp-pack, 12 jobs of 3 groups x 40 allocs
+     at ``build_cp_asks``'s asks (profile asks x 4, priorities 30 / 50 /
+     80, every 4th job distinct_hosts): one CP launch and three
+     score-matrix launches per eval;
+   - "gang": 10,000 mock nodes in 250 racks of 40 (pods of 10 racks, ici
+     slices of half a rack) under a seeded 0-30 % ballast load, cp-gang,
+     16 gang jobs of 3 groups x 4 allocs (even jobs colocate in a rack,
+     odd jobs spread over pods), then a gang whose second group asks
+     100,000 MHz and must release whole into one blocked eval;
+   - "hetero_batch", "cp_batch", "gang_batch": the port's
+     ``run_hetero_ab`` (10,000 nodes, 30 jobs x 100), ``run_cp_ab``
+     (10,000 nodes, 100 jobs x 40) and ``run_gang_ab`` (64 nodes x 8
+     jobs, and 10,000 nodes x 100 gang jobs of 3 groups);
    every kernel call of each path is recorded, and after the counters
    are read each recorded call is replayed through the kernel and its
    plain version (choices and scores compared); every coupled and
@@ -64,21 +83,38 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
 7. the preemption kernels alone at N 16,384 with seeded integer victims
    at V 8 (the warp form), 64 and 256 (the block form) and a tie-heavy
    case, every output identical to the plain version;
-8. one JSON line of per-kernel results, then the device line last.
+8. the plugin kernels alone at N 16,384 on seeded inputs, G 1, 30 and
+   100 and a tie-heavy case (equal keys, scores and priorities,
+   all-infeasible rows, -0.0 in used0), every output identical to the
+   plain version;
+9. the total seconds, one JSON line of per-kernel results, the card's
+   name and power limit, then the device line last.
 
 Times, kernels and plain versions alike, are device times per launch
 from a CUDA-graph replay of 20 launches (3 for the coupled plain
 versions, each thousands of small kernels), so no host launch cost sits
 in either; "stream_ms" and "plain_stream_ms" are the same launched back
 to back from Python. A coupled kernel's "bound_ms" counts the steps this
-run's data made it take ("steps_per_launch").
+run's data made it take ("steps_per_launch"). The hetero-greedy kernel
+is timed the same way, each captured launch with the copy and fills
+that reset its outputs. The CP auction is a cooperative launch, not
+captured in a graph: each of its 20 launches sits between its own pair
+of CUDA events, its reset enqueued before the first, all queued behind a
+sleep kernel, so neither the resets nor the host's launch overhead fall
+inside a window. The plugin kernels' plain versions sync with the host
+every step or round and are timed once. The gang path's kernel object
+passes per-node coordinate ids (``cp_gang_place_ids``); those calls are
+recorded and replayed, and phase 8 also holds the one-hot form
+(``cp_gang_place``, the reference's signature) against its plain version.
 
 Tolerances: the kernels and their plain versions run the same IEEE
 float32 operations in the same order (no FMA contraction, IEEE
 division, the same libdevice ``expf``), so choices and fits must be
 identical and scores agree within ``MAX_ABS_ERR`` (the coupled and
 preemption kernels: exactly, on the integer-valued resources every path
-gives them, where the prefix sums' order cannot matter). The parity
+gives them, where the prefix sums' order cannot matter; the plugin
+kernels: every output bit for bit, as the reference pins its programs
+to its NumPy oracles). The parity
 suite holds the coupled placements to the reference's own bar against
 its oracle, ``|score_delta_pct| <= 0.5`` and no placement the oracle
 made and the card did not.
@@ -88,6 +124,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib
 import inspect
 import json
 import subprocess
@@ -99,6 +136,9 @@ import torch
 
 MAX_ABS_ERR = 1e-6
 TIMED_LAUNCHES = 20
+# ~50 ms at the H100's boost clock: longer than the host takes to queue
+# TIMED_LAUNCHES launches with their resets behind it
+QUEUE_SLEEP_CYCLES = 100_000_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores (same sheet)
 # f32 operations per feasible (g, n, j) candidate of the closed-form
@@ -199,8 +239,35 @@ def graph_ms(fn, iters: int = TIMED_LAUNCHES) -> float:
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(reset, launch, iters: int = TIMED_LAUNCHES, warmup: int = 3) -> float:
+    """Mean device time of ``launch`` for a kernel a graph cannot capture:
+    each launch between its own pair of CUDA events, its ``reset`` enqueued
+    before the first event, and all of them queued behind a sleep kernel
+    that holds the device until the host has enqueued them, so neither the
+    resets nor the host's launch rate fall inside a window."""
+    for _ in range(warmup):
+        reset()
+        launch()
+    torch.cuda.synchronize()
+    pairs = [
+        (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        for _ in range(iters)
+    ]
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    for start, end in pairs:
+        reset()
+        start.record()
+        launch()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in pairs) / iters
+
+
 def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+    """Bytes of the tensors among ``tensors`` (static ints are skipped)."""
+    return sum(
+        t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor)
+    )
 
 
 # -- the headline inputs (the port's copy of bench.py's builders) -----------
@@ -609,6 +676,7 @@ def counters() -> dict:
         "score_matrix": ST.score_matrix_triton.launches,
         **{name: getattr(S, name).launches for name in COUPLED},
         **{name: getattr(P, name).launches for name in PREEMPT},
+        **{name: getattr(plugin_module(name), name).launches for name in PLUGIN},
     }
 
 
@@ -623,6 +691,8 @@ def zero_counters() -> None:
         getattr(S, name).launches = 0
     for name in PREEMPT:
         getattr(P, name).launches = 0
+    for name in PLUGIN:
+        getattr(plugin_module(name), name).launches = 0
 
 
 CLOSED_FORM_INPUTS = (
@@ -759,7 +829,7 @@ def main_path(dev, n_nodes=10_000, n_jobs=10, count=1000):
     assert rejected == 0, "a plan had rejected nodes"
     assert over == 0, "a node is over-committed in the store"
     assert statuses == ["complete"]
-    idle = {name: 0 for name in (*COUPLED, *PREEMPT)}
+    idle = {name: 0 for name in (*COUPLED, *PREEMPT, *PLUGIN)}
     assert schedule == {"place_closed_form": passes, "score_matrix": 0, **idle} and passes > 0
     assert annotate == {"place_closed_form": 0, "score_matrix": n_jobs, **idle}
     assert len(cf_calls) == passes and len(sm_calls) == n_jobs
@@ -905,7 +975,7 @@ def spread_path(dev, n_nodes=SPREAD_NODES):
     assert statuses == ["complete"]
     assert worst_rack <= DISTINCT_CAP, "a distinct_property cap was exceeded"
     assert launches["place_closed_form"] == 0 and launches["score_matrix"] == 0
-    assert all(launches[name] == 0 for name in PREEMPT)
+    assert all(launches[name] == 0 for name in (*PREEMPT, *PLUGIN))
     assert split["fast"] == 0
     for name, route in COUPLED.items():
         assert launches[name] == split[route], (name, launches[name], split[route])
@@ -1267,7 +1337,7 @@ def preempt_path(dev, n_nodes=PREEMPT_NODES):
     for name in PREEMPT:
         assert launches[name] == len(ranks) == len(calls[name]), (name, launches[name])
     assert launches["place_closed_form"] >= len(jobs) and launches["score_matrix"] == 0
-    assert all(launches[name] == 0 for name in COUPLED)
+    assert all(launches[name] == 0 for name in (*COUPLED, *PLUGIN))
     assert calls["choose_preemption_node"][0]["victim_prio"].shape[1] == 8
     return h, launches, calls, {
         "evals": len(jobs), "placed": placed, "seconds": run_s,
@@ -1345,7 +1415,7 @@ def system_path(h):
     assert rejected == 0 and over == 0
     # one pass per eval, one task group each: one score-matrix launch each
     assert launches["score_matrix"] == len(jobs) == len(sm_calls)
-    assert all(launches[name] == 0 for name in ("place_closed_form", *COUPLED, *PREEMPT))
+    assert all(launches[name] == 0 for name in ("place_closed_form", *COUPLED, *PREEMPT, *PLUGIN))
     return launches, sm_calls, {"eval_ms": [t * 1e3 for t in lat], "host_seconds": host}
 
 
@@ -1504,6 +1574,639 @@ def preempt_kernel_phase(dev):
     return out
 
 
+# -- phase 5, the plugin paths, and phase 8 -----------------------------------
+
+PLUGIN_NODES = 10_000
+DEVICE_CLASSES = ("tpu-v5e", "tpu-v4", "gpu-a100", "cpu")
+HETERO_POLICIES = ("maxmin", "makespan", "cost")
+HETERO_JOBS_PER_POLICY = 4
+HETERO_COUNT = 250
+CP_JOBS = 12
+CP_GROUPS = 3
+CP_COUNT = 40
+GANG_JOBS = 16
+GANG_GROUPS = 3
+GANG_COUNT = 4
+GANG_RACK_NODES = 40
+GANG_RACKS_PER_POD = 10
+# the plugin kernels' wrappers, by module
+PLUGIN = {
+    "hetero_place": "nomad_tpu_torch.scheduler.hetero",
+    "cp_place": "nomad_tpu_torch.device.cp",
+    "cp_gang_place": "nomad_tpu_torch.device.cp",
+}
+# operations of the plugin kernels (the bound counts them on this run's
+# data). hetero: per (group, node) cell of the first scan 14 (4 adds, 4
+# compares, 2 tests, the key's division and its compare, 2 ands), per
+# group and step 20 (the job key's 3-5 ops, its compare, the column
+# check's 12 and the key compare); cp: per (group, node) cell of a round
+# 16 (4 adds, 4 compares, the distinct test's add and compare, 2 ands,
+# the priced utility's 2 subs, a mul and the compare), 24 with the gang
+# term (3 table reads' multiply-adds, the conversion, the scale, the
+# add), per node and round 10 (4 usage adds, the price update's max,
+# mul, add, compare, sub, max)
+HETERO_OPS_PER_CELL = 14
+HETERO_OPS_PER_GROUP_STEP = 20
+CP_OPS_PER_CELL = 16
+CP_GANG_OPS_PER_CELL = 24
+CP_OPS_PER_NODE_ROUND = 10
+PLAIN_TIMED = 1  # plain runs timed (host syncs every step or round)
+
+
+def plugin_module(name):
+    return importlib.import_module(PLUGIN[name])
+
+
+def mixed_nodes(h, n_nodes=PLUGIN_NODES, seed=42):
+    """``build_mixed_fleet``'s recipe as mock nodes in the store: a device
+    class drawn seeded from ``DEVICE_CLASSES``, 4,000 / 8,000 / 16,000
+    MHz and 8,192 / 16,384 / 32,768 MiB by class index mod 3."""
+    from nomad_tpu_torch import mock
+
+    kind = np.random.default_rng(seed).integers(0, len(DEVICE_CLASSES), n_nodes)
+    for i in range(n_nodes):
+        node = mock.node(device_class=DEVICE_CLASSES[kind[i]])
+        node.node_resources.cpu = (4000, 8000, 16000)[kind[i] % 3]
+        node.node_resources.memory_mb = (8192, 16384, 32768)[kind[i] % 3]
+        node.compute_class()
+        h.store.upsert_node(h.next_index(), node)
+
+
+@contextlib.contextmanager
+def capturing(cls):
+    """Stands in for ``cls.place`` while a path runs and keeps, per pass,
+    the node ids its results chose for each (job, group)."""
+    real = cls.place
+    passes = []
+
+    def place(self, cluster, asks, **kwargs):
+        results = real(self, cluster, asks, **kwargs)
+        passes.append({
+            (a.job_id, a.tg_name): sorted(
+                cluster.node_ids[int(r)] for r in res.node_rows if r >= 0
+            )
+            for a, res in zip(asks, results)
+        })
+        return results
+
+    cls.place = place
+    try:
+        yield passes
+    finally:
+        cls.place = real
+
+
+def committed_nodes(h, job):
+    """(job id, group) → sorted node ids of the job's live allocs."""
+    out = {}
+    for a in h.store.allocs_by_job(job.namespace, job.id):
+        if not a.terminal_status():
+            out.setdefault((job.id, a.task_group), []).append(a.node_id)
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def check_committed(h, jobs, passes, what):
+    """Every alloc of the path lies where its kernel pass put it: the plan
+    committed the pass's choices, none moved by the repair walk."""
+    chosen = {}
+    for p in passes:
+        chosen.update(p)
+    for job in jobs:
+        for key, nodes in committed_nodes(h, job).items():
+            assert chosen.get(key) == nodes, f"{what}: {key} not where its pass put it"
+
+
+def run_evals(h, jobs):
+    """One eval per job through the Harness; host seconds per eval."""
+    from nomad_tpu_torch import mock
+
+    lat = []
+    for j in jobs:
+        ev = mock.eval_for(j)
+        h.store.upsert_evals(h.next_index(), [ev])
+        t1 = time.perf_counter()
+        h.process(ev)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t1)
+    return lat
+
+
+def path_summary(name, lat, placed, h, first_result, launches):
+    results = h.results[first_result:]
+    rejected = sum(len(r.rejected_nodes) for r in results)
+    over = committed_overcommit(h.store)
+    lat_ms = np.array(lat) * 1e3
+    run_s = float(np.sum(lat))
+    log(
+        f"[{name}] {len(lat)} evals in {run_s:.3f} s: evals/s={len(lat) / run_s!r} "
+        f"allocs/s={placed / run_s!r} eval p50_ms={float(np.percentile(lat_ms, 50))!r} "
+        f"p99_ms={float(np.percentile(lat_ms, 99))!r}; placed {placed}; rejected plan "
+        f"nodes {rejected}; over-committed nodes {over}; launches {launches}"
+    )
+    assert rejected == 0, f"{name}: a plan had rejected nodes"
+    assert over == 0, f"{name}: a node is over-committed in the store"
+    return {
+        "evals": len(lat), "placed": placed, "seconds": run_s,
+        "p50_ms": float(np.percentile(lat_ms, 50)),
+        "p99_ms": float(np.percentile(lat_ms, 99)),
+    }
+
+
+def live(h, jobs):
+    return [
+        a for j in jobs for a in h.store.allocs_by_job(j.namespace, j.id)
+        if not a.terminal_status()
+    ]
+
+
+def hetero_path(dev, seed=42):
+    """The "hetero" path: 10,000 mixed-class nodes, 12 jobs carrying
+    ``build_mixed_asks``'s throughput profiles, 250 allocs each, four
+    under each hetero policy in turn. Returns the Harness, the launch
+    counts, the recorded calls and the summary."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.scheduler import Harness
+    from nomad_tpu_torch.scheduler import hetero as H
+    from nomad_tpu_torch.state import SchedulerConfiguration
+
+    t0 = time.perf_counter()
+    h = Harness(device=dev)
+    mixed_nodes(h)
+    rng = np.random.default_rng(seed + 1)
+    jobs = []
+    for j in range(len(HETERO_POLICIES) * HETERO_JOBS_PER_POLICY):
+        job = mock.job()
+        job.id = f"hetero-{j}"
+        job.throughputs = H.throughput_profile(j, DEVICE_CLASSES)
+        tg = job.task_groups[0]
+        tg.count = HETERO_COUNT
+        tg.tasks[0].resources.cpu = int(rng.choice([500, 1000, 2000]))
+        tg.tasks[0].resources.memory_mb = int(rng.choice([512, 1024, 2048]))
+        h.store.upsert_job(h.next_index(), job)
+        jobs.append(job)
+    log(f"[hetero] set-up {time.perf_counter() - t0:.3f} s ({PLUGIN_NODES} nodes, {len(jobs)} jobs)")
+
+    first_result = len(h.results)
+    lat = []
+    zero_counters()
+    with recording(H, "hetero_place") as calls, capturing(H.HeteroPlacementKernel) as passes:
+        for p, policy in enumerate(HETERO_POLICIES):
+            h.store.set_scheduler_config(h.next_index(), SchedulerConfiguration(
+                scheduler_algorithm=f"hetero-{policy}"
+            ))
+            lat += run_evals(h, jobs[p * HETERO_JOBS_PER_POLICY:(p + 1) * HETERO_JOBS_PER_POLICY])
+    launches = counters()
+
+    allocs = live(h, jobs)
+    summary = path_summary("hetero", lat, len(allocs), h, first_result, launches)
+    assert len(allocs) == len(jobs) * HETERO_COUNT, "not every alloc was placed"
+    check_committed(h, jobs, passes, "hetero")
+    # each alloc on a node of a class that maximizes its policy's node key
+    by_id = {j.id: (j, HETERO_POLICIES[i // HETERO_JOBS_PER_POLICY]) for i, j in enumerate(jobs)}
+    for a in allocs:
+        job, policy = by_id[a.job_id]
+
+        def key(c):
+            tp = job.throughputs.get(c, 1.0)
+            return tp / H.DEVICE_CLASS_COSTS.get(c, 1.0) if policy == "cost" else tp
+
+        best = max(key(c) for c in DEVICE_CLASSES)
+        assert key(h.store.node_by_id(a.node_id).device_class) == best, (a.job_id, policy)
+    assert launches["hetero_place"] == len(jobs) == len(calls)
+    assert launches["place_closed_form"] == launches["score_matrix"] == 0
+    assert all(launches[n] == 0 for n in ("cp_place", "cp_gang_place"))
+    return h, launches, calls, summary
+
+
+def cp_path(h, seed=43):
+    """The "cp" path, on the hetero path's cluster with cp-pack: 12 jobs of
+    3 groups x 40 allocs at ``build_cp_asks``'s asks (the profile asks x 4,
+    priorities 30 / 50 / 80, every 4th job distinct_hosts). Returns the
+    launch counts, the recorded calls and the summary."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.device import cp as C
+    from nomad_tpu_torch.scheduler import cp as SC
+    from nomad_tpu_torch.scheduler import hetero as H
+    from nomad_tpu_torch.state import SchedulerConfiguration
+    from nomad_tpu_torch.structs import Constraint, Resources, Task, TaskGroup
+
+    h.store.set_scheduler_config(h.next_index(), SchedulerConfiguration(
+        scheduler_algorithm="cp-pack"
+    ))
+    rng = np.random.default_rng(seed)
+    jobs = []
+    for j in range(CP_JOBS):
+        job = mock.job(priority=(30, 50, 80)[j % 3])
+        job.id = f"cp-{j}"
+        job.throughputs = H.throughput_profile(j, DEVICE_CLASSES)
+        cpu = 4 * int(rng.choice([500, 1000, 2000]))
+        mem = 4 * int(rng.choice([512, 1024, 2048]))
+        job.task_groups = [
+            TaskGroup(name=f"tg{k}", count=CP_COUNT, tasks=[
+                Task(name=f"tg{k}", driver="exec", resources=Resources(cpu=cpu, memory_mb=mem))
+            ])
+            for k in range(CP_GROUPS)
+        ]
+        if j % 4 == 3:
+            job.constraints.append(Constraint(operand="distinct_hosts"))
+        h.store.upsert_job(h.next_index(), job)
+        jobs.append(job)
+
+    first_result = len(h.results)
+    zero_counters()
+    with recording(C, "cp_place") as calls, capturing(SC.CpPlacementKernel) as passes:
+        lat = run_evals(h, jobs)
+    launches = counters()
+
+    allocs = live(h, jobs)
+    summary = path_summary("cp", lat, len(allocs), h, first_result, launches)
+    assert len(allocs) == CP_JOBS * CP_GROUPS * CP_COUNT, "not every alloc was placed"
+    check_committed(h, jobs, passes, "cp")
+    for j in jobs[3::4]:
+        nodes = [a.node_id for a in live(h, [j])]
+        assert len(nodes) == len(set(nodes)), f"{j.id}: distinct_hosts broken"
+    assert launches["cp_place"] == len(jobs) == len(calls)
+    assert launches["score_matrix"] == CP_GROUPS * len(jobs)
+    assert launches["place_closed_form"] == launches["hetero_place"] == 0
+    return launches, calls, summary
+
+
+def gang_nodes(h, n_nodes=PLUGIN_NODES, seed=44):
+    """``build_topo_fleet``'s recipe as mock nodes (4,000 MHz / 8,192 MiB):
+    contiguous racks of ``GANG_RACK_NODES``, pods of
+    ``GANG_RACKS_PER_POD`` racks, ici slices of half a rack, and a seeded
+    0-30 % background load as one ballast alloc per node."""
+    from nomad_tpu_torch import mock
+
+    rng = np.random.default_rng(seed)
+    ballast = mock.batch_job(priority=20)
+    ballast.id = "gang-ballast"
+    h.store.upsert_job(h.next_index(), ballast)
+    allocs = []
+    for i in range(n_nodes):
+        rack = i // GANG_RACK_NODES
+        node = mock.node(topology={
+            "rack": f"r{rack:03d}",
+            "pod": f"p{rack // GANG_RACKS_PER_POD:02d}",
+            "ici": f"i{i // (GANG_RACK_NODES // 2):04d}",
+        })
+        h.store.upsert_node(h.next_index(), node)
+        load = float(rng.uniform(0.0, 0.3))
+        a = mock.alloc(ballast, node)
+        a.name = f"{ballast.id}.worker[{i}]"
+        a.resources = dataclasses.replace(
+            a.resources, cpu=int(4000 * load), memory_mb=int(8192 * load)
+        )
+        allocs.append(a)
+    h.store.upsert_allocs(h.next_index(), allocs)
+
+
+def gang_path(dev, seed=45):
+    """The "gang" path: 10,000 rack/pod/ici nodes with background load,
+    cp-gang, 16 gang jobs of 3 groups x 4 allocs (even jobs colocate in a
+    rack, odd jobs spread over pods), then one gang whose second group
+    fits nowhere and must release whole. Returns the launch counts, the
+    recorded calls and the summary."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.device import cp as C
+    from nomad_tpu_torch.scheduler import Harness
+    from nomad_tpu_torch.scheduler import cp as SC
+    from nomad_tpu_torch.state import SchedulerConfiguration
+    from nomad_tpu_torch.structs import Resources, Task, TaskGroup
+
+    t0 = time.perf_counter()
+    h = Harness(device=dev)
+    h.store.set_scheduler_config(h.next_index(), SchedulerConfiguration(
+        scheduler_algorithm="cp-gang"
+    ))
+    gang_nodes(h)
+    rng = np.random.default_rng(seed)
+
+    def gang_job(name, asks, stanza):
+        job = mock.job()
+        job.id = name
+        job.task_groups = [
+            TaskGroup(name=f"tg{k}", count=count, tasks=[
+                Task(name=f"tg{k}", driver="exec", resources=Resources(cpu=cpu, memory_mb=mem))
+            ])
+            for k, (count, cpu, mem) in enumerate(asks)
+        ]
+        job.gang = {"groups": [tg.name for tg in job.task_groups], **stanza}
+        h.store.upsert_job(h.next_index(), job)
+        return job
+
+    jobs = []
+    for j in range(GANG_JOBS):
+        cpu = int(rng.choice([1600, 1800, 2000]))
+        mem = int(rng.choice([3200, 3600, 4000]))
+        stanza = (
+            {"colocate": {"level": "rack", "weight": 2.0}} if j % 2 == 0
+            else {"spread": {"level": "pod", "weight": 1.0}}
+        )
+        jobs.append(gang_job(f"gang-{j}", [(GANG_COUNT, cpu, mem)] * GANG_GROUPS, stanza))
+    bad = gang_job("gang-infeasible", [(2, 500, 256), (2, 100_000, 256)],
+                   {"colocate": {"level": "rack", "weight": 2.0}})
+    log(f"[gang] set-up {time.perf_counter() - t0:.3f} s ({PLUGIN_NODES} nodes, {len(jobs) + 1} gang jobs)")
+
+    first_result = len(h.results)
+    zero_counters()
+    with recording(C, "cp_gang_place_ids") as calls, \
+            capturing(SC.CpGangPlacementKernel) as passes:
+        lat = run_evals(h, jobs + [bad])
+    launches = counters()
+
+    allocs = live(h, jobs)
+    summary = path_summary("gang", lat, len(allocs), h, first_result, launches)
+    assert len(allocs) == GANG_JOBS * GANG_GROUPS * GANG_COUNT, "not every alloc was placed"
+    check_committed(h, jobs, passes, "gang")
+    # the topology term satisfied, as _gang_quality reads it
+    for j, job in enumerate(jobs):
+        nodes = [h.store.node_by_id(a.node_id) for a in live(h, [job])]
+        if j % 2 == 0:
+            assert len({n.topology["rack"] for n in nodes}) == 1, (
+                f"{job.id}: not in one rack",
+                sorted((n.topology["rack"], n.id[:6]) for n in nodes),
+            )
+        else:
+            assert len({n.topology["pod"] for n in nodes}) > 1, f"{job.id}: in one pod"
+    # the infeasible gang released whole into one blocked eval
+    assert live(h, [bad]) == [], "the infeasible gang left allocs"
+    blocked = [e for e in h.created_evals if e.job_id == bad.id and e.status == "blocked"]
+    assert len(blocked) == 1, f"{len(blocked)} blocked evals for the released gang"
+    failed = [e for e in h.evals if e.job_id == bad.id and e.failed_tg_allocs]
+    assert failed and set(failed[-1].failed_tg_allocs) == {"tg0", "tg1"}
+    assert all(
+        m.rejections.get("gang-infeasible", 0) >= 1
+        for m in failed[-1].failed_tg_allocs.values()
+    )
+    log(f"[gang] {len(jobs)} gangs placed whole with their topology term satisfied; "
+        f"gang-infeasible released whole into one blocked eval")
+    assert launches["cp_gang_place"] == len(jobs) + 1 == len(calls)
+    assert launches["score_matrix"] == GANG_GROUPS * len(jobs) + 2
+    assert launches["place_closed_form"] == launches["cp_place"] == 0
+    return launches, calls, summary
+
+
+def batch_paths(dev):
+    """The whole-backlog harnesses at full width: ``run_hetero_ab`` (30
+    jobs x 100, one pass a policy), ``run_cp_ab`` (100 jobs x 40) and
+    ``run_gang_ab`` at its reference size and at 10,000 nodes (100 gang
+    jobs x 3 groups), each with the counters zeroed just before it and
+    read just after. Returns the launch counts, the recorded calls and
+    the reports by path."""
+    from nomad_tpu_torch.device import cp as C
+    from nomad_tpu_torch.scheduler import cp as SC
+    from nomad_tpu_torch.scheduler import hetero as H
+
+    runs = {  # (module, wrapper recorded, its counter, run)
+        "hetero_batch": (H, "hetero_place", "hetero_place", lambda: H.run_hetero_ab(
+            n_nodes=PLUGIN_NODES, n_jobs=30, count_per_job=100, device=dev)),
+        "cp_batch": (C, "cp_place", "cp_place", lambda: SC.run_cp_ab(
+            n_nodes=PLUGIN_NODES, n_jobs=100, count_per_job=40, device=dev)),
+        "gang_batch": (C, "cp_gang_place_ids", "cp_gang_place", lambda: [
+            SC.run_gang_ab(device=dev),
+            SC.run_gang_ab(n_nodes=PLUGIN_NODES, n_jobs=100, groups=3, device=dev),
+        ]),
+    }
+    by_path, calls, reports = {}, {}, {}
+    for path, (module, fn, name, run) in runs.items():
+        t0 = time.perf_counter()
+        zero_counters()
+        with recording(module, fn) as rec:
+            report = run()
+        by_path[path] = counters()
+        calls[path] = rec
+        reports[path] = report
+        seconds = time.perf_counter() - t0
+        for r in report if isinstance(report, list) else [report]:
+            log(f"[{path}] {seconds:.3f} s; report {json.dumps(r, sort_keys=True)}")
+            assert r["oracle_mismatches"] == 0, f"{path}: the kernel and plain differ"
+            if path == "gang_batch":
+                c = r["cp_gang"]
+                assert c["gangs_intact"] == c["topology_satisfied"] == r["config"]["gangs"]
+        log(f"[{path}] launches {by_path[path]}")
+        assert by_path[path][name] == len(rec) > 0
+    return by_path, calls, reports
+
+
+HETERO_INPUTS = ("capacity", "used0", "asks", "counts", "eligible", "tp", "tpmax", "cost")
+CP_INPUTS = (
+    "capacity", "used0", "asks", "counts", "eligible", "scores", "prio",
+    "job_counts", "distinct", "jobgrp",
+)
+# the gang inputs of cp_gang_place_ids, the form the kernel object passes
+GANG_INPUTS = ("gang", "w_rack", "w_pod", "w_ici", "level_ids", "widths")
+
+
+def plugin_args(fn, c):
+    """(positional inputs, steps, max_c[, policy]) of a recorded call of
+    the wrapper ``fn``."""
+    if fn == "hetero_place":
+        return [c[k] for k in HETERO_INPUTS], (c["policy"], c["steps"], c["max_c"])
+    inputs = [c[k] for k in CP_INPUTS]
+    if fn == "cp_gang_place_ids":
+        inputs += [c[k] for k in GANG_INPUTS]
+    return inputs + [c["lam0"]], (c["steps"], c["max_c"])
+
+
+def plugin_bound(name, args, statics, outs):
+    """The least time for the function on these inputs: every input the
+    launch reads (for the gang kernel, the per-node level ids) read
+    once and every output written once over HBM, or the operations of the
+    steps (hetero) or rounds (cp) this run's data made it take over the
+    f32 rate, whichever is larger. cp counts a (group, node) cell for
+    each placement and each lost claim (every such group was active in
+    that round), a node for each round run."""
+    t_bytes = (nbytes(*args) + nbytes(*outs)) / HBM_BYTES_PER_S * 1e3
+    g, n = args[4].shape
+    if name == "hetero_place":
+        steps = int((outs[0] >= 0).sum())
+        ops = g * n * HETERO_OPS_PER_CELL + steps * g * HETERO_OPS_PER_GROUP_STEP
+        work = {"steps": steps}
+    else:
+        rounds = int(outs[3])
+        run = min(rounds + 1, statics[0])
+        cells = int((outs[0] >= 0).sum())
+        per_cell = CP_OPS_PER_CELL
+        if name == "cp_gang_place":
+            cells += int(outs[5].sum())
+            per_cell = CP_GANG_OPS_PER_CELL
+        ops = cells * n * per_cell + run * n * CP_OPS_PER_NODE_ROUND
+        work = {"rounds": rounds, "rounds_run": run}
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", work
+
+
+def plugin_ms(name, args, statics):
+    """Device ms of the bare kernel on prepared outputs, without a host
+    sync: hetero-greedy from a graph replay, each launch with the copy
+    and fills that reset its outputs; the cooperative CP auction by
+    ``queued_ms``, its resets outside the windows. ``args`` of the gang
+    kernel are in the id form."""
+    from nomad_tpu_torch.device import cp as C
+    from nomad_tpu_torch.scheduler import hetero as H
+
+    if name == "hetero_place":
+        policy, steps, max_c = statics
+        choices, choice_tp, used = H.hetero_place(*args, policy, steps, max_c)
+        scratch = torch.empty(5 * args[5].shape[0], dtype=torch.int32, device=used.device)
+
+        def launch():
+            used.copy_(args[1])
+            choices.fill_(-1)
+            choice_tp.zero_()
+            H._hetero_call(args, policy, steps, max_c, scratch, choices, choice_tp, used)
+
+        return graph_ms(launch)
+    common = (*args[:10], args[-1])
+    gang_args = tuple(args[10:16]) if name == "cp_gang_place" else None
+    call = C._auction_call(name, common, *statics, gang_args)
+    return queued_ms(call.reset, call)
+
+
+def same_outputs(got, want, what):
+    for i, (g, w) in enumerate(zip(got, want)):
+        same = torch.equal(g.reshape(-1).view(torch.int32), w.reshape(-1).view(torch.int32))
+        assert same, f"{what}: output {i} differs from plain"
+
+
+def check_plugin(name, fn, args, statics, timed, label=""):
+    """One call of a plugin kernel through its wrapper ``fn`` and the plain
+    version on the same inputs: every output identical, bit for bit; the
+    kernel timed (``plugin_ms``), with ``timed`` the plain version and the
+    bound too."""
+    module = plugin_module(name)
+    kernel = getattr(module, fn)
+    plain = getattr(module, f"{fn}_plain")
+    got = kernel(*args, *statics)
+    want = plain(*args, *statics)
+    torch.cuda.synchronize()
+    same_outputs(got, want, f"{name}{label}")
+    out = {"max_abs_err": 0.0, "choice_mismatches": 0, "ms": plugin_ms(name, args, statics)}
+    bound, by, work = plugin_bound(name, args, statics, got)
+    out.update(work)
+    if timed:
+        run_plain = lambda: plain(*args, *statics)  # noqa: E731
+        g, n = args[4].shape
+        out.update({
+            "stream_ms": out["ms"],
+            "plain_ms": cuda_ms(run_plain, iters=PLAIN_TIMED, warmup=0),
+            "bound_ms": bound,
+            "bound_by": by,
+            "placed": int((got[0] >= 0).sum()),
+            "shape": f"G={g} N={n} C={statics[-1]}{label}",
+        })
+        out["plain_stream_ms"] = out["plain_ms"]
+        log(
+            f"[{name}{label}] kernel_ms={out['ms']!r} plain_ms={out['plain_ms']!r} "
+            f"bound_ms={bound!r} ({by}); {work}, {out['placed']} placed"
+        )
+    return out
+
+
+def replay_plugin(name, fn, calls, path):
+    """Every recorded call of a plugin kernel's wrapper ``fn`` on a path,
+    through the kernel and the plain version; each call's kernel timed
+    ("path_ms" is their sum), the last one in full."""
+    per_call, work = [], []
+    for i, c in enumerate(calls):
+        args, statics = plugin_args(fn, c)
+        out = check_plugin(name, fn, args, statics, timed=i == len(calls) - 1,
+                           label=f" ({path}, last call)")
+        per_call.append(out["ms"])
+        work.append(out.get("steps", out.get("rounds")))
+    log(
+        f"[{name}] {len(calls)} recorded {path} calls replayed, all identical to "
+        f"plain; kernel time over the calls path_ms={sum(per_call)!r}; steps or "
+        f"rounds per call {work}"
+    )
+    out["path_ms"] = sum(per_call)
+    out["steps_or_rounds_per_launch"] = work
+    return out
+
+
+def plugin_phase_inputs(dev):
+    """(name, wrapper, label, args, statics, one-hot args) of phase 8:
+    each plugin kernel alone at N 16,384 on seeded inputs at G 1, 30 and
+    100, and a tie-heavy case (equal keys, scores and priorities,
+    all-infeasible rows, -0.0 in used0). The gang kernel's cases are in
+    the id form, with the same inputs in the one-hot form beside them."""
+    from nomad_tpu_torch.scheduler import cp as SC
+    from nomad_tpu_torch.scheduler import hetero as H
+
+    mixed = H.build_mixed_fleet(PLUGIN_NODES, seed=42)
+    topo = SC.build_topo_fleet(
+        PLUGIN_NODES, seed=42, racks=PLUGIN_NODES // GANG_RACK_NODES,
+        pods=PLUGIN_NODES // GANG_RACK_NODES // GANG_RACKS_PER_POD,
+    )
+
+    def tie(args, scores_at=None, prio_at=None):
+        args = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+        used0 = args[1]
+        used0[used0 == 0] = -0.0
+        args[4][:3] = False  # all-infeasible rows
+        if scores_at is not None:
+            args[scores_at].zero_()
+            args[prio_at].fill_(50.0)
+        return args
+
+    cases = []
+    for label, g, count, policy in (("g1", 1, 250, 0), ("g30", 30, 100, 0), ("g30", 30, 100, 1),
+                                    ("g30", 30, 100, 2), ("g100", 100, 40, 2)):
+        b = H.build_hetero_batch(mixed, H.build_mixed_asks(mixed, g, count, seed=7))
+        cases.append(("hetero_place", "hetero_place", f"{label} {HETERO_POLICIES[policy]}",
+                      list(b.tensors(dev)), (policy, b.steps, b.max_c), None))
+    b = H.build_hetero_batch(mixed, H.build_mixed_asks(mixed, 30, 100, seed=7))
+    args = tie(b.tensors(dev))
+    args[5].fill_(1.0)  # every node key ties: index order decides
+    args[6].fill_(1.0)
+    cases.append(("hetero_place", "hetero_place", "ties maxmin", args,
+                  (0, b.steps, b.max_c), None))
+
+    for label, g in (("g1", 1), ("g30", 30), ("g100", 100)):
+        asks = SC.build_cp_asks(mixed, g, 40, seed=7)
+        lam0 = SC.perturb_prices(mixed.padded_n) if g == 30 else None
+        b = SC.build_cp_batch(mixed, asks, lam0=lam0, device=dev)
+        cases.append(("cp_place", "cp_place", label + (" lam0 perturbed" if g == 30 else ""),
+                      list(b.tensors(dev)), (b.steps, b.max_c), None))
+    cases.append(("cp_place", "cp_place", "ties", tie(b.tensors(dev), 5, 6),
+                  (b.steps, b.max_c), None))
+
+    for label, jobs, groups in (("g1", 1, 1), ("g30", 10, 3), ("g100", 25, 4)):
+        asks = SC.build_gang_asks(topo, jobs, groups, seed=7)
+        b = SC.build_cp_batch(topo, asks, device=dev)
+        common = b.tensors(dev)
+        gi = SC.build_gang_inputs(topo, asks)
+        ids = [*common[:10], *gi.id_tensors(dev), common[10]]
+        onehot = [*common[:10], *gi.tensors(dev), common[10]]
+        cases.append(("cp_gang_place", "cp_gang_place_ids", label, ids,
+                      (b.steps, b.max_c), onehot))
+    cases.append(("cp_gang_place", "cp_gang_place_ids", "ties", tie(ids, 5, 6),
+                  (b.steps, b.max_c), tie(onehot, 5, 6)))
+    return cases
+
+
+def plugin_kernel_phase(dev):
+    """Phase 8: the plugin kernels alone, every case identical to plain;
+    the gang cases' one-hot form identical to the id form too."""
+    from nomad_tpu_torch.device import cp as C
+
+    out = {}
+    for name, fn, label, args, statics, onehot in plugin_phase_inputs(dev):
+        r = check_plugin(name, fn, args, statics, timed=True, label=f" phase 8 {label}")
+        if onehot is not None:
+            got = C.cp_gang_place(*onehot, *statics)
+            same_outputs(got, C.cp_gang_place_plain(*onehot, *statics),
+                         f"{name} phase 8 {label} one-hot form")
+            same_outputs(got, C.cp_gang_place_ids(*args, *statics),
+                         f"{name} phase 8 {label} one-hot vs id form")
+        out.setdefault(name, {})[label] = {k: r[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "placed", "shape",
+            *(("steps",) if name == "hetero_place" else ("rounds", "rounds_run")),
+        )}
+    return out
+
+
 def kernel_entry(name, route, source, replaces, path, by_path, main, extra):
     keys = ("max_abs_err", "choice_mismatches", "ms", "plain_ms", "bound_ms",
             "bound_by", "stream_ms", "plain_stream_ms", "shape")
@@ -1529,6 +2232,7 @@ def main() -> int:
     from nomad_tpu_torch import backend
     from nomad_tpu_torch.device import score as S
 
+    t_start = time.perf_counter()
     dev = backend.resolve_device("cuda")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     card = card_line()
@@ -1585,12 +2289,38 @@ def main() -> int:
     by_path["system"], system_calls, _ = system_path(h)
     sm_system = replay_score_matrix(system_calls, path="system")
     del h, system_calls
+    h, by_path["hetero"], hetero_calls, _ = hetero_path(dev)
+    by_path["cp"], cp_calls, _ = cp_path(h)
+    del h
+    by_path["gang"], gang_calls, _ = gang_path(dev)
+    batch_by_path, batch_calls, _ = batch_paths(dev)
+    by_path.update(batch_by_path)
+    plugin_main = {
+        name: replay_plugin(name, fn, calls, path)
+        for name, fn, calls, path in (
+            ("hetero_place", "hetero_place", hetero_calls, "hetero"),
+            ("cp_place", "cp_place", cp_calls, "cp"),
+            ("cp_gang_place", "cp_gang_place_ids", gang_calls, "gang"),
+        )
+    }
+    plugin_batch = {
+        name: replay_plugin(name, fn, batch_calls[path], path)
+        for name, fn, path in (
+            ("hetero_place", "hetero_place", "hetero_batch"),
+            ("cp_place", "cp_place", "cp_batch"),
+            ("cp_gang_place", "cp_gang_place_ids", "gang_batch"),
+        )
+    }
+    del hetero_calls, cp_calls, gang_calls, batch_calls
 
     # phase 6: the coupled placements against the stepwise oracle
     full_parity(dev)
 
     # phase 7: the preemption kernels alone, both forms and a tied case
     preempt_phase = preempt_kernel_phase(dev)
+
+    # phase 8: the plugin kernels alone, G 1 / 30 / 100 and a tied case
+    plugin_phase = plugin_kernel_phase(dev)
 
     def headline(r, shape):
         return {
@@ -1660,7 +2390,28 @@ def main() -> int:
             ("find_preemption", "nomad_tpu/device/preempt.py:61"),
             ("choose_preemption_node", "nomad_tpu/device/preempt.py:116"),
         )
+    ] + [
+        kernel_entry(
+            name, "cuda", source, replaces, path, by_path, plugin_main[name],
+            {
+                "path_ms": plugin_main[name]["path_ms"],
+                "steps_or_rounds_per_launch": plugin_main[name]["steps_or_rounds_per_launch"],
+                "batch": {k: v for k, v in plugin_batch[name].items() if k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "path_ms", "shape",
+                    "steps_or_rounds_per_launch",
+                )},
+                "kernel_phase": plugin_phase[name],
+            },
+        )
+        for name, source, replaces, path in (
+            ("hetero_place", "nomad_tpu_torch/csrc/hetero.cu",
+             "nomad_tpu/scheduler/hetero.py:157", "hetero"),
+            ("cp_place", "nomad_tpu_torch/csrc/cp.cu", "nomad_tpu/device/cp.py:134", "cp"),
+            ("cp_gang_place", "nomad_tpu_torch/csrc/cp.cu",
+             "nomad_tpu/device/cp.py:360", "gang"),
+        )
     ]
+    log(f"[total] {time.perf_counter() - t_start:.1f} s, builds included")
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(

@@ -193,6 +193,15 @@ class DeviceStateCache:
         device_class_ids, _ = ct.device_class_column()
         device_class_ids = device_class_ids.copy()
         device_class_vocab = dict(ct.device_class_vocab)
+        # the topology columns ride along (the reference's refresh drops
+        # them, so every node reads as coordinate-less after the first
+        # commit and cp-gang loses its topology term); a changed node's
+        # coordinates fold into its computed class, which rebuilds above
+        topo_ids = [col.copy() for col in ct.topology_columns()]
+        topo_vocabs = [
+            dict(ct.topo_rack_vocab), dict(ct.topo_pod_vocab),
+            dict(ct.topo_ici_vocab),
+        ]
         num_nodes = ct.num_nodes
         # attribute columns referencing changed nodes go stale; drop them
         # (recomputed lazily — node attribute changes are rare next to
@@ -215,6 +224,9 @@ class DeviceStateCache:
             device_class_ids[row] = device_class_vocab.setdefault(
                 getattr(node, "device_class", ""), len(device_class_vocab)
             )
+            topo = getattr(node, "topology", None) or {}
+            for level, ids, vocab in zip(("rack", "pod", "ici"), topo_ids, topo_vocabs):
+                ids[row] = vocab.setdefault(topo.get(level, ""), len(vocab))
             capacity[row] = node_comparable_capacity(node).to_vector()
             ready[row] = node.ready()
             used[row] = _node_used(snap, node.id, dims)
@@ -264,6 +276,12 @@ class DeviceStateCache:
             device_class_vocab=device_class_vocab,
             region_ids=region_ids,
             region_vocab=region_vocab,
+            topo_rack_ids=topo_ids[0],
+            topo_pod_ids=topo_ids[1],
+            topo_ici_ids=topo_ids[2],
+            topo_rack_vocab=topo_vocabs[0],
+            topo_pod_vocab=topo_vocabs[1],
+            topo_ici_vocab=topo_vocabs[2],
             # incremental refresh never reorders existing rows (new nodes
             # append) — row-indexed overlays stay valid
             layout_gen=ct.layout_gen,

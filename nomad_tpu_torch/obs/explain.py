@@ -17,7 +17,7 @@ scheduler/server side). Three pieces:
   penalty, affinity, spread boost, throughput), a feasibility-rejection
   histogram bucketed by structured reason, and the committed placement
   rows.
-- ``explain_group``: host-side NumPy mirrors
+- ``explain_group`` / ``explain_hetero_group``: host-side NumPy mirrors
   of the kernels' component semantics (the same math as
   ``device.score._rescore_pick``, which the conflict-repair walk
   already trusts as the exact oracle). Explanations are *observational*:
@@ -373,6 +373,132 @@ def explain_group(
         )
         for r, (comps, f) in zip(order, breakdown)
     ]
+    return ex
+
+
+def explain_hetero_group(
+    cluster,
+    a,
+    used0,
+    *,
+    policy: str,
+    tp_row,
+    tpmax: float,
+    cost,
+    top_k: int = DEFAULT_TOP_K,
+) -> PlacementExplanation:
+    """Explanation for one lane of the joint hetero pass. Candidates
+    rank by the policy's node key (throughput for maxmin/makespan,
+    throughput-per-cost for cost — scheduler/hetero.py _node_keys) so
+    the top candidate is the node the joint greedy takes first; the
+    reported score stays the tp-share in [0, 1] like PlacementResult."""
+    n = cluster.num_nodes
+    capacity = np.asarray(cluster.capacity)
+    used = np.asarray(used0)
+    fits, rejections = _feasibility(capacity, used, a, n, tp_row)
+    ex = PlacementExplanation(
+        job_id=a.job_id,
+        tg_name=a.tg_name,
+        algorithm=f"hetero-{policy}",
+        policy=policy,
+        nodes_evaluated=n,
+        feasible_nodes=int(fits.sum()),
+        rejections=rejections,
+    )
+    if not fits.any() or a.count <= 0:
+        return ex
+    tp = np.asarray(tp_row[:n], dtype=np.float64)
+    cost_n = np.asarray(cost[:n], dtype=np.float64)
+    key = tp / np.maximum(cost_n, 1e-9) if policy == "cost" else tp
+    key = np.where(fits, key, -np.inf)
+    order = np.argsort(-key, kind="stable")[: max(top_k, 1)]
+    order = order[key[order] > -np.inf]
+    denom = max(float(tpmax), 1e-9)
+    for r in order:
+        comps = {"throughput": float(tp[r] / denom)}
+        if policy == "cost":
+            comps["cost"] = float(cost_n[r])
+            comps["throughput-per-cost"] = float(key[r])
+        ex.top_candidates.append(
+            CandidateExplanation(
+                node_id=cluster.node_ids[int(r)],
+                node_row=int(r),
+                final_score=float(tp[r] / denom),
+                components=comps,
+            )
+        )
+    return ex
+
+
+def explain_cp_group(
+    cluster,
+    a,
+    used0,
+    *,
+    scores_row,
+    cp: dict | None = None,
+    top_k: int = DEFAULT_TOP_K,
+) -> PlacementExplanation:
+    """Explanation for one group of the joint CP pass (scheduler/cp.py).
+    Candidates rank by the group's dense score row — the relaxation's
+    objective coefficients, i.e. the node the fractional assignment
+    weights highest comes first — and the solver-level provenance
+    (iterations, duality-gap proxy, rounded-vs-fractional agreement)
+    rides in the ``cp`` block. Stays on the non-hetero finalize path
+    (``policy`` empty): per-instance breakdowns replay the same binpack
+    component math the score row was built from."""
+    n = cluster.num_nodes
+    capacity = np.asarray(cluster.capacity)
+    used = np.asarray(used0)
+    fits, rejections = _feasibility(capacity, used, a, n)
+    ex = PlacementExplanation(
+        job_id=a.job_id,
+        tg_name=a.tg_name,
+        algorithm="cp-pack",
+        nodes_evaluated=n,
+        feasible_nodes=int(fits.sum()),
+        rejections=rejections,
+        cp=dict(cp) if cp is not None else None,
+    )
+    if not fits.any() or a.count <= 0:
+        return ex
+    key = np.where(fits, np.asarray(scores_row[:n], dtype=np.float64),
+                   -np.inf)
+    order = np.argsort(-key, kind="stable")[: max(top_k, 1)]
+    order = order[key[order] > -np.inf]
+    for r in order:
+        ex.top_candidates.append(
+            CandidateExplanation(
+                node_id=cluster.node_ids[int(r)],
+                node_row=int(r),
+                final_score=float(key[r]),
+                components={"score-matrix": float(key[r])},
+            )
+        )
+    return ex
+
+
+def explain_cp_gang(
+    cluster,
+    a,
+    used0,
+    *,
+    scores_row,
+    cp: dict | None = None,
+    gang_info: dict | None = None,
+    top_k: int = DEFAULT_TOP_K,
+) -> PlacementExplanation:
+    """Explanation for one group of the cp-gang joint pass: the
+    cp-pack explanation plus gang provenance — which gang the group
+    belongs to, its member set, the signed topology score its final
+    placement achieved, and how many auction rounds the all-or-nothing
+    gate held its wins back (release_rounds)."""
+    ex = explain_cp_group(
+        cluster, a, used0, scores_row=scores_row, cp=cp, top_k=top_k
+    )
+    ex.algorithm = "cp-gang"
+    if gang_info is not None:
+        ex.gang = dict(gang_info)
     return ex
 
 

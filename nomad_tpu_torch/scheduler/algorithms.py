@@ -10,12 +10,11 @@ idiom one layer up (scheduler/scheduler.py) at the kernel layer.
 Everything that dispatches a placement kernel or the dense score matrix
 routes through this module, so algorithm names validate in ONE place.
 
-In the port, ``binpack`` and ``spread`` build the closed-form
-``PlacementKernel`` and ``score_group`` runs the port's ``score_matrix``;
-each takes the ``device`` its tensors live on. The hetero and CP
-algorithms stay registered (their names still validate) but raise
-``NotImplementedError`` until their kernels are ported (ROADMAP A10,
-A11).
+In the port every factory takes the ``device`` its tensors live on:
+``binpack`` and ``spread`` build the closed-form ``PlacementKernel``,
+the three ``hetero-*`` algorithms ``HeteroPlacementKernel`` (the
+hetero-greedy kernel), ``cp-pack`` and ``cp-gang`` the CP auction
+kernels, and ``score_group`` runs the port's ``score_matrix``.
 """
 
 from __future__ import annotations
@@ -107,57 +106,65 @@ class SpreadAlgorithm(SchedulerAlgorithm):
         return PlacementKernel("spread", force_scan, mesh=mesh, device=device)
 
 
-class _UnportedAlgorithm(SchedulerAlgorithm):
-    roadmap = ""
+class _HeteroAlgorithm(SchedulerAlgorithm):
+    requires_device_classes = True
+    policy = ""
 
     def make_kernel(self, force_scan: bool = False, mesh=None, device="cuda"):
-        raise NotImplementedError(
-            f"nomad_tpu_torch: the {self.name} algorithm is not ported yet "
-            f"(ROADMAP {self.roadmap})"
+        from .hetero import HeteroPlacementKernel
+
+        return HeteroPlacementKernel(
+            self.policy, force_scan, mesh=mesh, device=device
         )
-
-
-class _HeteroAlgorithm(_UnportedAlgorithm):
-    requires_device_classes = True
-    roadmap = "A10"
 
 
 @register_algorithm
 class HeteroMaxMinAlgorithm(_HeteroAlgorithm):
     name = "hetero-maxmin"
+    policy = "maxmin"
     description = "max-min fair normalized throughput across jobs (Gavel)"
 
 
 @register_algorithm
 class HeteroMakespanAlgorithm(_HeteroAlgorithm):
     name = "hetero-makespan"
+    policy = "makespan"
     description = "minimize modeled batch makespan (LPT on class rates)"
 
 
 @register_algorithm
 class HeteroCostAlgorithm(_HeteroAlgorithm):
     name = "hetero-cost"
+    policy = "cost"
     description = "maximize throughput per device-class cost"
 
 
 @register_algorithm
-class CpPackAlgorithm(_UnportedAlgorithm):
+class CpPackAlgorithm(SchedulerAlgorithm):
     name = "cp-pack"
-    roadmap = "A11"
     description = (
         "whole-batch joint placement: assignment relaxation over the "
         "score matrix, solved on device by iterated proportional rounding"
     )
 
+    def make_kernel(self, force_scan: bool = False, mesh=None, device="cuda"):
+        from .cp import CpPlacementKernel
+
+        return CpPlacementKernel(force_scan, mesh=mesh, device=device)
+
 
 @register_algorithm
-class CpGangAlgorithm(_UnportedAlgorithm):
+class CpGangAlgorithm(SchedulerAlgorithm):
     name = "cp-gang"
-    roadmap = "A11"
     description = (
         "cp-pack plus all-or-nothing gangs: topology-priced co/anti-"
         "location with atomic release of incomplete gangs"
     )
+
+    def make_kernel(self, force_scan: bool = False, mesh=None, device="cuda"):
+        from .cp import CpGangPlacementKernel
+
+        return CpGangPlacementKernel(force_scan, mesh=mesh, device=device)
 
 
 # -- registry-routed score matrix -------------------------------------------

@@ -11,10 +11,11 @@ allocations from the chosen rows (SURVEY.md §7 steps 3+5).
 
 The port binds this control flow to the PyTorch device layer: the
 scheduler's ``device`` reaches the kernel factory, the device-state
-cache and the preemption search (``device/preempt.py``). Branches whose
-kernels are not ported yet raise ``NotImplementedError`` naming their
-ROADMAP item: the hetero/CP algorithms (A10, A11, raised by the
-registry).
+cache and the preemption search (``device/preempt.py``); every
+registered algorithm (binpack, spread, hetero-*, cp-pack, cp-gang) runs
+on its ported kernel. Learned throughputs (``throughput_source =
+"learned"``, the calibration plane) are not ported and raise naming
+ROADMAP A10.
 The server's batched multi-eval pass (``prepare_batch_attempt`` and the
 merged commit) belongs with the server and is not ported yet (A9).
 """
@@ -61,6 +62,21 @@ class FailedTGAlloc:
 
     def __init__(self, metric: AllocMetric):
         self.metric = metric
+
+
+def wire_throughput_source(kernel, cfg) -> None:
+    """Calibration seam: in learned mode the reference's hetero kernel
+    reads the process-global throughput estimator instead of declared
+    jobspec coefficients. "declared" (the default, and every non-hetero
+    kernel) touches nothing; the port has no estimator, so learned mode
+    on a hetero kernel raises (ROADMAP A10, calibrate half)."""
+    if (
+        getattr(cfg, "throughput_source", "declared") == "learned"
+        and hasattr(kernel, "throughput_source")
+    ):
+        from .hetero import learned_unported
+
+        raise learned_unported()
 
 
 def tainted_nodes(snapshot, allocs) -> dict:
@@ -131,6 +147,7 @@ class GenericScheduler:
         cfg = self.snapshot.scheduler_config()
         self.scheduler_config = cfg
         self.kernel = make_kernel(cfg.scheduler_algorithm, device=self.device)
+        wire_throughput_source(self.kernel, cfg)
         self._explain = bool(getattr(cfg, "placement_explanations", True))
 
         success = False

@@ -34,6 +34,9 @@ def test_imports_with_jax_blocked():
         "nomad_tpu_torch.device.preempt",
         "nomad_tpu_torch.scheduler.preempt_host",
         "nomad_tpu_torch.scheduler.system",
+        "nomad_tpu_torch.scheduler.hetero",
+        "nomad_tpu_torch.scheduler.cp",
+        "nomad_tpu_torch.device.cp",
     ):
         assert m in mods
     code = (
@@ -91,15 +94,20 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from nomad_tpu_torch.device.cache import DeviceStateCache
     from nomad_tpu_torch.device.score import PlacementKernel
     from nomad_tpu_torch.scheduler import Harness, new_scheduler
-    from nomad_tpu_torch.scheduler.algorithms import make_kernel
+    from nomad_tpu_torch.scheduler.algorithms import available, make_kernel
+    from nomad_tpu_torch.scheduler.cp import run_cp_ab, run_gang_ab
+    from nomad_tpu_torch.scheduler.hetero import run_hetero_ab
 
     _no_cuda(monkeypatch)
     for build in (
         Harness,
         DeviceStateCache,
         PlacementKernel,
-        lambda: make_kernel("binpack"),
+        *[lambda name=name: make_kernel(name) for name in available()],
         lambda: new_scheduler("system", None, None),
+        run_hetero_ab,
+        run_cp_ab,
+        run_gang_ab,
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()
@@ -131,17 +139,31 @@ def test_score_group_raises_without_cuda(monkeypatch):
 
 
 def test_unported_paths_raise_not_implemented():
-    """The unported algorithms and the mesh raise naming their ROADMAP
-    item; the system and sysbatch schedulers (ported) construct on the
-    device asked for."""
+    """What is not ported raises naming its ROADMAP item: learned
+    throughputs (A10's calibrate half) and the mesh (A13), for every
+    algorithm. Every registered algorithm builds its kernel on the device
+    asked for, and the system and sysbatch schedulers construct there."""
     from nomad_tpu_torch.device.score import PlacementKernel
     from nomad_tpu_torch.scheduler import SystemScheduler, new_scheduler
-    from nomad_tpu_torch.scheduler.algorithms import make_kernel
+    from nomad_tpu_torch.scheduler.algorithms import available, make_kernel
+    from nomad_tpu_torch.scheduler.cp import CpGangPlacementKernel, CpPlacementKernel
+    from nomad_tpu_torch.scheduler.hetero import HeteroPlacementKernel
 
+    kinds = {
+        "binpack": PlacementKernel, "spread": PlacementKernel,
+        "hetero-maxmin": HeteroPlacementKernel,
+        "hetero-makespan": HeteroPlacementKernel,
+        "hetero-cost": HeteroPlacementKernel,
+        "cp-pack": CpPlacementKernel, "cp-gang": CpGangPlacementKernel,
+    }
+    assert sorted(kinds) == available()
+    for name, kind in kinds.items():
+        kern = make_kernel(name, device="cpu")
+        assert type(kern) is kind and kern.device == torch.device("cpu")
+        with pytest.raises(NotImplementedError, match="A13"):
+            make_kernel(name, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
-        make_kernel("hetero-maxmin", device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        make_kernel("cp-pack", device="cpu")
+        HeteroPlacementKernel("cost", throughput_source="learned", device="cpu")
     with pytest.raises(NotImplementedError, match="A13"):
         PlacementKernel(mesh=object(), device="cpu")
     for name in ("system", "sysbatch"):
