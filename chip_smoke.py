@@ -6,7 +6,8 @@ Builds the port's kernels from the sources in this checkout, holds each
 against its plain PyTorch version on the card at the shapes the main
 paths give it, then schedules service, spread, distinct_property,
 preempting, system, heterogeneity-aware, CP and gang jobs end to end through the port's
-``Harness(device="cuda")`` and checks what lands in the state store. It
+``Harness(device="cuda")`` and checks what lands in the state store,
+and repacks a fragmented fleet through the port's migration plane. It
 imports nothing of JAX and nothing of the JAX package.
 
 Phases (none is wrapped in a ``try``; any failure exits non-zero):
@@ -72,11 +73,18 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
      ``run_hetero_ab`` (10,000 nodes, 30 jobs x 100), ``run_cp_ab``
      (10,000 nodes, 100 jobs x 40) and ``run_gang_ab`` (64 nodes x 8
      jobs, and 10,000 nodes x 100 gang jobs of 3 groups);
+   - "defrag": the port's ``run_defrag_ab`` at 10,000 nodes x 20,000
+     allocs (``build_defrag_fleet``'s recipe: 4,000 MHz / 8,192 MiB
+     nodes, allocs of 200/400/800 MHz and 512/1,024/2,048 MiB scattered
+     one by one onto a random node with room), 512 moves a cycle, 4
+     cycles, seed 42 (two kernel-vs-plain checks and one migration-auction
+     launch a cycle), then at the reference's default size (48 x 96),
+     where its recovery gate holds;
    every kernel call of each path is recorded, and after the counters
    are read each recorded call is replayed through the kernel and its
-   plain version (choices and scores compared); every coupled and
-   preemption call's kernel is timed, and the last call of each kernel
-   in full;
+   plain version (choices and scores compared); every coupled,
+   preemption and migration call's kernel is timed, and the last call of
+   each kernel in full;
 6. the port's parity suite (``device/parity.py``) at full size on the
    card: each coupled config's placements against the stepwise host
    oracle, within the reference's 0.5 % score bar;
@@ -87,7 +95,13 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
    100 and a tie-heavy case (equal keys, scores and priorities,
    all-infeasible rows, -0.0 in used0), every output identical to the
    plain version;
-9. the total seconds, one JSON line of per-kernel results, the card's
+9. the migration-auction kernel alone at N 16,384 on seeded general
+   inputs (scores that differ by row, random eligibility): A 20,000 at a
+   budget of 512 and cut short after 2 rounds, A 2,000 at budgets 0, 1
+   and A, a perturbed ``lam0``, and tie-heavy cases (equal scores and
+   gains, all-infeasible rows, -0.0 in used0 and lam0) at A 2,000 and
+   256, every output identical to the plain version;
+10. the total seconds, one JSON line of per-kernel results, the card's
    name and power limit, then the device line last.
 
 Times, kernels and plain versions alike, are device times per launch
@@ -106,6 +120,10 @@ every step or round and are timed once. The gang path's kernel object
 passes per-node coordinate ids (``cp_gang_place_ids``); those calls are
 recorded and replayed, and phase 8 also holds the one-hot form
 (``cp_gang_place``, the reference's signature) against its plain version.
+The migration auction is a cooperative launch too, timed by
+``queued_ms`` over 3 launches (one takes about 0.1 s at the defrag
+path's size); its plain version syncs with the host every round and is
+timed once.
 
 Tolerances: the kernels and their plain versions run the same IEEE
 float32 operations in the same order (no FMA contraction, IEEE
@@ -113,8 +131,8 @@ division, the same libdevice ``expf``), so choices and fits must be
 identical and scores agree within ``MAX_ABS_ERR`` (the coupled and
 preemption kernels: exactly, on the integer-valued resources every path
 gives them, where the prefix sums' order cannot matter; the plugin
-kernels: every output bit for bit, as the reference pins its programs
-to its NumPy oracles). The parity
+and migration kernels: every output bit for bit, as the reference pins
+its programs to its NumPy oracles). The parity
 suite holds the coupled placements to the reference's own bar against
 its oracle, ``|score_delta_pct| <= 0.5`` and no placement the oracle
 made and the card did not.
@@ -677,6 +695,7 @@ def counters() -> dict:
         **{name: getattr(S, name).launches for name in COUPLED},
         **{name: getattr(P, name).launches for name in PREEMPT},
         **{name: getattr(plugin_module(name), name).launches for name in PLUGIN},
+        "migrate_plan": migrate_module().migrate_plan.launches,
     }
 
 
@@ -693,6 +712,7 @@ def zero_counters() -> None:
         getattr(P, name).launches = 0
     for name in PLUGIN:
         getattr(plugin_module(name), name).launches = 0
+    migrate_module().migrate_plan.launches = 0
 
 
 CLOSED_FORM_INPUTS = (
@@ -829,7 +849,7 @@ def main_path(dev, n_nodes=10_000, n_jobs=10, count=1000):
     assert rejected == 0, "a plan had rejected nodes"
     assert over == 0, "a node is over-committed in the store"
     assert statuses == ["complete"]
-    idle = {name: 0 for name in (*COUPLED, *PREEMPT, *PLUGIN)}
+    idle = {name: 0 for name in (*COUPLED, *PREEMPT, *PLUGIN, "migrate_plan")}
     assert schedule == {"place_closed_form": passes, "score_matrix": 0, **idle} and passes > 0
     assert annotate == {"place_closed_form": 0, "score_matrix": n_jobs, **idle}
     assert len(cf_calls) == passes and len(sm_calls) == n_jobs
@@ -2207,6 +2227,231 @@ def plugin_kernel_phase(dev):
     return out
 
 
+# -- phase 5, the "defrag" path, and phase 9 -----------------------------------
+
+DEFRAG_NODES = 10_000
+DEFRAG_ALLOCS = 20_000
+DEFRAG_BUDGET = 512
+DEFRAG_CYCLES = 4
+MIGRATE_TIMED = 3  # kernel launches timed per call (about 0.1 s each at full size)
+# operations of the migration auction (the bound counts them on this run's
+# data): per (alloc, node) cell of a round 16 (the gain's 3 subs, the fit
+# test's 4 adds and 4 compares, the gain > 0 test, the current-node test,
+# 2 ands and the argmax compare), per node and round 12 (4 usage adds, the
+# price update's max, mul, add, compare, sub and max, the admission scan's
+# add and compare)
+MIGRATE_OPS_PER_CELL = 16
+MIGRATE_OPS_PER_NODE_ROUND = 12
+MIGRATE_INPUTS = (
+    "capacity", "used0", "sizes", "cur", "eligible", "scores", "cur_scores",
+    "move_cost", "lam0",
+)
+
+
+def migrate_module():
+    return importlib.import_module("nomad_tpu_torch.device.migrate")
+
+
+def defrag_path(dev):
+    """Path "defrag": the port's ``run_defrag_ab`` on the card at 10,000
+    nodes x 20,000 allocs, 512 moves a cycle, 4 cycles, then at the
+    reference's defaults, with the counters zeroed just before and read
+    just after. The reference's recovery gate (half the efficiency gap
+    back) is defined at its 48 x 96 default: four 512-move cycles cannot
+    recover half of a 20,000-alloc smear, so at full size the other gates
+    are asserted and the recovered fraction printed. Returns the launch
+    counts, the recorded calls with their labels, and the reports."""
+    from nomad_tpu_torch.scheduler import migrate as SM
+
+    t0 = time.perf_counter()
+    host = {}  # host seconds of the harness's builds and plain checks
+    zero_counters()
+    with recording(migrate_module(), "migrate_plan") as calls, \
+            timing(SM, "build_defrag_fleet", host), timing(SM, "build_defrag_batch", host), \
+            timing(migrate_module(), "migrate_plan_plain", host):
+        full = SM.run_defrag_ab(
+            n_nodes=DEFRAG_NODES, n_allocs=DEFRAG_ALLOCS, budget=DEFRAG_BUDGET,
+            max_cycles=DEFRAG_CYCLES, seed=42, device=dev,
+        )
+        n_full = len(calls)
+        small = SM.run_defrag_ab(device=dev)
+    launches = counters()
+    seconds = time.perf_counter() - t0
+    for r in (full, small):
+        log(f"[defrag] report {json.dumps(r, sort_keys=True)}")
+        assert r["oracle_mismatches"] == 0, "defrag: the kernel and plain differ"
+        assert r["capacity_violations"] == 0, "defrag: a node over capacity"
+        assert r["budget_exceeded_cycles"] == 0, "defrag: a cycle over budget"
+        assert r["after"]["packing_efficiency"] > r["before"]["packing_efficiency"]
+    assert small["ok"], "defrag: the reference's gate failed at its default size"
+    log(
+        f"[defrag] {DEFRAG_NODES} nodes x {DEFRAG_ALLOCS} allocs, budget "
+        f"{DEFRAG_BUDGET}: {full['cycles']} cycles, {full['moves_total']} moves, "
+        f"efficiency {full['before']['packing_efficiency']!r} -> "
+        f"{full['after']['packing_efficiency']!r}, recovered_fraction="
+        f"{full['recovered_fraction']!r}; {seconds:.3f} s with the defaults' run, of "
+        f"it host seconds {host}; launches {launches}"
+    )
+    assert full["cycles"] > 0
+    assert launches["migrate_plan"] == len(calls) == n_full + 2 + small["cycles"] + (
+        small["cycles"] < small["config"]["max_cycles"]
+    )
+    labels = [f"full check seed {42 + i}" for i in range(2)]
+    labels += [f"full cycle {i + 1}" for i in range(n_full - 2)]
+    labels += [f"defaults call {i + 1}" for i in range(len(calls) - n_full)]
+    return launches, list(zip(labels, calls)), {"full": full, "defaults": small}
+
+
+def migrate_bound(inputs, budget, steps, outs):
+    """The least time for the pass on these inputs: every input read once
+    and every output written once over HBM, or the operations of the
+    rounds this run's data made it take over the f32 rate, whichever is
+    larger. A round counts a cell for every alloc still in place at its
+    end (a lower bound of the rows it priced) and every node."""
+    t_bytes = (nbytes(*inputs) + nbytes(*outs)) / HBM_BYTES_PER_S * 1e3
+    a, n = inputs[5].shape
+    moves, rounds = int(outs[3]), int(outs[4])
+    # the loop stops after a round without a claimant (not counted in
+    # rounds) unless the budget or ``steps`` ended it
+    run = min(steps, rounds + 1) if moves < budget else max(rounds, 1)
+    ops = run * ((a - moves) * n * MIGRATE_OPS_PER_CELL + n * MIGRATE_OPS_PER_NODE_ROUND)
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    work = {"rounds": rounds, "rounds_run": run, "moves": moves}
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", work
+
+
+def check_migrate(inputs, budget, steps, timed, label):
+    """One pass through ``migrate_plan`` and the plain version on the same
+    inputs: every output identical, bit for bit; the kernel timed by
+    ``queued_ms`` over ``MIGRATE_TIMED`` launches, with ``timed`` the
+    plain version and the bound too."""
+    M = migrate_module()
+    got = M.migrate_plan(*inputs[:8], budget, inputs[8], steps)
+    want = M.migrate_plan_plain(*inputs[:8], budget, inputs[8], steps)
+    torch.cuda.synchronize()
+    same_outputs(got, want, f"migrate_plan {label}")
+    call = M._migrate_call(inputs, budget, steps)
+    ms = queued_ms(call.reset, call, iters=MIGRATE_TIMED, warmup=1)
+    bound, by, work = migrate_bound(inputs, budget, steps, got)
+    out = {"max_abs_err": 0.0, "choice_mismatches": 0, "ms": ms, **work}
+    a, n = inputs[5].shape
+    shape = f"A={a} N={n} budget={budget} steps={steps}"
+    if timed:
+        plain = lambda: M.migrate_plan_plain(*inputs[:8], budget, inputs[8], steps)  # noqa: E731
+        out.update({
+            "stream_ms": ms,
+            "plain_ms": cuda_ms(plain, iters=PLAIN_TIMED, warmup=0),
+            "bound_ms": bound,
+            "bound_by": by,
+            "shape": shape,
+        })
+        out["plain_stream_ms"] = out["plain_ms"]
+        log(
+            f"[migrate_plan {label}] {shape}: kernel_ms={ms!r} "
+            f"plain_ms={out['plain_ms']!r} bound_ms={bound!r} ({by}); {work}"
+        )
+    else:
+        log(f"[migrate_plan {label}] {shape}: kernel_ms={ms!r}; {work}")
+    return out
+
+
+def replay_migrate(calls):
+    """Every recorded call of the defrag path through the kernel and the
+    plain version, each kernel timed ("path_ms" is their sum); the last
+    full-size cycle timed in full."""
+    t0 = time.perf_counter()
+    last_full = max(i for i, (label, _) in enumerate(calls) if label.startswith("full cycle"))
+    per_call, rounds, main = [], [], None
+    for i, (label, c) in enumerate(calls):
+        inputs = [c[k] for k in MIGRATE_INPUTS]
+        out = check_migrate(inputs, c["budget"], c["steps"], i == last_full, label)
+        per_call.append(out["ms"])
+        rounds.append(out["rounds"])
+        if i == last_full:
+            main = out
+    log(
+        f"[migrate_plan] {len(calls)} recorded defrag calls replayed, all identical "
+        f"to plain; kernel time over the calls path_ms={sum(per_call)!r}; rounds "
+        f"per call {rounds}; replay {time.perf_counter() - t0:.3f} s"
+    )
+    main["path_ms"] = sum(per_call)
+    main["rounds_per_launch"] = rounds
+    return main
+
+
+def migrate_inputs(dev, seed, n, a, ties=False, perturbed=False):
+    """Seeded general inputs on the card: contended integer resources,
+    scores on a 1/16 grid that differ by row, 80 % eligibility; with
+    ``ties`` every score and stay value equal, three all-infeasible rows
+    and -0.0 in used0 and lam0; with ``perturbed`` lam0 on a 1/8 grid."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def pick(values, size):
+        v = torch.tensor(values, dtype=torch.float32, device=dev)
+        return v[torch.randint(0, len(values), (size,), generator=g, device=dev)]
+
+    capacity = torch.tensor([4000.0, 8192.0, 102400.0, 1000.0], device=dev).repeat(n, 1)
+    frac = torch.rand((n, 1), generator=g, device=dev) * 0.6
+    used0 = torch.floor(capacity * frac)
+    used0[:, 3] = 0.0
+    sizes = torch.zeros((a, 4), dtype=torch.float32, device=dev)
+    sizes[:, 0] = pick([200.0, 400.0, 800.0, 1600.0], a)
+    sizes[:, 1] = pick([512.0, 1024.0, 2048.0], a)
+    sizes[:, 2] = 300.0
+    cur = torch.randint(0, n, (a,), generator=g, device=dev, dtype=torch.int32)
+    eligible = torch.rand((a, n), generator=g, device=dev) < 0.8
+    scores = torch.round(torch.rand((a, n), generator=g, device=dev) * 16) / 16
+    cur_scores = torch.round(torch.rand(a, generator=g, device=dev) * 8) / 16
+    move_cost = torch.full((a,), 0.0625, dtype=torch.float32, device=dev)
+    lam0 = torch.zeros(n, dtype=torch.float32, device=dev)
+    if ties:
+        scores.fill_(0.75)
+        cur_scores.fill_(0.125)
+        eligible.fill_(True)
+        eligible[:3] = False
+        used0[used0 == 0] = -0.0
+        used0[::5] = -0.0
+        lam0[::2] = -0.0
+    if perturbed:
+        lam0 = torch.randint(0, 4, (n,), generator=g, device=dev).to(torch.float32) * 0.125
+    return [capacity, used0, sizes, cur, eligible, scores, cur_scores, move_cost, lam0]
+
+
+def migrate_kernel_phase(dev):
+    """Phase 9: the migration-auction kernel alone at N 16,384, every case
+    identical to plain."""
+    from nomad_tpu_torch.scheduler.migrate import _steps_for
+
+    t0 = time.perf_counter()
+    n = KERNEL_PHASE_NODES
+    wide = migrate_inputs(dev, 11, n, 20_000)
+    mid = migrate_inputs(dev, 12, n, 2_000)
+    cases = [
+        ("a20000 budget 512", wide, 512, _steps_for(20_000)),
+        ("a20000 steps 2", wide, 20_000, 2),
+        ("a2000 budget 0", mid, 0, _steps_for(2_000)),
+        ("a2000 budget 1", mid, 1, _steps_for(2_000)),
+        ("a2000 budget A", mid, 2_000, _steps_for(2_000)),
+        ("a2000 lam0 perturbed", migrate_inputs(dev, 13, n, 2_000, perturbed=True),
+         2_000, _steps_for(2_000)),
+        ("ties a2000 budget 64", migrate_inputs(dev, 14, n, 2_000, ties=True), 64,
+         _steps_for(2_000)),
+        ("ties a256 budget A", migrate_inputs(dev, 15, n, 256, ties=True), 256,
+         _steps_for(256)),
+    ]
+    out = {}
+    for label, inputs, budget, steps in cases:
+        r = check_migrate(inputs, budget, steps, timed=True, label=f"phase 9 {label}")
+        out[label] = {k: r[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "rounds", "rounds_run", "moves",
+            "shape",
+        )}
+    assert out["a20000 steps 2"]["rounds"] == 2, "phase 9: steps did not cut the pass"
+    log(f"[migrate_plan] phase 9: {len(cases)} cases identical to plain in "
+        f"{time.perf_counter() - t0:.3f} s")
+    return out
+
+
 def kernel_entry(name, route, source, replaces, path, by_path, main, extra):
     keys = ("max_abs_err", "choice_mismatches", "ms", "plain_ms", "bound_ms",
             "bound_by", "stream_ms", "plain_stream_ms", "shape")
@@ -2312,6 +2557,9 @@ def main() -> int:
         )
     }
     del hetero_calls, cp_calls, gang_calls, batch_calls
+    by_path["defrag"], defrag_calls, _ = defrag_path(dev)
+    migrate_main = replay_migrate(defrag_calls)
+    del defrag_calls
 
     # phase 6: the coupled placements against the stepwise oracle
     full_parity(dev)
@@ -2321,6 +2569,9 @@ def main() -> int:
 
     # phase 8: the plugin kernels alone, G 1 / 30 / 100 and a tied case
     plugin_phase = plugin_kernel_phase(dev)
+
+    # phase 9: the migration auction alone, A up to 20,000, ties, budgets
+    migrate_phase = migrate_kernel_phase(dev)
 
     def headline(r, shape):
         return {
@@ -2410,7 +2661,19 @@ def main() -> int:
             ("cp_gang_place", "nomad_tpu_torch/csrc/cp.cu",
              "nomad_tpu/device/cp.py:360", "gang"),
         )
+    ] + [
+        kernel_entry(
+            "migrate_plan", "cuda", "nomad_tpu_torch/csrc/migrate.cu",
+            "nomad_tpu/device/migrate.py:85", "defrag", by_path, migrate_main,
+            {
+                **{k: migrate_main[k] for k in (
+                    "path_ms", "rounds_per_launch", "rounds", "rounds_run", "moves",
+                )},
+                "kernel_phase": migrate_phase,
+            },
+        )
     ]
+    assert len(kernels) == 11, len(kernels)
     log(f"[total] {time.perf_counter() - t_start:.1f} s, builds included")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -59,6 +59,7 @@ ETA = np.float32(0.125)
 # In-batch same-job co-location penalty (soft anti-affinity across task
 # groups of one job). Also a power of two for exact f32 scaling.
 ANTI = np.float32(0.0625)
+_NEG_INF = np.float32(-np.inf)
 # topology weights quantize to this binary grid so the weighted mate sum
 # accumulates in i32 and rescales by an exact power of two
 TOPO_WEIGHT_SCALE = 256

@@ -1,0 +1,245 @@
+"""Defrag batch assembly and the ``bench.py defrag`` A/B harness, on
+PyTorch and CUDA.
+
+Ports ``nomad_tpu/scheduler/migrate.py``, the host half of the migration
+plane's solver seam:
+
+- ``build_defrag_fleet`` / ``build_defrag_batch``: a seeded fragmented
+  fleet and the dense (allocs × nodes) inputs of one defrag pass —
+  consolidation scores, per-alloc sizes and current rows, and the
+  conservative ``used`` the kernel prices against (host NumPy, the
+  reference's arithmetic);
+- ``run_defrag_ab``: bounded-budget cycles of plan → commit every
+  replacement on top of live ``used`` → free the sources, measuring how
+  much packing efficiency comes back.
+
+Consolidation scoring: a move's destination value is the node's
+utilization (fill the fullest node that fits), so gain = util[dest] −
+util[cur] − move_cost − λ[dest] and the auction empties the thinnest
+nodes first.
+
+The reference's cycles plan with its NumPy oracle and hold its jitted
+program to that oracle on two seeds. The port's cycles plan with
+``migrate_plan`` on ``device`` (the kernel on a CUDA device), and the
+two-seed check holds that pass bit for bit against the plain version,
+the port's oracle; the report is the reference's, value for value.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..backend import resolve_device
+# the kernel wrapper is called through the module, so that a stand-in
+# (chip_smoke.py's recorder) sees every call
+from ..device import migrate as device_migrate
+from ..device.migrate import packing_efficiency
+from .hetero import _outputs_mismatch
+
+# Flat per-alloc migration cost priced against score-delta gain: a move
+# must improve its alloc's consolidation score by more than this to be
+# planned at all. Power of two (exact f32).
+MOVE_COST = np.float32(0.0625)
+
+
+def build_defrag_fleet(
+    n_nodes: int, n_allocs: int, seed: int = 42
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Seeded fragmented fleet: every alloc lands on its own
+    uniformly-random node (the end state of a long arrival/stop churn —
+    load smeared thin), sized so a perfect repack needs only a small
+    core of nodes. Returns (capacity, used, sizes, cur, ready)."""
+    rng = np.random.default_rng(seed)
+    capacity = np.zeros((n_nodes, 4), dtype=np.float32)
+    capacity[:, 0] = 4000
+    capacity[:, 1] = 8192
+    capacity[:, 2] = 100 * 1024
+    capacity[:, 3] = 1000
+    sizes = np.zeros((n_allocs, 4), dtype=np.float32)
+    sizes[:, 0] = rng.choice([200.0, 400.0, 800.0], size=n_allocs)
+    sizes[:, 1] = rng.choice([512.0, 1024.0, 2048.0], size=n_allocs)
+    sizes[:, 2] = 300.0
+    cur = np.zeros(n_allocs, dtype=np.int32)
+    used = np.zeros_like(capacity)
+    for i in range(n_allocs):
+        # scatter thinly but never over capacity: a random node among
+        # those with room (churn fragments, it does not overload)
+        fits = np.flatnonzero(
+            np.all(used + sizes[i] <= capacity, axis=1)
+        )
+        node = int(rng.choice(fits)) if fits.size else 0
+        cur[i] = node
+        used[node] += sizes[i]
+    ready = np.ones(n_nodes, dtype=bool)
+    return capacity, used, sizes, cur, ready
+
+
+def consolidation_scores(
+    capacity: np.ndarray, used: np.ndarray, sizes: np.ndarray
+) -> np.ndarray:
+    """f32[A, N] destination value per (alloc, node): the node's cpu+mem
+    utilization fraction — higher is fuller, and the auction's positive-
+    gain feasibility turns that into 'move off thin nodes onto full
+    ones'."""
+    denom = np.maximum(capacity[:, :2].sum(axis=1), np.float32(1.0))
+    util = (used[:, :2].sum(axis=1) / denom).astype(np.float32)
+    a = sizes.shape[0]
+    return np.broadcast_to(util[None, :], (a, util.shape[0])).astype(
+        np.float32
+    ).copy()
+
+
+def build_defrag_batch(capacity, used, sizes, cur, eligible=None):
+    """Assemble one defrag pass's kernel arguments (minus budget/steps).
+    ``used`` is the conservative committed usage — sources are NOT
+    pre-freed; the kernel's used-only-increases model is exactly the
+    mid-move capacity invariant."""
+    a, n = sizes.shape[0], capacity.shape[0]
+    if eligible is None:
+        eligible = np.ones((a, n), dtype=bool)
+    scores = consolidation_scores(capacity, used, sizes)
+    arange_a = np.arange(a)
+    # the value of STAYING is the current node's utilization as seen
+    # from outside — without the alloc's own contribution. With it
+    # included, a perfectly uniform smear (every node equally thin)
+    # prices every move as a loss and consolidation can never start.
+    denom = np.maximum(capacity[:, :2].sum(axis=1), np.float32(1.0))
+    own = (sizes[:, :2].sum(axis=1) / denom[cur]).astype(np.float32)
+    cur_scores = (scores[arange_a, cur] - own).astype(np.float32)
+    move_cost = np.full(a, MOVE_COST, dtype=np.float32)
+    return (
+        capacity.astype(np.float32),
+        used.astype(np.float32),
+        sizes.astype(np.float32),
+        cur.astype(np.int32),
+        eligible,
+        scores,
+        cur_scores,
+        move_cost,
+    )
+
+
+def _steps_for(n_allocs: int) -> int:
+    b = 1
+    while b < n_allocs + 1:
+        b <<= 1
+    return b
+
+
+def _on(args, dev):
+    """One pass's host arrays as contiguous tensors on ``dev``."""
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in args]
+
+
+def run_defrag_ab(
+    n_nodes: int = 48,
+    n_allocs: int = 96,
+    budget: int = 8,
+    max_cycles: int = 12,
+    seed: int = 42,
+    device="cuda",
+) -> dict:
+    """The ``bench.py defrag`` gate on ``device``: fragment → plan each
+    cycle with ``migrate_plan`` under a bounded per-cycle budget →
+    measure recovered packing efficiency. Each cycle is the controller's
+    two-phase shape in miniature: the pass commits every replacement on
+    top of live ``used`` (capacity conserved mid-flight), then the
+    cycle's sources free on the host once the whole cycle lands. The pass
+    is held bit for bit against the plain version on two seeds, every
+    output compared."""
+    dev = resolve_device(device)
+    capacity, used, sizes, cur, ready = build_defrag_fleet(
+        n_nodes, n_allocs, seed=seed
+    )
+    eff_before = packing_efficiency(capacity, used, ready)
+    steps = _steps_for(n_allocs)
+
+    mismatches = 0
+    for check_seed in (seed, seed + 1):
+        c2, u2, s2, r2, _ = build_defrag_fleet(
+            n_nodes, n_allocs, seed=check_seed
+        )
+        args = _on(build_defrag_batch(c2, u2, s2, r2), dev)
+        lam0 = torch.zeros(c2.shape[0], dtype=torch.float32, device=dev)
+        d = device_migrate.migrate_plan(*args, budget, lam0, steps)
+        o = device_migrate.migrate_plan_plain(*args, budget, lam0, steps)
+        mismatches += _outputs_mismatch(d, o)
+        del args, d, o
+
+    cycles = 0
+    moves_total = 0
+    capacity_violations = 0
+    budget_exceeded = 0
+    while cycles < max_cycles:
+        args = _on(build_defrag_batch(capacity, used, sizes, cur), dev)
+        lam0 = torch.zeros(n_nodes, dtype=torch.float32, device=dev)
+        out = device_migrate.migrate_plan(*args, budget, lam0, steps)
+        del args
+        dest = out[0].cpu().numpy()
+        used_mid = out[2].cpu().numpy()
+        moves = int(out[3])
+        if moves == 0:
+            break
+        cycles += 1
+        moves_total += moves
+        if moves > budget:
+            budget_exceeded += 1
+        # phase A: every replacement committed on top of live usage —
+        # the mid-move capacity invariant, checked here mid-flight
+        if bool((used_mid > capacity + np.float32(1e-3)).any()):
+            capacity_violations += 1
+        # phase B: the cycle landed; sources free and rows move
+        moved = np.flatnonzero(dest >= 0)
+        np.subtract.at(used_mid, cur[moved], sizes[moved])
+        used = used_mid
+        cur = np.where(dest >= 0, dest, cur).astype(np.int32)
+        if bool((used < -np.float32(1e-3)).any()):
+            capacity_violations += 1
+
+    eff_after = packing_efficiency(capacity, used, ready)
+    gap = max(1.0 - eff_before, 1e-9)
+    recovered = (eff_after - eff_before) / gap
+    report = {
+        "config": {
+            "nodes": n_nodes,
+            "allocs": n_allocs,
+            "budget": budget,
+            "max_cycles": max_cycles,
+            "seed": seed,
+        },
+        "before": {"packing_efficiency": round(eff_before, 6)},
+        "after": {"packing_efficiency": round(eff_after, 6)},
+        "cycles": cycles,
+        "moves_total": moves_total,
+        "recovered_fraction": round(recovered, 6),
+        "capacity_violations": capacity_violations,
+        "budget_exceeded_cycles": budget_exceeded,
+        "oracle_mismatches": mismatches,
+    }
+    report["ok"] = (
+        mismatches == 0
+        and capacity_violations == 0
+        and budget_exceeded == 0
+        and eff_after > eff_before
+        and recovered >= 0.5
+    )
+    return report
+
+
+DEFRAG_SCHEMA = (
+    "after.packing_efficiency",
+    "before.packing_efficiency",
+    "budget_exceeded_cycles",
+    "capacity_violations",
+    "config.allocs",
+    "config.budget",
+    "config.max_cycles",
+    "config.nodes",
+    "config.seed",
+    "cycles",
+    "moves_total",
+    "ok",
+    "oracle_mismatches",
+    "recovered_fraction",
+)

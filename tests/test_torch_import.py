@@ -37,6 +37,8 @@ def test_imports_with_jax_blocked():
         "nomad_tpu_torch.scheduler.hetero",
         "nomad_tpu_torch.scheduler.cp",
         "nomad_tpu_torch.device.cp",
+        "nomad_tpu_torch.device.migrate",
+        "nomad_tpu_torch.scheduler.migrate",
     ):
         assert m in mods
     code = (
