@@ -90,7 +90,11 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
    oracle, within the reference's 0.5 % score bar;
 7. the preemption kernels alone at N 16,384 with seeded integer victims
    at V 8 (the warp form), 64 and 256 (the block form) and a tie-heavy
-   case, every output identical to the plain version;
+   case, then V 8,192 on 256 nodes (the block form in opt-in shared
+   memory) and V 32,768 on 64 nodes (the global-scratch form), every
+   output identical to the plain version, with the largest partial sum
+   the outputs depend on checked below 2^24 (where float32 integer sums
+   are exact in any order);
 8. the plugin kernels alone at N 16,384 on seeded inputs, G 1, 30 and
    100 and a tie-heavy case (equal keys, scores and priorities,
    all-infeasible rows, -0.0 in used0), every output identical to the
@@ -98,9 +102,12 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
 9. the migration-auction kernel alone at N 16,384 on seeded general
    inputs (scores that differ by row, random eligibility): A 20,000 at a
    budget of 512 and cut short after 2 rounds, A 2,000 at budgets 0, 1
-   and A, a perturbed ``lam0``, and tie-heavy cases (equal scores and
+   and A, a perturbed ``lam0``, tie-heavy cases (equal scores and
    gains, all-infeasible rows, -0.0 in used0 and lam0) at A 2,000 and
-   256, every output identical to the plain version;
+   256, and four cases of the kernel's early exit at A 2,000: every
+   price positive, negative prices, each row's best node past a run of
+   priced-out nodes longer than its candidate list, and ties exactly at
+   the stop boundary; every output identical to the plain version;
 10. the total seconds, one JSON line of per-kernel results, the card's
    name and power limit, then the device line last.
 
@@ -120,10 +127,10 @@ every step or round and are timed once. The gang path's kernel object
 passes per-node coordinate ids (``cp_gang_place_ids``); those calls are
 recorded and replayed, and phase 8 also holds the one-hot form
 (``cp_gang_place``, the reference's signature) against its plain version.
-The migration auction is a cooperative launch too, timed by
-``queued_ms`` over 3 launches (one takes about 0.1 s at the defrag
-path's size); its plain version syncs with the host every round and is
-timed once.
+The migration auction (a list-building launch, then a cooperative
+launch of the rounds) is timed by ``queued_ms`` over 3 calls, both
+launches of a call between its events; its plain version syncs with the
+host every round and is timed once.
 
 Tolerances: the kernels and their plain versions run the same IEEE
 float32 operations in the same order (no FMA contraction, IEEE
@@ -141,6 +148,7 @@ made and the card did not.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import importlib
 import inspect
@@ -201,6 +209,9 @@ PREEMPTOR_COUNT = 16
 PREEMPTOR_ASK = (1000, 1024)  # MHz, MiB
 SYSTEM_PRIORITY = 50
 KERNEL_PHASE_NODES = 16_384
+# integers up to 2^24 are exact in float32, and so is any sum of them
+# whose partial sums all stay below it
+EXACT_F32_INTEGERS = 2**24
 
 
 def log(msg: str) -> None:
@@ -1577,20 +1588,66 @@ def preempt_inputs(dev, v, ties=False, n=KERNEL_PHASE_NODES, seed=31):
     return {k: torch.from_numpy(np.ascontiguousarray(a)).to(dev) for k, a in arrays.items()}
 
 
+def exact_sums(c, got):
+    """Why the kernels' sums equal the plain version's on integer-valued
+    victims: each is exact while every partial sum stays below 2^24. k and
+    net depend only on the prefixes up to the first that fits, so the
+    largest such prefix (in float64, in the sorted order) must stay below
+    2^24; a node whose cpu or memory total reaches 2^24 frees so much that
+    its fit clips to 0, so its score is 0 (or -inf when infeasible)
+    however the total rounds. Returns (largest prefix at k, nodes whose
+    cpu or memory total reaches 2^24)."""
+    best, feasible, k, net, order, score = got
+    mask = c["victim_mask"]
+    res = torch.where(mask[..., None], c["victim_res"], 0.0).double()
+    prefix = torch.take_along_dim(res, order.long()[..., None], dim=1).cumsum(dim=1)
+    # an eligible node with victims and no fitting prefix depends on all
+    # of them; an ineligible one on none
+    last = torch.where(k > 0, k.long() - 1, mask.shape[1] - 1)
+    at_k = prefix.gather(1, last[:, None, None].expand(-1, 1, 4))[:, 0]
+    needed = (k > 0) | (c["eligible"] & mask.any(dim=1))
+    largest = float(at_k[needed].max()) if bool(needed.any()) else 0.0
+    over = (res.sum(dim=1)[:, :2] >= EXACT_F32_INTEGERS).any(dim=1)
+    assert largest < EXACT_F32_INTEGERS, f"a prefix at k reaches {largest}"
+    clipped = score[over]
+    assert bool(((clipped == 0) | torch.isneginf(clipped)).all()), "a node past 2^24 scores"
+    return largest, int(over.sum())
+
+
 def preempt_kernel_phase(dev):
-    """Both preemption kernels alone at N 16,384: V 8 (the warp form, the
-    preempt path's width), 64 and 256 (the block form), and V 8 with
-    every key tied."""
+    """Both preemption kernels alone: V 8 (the warp form, the preempt
+    path's width), 64 and 256 (the block form) and V 8 with every key
+    tied at N 16,384; V 8,192 on 256 nodes (the block form in opt-in
+    shared memory) and V 32,768 on 64 nodes (the global-scratch form),
+    about 44 MB of victims each."""
+    from nomad_tpu_torch.device import preempt as P
+
     out = {}
-    for label, v, ties in (("v8", 8, False), ("v64", 64, False),
-                           ("v256", 256, False), ("v8_ties", 8, True)):
-        c = preempt_inputs(dev, v, ties)
+    for label, v, ties, n in (("v8", 8, False, KERNEL_PHASE_NODES),
+                              ("v64", 64, False, KERNEL_PHASE_NODES),
+                              ("v256", 256, False, KERNEL_PHASE_NODES),
+                              ("v8_ties", 8, True, KERNEL_PHASE_NODES),
+                              ("v8192", 8192, False, 256),
+                              ("v32768", 32768, False, 64)):
+        c = preempt_inputs(dev, v, ties, n=n)
+        largest, over = exact_sums(
+            c, P.choose_preemption_node_plain(*[c[k] for k in PREEMPT_INPUTS])
+        )
         for name in PREEMPT:
             r = check_preempt(name, c, timed=True, label=f" phase 7 {label}")
-            out.setdefault(name, {})[label] = {k: r[k] for k in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "feasible_nodes", "victims", "shape",
-            )}
+            out.setdefault(name, {})[label] = {
+                **{k: r[k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "feasible_nodes", "victims", "shape",
+                )},
+                "form": P.find_form(v),
+                "largest_prefix_at_k": largest,
+                "nodes_past_2_24": over,
+            }
+        log(f"[preempt phase 7 {label}] form {P.find_form(v)!r}; largest prefix "
+            f"sum at k {largest!r} (< 2^24, exact); {over} nodes whose cpu or "
+            f"memory total reaches 2^24, each scored 0 or -inf")
+        del c
     return out
 
 
@@ -2206,6 +2263,32 @@ def plugin_phase_inputs(dev):
     return cases
 
 
+BARRIER_PROBE_ITERS = 4096
+
+
+def barrier_us(library, dev, iters=BARRIER_PROBE_ITERS):
+    """Device µs of one grid-wide barrier of ``csrc/<library>.cu``'s
+    auction grid: a cooperative launch of nothing but ``iters`` barriers
+    less one of a single barrier, over ``iters - 1``, each timed by
+    ``queued_ms``."""
+    from nomad_tpu_torch import backend
+
+    fn = getattr(backend.cuda_library(library), f"nomad_{library}_barrier_probe")
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    scratch = torch.zeros(2, dtype=torch.int32, device=dev)
+    stream = backend.current_stream(dev)
+
+    def probe(k):
+        backend.check_launch(fn(k, scratch.data_ptr(), stream), f"{library} barrier probe")
+
+    many = queued_ms(scratch.zero_, lambda: probe(iters), iters=5, warmup=1)
+    one = queued_ms(scratch.zero_, lambda: probe(1), iters=5, warmup=1)
+    us = (many - one) / (iters - 1) * 1e3
+    log(f"[{library} grid barrier] {us!r} us a barrier ({iters} in {many!r} ms, 1 in {one!r} ms)")
+    return us
+
+
 def plugin_kernel_phase(dev):
     """Phase 8: the plugin kernels alone, every case identical to plain;
     the gang cases' one-hot form identical to the id form too."""
@@ -2224,6 +2307,7 @@ def plugin_kernel_phase(dev):
             "ms", "plain_ms", "bound_ms", "bound_by", "placed", "shape",
             *(("steps",) if name == "hetero_place" else ("rounds", "rounds_run")),
         )}
+    out["cp_place"]["grid_barrier_us"] = barrier_us("cp", dev)
     return out
 
 
@@ -2233,7 +2317,7 @@ DEFRAG_NODES = 10_000
 DEFRAG_ALLOCS = 20_000
 DEFRAG_BUDGET = 512
 DEFRAG_CYCLES = 4
-MIGRATE_TIMED = 3  # kernel launches timed per call (about 0.1 s each at full size)
+MIGRATE_TIMED = 3  # kernel calls timed per recorded call (7-16 ms each at full size on an H100)
 # operations of the migration auction (the bound counts them on this run's
 # data): per (alloc, node) cell of a round 16 (the gain's 3 subs, the fit
 # test's 4 adds and 4 compares, the gain > 0 test, the current-node test,
@@ -2242,6 +2326,9 @@ MIGRATE_TIMED = 3  # kernel launches timed per call (about 0.1 s each at full si
 # add and compare)
 MIGRATE_OPS_PER_CELL = 16
 MIGRATE_OPS_PER_NODE_ROUND = 12
+# the least the function needs of each cell: its base gain, once a pass
+# ((score - cur_score) - move_cost, 2 subs)
+MIGRATE_OPS_PER_CELL_ONCE = 2
 MIGRATE_INPUTS = (
     "capacity", "used0", "sizes", "cur", "eligible", "scores", "cur_scores",
     "move_cost", "lam0",
@@ -2304,19 +2391,26 @@ def defrag_path(dev):
 
 def migrate_bound(inputs, budget, steps, outs):
     """The least time for the pass on these inputs: every input read once
-    and every output written once over HBM, or the operations of the
-    rounds this run's data made it take over the f32 rate, whichever is
-    larger. A round counts a cell for every alloc still in place at its
-    end (a lower bound of the rows it priced) and every node."""
+    and every output written once over HBM, or the least operations over
+    the f32 rate (each cell's base gain once, each node's update every
+    round run), whichever is larger. Beside it, the reference's
+    dense work over the f32 rate: the operations of pricing every cell of
+    the grid every round this run's data made it take (a round counts a
+    cell for every alloc still in place at its end, a lower bound of the
+    rows it priced, and every node). That is how the reference computes
+    the function, not the least work the function needs: the kernel's
+    early exit prices far fewer cells and may run under it."""
     t_bytes = (nbytes(*inputs) + nbytes(*outs)) / HBM_BYTES_PER_S * 1e3
     a, n = inputs[5].shape
     moves, rounds = int(outs[3]), int(outs[4])
     # the loop stops after a round without a claimant (not counted in
     # rounds) unless the budget or ``steps`` ended it
     run = min(steps, rounds + 1) if moves < budget else max(rounds, 1)
-    ops = run * ((a - moves) * n * MIGRATE_OPS_PER_CELL + n * MIGRATE_OPS_PER_NODE_ROUND)
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    work = {"rounds": rounds, "rounds_run": run, "moves": moves}
+    least = a * n * MIGRATE_OPS_PER_CELL_ONCE + run * n * MIGRATE_OPS_PER_NODE_ROUND
+    t_ops = least / F32_OPS_PER_S * 1e3
+    dense = run * ((a - moves) * n * MIGRATE_OPS_PER_CELL + n * MIGRATE_OPS_PER_NODE_ROUND)
+    work = {"rounds": rounds, "rounds_run": run, "moves": moves,
+            "reference_dense_ms": dense / F32_OPS_PER_S * 1e3}
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", work
 
 
@@ -2348,7 +2442,8 @@ def check_migrate(inputs, budget, steps, timed, label):
         out["plain_stream_ms"] = out["plain_ms"]
         log(
             f"[migrate_plan {label}] {shape}: kernel_ms={ms!r} "
-            f"plain_ms={out['plain_ms']!r} bound_ms={bound!r} ({by}); {work}"
+            f"plain_ms={out['plain_ms']!r} bound_ms={bound!r} ({by}; the reference's "
+            f"dense work {work['reference_dense_ms']!r} ms); {work}"
         )
     else:
         log(f"[migrate_plan {label}] {shape}: kernel_ms={ms!r}; {work}")
@@ -2379,11 +2474,19 @@ def replay_migrate(calls):
     return main
 
 
-def migrate_inputs(dev, seed, n, a, ties=False, perturbed=False):
+def migrate_inputs(dev, seed, n, a, ties=False, perturbed=False, prices=None):
     """Seeded general inputs on the card: contended integer resources,
     scores on a 1/16 grid that differ by row, 80 % eligibility; with
     ``ties`` every score and stay value equal, three all-infeasible rows
-    and -0.0 in used0 and lam0; with ``perturbed`` lam0 on a 1/8 grid."""
+    and -0.0 in used0 and lam0; with ``perturbed`` lam0 on a 1/8 grid.
+    ``prices`` sets lam0 for the kernel's early exit: "positive" (every
+    price 1/8 to 1, so the least price is above 0), "negative" (-1/2 to
+    1/2 on a 1/8 grid), "boundary" (0 or 1/16 under the 1/16 score grid,
+    so that a later entry's bound equals the best gain exactly and the
+    node index decides), "priced_out" (scores falling with the node
+    index, the same on every row, and the first 2,048 nodes priced out:
+    every row's best node lies past a run of priced-out nodes longer than
+    its list)."""
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def pick(values, size):
@@ -2414,6 +2517,14 @@ def migrate_inputs(dev, seed, n, a, ties=False, perturbed=False):
         lam0[::2] = -0.0
     if perturbed:
         lam0 = torch.randint(0, 4, (n,), generator=g, device=dev).to(torch.float32) * 0.125
+    steps_of = {"positive": (1, 9, 0.125), "negative": (-4, 5, 0.125), "boundary": (0, 2, 0.0625)}
+    if prices in steps_of:
+        lo, hi, step = steps_of[prices]
+        lam0 = torch.randint(lo, hi, (n,), generator=g, device=dev).to(torch.float32) * step
+    elif prices == "priced_out":
+        falling = torch.round((1.0 - torch.arange(n, device=dev) / n) * 16) / 16
+        scores = falling[None, :].expand(a, n).contiguous()
+        lam0[:2048] = 4.0
     return [capacity, used0, sizes, cur, eligible, scores, cur_scores, move_cost, lam0]
 
 
@@ -2438,15 +2549,24 @@ def migrate_kernel_phase(dev):
          _steps_for(2_000)),
         ("ties a256 budget A", migrate_inputs(dev, 15, n, 256, ties=True), 256,
          _steps_for(256)),
+        ("a2000 lam0 positive", migrate_inputs(dev, 16, n, 2_000, prices="positive"),
+         2_000, _steps_for(2_000)),
+        ("a2000 lam0 negative", migrate_inputs(dev, 17, n, 2_000, prices="negative"),
+         2_000, _steps_for(2_000)),
+        ("a2000 priced-out run", migrate_inputs(dev, 18, n, 2_000, prices="priced_out"),
+         2_000, _steps_for(2_000)),
+        ("a2000 ties at the stop boundary",
+         migrate_inputs(dev, 19, n, 2_000, prices="boundary"), 2_000, _steps_for(2_000)),
     ]
     out = {}
     for label, inputs, budget, steps in cases:
         r = check_migrate(inputs, budget, steps, timed=True, label=f"phase 9 {label}")
         out[label] = {k: r[k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "rounds", "rounds_run", "moves",
-            "shape",
+            "ms", "plain_ms", "bound_ms", "bound_by", "reference_dense_ms", "rounds",
+            "rounds_run", "moves", "shape",
         )}
     assert out["a20000 steps 2"]["rounds"] == 2, "phase 9: steps did not cut the pass"
+    out["grid_barrier_us"] = barrier_us("migrate", dev)
     log(f"[migrate_plan] phase 9: {len(cases)} cases identical to plain in "
         f"{time.perf_counter() - t0:.3f} s")
     return out
@@ -2668,6 +2788,7 @@ def main() -> int:
             {
                 **{k: migrate_main[k] for k in (
                     "path_ms", "rounds_per_launch", "rounds", "rounds_run", "moves",
+                    "reference_dense_ms",
                 )},
                 "kernel_phase": migrate_phase,
             },

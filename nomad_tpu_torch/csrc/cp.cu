@@ -27,20 +27,27 @@
 // (13 bytes a node) and the node state (36 bytes a node), a few MB at
 // G 100 and N 16,384, and its operations are a few dozen a cell; but each
 // round depends on the last, so the pass costs rounds x (one row pass +
-// the resolution + the node update + three grid-wide barriers).
+// the resolution + two grid-wide barriers).
 //
 // Design: one cooperative launch of one 1,024-thread block per SM that
 // loops over the rounds, with a grid-wide barrier (an arrival counter and
-// a generation word, spun on with atomics) between the phases:
+// a generation word, spun on with atomics) after each of two phases:
 //  1. row pass: (group, node segment) items over the blocks, each a
-//     block-wide (value desc, index asc) argmax and an any-feasible flag;
-//  2. block 0: per group the segments' argmax (the claim and its utility
-//     u; a warp a group when a row has several segments), then the
-//     resolution by an O(G^2) scan of the claimants staged in shared
-//     memory, then the commits of the winners (slots, the
-//     assignment row, the per-(job, node) sibling table, the
-//     per-(gang, coordinate) topology tables by integer atomicAdd);
-//  3. node pass: usage and lam on every node.
+//     block-wide (value desc, index asc) argmax and an any-feasible flag,
+//     merged into the group's claim word by a 64-bit max of
+//     (order_key(u) << 32 | ~node) and an integer or: exact in any order;
+//  2. settle, on every block over its slice of the nodes: each block reads
+//     every group's claim word and resolves the claims on its own nodes in
+//     shared memory, a 64-bit max of (order_key(priority) << 32 |
+//     order_key(u)), then the least group among the claimants that reach
+//     it (the reference's masked argmax gives group 0 when the winner's u
+//     is -inf); the winner commits (its slot, the assignment row, the
+//     per-(job, node) sibling table, the per-(gang, coordinate) topology
+//     tables by integer atomicAdd), and usage and lam update on every node
+//     of the slice. Whether any group claimed is read from the claim words
+//     by every block alike, so all leave the loop together.
+// The claim words of a round are double-buffered, the other buffer
+// cleared in phase 2 for the next round.
 // The reference's integer matrix products become those count tables:
 // sib_all[g, n] = S[job(g), n], mates(level)[g, n] = T[gang(g), id(n)];
 // every sum is an exact integer sum. State crossing blocks is read and
@@ -63,8 +70,8 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr float kEta = 0.125f;
 constexpr float kAnti = 0.0625f;
 constexpr float kTopoScale = 0.00390625f;  // 1 / 256
-constexpr long long kHeader = 32;          // barrier (2 words), progress
-constexpr int kTile = 1024;                // claims staged per resolution tile
+constexpr long long kHeader = 32;          // barrier (2 words)
+constexpr int kSlice = 1024;               // nodes of a slice settled at a time
 
 struct Cp {
   const float* capacity;     // [N, 4]
@@ -85,23 +92,16 @@ struct Cp {
   const int32_t* ici_id;
   int wr, wp, wi;            // coordinate table widths
   int g, n, steps, max_c, segs, seg_len;
+  bool vec;                  // used and capacity 16-byte aligned
   unsigned* barrier;         // [2]: arrivals, generation
-  int32_t* progress;         // [1]
   int32_t* placed;           // [G]
   int32_t* assigned;         // [G, N]
   int32_t* sib;              // [jobs, N]
   int32_t* t_rack;           // [gangs, wr]
   int32_t* t_pod;            // [gangs, wp]
   int32_t* t_ici;            // [gangs, wi]
-  float* seg_val;            // [G, segs]
-  int32_t* seg_row;
-  int32_t* seg_any;
-  int32_t* claim;            // [G]
-  float* uclaim;
-  int32_t* claimable;
-  int32_t* win;              // [N]
-  int32_t* claims;
-  int32_t* has;
+  unsigned long long* claim; // [2, G]: (order_key(u) << 32 | ~node), 0 = none
+  int32_t* any;              // [2, G]: active and some node feasible
   float* used;               // [N, 4], used0 on entry
   float* lam;                // [N], lam0 on entry
   int32_t* choices;          // [G, C], -1 on entry
@@ -111,12 +111,11 @@ struct Cp {
 };
 
 struct Layout {
-  long long placed, assigned, sib, t_rack, t_pod, t_ici, seg_val, seg_row,
-      seg_any, claim, uclaim, claimable, win, claims, has, total;
+  long long placed, assigned, sib, t_rack, t_pod, t_ici, claim, any, total;
 };
 
 Layout layout(int g, int n, int jobs, int gangs, int wr, int wp, int wi,
-              bool gang, int segs) {
+              bool gang) {
   Layout l{};
   long long at = kHeader;
   auto take = [&at](long long words) {
@@ -131,15 +130,8 @@ Layout layout(int g, int n, int jobs, int gangs, int wr, int wp, int wi,
   l.t_rack = take(gang ? static_cast<long long>(gangs) * wr : 0);
   l.t_pod = take(gang ? static_cast<long long>(gangs) * wp : 0);
   l.t_ici = take(gang ? static_cast<long long>(gangs) * wi : 0);
-  l.seg_val = take(static_cast<long long>(g) * segs);
-  l.seg_row = take(static_cast<long long>(g) * segs);
-  l.seg_any = take(static_cast<long long>(g) * segs);
-  l.claim = take(g);
-  l.uclaim = take(g);
-  l.claimable = take(g);
-  l.win = take(n);
-  l.claims = take(n);
-  l.has = take(n);
+  l.claim = take(4LL * g);
+  l.any = take(2LL * g);
   l.total = at;
   return l;
 }
@@ -156,6 +148,17 @@ cudaError_t plan(int g, int n, int* grid, int* segs, int* seg_len) {
   *seg_len = (n + s0 - 1) / s0;
   *segs = (n + *seg_len - 1) / *seg_len;
   return cudaSuccess;
+}
+
+// Total order on floats as u32: a larger float gives a larger key. -0
+// folds onto +0, which compare equal as floats.
+__device__ __forceinline__ uint32_t order_key(float x) {
+  const uint32_t u = __float_as_uint(x == 0.0f ? 0.0f : x);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_value(uint32_t k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
 __device__ __forceinline__ bool before(float k, int r, float bk, int br) {
@@ -193,32 +196,38 @@ __device__ void grid_barrier(unsigned* bar) {
   __syncthreads();
 }
 
-template <bool kGang>
-__device__ __forceinline__ float priced(const Cp& c, int g, int n, int sib_other) {
-  const size_t gn = static_cast<size_t>(g) * c.n + n;
-  float u = __fsub_rn(__fsub_rn(c.scores[gn], __ldcg(c.lam + n)),
-                      __fmul_rn(kAnti, __int2float_rn(sib_other)));
-  if (kGang) {
-    int acc = 0;
-    const int gc = c.gang_code[g];
-    if (gc >= 0) {
-      const int r = c.rack_id[n];
-      const int p = c.pod_id[n];
-      const int i = c.ici_id[n];
-      const int mr = r > 0 ? __ldcg(c.t_rack + static_cast<size_t>(gc) * c.wr + r) : 0;
-      const int mp = p > 0 ? __ldcg(c.t_pod + static_cast<size_t>(gc) * c.wp + p) : 0;
-      const int mi = i > 0 ? __ldcg(c.t_ici + static_cast<size_t>(gc) * c.wi + i) : 0;
-      acc = c.q_rack[g] * mr + c.q_pod[g] * mp + c.q_ici[g] * mi;
-    }
-    u = __fadd_rn(u, __fmul_rn(__int2float_rn(acc), kTopoScale));
+// The gang term of group g on node n: f32(sum over rack/pod/ici of q *
+// gang-mate instances on nodes of n's coordinate) / 256.
+__device__ __forceinline__ float topo_term(const Cp& c, int g, int n) {
+  int acc = 0;
+  const int gc = c.gang_code[g];
+  if (gc >= 0) {
+    const int r = c.rack_id[n];
+    const int p = c.pod_id[n];
+    const int i = c.ici_id[n];
+    const int mr = r > 0 ? __ldcg(c.t_rack + static_cast<size_t>(gc) * c.wr + r) : 0;
+    const int mp = p > 0 ? __ldcg(c.t_pod + static_cast<size_t>(gc) * c.wp + p) : 0;
+    const int mi = i > 0 ? __ldcg(c.t_ici + static_cast<size_t>(gc) * c.wi + i) : 0;
+    acc = c.q_rack[g] * mr + c.q_pod[g] * mp + c.q_ici[g] * mi;
   }
-  return u;
+  return __fmul_rn(__int2float_rn(acc), kTopoScale);
+}
+
+// A node's 4 dims, one 16-byte load where aligned.
+template <bool kL2>
+__device__ __forceinline__ float4 load4(const float* p, bool vec) {
+  if (vec) {
+    const float4* q = reinterpret_cast<const float4*>(p);
+    return kL2 ? __ldcg(q) : __ldg(q);
+  }
+  return kL2 ? make_float4(__ldcg(p), __ldcg(p + 1), __ldcg(p + 2), __ldcg(p + 3))
+             : make_float4(p[0], p[1], p[2], p[3]);
 }
 
 // Phase 1: the (value, index) argmax of one group's priced row over one
 // segment, and whether any node of it is feasible.
 template <bool kGang>
-__device__ void row_pass(const Cp& c) {
+__device__ void row_pass(const Cp& c, int par) {
   __shared__ float s_k[kWarps];
   __shared__ int s_r[kWarps];
   const int lane = threadIdx.x & 31;
@@ -229,25 +238,35 @@ __device__ void row_pass(const Cp& c) {
     float bk = -INFINITY;
     int br = INT_MAX;
     int any = 0;
-    if (__ldcg(c.placed + g) < c.counts[g]) {
+    const bool active = __ldcg(c.placed + g) < c.counts[g];
+    if (active) {
       const int lo = s * c.seg_len;
       const int hi = min(c.n, lo + c.seg_len);
       const float* a = c.asks + 4 * static_cast<size_t>(g);
       const int32_t* sib = c.sib + static_cast<size_t>(c.job_code[g]) * c.n;
       const bool distinct = c.distinct[g] != 0;
+      const float4 ask = make_float4(a[0], a[1], a[2], a[3]);
 #pragma unroll 4
       for (int n = lo + static_cast<int>(threadIdx.x); n < hi; n += kThreads) {
-        bool fit = true;
-        for (int d = 0; d < 4; ++d) {
-          fit &= __fadd_rn(__ldcg(c.used + 4 * static_cast<size_t>(n) + d), a[d]) <=
-                 c.capacity[4 * static_cast<size_t>(n) + d];
-        }
+        // every load of the node issued at once, whatever it feeds
+        const float4 used = load4<true>(c.used + 4 * static_cast<size_t>(n), c.vec);
+        const float4 cap = load4<false>(c.capacity + 4 * static_cast<size_t>(n), c.vec);
         const size_t gn = static_cast<size_t>(g) * c.n + n;
         const int sib_all = __ldcg(sib + n);
-        const bool taken = c.job_counts[gn] + sib_all > 0;
-        const bool feas = fit && c.eligible[gn] != 0 && !(distinct && taken);
-        const float u = feas ? priced<kGang>(c, g, n, sib_all - __ldcg(c.assigned + gn))
-                             : -INFINITY;
+        const int job = c.job_counts[gn];
+        const bool elig = c.eligible[gn] != 0;
+        const float score = c.scores[gn];
+        const float lam = __ldcg(c.lam + n);
+        const int mine = __ldcg(c.assigned + gn);
+        const bool fit = (__fadd_rn(used.x, ask.x) <= cap.x) & (__fadd_rn(used.y, ask.y) <= cap.y) &
+                         (__fadd_rn(used.z, ask.z) <= cap.z) & (__fadd_rn(used.w, ask.w) <= cap.w);
+        const bool taken = job + sib_all > 0;
+        const bool feas = fit && elig && !(distinct && taken);
+        // u = (score - lam) - ANTI * (same-job instances of other groups)
+        float u = __fsub_rn(__fsub_rn(score, lam),
+                            __fmul_rn(kAnti, __int2float_rn(sib_all - mine)));
+        if (kGang && feas) u = __fadd_rn(u, topo_term(c, g, n));
+        u = feas ? u : -INFINITY;
         any |= feas;
         if (before(u, n, bk, br)) {
           bk = u;
@@ -261,175 +280,179 @@ __device__ void row_pass(const Cp& c) {
       s_r[warp] = br;
     }
     any = __syncthreads_or(any);
-    if (warp == 0) {
+    if (warp == 0 && active) {
       bk = lane < kWarps ? s_k[lane] : -INFINITY;
       br = lane < kWarps ? s_r[lane] : INT_MAX;
       warp_argmax(bk, br);
-      if (lane == 0) {
-        __stcg(c.seg_val + item, bk);
-        __stcg(c.seg_row + item, br);
-        __stcg(c.seg_any + item, any);
+      if (lane == 0 && br != INT_MAX) {
+        // a NaN u never wins, as in the argmax above
+        const uint32_t uk = bk == bk ? order_key(bk) : 0u;
+        atomicMax(c.claim + par * c.g + g,
+                  (static_cast<unsigned long long>(uk) << 32) |
+                      (kFull - static_cast<unsigned>(br)));
+        if (any) atomicOr(c.any + par * c.g + g, 1);
       }
     }
     __syncthreads();
   }
 }
 
-// The claim of group g from its segments' argmaxes, in segment order.
-__device__ __forceinline__ void store_claim(const Cp& c, int g, float bk, int br, int any) {
-  const int active = __ldcg(c.placed + g) < c.counts[g];
-  __stcg(c.claim + g, br == INT_MAX ? 0 : br);
-  __stcg(c.uclaim + g, bk);
-  __stcg(c.claimable + g, active && any ? 1 : 0);
+struct SettleShared {
+  int zero_node;                   // group 0's claim when it can claim, else -1
+  int count[kSlice];
+  unsigned long long top[kSlice];  // (order_key(prio) << 32 | order_key(u))
+  int least[kSlice];               // the least group reaching `top`
+  int win[kSlice];
+};
+
+__device__ __forceinline__ int claim_node(unsigned long long w) {
+  return static_cast<int>(kFull - static_cast<unsigned>(w));
 }
 
-// Phase 2, block 0: claims, the resolution and the winners' commits.
+// Phase 2, every block on its slice of the nodes: the claims on them
+// resolved, the winners' commits, usage and prices. Returns whether any
+// group claimed this round (the same on every block).
 template <bool kGang>
-__device__ void resolve(const Cp& c) {
-  __shared__ int s_claim[kTile];  // -1 where the group cannot claim
-  __shared__ float s_prio[kTile];
-  __shared__ float s_u[kTile];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (c.segs == 1) {
-    for (int g = threadIdx.x; g < c.g; g += kThreads) {
-      store_claim(c, g, __ldcg(c.seg_val + g), __ldcg(c.seg_row + g),
-                  __ldcg(c.seg_any + g));
+__device__ bool settle(const Cp& c, SettleShared& s, int par) {
+  const unsigned long long* claim = c.claim + par * c.g;
+  const int32_t* any = c.any + par * c.g;
+  // a group's rank word (order_key(prio) << 32 | order_key(u)) and node
+  // when it can claim; the thread's first group is read once, in registers
+  const auto read = [&](int g, unsigned long long* rank, int* node) {
+    if (!__ldcg(any + g)) return false;
+    const unsigned long long w = __ldcg(claim + g);
+    *rank = (static_cast<unsigned long long>(order_key(c.prio[g])) << 32) | (w >> 32);
+    *node = claim_node(w);
+    return true;
+  };
+  unsigned long long rank0 = 0;
+  int node0 = -1;
+  const bool has0 = static_cast<int>(threadIdx.x) < c.g && read(threadIdx.x, &rank0, &node0);
+  const auto group = [&](int g, unsigned long long* rank, int* node) {
+    if (g == static_cast<int>(threadIdx.x)) {
+      *rank = rank0;
+      *node = node0;
+      return has0;
     }
-  } else {
-    // a warp a group: the lanes read its segments, then a warp argmax
-    for (int g = warp; g < c.g; g += kWarps) {
-      float bk = -INFINITY;
-      int br = INT_MAX;
-      int any = 0;
-      for (int s = lane; s < c.segs; s += 32) {
-        const int item = g * c.segs + s;
-        const float v = __ldcg(c.seg_val + item);
-        const int r = __ldcg(c.seg_row + item);
-        if (before(v, r, bk, br)) {
-          bk = v;
-          br = r;
-        }
-        any |= __ldcg(c.seg_any + item);
-      }
-      warp_argmax(bk, br);
-      any = __any_sync(kFull, any);
-      if (lane == 0) store_claim(c, g, bk, br, any);
-    }
-  }
-  __syncthreads();
-  // each claimed node admits the claimant first in (priority desc, u
-  // desc, group asc); the reference's masked argmax gives group 0 when
-  // that claimant's u is -inf. The claims are staged through shared
-  // memory a tile at a time.
-  for (int g0 = 0; g0 < c.g; g0 += kThreads) {
-    const int g = g0 + static_cast<int>(threadIdx.x);
-    const bool mine = g < c.g && __ldcg(c.claimable + g) != 0;
-    const int node = mine ? __ldcg(c.claim + g) : -1;
-    const float pg = mine ? c.prio[g] : 0.0f;
-    const float ug = mine ? __ldcg(c.uclaim + g) : 0.0f;
-    int count = 0;
-    bool beaten = false;
-    for (int t0 = 0; t0 < c.g; t0 += kTile) {
-      const int tile = min(kTile, c.g - t0);
-      __syncthreads();
-      for (int i = threadIdx.x; i < tile; i += kThreads) {
-        const int o = t0 + i;
-        s_claim[i] = __ldcg(c.claimable + o) ? __ldcg(c.claim + o) : -1;
-        s_prio[i] = c.prio[o];
-        s_u[i] = __ldcg(c.uclaim + o);
-      }
-      __syncthreads();
-      if (mine) {
-        for (int i = 0; i < tile; ++i) {
-          if (s_claim[i] != node) continue;
-          ++count;
-          const int o = t0 + i;
-          const float po = s_prio[i];
-          const float uo = s_u[i];
-          beaten |= po > pg || (po == pg && (uo > ug || (uo == ug && o < g)));
-        }
-      }
-    }
-    if (mine && !beaten) {
-      __stcg(c.win + node, ug > -INFINITY ? g : 0);
-      __stcg(c.has + node, 1);
-      __stcg(c.claims + node, count);
-    }
-  }
-  __syncthreads();
-  int progress = 0;
-  for (int g = threadIdx.x; g < c.g; g += kThreads) {
-    if (!__ldcg(c.claimable + g)) continue;
-    progress = 1;
-    const int node = __ldcg(c.claim + g);
-    if (__ldcg(c.win + node) != g) {
-      if (kGang) c.waits[g] += 1;
-      continue;
-    }
-    const int placed = __ldcg(c.placed + g);
-    const int slot = min(placed, c.max_c - 1);
-    const size_t gc_slot = static_cast<size_t>(g) * c.max_c + slot;
-    c.choices[gc_slot] = node;
-    c.choice_scores[gc_slot] = c.scores[static_cast<size_t>(g) * c.n + node];
-    int32_t* a = c.assigned + static_cast<size_t>(g) * c.n + node;
-    __stcg(a, __ldcg(a) + 1);
-    // one winner per node: no other commit of this round touches this word
-    int32_t* s = c.sib + static_cast<size_t>(c.job_code[g]) * c.n + node;
-    __stcg(s, __ldcg(s) + 1);
-    __stcg(c.placed + g, placed + 1);
-    if (kGang) {
-      const int gc = c.gang_code[g];
-      if (gc >= 0) {
-        const int r = c.rack_id[node];
-        const int p = c.pod_id[node];
-        const int i = c.ici_id[node];
-        if (r > 0) atomicAdd(c.t_rack + static_cast<size_t>(gc) * c.wr + r, 1);
-        if (p > 0) atomicAdd(c.t_pod + static_cast<size_t>(gc) * c.wp + p, 1);
-        if (i > 0) atomicAdd(c.t_ici + static_cast<size_t>(gc) * c.wi + i, 1);
-      }
-    }
-  }
+    return read(g, rank, node);
+  };
+  int progress = has0;
+  for (int g = threadIdx.x + kThreads; g < c.g; g += kThreads) progress |= __ldcg(any + g);
+  if (threadIdx.x == 0) s.zero_node = has0 ? node0 : -1;
   progress = __syncthreads_or(progress);
-  if (threadIdx.x == 0) {
-    __stcg(c.progress, progress);
-    if (progress) c.rounds[0] += 1;
+  const int slice = (c.n + static_cast<int>(gridDim.x) - 1) / static_cast<int>(gridDim.x);
+  const int lo0 = blockIdx.x * slice;
+  const int hi0 = min(c.n, lo0 + slice);
+  for (int lo = lo0; lo < hi0; lo += kSlice) {
+    const int len = min(kSlice, hi0 - lo);
+    for (int j = threadIdx.x; j < len; j += kThreads) {
+      s.count[j] = 0;
+      s.top[j] = 0ull;
+      s.least[j] = INT_MAX;
+    }
+    __syncthreads();
+    // the claimants of this chunk: how many, and the highest (priority, u)
+    for (int g = threadIdx.x; g < c.g; g += kThreads) {
+      unsigned long long rank;
+      int node;
+      if (!group(g, &rank, &node) || node < lo || node >= lo + len) continue;
+      atomicAdd(&s.count[node - lo], 1);
+      atomicMax(&s.top[node - lo], rank);
+    }
+    __syncthreads();
+    // then the least group among those that reach it
+    for (int g = threadIdx.x; g < c.g; g += kThreads) {
+      unsigned long long rank;
+      int node;
+      if (!group(g, &rank, &node) || node < lo || node >= lo + len) continue;
+      if (rank == s.top[node - lo]) atomicMin(&s.least[node - lo], g);
+    }
+    __syncthreads();
+    for (int j = threadIdx.x; j < len; j += kThreads) {
+      const int n = lo + j;
+      const int count = s.count[j];
+      int ask_row = 0;  // whose ask the node's usage grows by
+      int won = -1;     // the group that commits here, if any
+      if (count > 0) {
+        const float u = key_value(static_cast<uint32_t>(s.top[j]));
+        ask_row = u > -INFINITY ? s.least[j] : 0;
+        // the least claimant commits; group 0 after a -inf winner only if
+        // it claimed here
+        won = u > -INFINITY ? ask_row : (s.zero_node == n ? 0 : -1);
+      }
+      s.win[j] = won;
+      if (won >= 0) {
+        const int placed = __ldcg(c.placed + won);
+        const int slot = min(placed, c.max_c - 1);
+        const size_t gc_slot = static_cast<size_t>(won) * c.max_c + slot;
+        __stcg(c.choices + gc_slot, n);
+        __stcg(c.choice_scores + gc_slot, c.scores[static_cast<size_t>(won) * c.n + n]);
+        int32_t* a = c.assigned + static_cast<size_t>(won) * c.n + n;
+        __stcg(a, __ldcg(a) + 1);
+        // one winner per node: no other commit of this round touches this word
+        int32_t* sb = c.sib + static_cast<size_t>(c.job_code[won]) * c.n + n;
+        __stcg(sb, __ldcg(sb) + 1);
+        __stcg(c.placed + won, placed + 1);
+        if (kGang) {
+          const int gc = c.gang_code[won];
+          if (gc >= 0) {
+            const int r = c.rack_id[n];
+            const int p = c.pod_id[n];
+            const int i = c.ici_id[n];
+            if (r > 0) atomicAdd(c.t_rack + static_cast<size_t>(gc) * c.wr + r, 1);
+            if (p > 0) atomicAdd(c.t_pod + static_cast<size_t>(gc) * c.wp + p, 1);
+            if (i > 0) atomicAdd(c.t_ici + static_cast<size_t>(gc) * c.wi + i, 1);
+          }
+        }
+      }
+      // usage and price of every node, as the reference's node update
+      const float* a = c.asks + 4 * static_cast<size_t>(ask_row);
+      for (int d = 0; d < 4; ++d) {
+        float* u = c.used + 4 * static_cast<size_t>(n) + d;
+        __stcg(u, __fadd_rn(__ldcg(u), count > 0 ? a[d] : 0.0f));
+      }
+      float l = __fadd_rn(__ldcg(c.lam + n),
+                          __fmul_rn(kEta, __int2float_rn(max(count - 1, 0))));
+      if (count == 0) l = fmaxf(__fsub_rn(l, kEta), 0.0f);
+      __stcg(c.lam + n, l);
+    }
+    __syncthreads();
+    if (kGang) {
+      // a group that could claim and lost its node waits a round
+      for (int g = threadIdx.x; g < c.g; g += kThreads) {
+        unsigned long long rank;
+        int node;
+        if (!group(g, &rank, &node) || node < lo || node >= lo + len) continue;
+        if (s.win[node - lo] != g) __stcg(c.waits + g, __ldcg(c.waits + g) + 1);
+      }
+    }
+    __syncthreads();  // the chunk's shared state is reused by the next
   }
-}
-
-// Phase 3: usage and prices of every node.
-__device__ void node_pass(const Cp& c) {
+  if (progress && blockIdx.x == 0 && threadIdx.x == 0) c.rounds[0] += 1;
+  // the other buffer's claim words start the next round empty
   const int stride = gridDim.x * kThreads;
-  for (int n = blockIdx.x * kThreads + threadIdx.x; n < c.n; n += stride) {
-    const int has = __ldcg(c.has + n);
-    const int count = __ldcg(c.claims + n);
-    const float* a = c.asks + 4 * static_cast<size_t>(has ? __ldcg(c.win + n) : 0);
-    for (int d = 0; d < 4; ++d) {
-      float* u = c.used + 4 * static_cast<size_t>(n) + d;
-      __stcg(u, __fadd_rn(__ldcg(u), has ? a[d] : 0.0f));
-    }
-    float l = __fadd_rn(__ldcg(c.lam + n),
-                        __fmul_rn(kEta, __int2float_rn(max(count - 1, 0))));
-    if (count == 0) l = fmaxf(__fsub_rn(l, kEta), 0.0f);
-    __stcg(c.lam + n, l);
-    if (has) {
-      __stcg(c.has + n, 0);
-      __stcg(c.claims + n, 0);
-    }
+  for (int g = blockIdx.x * kThreads + threadIdx.x; g < c.g; g += stride) {
+    __stcg(c.claim + (par ^ 1) * c.g + g, 0ull);
+    __stcg(c.any + (par ^ 1) * c.g + g, 0);
   }
+  return progress != 0;
 }
 
 template <bool kGang>
 __global__ void __launch_bounds__(kThreads) cp_kernel(Cp c) {
+  __shared__ SettleShared s;
   for (int it = 0; it < c.steps; ++it) {
-    row_pass<kGang>(c);
+    const int par = it & 1;
+    row_pass<kGang>(c, par);
     grid_barrier(c.barrier);
-    if (blockIdx.x == 0) resolve<kGang>(c);
+    if (!settle<kGang>(c, s, par)) break;
     grid_barrier(c.barrier);
-    node_pass(c);
-    grid_barrier(c.barrier);
-    if (!__ldcg(c.progress)) break;
   }
+}
+
+// Nothing but grid barriers: what one costs on this card, for the record.
+__global__ void __launch_bounds__(kThreads) barrier_probe_kernel(unsigned* bar, int iters) {
+  for (int i = 0; i < iters; ++i) grid_barrier(bar);
 }
 
 }  // namespace
@@ -437,14 +460,11 @@ __global__ void __launch_bounds__(kThreads) cp_kernel(Cp c) {
 // C entry points, bound with ctypes (nomad_tpu_torch/device/cp.py).
 
 // Words of the zero-filled int32 scratch `nomad_cp_place` takes for these
-// sizes on the current device; a negative cudaError on failure.
+// sizes; a negative cudaError on failure.
 extern "C" long long nomad_cp_scratch_words(int g, int n, int jobs, int gangs,
                                              int wr, int wp, int wi, int gang) {
   if (g < 1 || n < 1 || jobs < 1) return -static_cast<long long>(cudaErrorInvalidValue);
-  int grid = 0, segs = 0, seg_len = 0;
-  const cudaError_t e = plan(g, n, &grid, &segs, &seg_len);
-  if (e != cudaSuccess) return -static_cast<long long>(e);
-  return layout(g, n, jobs, gangs, wr, wp, wi, gang != 0, segs).total;
+  return layout(g, n, jobs, gangs, wr, wp, wi, gang != 0).total;
 }
 
 // One cooperative launch on `stream`; allocates nothing and returns the
@@ -475,7 +495,7 @@ extern "C" int nomad_cp_place(
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  const Layout l = layout(g, n, jobs, gangs, wr, wp, wi, gang, segs);
+  const Layout l = layout(g, n, jobs, gangs, wr, wp, wi, gang);
   Cp c{};
   c.capacity = capacity;
   c.asks = asks;
@@ -502,23 +522,17 @@ extern "C" int nomad_cp_place(
   c.max_c = max_c;
   c.segs = segs;
   c.seg_len = seg_len;
+  c.vec = reinterpret_cast<uintptr_t>(used) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(capacity) % 16 == 0;
   c.barrier = reinterpret_cast<unsigned*>(scratch);
-  c.progress = scratch + 2;
   c.placed = scratch + l.placed;
   c.assigned = scratch + l.assigned;
   c.sib = scratch + l.sib;
   c.t_rack = scratch + l.t_rack;
   c.t_pod = scratch + l.t_pod;
   c.t_ici = scratch + l.t_ici;
-  c.seg_val = reinterpret_cast<float*>(scratch + l.seg_val);
-  c.seg_row = scratch + l.seg_row;
-  c.seg_any = scratch + l.seg_any;
-  c.claim = scratch + l.claim;
-  c.uclaim = reinterpret_cast<float*>(scratch + l.uclaim);
-  c.claimable = scratch + l.claimable;
-  c.win = scratch + l.win;
-  c.claims = scratch + l.claims;
-  c.has = scratch + l.has;
+  c.claim = reinterpret_cast<unsigned long long*>(scratch + l.claim);
+  c.any = scratch + l.any;
   c.used = used;
   c.lam = lam;
   c.choices = choices;
@@ -528,6 +542,23 @@ extern "C" int nomad_cp_place(
   void* args[] = {&c};
   e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
                                   dim3(kThreads), args, 0,
+                                  static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `iters` grid barriers in one cooperative launch of the auction's grid
+// (one 1,024-thread block per SM) on `stream`; `scratch` holds 2 zeroed
+// words. Returns the launch's error.
+extern "C" int nomad_cp_barrier_probe(int iters, int32_t* scratch, void* stream) {
+  if (iters < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int grid = 0, segs = 0, seg_len = 0;
+  cudaError_t e = plan(1, 1, &grid, &segs, &seg_len);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  unsigned* bar = reinterpret_cast<unsigned*>(scratch);
+  void* args[] = {&bar, &iters};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(barrier_probe_kernel),
+                                  dim3(grid), dim3(kThreads), args, 0,
                                   static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());

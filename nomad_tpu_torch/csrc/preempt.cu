@@ -32,30 +32,46 @@
 //    lane. A bitonic network of register shuffles sorts each row's
 //    segment, shuffle scans give the prefixes, and a ballot finds the
 //    first fitting prefix. Nothing touches shared memory.
-//  - 32 < V <= 4,096: one block per row sorts the row's Vp composite keys
-//    in shared memory (bitonic), each thread scans a contiguous chunk of
-//    the sorted row on top of a block scan of the chunk totals, and the
-//    first fitting slot is a shared 64-bit atomicMin on (slot << 32 |
-//    net priority).
-//  - choose: one thread per node; the argmax is a block reduction of
-//    (order_key(score) << 32 | ~row) words and a 64-bit atomicMax across
-//    blocks (the largest score, then the lowest row, whatever the
-//    atomics' order); the last block to finish decodes it.
+//  - 32 < V: one block per row sorts the row's Vp composite keys
+//    (bitonic), each thread scans a contiguous chunk of the sorted row on
+//    top of a block scan of the chunk totals, and the first fitting slot
+//    is a shared 64-bit atomicMin on (slot << 32 | net priority). Where
+//    the Vp sort words live sets the form: V <= 4,096 in the default
+//    dynamic shared memory (32 KB); V <= 16,384 in Hopper's opt-in
+//    dynamic shared memory (128 KB, under the 227 KB a block may take);
+//    above that in a global scratch of Vp words a block, the sort's
+//    stages going through L1 and L2, with as many blocks as are resident
+//    looping over the rows so that the scratch is resident blocks x Vp
+//    words, not N x Vp. Every form addresses a row's words with an int
+//    Vp and keeps a victim's index in a word's low 32 bits: V <= 2^30.
+//  - choose: one thread per node for V <= 32, one warp per node above
+//    (the lanes' strided sums added by a butterfly of shuffles); the
+//    argmax is a block reduction of (order_key(score) << 32 | ~row)
+//    words and a 64-bit atomicMax across blocks (the largest score, then
+//    the lowest row, whatever the atomics' order); the last block to
+//    finish decodes it.
 //
 // Numerics: IEEE division, sqrt and expf (no fast math) and the build's
 // -fmad=false, so the key, the free fractions and the score round as the
 // separately rounded reference ops do. The prefix sums add in scan order,
-// not sequentially: exact on the integer-valued resources (MHz, MiB below
-// 2^24) schedulers hand it.
+// not sequentially, and the choice's freed totals in index order or in a
+// warp's tree: all exact on integer-valued resources (MHz, MiB) while
+// every partial sum stays below 2^24, whatever the order. k and net
+// depend only on the prefixes up to the first that fits; a node whose
+// cpu or memory total passes 2^24 frees so much that its fit clips to 0
+// either way.
 
 #include "candidate.cuh"
 
 namespace {
 
-constexpr int kMaxVictims = 4096;
+constexpr int kMaxVictimWidth = 1 << 30;  // Vp in an int, index in 32 bits
+constexpr int kSmemWords = 4096;          // block form, default shared memory
+constexpr int kOptinWords = 16384;        // block form, opt-in shared memory
 constexpr int kWarpThreads = 256;   // warp form: 8 warps a block
 constexpr int kChooseThreads = 256;
 constexpr int kMaxBlockThreads = 256;
+constexpr int kGlobalThreads = 1024;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned long long kPadWord = ~0ULL;
 
@@ -99,9 +115,9 @@ __device__ unsigned long long victim_word(const Pass& p, int row, int i) {
 __device__ bool fits_after(const Pass& p, int row, const float* freed) {
   bool ok = true;
   for (int d = 0; d < 4; ++d) {
-    const float left =
-        __fadd_rn(__fsub_rn(p.used[4 * row + d], freed[d]), p.ask[d]);
-    ok = ok && left <= p.capacity[4 * row + d];
+    const size_t rd = 4 * static_cast<size_t>(row) + d;
+    const float left = __fadd_rn(__fsub_rn(p.used[rd], freed[d]), p.ask[d]);
+    ok = ok && left <= p.capacity[rd];
   }
   return ok;
 }
@@ -117,10 +133,12 @@ __device__ void write_row(const Pass& p, int row, bool any, int first,
 __global__ void __launch_bounds__(kWarpThreads)
 find_warp_kernel(Pass p, int width) {
   const int lane = threadIdx.x & 31;
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const long long warp =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
   const int seg = lane / width;
   const int sub = lane & (width - 1);
-  const int row = warp * (32 / width) + seg;
+  const long long wide_row = warp * (32 / width) + seg;
+  const int row = wide_row < p.n ? static_cast<int>(wide_row) : p.n;
   const bool in_row = row < p.n;
   const bool slot = in_row && sub < p.v;
 
@@ -164,15 +182,14 @@ find_warp_kernel(Pass p, int width) {
   }
 }
 
-// 32 < V <= 4,096: one block of `blockDim.x` threads per row, the row's
-// `vp` sort words in dynamic shared memory.
-__global__ void __launch_bounds__(kMaxBlockThreads)
-find_block_kernel(Pass p, int vp) {
-  extern __shared__ unsigned long long words[];
-  __shared__ float warp_freed[4][kMaxBlockThreads / 32];
-  __shared__ int warp_prio[kMaxBlockThreads / 32];
+// 32 < V: one block of `blockDim.x` (<= kThreads) threads sorts and
+// scans row `row`, its `vp` sort words at `words` (shared or global).
+template <int kThreads>
+__device__ void find_row(const Pass& p, int vp, unsigned long long* words,
+                         int row) {
+  __shared__ float warp_freed[4][kThreads / 32];
+  __shared__ int warp_prio[kThreads / 32];
   __shared__ unsigned long long hit;
-  const int row = blockIdx.x;
   const int tid = threadIdx.x;
   const int threads = blockDim.x;
   const int lane = tid & 31;
@@ -203,13 +220,13 @@ find_block_kernel(Pass p, int vp) {
   // this thread's chunk of the sorted row: its total first
   const int per = vp / threads;
   const int base = tid * per;
+  const size_t row_v = static_cast<size_t>(row) * p.v;
   float total[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   int total_prio = 0;
   for (int e = 0; e < per; ++e) {
     const int s = base + e;
     if (s >= p.v) break;
-    const size_t rv = static_cast<size_t>(row) * p.v +
-                      static_cast<int>(words[s] & 0xffffffffu);
+    const size_t rv = row_v + static_cast<int>(words[s] & 0xffffffffu);
     if (p.victim_mask[rv]) {
       for (int d = 0; d < 4; ++d) {
         total[d] = __fadd_rn(total[d], p.victim_res[4 * rv + d]);
@@ -264,8 +281,8 @@ find_block_kernel(Pass p, int vp) {
     const int s = base + e;
     if (s >= p.v) break;
     const int idx = static_cast<int>(words[s] & 0xffffffffu);
-    p.order[static_cast<size_t>(row) * p.v + s] = idx;
-    const size_t rv = static_cast<size_t>(row) * p.v + idx;
+    p.order[row_v + s] = idx;
+    const size_t rv = row_v + idx;
     if (hit_here || !p.victim_mask[rv]) continue;
     for (int d = 0; d < 4; ++d) {
       freed[d] = __fadd_rn(freed[d], p.victim_res[4 * rv + d]);
@@ -284,6 +301,72 @@ find_block_kernel(Pass p, int vp) {
               found ? static_cast<int>(hit >> 32) : -1,
               static_cast<int>(static_cast<unsigned>(hit & 0xffffffffu)));
   }
+  __syncthreads();  // `hit` and the words are reused by the block's next row
+}
+
+// 32 < V <= 16,384: one block per row, the sort words in dynamic shared
+// memory (opted in above the default 48 KB for V > 4,096).
+__global__ void __launch_bounds__(kMaxBlockThreads)
+find_block_kernel(Pass p, int vp) {
+  extern __shared__ unsigned long long smem_words[];
+  find_row<kMaxBlockThreads>(p, vp, smem_words, blockIdx.x);
+}
+
+// V > 16,384: the resident blocks loop over the rows, each sorting in its
+// own Vp words of the global scratch.
+__global__ void __launch_bounds__(kGlobalThreads)
+find_global_kernel(Pass p, int vp, unsigned long long* scratch) {
+  unsigned long long* words = scratch + static_cast<size_t>(blockIdx.x) * vp;
+  for (int row = blockIdx.x; row < p.n; row += gridDim.x) {
+    find_row<kGlobalThreads>(p, vp, words, row);
+  }
+}
+
+constexpr int kMaxDevices = 64;
+
+// Blocks of the global form: as many as are resident at once, at most
+// one a row. The resident count is taken once a device, so that a launch
+// captured in a CUDA graph makes no query.
+cudaError_t global_grid(int n, int* grid) {
+  static int resident[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  int blocks = dev < kMaxDevices ? resident[dev] : 0;
+  if (blocks == 0) {
+    int sms = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    int per_sm = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, find_global_kernel,
+                                                      kGlobalThreads, 0);
+    if (e != cudaSuccess) return e;
+    blocks = sms * (per_sm > 0 ? per_sm : 1);
+    if (dev < kMaxDevices) resident[dev] = blocks;
+  }
+  *grid = blocks < n ? blocks : n;
+  return cudaSuccess;
+}
+
+// The block form's opt-in to the larger dynamic shared memory, once a
+// device (the attribute stays set for the process).
+cudaError_t opt_in_block_form() {
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(
+      find_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kOptinWords * static_cast<int>(sizeof(unsigned long long)));
+  if (e == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return e;
+}
+
+int padded_width(int v) {
+  int vp = 1;
+  while (vp < v) vp <<= 1;
+  return vp;
 }
 
 struct Choose {
@@ -301,21 +384,14 @@ struct Choose {
   float* score;                // [N]
 };
 
-__device__ float choose_score(const Choose& c, int row) {
-  float freed[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int i = 0; i < c.v; ++i) {
-    const size_t rv = static_cast<size_t>(row) * c.v + i;
-    if (c.victim_mask[rv]) {
-      for (int d = 0; d < 4; ++d) {
-        freed[d] = __fadd_rn(freed[d], c.victim_res[4 * rv + d]);
-      }
-    }
-  }
+// The choice's score of a feasible row once `freed` (every masked victim)
+// is released and the ask placed.
+__device__ float choose_score(const Choose& c, int row, const float* freed) {
   float pow_sum_terms[2];
   for (int d = 0; d < 2; ++d) {  // cpu, mem drive the fit
-    const float cap = c.capacity[4 * row + d];
-    const float proposed =
-        __fadd_rn(__fsub_rn(c.used[4 * row + d], freed[d]), c.ask[d]);
+    const size_t rd = 4 * static_cast<size_t>(row) + d;
+    const float cap = c.capacity[rd];
+    const float proposed = __fadd_rn(__fsub_rn(c.used[rd], freed[d]), c.ask[d]);
     const float ff = cap > 0.0f
         ? __fdiv_rn(__fsub_rn(cap, proposed), fmaxf(cap, 1e-9f))
         : 1.0f;
@@ -333,19 +409,22 @@ __device__ float choose_score(const Choose& c, int row) {
   return __fmul_rn(fit, penalty);
 }
 
-__global__ void __launch_bounds__(kChooseThreads)
-choose_kernel(Choose c) {
-  __shared__ unsigned long long warp_best[kChooseThreads / 32];
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+// Row `row`'s argmax word (order_key(score) << 32 | ~row), its score
+// written.
+__device__ unsigned long long choose_word(const Choose& c, int row, const float* freed) {
+  const float s = c.feasible[row] ? choose_score(c, row, freed) : -INFINITY;
+  c.score[row] = s;
+  return (static_cast<unsigned long long>(order_key(s)) << 32) |
+         (0xffffffffu - static_cast<unsigned>(row));
+}
+
+// The block's largest word (each warp's in `warp_best`) into the 64-bit
+// atomicMax across blocks; the last block to finish decodes the winner's
+// row (the largest score, then the lowest row, whatever the order).
+__device__ void choose_argmax(const Choose& c, unsigned long long word,
+                              unsigned long long* warp_best) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  unsigned long long word = 0;
-  if (row < c.n) {
-    const float s = c.feasible[row] ? choose_score(c, row) : -INFINITY;
-    c.score[row] = s;
-    word = (static_cast<unsigned long long>(order_key(s)) << 32) |
-           (0xffffffffu - static_cast<unsigned>(row));
-  }
   for (int off = 16; off > 0; off >>= 1) {
     const unsigned long long o = __shfl_xor_sync(kFull, word, off);
     word = o > word ? o : word;
@@ -369,32 +448,117 @@ choose_kernel(Choose c) {
   }
 }
 
+// V <= 32: one thread a node adds its victims in index order.
+__global__ void __launch_bounds__(kChooseThreads)
+choose_kernel(Choose c) {
+  __shared__ unsigned long long warp_best[kChooseThreads / 32];
+  const long long wide_row =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  unsigned long long word = 0;
+  if (wide_row < c.n) {
+    const int row = static_cast<int>(wide_row);
+    float freed[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int i = 0; i < c.v; ++i) {
+      const size_t rv = static_cast<size_t>(row) * c.v + i;
+      if (c.victim_mask[rv]) {
+        for (int d = 0; d < 4; ++d) {
+          freed[d] = __fadd_rn(freed[d], c.victim_res[4 * rv + d]);
+        }
+      }
+    }
+    word = choose_word(c, row, freed);
+  }
+  choose_argmax(c, word, warp_best);
+}
+
+// V > 32: one warp a node; each lane adds every 32nd victim, then a
+// butterfly of shuffles adds the lanes' sums (the same on every lane).
+__global__ void __launch_bounds__(kChooseThreads)
+choose_wide_kernel(Choose c) {
+  __shared__ unsigned long long warp_best[kChooseThreads / 32];
+  const int lane = threadIdx.x & 31;
+  const long long wide_row =
+      static_cast<long long>(blockIdx.x) * (kChooseThreads / 32) + (threadIdx.x >> 5);
+  const bool in = wide_row < c.n;
+  const int row = in ? static_cast<int>(wide_row) : 0;
+  float freed[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (in) {
+    const size_t row_v = static_cast<size_t>(row) * c.v;
+    for (int i = lane; i < c.v; i += 32) {
+      if (c.victim_mask[row_v + i]) {
+        const float4 r = *reinterpret_cast<const float4*>(c.victim_res + 4 * (row_v + i));
+        freed[0] = __fadd_rn(freed[0], r.x);
+        freed[1] = __fadd_rn(freed[1], r.y);
+        freed[2] = __fadd_rn(freed[2], r.z);
+        freed[3] = __fadd_rn(freed[3], r.w);
+      }
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    for (int d = 0; d < 4; ++d) {
+      freed[d] = __fadd_rn(freed[d], __shfl_xor_sync(kFull, freed[d], off));
+    }
+  }
+  unsigned long long word = 0;
+  if (in && lane == 0) word = choose_word(c, row, freed);
+  choose_argmax(c, word, warp_best);
+}
+
 }  // namespace
 
 // C entry points, bound with ctypes (nomad_tpu_torch/device/preempt.py).
 // Each launches on `stream`, allocates nothing, and returns
 // cudaGetLastError() so a refused launch is reported to the caller.
+
+// 64-bit words of the scratch `nomad_find_preemption` takes for N rows of
+// V victims (0 unless the global form runs); a negative cudaError on
+// failure.
+extern "C" long long nomad_find_preemption_scratch_words(int n, int v) {
+  if (n < 1 || v < 1 || v > kMaxVictimWidth) {
+    return -static_cast<long long>(cudaErrorInvalidValue);
+  }
+  const int vp = padded_width(v);
+  if (vp <= kOptinWords) return 0;
+  int grid = 0;
+  const cudaError_t e = global_grid(n, &grid);
+  if (e != cudaSuccess) return -static_cast<long long>(e);
+  return static_cast<long long>(grid) * vp;
+}
+
+// `scratch` holds nomad_find_preemption_scratch_words(n, v) words (none
+// needed, and it may be null, for V <= 16,384).
 extern "C" int nomad_find_preemption(
     const float* capacity, const float* used, const float* ask,
     const uint8_t* eligible, const float* victim_res,
     const int32_t* victim_prio, const uint8_t* victim_mask, int n, int v,
-    uint8_t* feasible, int32_t* k, float* net, int32_t* order, void* stream) {
-  if (n < 1 || v < 1 || v > kMaxVictims) {
+    uint8_t* feasible, int32_t* k, float* net, int32_t* order,
+    unsigned long long* scratch, void* stream) {
+  if (n < 1 || v < 1 || v > kMaxVictimWidth) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Pass p{capacity, used,  ask,  eligible, victim_res, victim_prio,
                victim_mask, n, v,  feasible, k,          net,
                order};
-  int vp = 1;
-  while (vp < v) vp <<= 1;
+  const int vp = padded_width(v);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vp <= 32) {
     const long long warps = (static_cast<long long>(n) + 32 / vp - 1) / (32 / vp);
-    const int blocks = static_cast<int>((warps * 32 + kWarpThreads - 1) / kWarpThreads);
-    find_warp_kernel<<<blocks, kWarpThreads, 0, s>>>(p, vp);
-  } else {
+    const long long blocks = (warps * 32 + kWarpThreads - 1) / kWarpThreads;
+    find_warp_kernel<<<static_cast<unsigned>(blocks), kWarpThreads, 0, s>>>(p, vp);
+  } else if (vp <= kOptinWords) {
     const int threads = vp < kMaxBlockThreads ? vp : kMaxBlockThreads;
-    find_block_kernel<<<n, threads, vp * sizeof(unsigned long long), s>>>(p, vp);
+    const int bytes = vp * static_cast<int>(sizeof(unsigned long long));
+    if (vp > kSmemWords) {
+      const cudaError_t e = opt_in_block_form();
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    find_block_kernel<<<n, threads, bytes, s>>>(p, vp);
+  } else {
+    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    int grid = 0;
+    const cudaError_t e = global_grid(n, &grid);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    find_global_kernel<<<grid, kGlobalThreads, 0, s>>>(p, vp, scratch);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -407,7 +571,17 @@ extern "C" int nomad_choose_preemption_node(
   if (n < 1 || v < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Choose c{capacity, used, ask,     victim_res, victim_mask, feasible,
                  net,      n,    v,       scratch,    best,        score};
-  const int blocks = (n + kChooseThreads - 1) / kChooseThreads;
-  choose_kernel<<<blocks, kChooseThreads, 0, static_cast<cudaStream_t>(stream)>>>(c);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (v <= 32) {
+    const long long blocks = (static_cast<long long>(n) + kChooseThreads - 1) / kChooseThreads;
+    choose_kernel<<<static_cast<unsigned>(blocks), kChooseThreads, 0, s>>>(c);
+  } else {
+    if (reinterpret_cast<uintptr_t>(victim_res) % 16 != 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int rows = kChooseThreads / 32;
+    const long long blocks = (static_cast<long long>(n) + rows - 1) / rows;
+    choose_wide_kernel<<<static_cast<unsigned>(blocks), kChooseThreads, 0, s>>>(c);
+  }
   return static_cast<int>(cudaGetLastError());
 }

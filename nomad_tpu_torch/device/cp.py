@@ -451,7 +451,7 @@ class _AuctionCall:
                 level_ids,
             ]
             self.widths = [int(w) for w in widths]
-        with torch.cuda.device(dev):  # the library sizes the grid for this card
+        with torch.cuda.device(dev):
             words = _cp_library("nomad_cp_scratch_words", _SCRATCH_ARGTYPES)(
                 g, n, self.n_jobs, self.n_gangs, *self.widths,
                 int(gang_args is not None),

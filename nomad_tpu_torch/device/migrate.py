@@ -179,7 +179,7 @@ def _migrate_library(symbol: str):
     fn = getattr(cuda_library("migrate"), symbol)
     if fn.argtypes is None:
         if symbol == "nomad_migrate_scratch_words":
-            fn.argtypes = [ctypes.c_int]
+            fn.argtypes = [ctypes.c_int] * 2  # a, n
             fn.restype = ctypes.c_longlong
         else:
             fn.argtypes = _MIGRATE_ARGTYPES
@@ -188,7 +188,9 @@ def _migrate_library(symbol: str):
 
 
 class _MigrateCall:
-    """One prepared launch: the zero-filled scratch and the outputs.
+    """One prepared launch: the zero-filled scratch (mostly each row's
+    list of its best candidate nodes, up to 1,024 of them, 8 bytes each)
+    and the outputs.
     Calling it launches on the current stream with no host sync;
     ``reset`` puts the outputs and the scratch back to their initial
     values (``chip_smoke.py`` times it so)."""
@@ -202,7 +204,7 @@ class _MigrateCall:
             if t.data_ptr() % 16:
                 raise ValueError(f"migrate_plan: {name} must be 16-byte aligned")
         with torch.cuda.device(self.dev):
-            words = _migrate_library("nomad_migrate_scratch_words")(scores.shape[1])
+            words = _migrate_library("nomad_migrate_scratch_words")(*scores.shape)
         if words < 0:
             raise RuntimeError(
                 f"migrate_plan: scratch sizing failed with cudaError {-words}"

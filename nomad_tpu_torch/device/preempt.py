@@ -49,9 +49,21 @@ from .score import _check_inputs, _div, _first_argmax, _pow10, capacity_on
 PREEMPTION_PRIORITY_DELTA = 10
 # Logistic inflection point for the net-priority penalty (rank.go:842).
 NET_PRIORITY_INFLECTION = 2048.0
-# Most victims per node the kernels take: the block form sorts a row's
-# padded victims (8 bytes each) in the default 48 KB of shared memory.
-MAX_VICTIMS = 4096
+# The most victims per node the kernels can address: they count a row's
+# padded width in a 32-bit int and keep a victim's index in the low 32
+# bits of its sort word. Any V the reference takes below it runs.
+MAX_VICTIM_WIDTH = 1 << 30
+# The most nodes: the row count is a 32-bit int.
+MAX_NODES = 2**31 - 1
+# Forms of the find pass by padded width Vp: (largest Vp, where a row's
+# sort words live). Above the last, a global scratch of Vp words for each
+# resident block, which the wrapper allocates.
+FIND_FORMS = (
+    (32, "warp: registers"),
+    (4096, "block: default shared memory"),
+    (16384, "block: opt-in shared memory"),
+)
+GLOBAL_FORM = "block: global scratch"
 _PAD_KEY = 1e9
 
 
@@ -159,29 +171,42 @@ def _pass_specs(capacity, used, ask, eligible, victim_res, victim_prio,
 
 
 def _check_pass(what: str, inputs) -> None:
+    """Refuse what the kernels cannot address: a row count or victim
+    width past the 32-bit indices they use."""
     same_device(inputs, inputs[0].device, what)
     _check_inputs(what, _pass_specs(*inputs))
     n, v = inputs[5].shape
-    if n < 1 or not 1 <= v <= MAX_VICTIMS:
+    if not 1 <= n <= MAX_NODES or not 1 <= v <= MAX_VICTIM_WIDTH:
         raise ValueError(
-            f"{what}: unsupported shape N={n} V={v} (the kernels take "
-            f"1 ≤ V ≤ {MAX_VICTIMS} victims per node)"
+            f"{what}: unsupported shape N={n} V={v} (the kernels address "
+            f"1 ≤ N ≤ {MAX_NODES} nodes and 1 ≤ V ≤ MAX_VICTIM_WIDTH = "
+            f"{MAX_VICTIM_WIDTH} victims per node)"
         )
+
+
+def find_form(v: int) -> str:
+    """The find pass's form for V victims a node, by padded width."""
+    vp = _victim_bucket(v)
+    for top, form in FIND_FORMS:
+        if vp <= top:
+            return form
+    return GLOBAL_FORM
 
 
 def _library(symbol: str, argtypes):
     fn = getattr(cuda_library("preempt"), symbol)
     if fn.argtypes is None:
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = ctypes.c_longlong if symbol.endswith("words") else ctypes.c_int
     return fn
 
 
 _FIND_ARGTYPES = (
     [ctypes.c_void_p] * 7  # capacity … victim_mask
     + [ctypes.c_int] * 2  # n, v
-    + [ctypes.c_void_p] * 5  # feasible, k, net, order, stream
+    + [ctypes.c_void_p] * 6  # feasible, k, net, order, scratch, stream
 )
+_SCRATCH_ARGTYPES = [ctypes.c_int] * 2  # n, v
 _CHOOSE_ARGTYPES = (
     [ctypes.c_void_p] * 7  # capacity, used, ask, victim_res, victim_mask,
     # feasible, net
@@ -211,9 +236,10 @@ def find_preemption(
 
 
 def _launch_find(inputs):
-    """Check the pass's inputs, allocate its outputs, launch
-    ``nomad_find_preemption`` on the current stream and count the launch
-    on ``find_preemption``."""
+    """Check the pass's inputs, allocate its outputs and the form's
+    scratch (the global form's sort words, sized by the library for this
+    card), launch ``nomad_find_preemption`` on the current stream and
+    count the launch on ``find_preemption``."""
     _check_pass("find_preemption", inputs)
     dev = inputs[0].device
     n, v = inputs[5].shape
@@ -221,10 +247,20 @@ def _launch_find(inputs):
     k = torch.empty(n, dtype=torch.int32, device=dev)
     net = torch.empty(n, dtype=torch.float32, device=dev)
     order = torch.empty((n, v), dtype=torch.int32, device=dev)
+    scratch = None
+    if find_form(v) == GLOBAL_FORM:
+        with torch.cuda.device(dev):  # the library sizes the grid for this card
+            words = _library("nomad_find_preemption_scratch_words", _SCRATCH_ARGTYPES)(n, v)
+        if words < 0:
+            raise RuntimeError(
+                f"find_preemption: scratch sizing failed with cudaError {-words}"
+            )
+        scratch = torch.empty(int(words), dtype=torch.int64, device=dev)
     fn = _library("nomad_find_preemption", _FIND_ARGTYPES)
     status = fn(
         *[t.data_ptr() for t in inputs], n, v, feasible.data_ptr(),
-        k.data_ptr(), net.data_ptr(), order.data_ptr(), current_stream(dev),
+        k.data_ptr(), net.data_ptr(), order.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), current_stream(dev),
     )
     check_launch(status, "find_preemption")
     find_preemption.launches += 1

@@ -246,3 +246,53 @@ def test_harness_cp_pack_matches_reference(monkeypatch):
     placed, _, _ = plans(port, jobs)
     distinct = [node for (_, node) in placed[jobs[2].id].elements()]
     assert len(distinct) == len(set(distinct)) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gang", [False, True])
+def test_cuda_auction_tie_heavy_g100(gang):
+    """On the card: the CP auction (and its gang instantiation, gangs of
+    four groups on racks and pods) at G 100 on a tie-heavy case (equal
+    scores and priorities, all-infeasible rows, -0.0 in used0): every
+    output bit for bit against the plain version (the per-node
+    resolution's tie order: priority, then u, then the least group)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    args = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+            for a in _inputs(4, g=100, n=512, ties=True)]
+    if not gang:
+        got = port_cp.cp_place(*args, 128, 8)
+        want = port_cp.cp_place_plain(*args, 128, 8)
+    else:
+        g, n = args[5].shape
+        gang_ids = torch.arange(g, dtype=torch.int32).div(4, rounding_mode="floor") + 1
+        w = torch.tensor([0.5, -0.25, 0.125, 0.0], dtype=torch.float32).repeat(g // 4)
+        level_ids = torch.stack([torch.arange(n) // 16 + 1, torch.arange(n) // 64 + 1,
+                                 torch.arange(n) // 8 + 1]).to(torch.int32)
+        widths = (n // 16 + 1, n // 64 + 1, n // 8 + 1)
+        extra = [gang_ids.cuda(), w.cuda(), (-w).cuda(), (w / 2).cuda(), level_ids.cuda()]
+        got = port_cp.cp_gang_place_ids(*args[:10], *extra, widths, args[10], 128, 8)
+        want = port_cp.cp_gang_place_ids_plain(*args[:10], *extra, widths, args[10], 128, 8)
+    torch.cuda.synchronize()
+    assert_bits_equal(got, [x.cpu() for x in want], f"gang={gang}")
+    assert int(got[3]) > 0
+
+
+
+@pytest.mark.cuda
+def test_cuda_auction_unaligned_node_rows():
+    """On the card: capacity and used0 at an offset that is not 16-byte
+    aligned, so the row pass reads a node's four dims one by one; the
+    outputs bit for bit against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    args = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in _inputs(5, g=30, n=256)]
+    for i in (0, 1):  # capacity, used0: the same values one float in
+        shifted = torch.empty(args[i].numel() + 1, dtype=torch.float32, device="cuda")
+        shifted[1:] = args[i].reshape(-1)
+        args[i] = shifted[1:].view(args[i].shape)
+    assert args[0].data_ptr() % 16 != 0
+    got = port_cp.cp_place(*args, 64, 8)
+    want = port_cp.cp_place_plain(*args, 64, 8)
+    torch.cuda.synchronize()
+    assert_bits_equal(got, [x.cpu() for x in want], "unaligned")

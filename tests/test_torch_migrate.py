@@ -12,6 +12,12 @@ the CPU.
   by ``steps``; the reference's oracle invariants, run against the port;
 - the host copies (fleet, batch, scores, packing efficiency, schema) and
   the A/B harness ``run_defrag_ab``;
+- the kernel's early exit (``csrc/migrate.cu``): a small torch walk over
+  a row's sorted candidate list, with the kernel's stop tests, its list
+  cut at K entries, its chunks and its skipped unfit head, held against
+  the dense first-index argmax by ``hypothesis`` (ties at the stop
+  boundary, ±0.0, negative and NaN prices, all-infeasible and
+  single-candidate rows);
 - the wrapper's launch count, through a stand-in library, and on the card
   (``cuda``-marked, skipped without one) the kernel against the plain
   version.
@@ -29,6 +35,8 @@ import json
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from nomad_tpu.device import migrate as ref_mig
 from nomad_tpu.scheduler import migrate as ref_smig
@@ -44,11 +52,15 @@ def _fleet_inputs(seed=42, n_nodes=32, n_allocs=64):
     return args, np.zeros(n_nodes, np.float32), ref_smig._steps_for(n_allocs)
 
 
-def _general_inputs(seed, n=48, a=96, ties=False, perturbed=False):
+def _general_inputs(seed, n=48, a=96, ties=False, perturbed=False, prices=None):
     """(args, lam0, steps): contended integer resources, scores on a 1/16
     grid that differ by row (many exact ties), random eligibility; with
     ``ties`` every score and stay value equal, three all-infeasible rows
-    and -0.0 in used0 and lam0; with ``perturbed`` lam0 on a 1/8 grid."""
+    and -0.0 in used0 and lam0; with ``perturbed`` lam0 on a 1/8 grid.
+    ``prices`` as ``chip_smoke.py``'s phase 9 sets them for the kernel's
+    early exit: "positive", "negative", "boundary" (0 or 1/16 under the
+    1/16 score grid) or "priced_out" (scores falling with the node index
+    on every row, the first 2,048 nodes priced out)."""
     rng = np.random.default_rng(seed)
     cap = np.tile(np.array([4000, 8192, 102400, 1000], np.float32), (n, 1))
     used = np.floor(cap * rng.uniform(0.0, 0.6, (n, 1))).astype(np.float32)
@@ -73,6 +85,14 @@ def _general_inputs(seed, n=48, a=96, ties=False, perturbed=False):
         lam0[::2] = -0.0
     if perturbed:
         lam0 = (rng.integers(0, 4, n) * 0.125).astype(np.float32)
+    grids = {"positive": (1, 9, 0.125), "negative": (-4, 5, 0.125), "boundary": (0, 2, 0.0625)}
+    if prices in grids:
+        lo, hi, step = grids[prices]
+        lam0 = (rng.integers(lo, hi, n) * step).astype(np.float32)
+    elif prices == "priced_out":
+        falling = (np.round((1.0 - np.arange(n) / n) * 16) / 16).astype(np.float32)
+        scores = np.ascontiguousarray(np.broadcast_to(falling, (a, n)))
+        lam0[:2048] = 4.0
     args = [cap, used, sizes, cur, eligible, scores, cur_scores, move_cost]
     return args, lam0, ref_smig._steps_for(a)
 
@@ -119,6 +139,24 @@ def test_migrate_plan_general_scores(seed, budget):
     args, lam0, steps = _general_inputs(seed, n=96, a=192)
     port = _run(args, lam0, budget, steps)
     assert int(port[3]) > 1
+
+
+@pytest.mark.parametrize("prices", ["positive", "negative", "boundary"])
+def test_migrate_plan_early_exit_prices(prices):
+    """The prices phase 9 gives the kernel's early exit: the least price
+    above 0, below 0, and on the score grid's half step."""
+    args, lam0, steps = _general_inputs(7, n=96, a=192, prices=prices)
+    port = _run(args, lam0, 192, steps)
+    assert int(port[3]) > 1
+
+
+def test_migrate_plan_priced_out_run():
+    """Every row's best node past a run of 2,048 priced-out nodes, longer
+    than the kernel's 1,024-entry candidate list."""
+    args, lam0, steps = _general_inputs(8, n=2600, a=48, prices="priced_out")
+    port = _run(args, lam0, 48, steps)
+    dest = port[0].numpy()
+    assert (dest[dest >= 0] >= 2048).all() and int(port[3]) > 1
 
 
 def test_migrate_plan_ties():
@@ -269,6 +307,159 @@ def test_run_defrag_ab_raises_without_cuda(monkeypatch):
         port_smig.run_defrag_ab()
 
 
+# -- the kernel's early exit -------------------------------------------------------
+
+
+def _order_key(x: np.ndarray) -> np.ndarray:
+    """u32 keys ordering f32 values as the floats do, -0 folded onto +0
+    (``csrc/migrate.cu``'s ``order_key``)."""
+    u = np.where(x == 0, np.float32(0), x).astype(np.float32).view(np.uint32)
+    return np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint32)
+
+
+def _key_value(k: int) -> np.float32:
+    k = np.uint32(k)
+    bits = k & np.uint32(0x7FFFFFFF) if k & np.uint32(0x80000000) else ~k
+    return np.array([bits], np.uint32).view(np.float32)[0]
+
+
+def _dense_claim(base, lam, cand, fit):
+    """The reference's claim of one row: the first-index argmax of the
+    priced gain over the feasible nodes, or None."""
+    g = torch.from_numpy(base) - torch.from_numpy(lam)
+    feas = torch.from_numpy(cand & fit) & (g > 0)
+    if not bool(feas.any()):
+        return None
+    umask = torch.where(feas, g, -torch.inf)
+    n = int(torch.nonzero(umask == umask.max())[0])
+    return n, float(g[n])
+
+
+class _List:
+    """A row's candidate list as the kernel builds it: the first K
+    candidates in (base desc, node asc) order of the folded keys, its
+    tail key, the largest key below the tail, and the first entry left
+    out (key 0 = none)."""
+
+    def __init__(self, base, cand, k):
+        keys = _order_key(base)
+        nodes = np.flatnonzero(cand)
+        order = nodes[np.lexsort((nodes, ~keys[nodes]))]
+        self.nodes, self.base = order[:k], base[order[:k]]
+        left = order[k:]
+        if left.size:
+            t = int(keys[self.nodes[-1]])
+            self.tail = t
+            below = keys[left][keys[left] < t]
+            self.next = int(below.max()) if below.size else 0
+            self.first_out, self.first_out_node = int(keys[left[0]]), int(left[0])
+        else:
+            self.tail = int(keys[self.nodes[-1]]) if self.nodes.size else 0
+            self.next, self.first_out, self.first_out_node = 0, 0, -1
+
+
+def _settles(b, bk, bn, best, best_n, lmin, tail, nxt):
+    """The kernel's stop tests at an entry of base ``b`` (key ``bk``,
+    node ``bn``): the strict one, then the tie ones (the float below the
+    base, or the tail run's next base, gains less than best)."""
+    lmin = np.float32(lmin)
+    bound = np.float32(b) - lmin
+    have = best_n is not None
+    if (bound < best) if have else not bound > 0:
+        return True
+    if not (have and bound == best and bn > best_n):
+        return False
+    if _key_value(bk - 1) - lmin < best:
+        return True
+    return bool(bk == tail and (nxt == 0 or _key_value(nxt) - lmin < best))
+
+
+def _walk(lst, lam, fit, start, chunk):
+    """The kernel's walk of one row from ``start``, ``chunk`` entries at a
+    time: (settled, (best node or None, best gain), next start)."""
+    finite = lam[~np.isnan(lam)]
+    lmin = np.float32(finite.min()) if finite.size else np.float32(np.inf)
+    best, best_n = -np.inf, None
+    leading, new_start = True, start
+    n_list = lst.nodes.size
+    for c0 in range(start, n_list, chunk):
+        idx = np.arange(c0, min(c0 + chunk, n_list))
+        nodes = lst.nodes[idx]
+        g = lst.base[idx] - lam[nodes]
+        fits = fit[nodes]
+        for n, gg, f in zip(nodes, g, fits):
+            if f and gg > 0 and (gg > best or (gg == best and n < best_n)):
+                best, best_n = gg, int(n)
+        if leading:
+            lead = int(np.argmax(fits)) if fits.any() else idx.size  # unfit head
+            new_start = c0 + lead
+            leading = lead == idx.size
+        b = lst.base[idx[-1]]
+        if _settles(b, int(_order_key(np.array([b]))[0]), int(nodes[-1]), best,
+                    best_n, lmin, lst.tail, lst.next):
+            return True, (best_n, best), new_start
+    if lst.first_out == 0:
+        return True, (best_n, best), new_start
+    ok = _settles(_key_value(lst.first_out), lst.first_out, lst.first_out_node,
+                  best, best_n, lmin, lst.tail, lst.next)
+    return ok, (best_n, best), new_start
+
+
+# coarse grids (exact ties), neighbouring floats, subnormals, and bases
+# and prices large enough that a subtraction rounds two bases together
+_BASES = st.sampled_from([-1.0, -0.0625, -0.0, 0.0, 0.0625, 0.125, 0.1875, 0.25,
+                          0.5, 0.75, 1.0, 1.0000001, 1e-45, -1e-45, 3.0e7, 3.0000002e7])
+_LAMS = st.sampled_from([-0.5, -0.125, -0.0, 0.0, 0.0625, 0.125, 0.25, 0.5, 2.0,
+                         float("nan"), 1e-45, 1.0, 3.0e7])
+
+
+@settings(derandomize=True, max_examples=400, deadline=None)
+@given(
+    n=st.integers(1, 24),
+    data=st.data(),
+    k=st.integers(1, 26),
+    chunk=st.sampled_from([1, 2, 3, 32]),
+)
+def test_early_exit_walk_equals_the_dense_argmax(n, data, k, chunk):
+    """Over two rounds (usage only grows, so a node unfit in the first
+    stays unfit; prices move freely): wherever the walk settles, its
+    claim is the dense first-index argmax; where it does not, the kernel
+    scans the row densely. Bases and prices on coarse grids make exact
+    ties at the stop boundary common; large ones make a subtraction round
+    two bases onto one bound."""
+    base = np.array(data.draw(st.lists(_BASES, min_size=n, max_size=n)), np.float32)
+    cand = np.array(data.draw(st.lists(st.booleans(), min_size=n, max_size=n)))
+    lst = _List(base, cand, k)
+    start = 0
+    fit = np.ones(n, bool)
+    for _ in range(2):
+        lam = np.array(data.draw(st.lists(_LAMS, min_size=n, max_size=n)), np.float32)
+        fit = fit & np.array(data.draw(st.lists(st.booleans(), min_size=n, max_size=n)))
+        settled, (best_n, best), start = _walk(lst, lam, fit, start, chunk)
+        if settled:
+            want = _dense_claim(base, lam, cand, fit)
+            got = None if best_n is None else (best_n, float(best))
+            assert got == want
+
+
+def test_early_exit_settles_ties_in_the_tail_run():
+    """Every base equal (the tie-heavy cases): the strict test never
+    fires, the tail-run test settles the row once the cheapest fitting
+    node is found, inside a list cut short."""
+    n = 64
+    base = np.full(n, 0.5, np.float32)
+    lst = _List(base, np.ones(n, bool), 16)
+    lam = np.zeros(n, np.float32)
+    lam[:5] = 0.25  # claimed in earlier rounds
+    fit = np.ones(n, bool)
+    fit[5] = False
+    settled, (best_n, best), _ = _walk(lst, lam, fit, 0, 32)
+    assert settled and (best_n, float(best)) == _dense_claim(base, lam, np.ones(n, bool), fit)
+    assert best_n == 6
+    lam[:16] = 0.25  # every listed node priced out: the row goes dense
+    assert not _walk(lst, lam, fit, 0, 32)[0]
+
+
 # -- the wrapper and the kernel ---------------------------------------------------
 
 
@@ -331,3 +522,38 @@ def test_cuda_kernel_matches_plain_version(kind):
         torch.cuda.synchronize()
         assert_bits_equal(got, [w.cpu() for w in want], f"{kind} budget {budget}")
     assert port_mig.migrate_plan.launches == before + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prices", ["positive", "negative", "boundary", "priced_out"])
+def test_cuda_kernel_early_exit_cases(prices):
+    """On the card: phase 9's early-exit cases at a test's size (a list
+    cut short at 1,024 entries, dense rows, exact ties at the stop
+    boundary), every output bit for bit against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    n, a = (2600, 64) if prices == "priced_out" else (2048, 256)
+    args, lam0, steps = _general_inputs(9, n=n, a=a, prices=prices)
+    t = [torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in (*args, lam0)]
+    for budget in (1, a):
+        got = port_mig.migrate_plan(*t[:8], budget, t[8], steps)
+        want = port_mig.migrate_plan_plain(*t[:8], budget, t[8], steps)
+        torch.cuda.synchronize()
+        assert_bits_equal(got, [w.cpu() for w in want], f"{prices} budget {budget}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1001, 16388, 16390])
+def test_cuda_kernel_load_and_staging_forms(n):
+    """On the card: N not a multiple of 4 (scalar score loads), N above
+    16,384 (the list build reads the grid again instead of staging the
+    keys in shared memory), and both; every output bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    args, lam0, steps = _general_inputs(10, n=n, a=48)
+    t = [torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in (*args, lam0)]
+    got = port_mig.migrate_plan(*t[:8], 48, t[8], steps)
+    want = port_mig.migrate_plan_plain(*t[:8], 48, t[8], steps)
+    torch.cuda.synchronize()
+    assert_bits_equal(got, [w.cpu() for w in want], f"N {n}")
+    assert int(got[3]) > 0

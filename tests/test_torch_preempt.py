@@ -228,20 +228,66 @@ def test_programs_match_reference_on_fractional_inputs(monkeypatch, case):
 
 def test_wrappers_check_their_inputs():
     """Shapes and dtypes the kernels do not take are refused before a
-    launch; V above the kernels' limit names the limit."""
+    launch; every V up to the kernels' addressing limit passes, 4,097 and
+    8,192 among them, and V past it names the limit."""
     args = [torch.from_numpy(np.ascontiguousarray(a)) for a in _inputs("random", 8, n=4)]
     bad = list(args)
     bad[5] = bad[5].to(torch.int64)
     with pytest.raises(ValueError, match="victim_prio"):
         port_preempt._check_pass("find_preemption", bad)
-    wide = list(args)
-    v = port_preempt.MAX_VICTIMS + 1
-    wide[4] = torch.zeros((4, v, 4))
-    wide[5] = torch.zeros((4, v), dtype=torch.int32)
-    wide[6] = torch.zeros((4, v), dtype=torch.bool)
-    with pytest.raises(ValueError, match=str(port_preempt.MAX_VICTIMS)):
-        port_preempt._check_pass("choose_preemption_node", wide)
+
+    def widened(v, device="cpu"):
+        wide = [t.to(device) for t in args]
+        wide[4] = torch.zeros((4, v, 4), device=device)
+        wide[5] = torch.zeros((4, v), dtype=torch.int32, device=device)
+        wide[6] = torch.zeros((4, v), dtype=torch.bool, device=device)
+        return wide
+
+    for v in (4097, 8192):
+        port_preempt._check_pass("choose_preemption_node", widened(v))
+    # past the limit only the shape is looked at: meta tensors hold no data
+    limit = port_preempt.MAX_VICTIM_WIDTH
+    port_preempt._check_pass("find_preemption", widened(limit, "meta"))
+    with pytest.raises(ValueError, match=f"MAX_VICTIM_WIDTH = {limit}"):
+        port_preempt._check_pass("choose_preemption_node", widened(limit + 1, "meta"))
     port_preempt._check_pass("find_preemption", args)
+
+
+def _wide_inputs(v: int, n: int = 8, seed: int = 31):
+    """The preemption inputs of ``chip_smoke.py``'s phase 7 at a wide V:
+    0..V integer victims a node at four batch priorities, the node's
+    usage a share of its victims' total (8 / V of it), so that a short
+    prefix frees room and every prefix sum up to it stays exact."""
+    rng = np.random.default_rng(seed + v)
+    cap = np.tile(np.array([3900, 7936, 98304, 1000], np.float32), (n, 1))
+    nv = rng.integers(0, v + 1, n)
+    mask = np.arange(v)[None, :] < nv[:, None]
+    res = np.stack([
+        rng.integers(100, 1500, (n, v)), rng.integers(128, 2048, (n, v)),
+        rng.integers(0, 4000, (n, v)), rng.integers(0, 100, (n, v)),
+    ], -1).astype(np.float32)
+    prio = rng.choice([10, 20, 30, 40], (n, v)).astype(np.int32)
+    res[~mask] = 0.0
+    prio[~mask] = 0
+    used = res.sum(axis=1) * (1.0 / max(v / 8, 1)) + np.array([100, 256, 4096, 0])
+    ask = np.array([1000, 1024, 300, 10], np.float32)
+    eligible = rng.random(n) < 0.9
+    return cap, np.floor(used).astype(np.float32), ask, eligible, res, prio, mask
+
+
+@pytest.mark.parametrize("v", [5000, 8192])
+def test_programs_match_reference_past_the_old_block_limit(monkeypatch, v):
+    """V above 4,096, where the card once refused: the plain versions
+    against the reference's jitted programs, order, k and feasible
+    identical, net and score within the file's tolerances."""
+    args = _wide_inputs(v)
+    ref_out, port_out = _both(monkeypatch, args)
+    for name in ("best", "feasible", "k", "order"):
+        np.testing.assert_array_equal(port_out[name], ref_out[name], err_msg=name)
+    np.testing.assert_allclose(port_out["net"], ref_out["net"], rtol=RTOL, atol=ATOL)
+    _assert_scores(ref_out, port_out)
+    assert ref_out["feasible"].any()
+    assert int(ref_out["k"].max()) > 1
 
 
 def test_preemption_score_and_distance_match_reference():
@@ -714,6 +760,27 @@ def test_wrappers_count_only_launches(monkeypatch, status):
     assert launched == ["find", "choose"]
     assert find.launches == 1
     assert port_preempt.choose_preemption_node.launches - choose_before == (status == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v", [8192, 32768])
+def test_cuda_wide_find_matches_plain_version(v):
+    """On the card: the find pass past the default shared memory (the
+    opt-in form at V 8,192, the global-scratch form at V 32,768) and the
+    choice on it, every output identical to the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    t = [torch.from_numpy(a).cuda() for a in _wide_inputs(v, n=64)]
+    got = port_preempt.find_preemption(*t)
+    want = port_preempt.find_preemption_plain(*t)
+    torch.cuda.synchronize()
+    for name, g, w in zip(OUTPUTS[1:5], got, want):
+        assert torch.equal(g.cpu(), w.cpu()), name
+    got = port_preempt.choose_preemption_node(*t)
+    want = port_preempt.choose_preemption_node_plain(*t)
+    torch.cuda.synchronize()
+    for name, g, w in zip(OUTPUTS, got, want):
+        assert torch.equal(g.cpu(), w.cpu()), name
 
 
 @pytest.mark.cuda
