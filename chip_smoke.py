@@ -83,8 +83,11 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
    every kernel call of each path is recorded, and after the counters
    are read each recorded call is replayed through the kernel and its
    plain version (choices and scores compared); every coupled,
-   preemption and migration call's kernel is timed, and the last call of
-   each kernel in full;
+   preemption, plugin and migration call's kernel is timed, and the last
+   call of each kernel in full; the closed-form and score-matrix calls of
+   every path that launches them are replayed the same way and their
+   kernel time over each path taken from CUDA graphs of the recorded
+   launches ("path_ms");
 6. the port's parity suite (``device/parity.py``) at full size on the
    card: each coupled config's placements against the stepwise host
    oracle, within the reference's 0.5 % score bar;
@@ -97,8 +100,11 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
    are exact in any order);
 8. the plugin kernels alone at N 16,384 on seeded inputs, G 1, 30 and
    100 and a tie-heavy case (equal keys, scores and priorities,
-   all-infeasible rows, -0.0 in used0), every output identical to the
-   plain version;
+   all-infeasible rows, -0.0 in used0), and for the hetero-greedy kernel
+   negative cpu asks on every 4th group at G 30 and 100, G 1,024, G 8,192
+   on 512 nodes (its state in global memory) and G 30 x 100 on 1,000
+   nodes, whose preferred classes fill mid-pass; every output identical
+   to the plain version, the hetero steps a launch and µs a step logged;
 9. the migration-auction kernel alone at N 16,384 on seeded general
    inputs (scores that differ by row, random eligibility): A 20,000 at a
    budget of 512 and cut short after 2 rounds, A 2,000 at budgets 0, 1
@@ -108,7 +114,12 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
    price positive, negative prices, each row's best node past a run of
    priced-out nodes longer than its candidate list, and ties exactly at
    the stop boundary; every output identical to the plain version;
-10. the total seconds, one JSON line of per-kernel results, the card's
+10. the one-per-value kernel alone on the config-3 recipe at 10,000
+   nodes: V + 1 = 33 and 257 (a lane over a thread-block cluster, value
+   ids staged as uint8 and uint16), every 7th node without a value, and V
+   4,096 (one block a lane from global scratch); identical to the plain
+   version, its µs a step and blocks a lane logged;
+11. the total seconds, one JSON line of per-kernel results, the card's
    name and power limit, then the device line last.
 
 Times, kernels and plain versions alike, are device times per launch
@@ -776,6 +787,99 @@ def replay_score_matrix(calls, path="score_group"):
     return out
 
 
+# the closed-form and score-matrix calls of the paths that do not replay
+# them as their own kernel's, by path
+SHARED_CALLS: dict = {}
+CALLS_GRAPHED = 256  # recorded launches captured in one CUDA graph
+
+
+@contextlib.contextmanager
+def shared_recording(path, closed_form=True, score_matrix=True):
+    """Records ``path``'s closed-form and score-matrix calls into
+    ``SHARED_CALLS[path]``, for ``replay_shared``."""
+    from nomad_tpu_torch.device import score as S
+    from nomad_tpu_torch.device import score_triton as ST
+
+    with contextlib.ExitStack() as stack:
+        rec = {}
+        if closed_form:
+            rec["place_closed_form"] = stack.enter_context(recording(S, "place_closed_form"))
+        if score_matrix:
+            rec["score_matrix"] = stack.enter_context(recording(ST, "score_matrix_triton"))
+        yield
+    SHARED_CALLS[path] = rec
+
+
+def shared_launch(name, c, plain=False):
+    """A callable running one recorded closed-form or score-matrix call
+    through the kernel (or with ``plain`` its plain version)."""
+    from nomad_tpu_torch.device import score as S
+
+    if name == "place_closed_form":
+        args = [c[key] for key in CLOSED_FORM_INPUTS]
+        fn = S.place_closed_form_plain if plain else S.place_closed_form
+        return lambda: fn(*args, c["algorithm_spread"], c["max_j"], c["k"], c["jitter"])
+    args = [c[key] for key in SCORE_MATRIX_INPUTS]
+    fn = S.component_scores if plain else S.score_matrix
+    return lambda: fn(*args, c["algorithm_spread"], c["throughputs"])
+
+
+def calls_ms(launches):
+    """Device ms of the callables' launches together: ``CALLS_GRAPHED`` at a
+    time captured in one CUDA graph and replayed between two events (each
+    graph replayed once before), as ``graph_ms`` times one call's launches,
+    so no host launch cost sits between them."""
+    total = 0.0
+    for i in range(0, len(launches), CALLS_GRAPHED):
+        chunk = launches[i:i + CALLS_GRAPHED]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for launch in chunk:
+                launch()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+        del graph
+    return total
+
+
+def replay_shared(name, calls, path):
+    """A path's recorded closed-form ("place_closed_form") or score-matrix
+    calls, each through the kernel and its plain version (identical
+    choices or fits, scores within MAX_ABS_ERR), then the kernel's device
+    time over them ("path_ms", ``calls_ms``)."""
+    worst, mismatches = 0.0, 0
+    for c in calls:
+        got = shared_launch(name, c)()
+        want = shared_launch(name, c, plain=True)()
+        torch.cuda.synchronize()
+        mismatches += int((got[0 if name == "place_closed_form" else 1]
+                           != want[0 if name == "place_closed_form" else 1]).sum())
+        score, ref = got[1 if name == "place_closed_form" else 0], \
+            want[1 if name == "place_closed_form" else 0]
+        fin = torch.isfinite(ref)
+        assert torch.equal(torch.isfinite(score), fin), f"{name} ({path}): infeasible differ"
+        if bool(fin.any()):
+            worst = max(worst, float((score - ref).abs()[fin].max()))
+    assert mismatches == 0, f"{name} ({path}): {mismatches} choices or fits differ from plain"
+    assert worst <= MAX_ABS_ERR, f"{name} ({path}): |err| {worst} > {MAX_ABS_ERR}"
+    path_ms = calls_ms([shared_launch(name, c) for c in calls])
+    log(
+        f"[{name}] {len(calls)} recorded {path} calls replayed: choice_mismatches="
+        f"{mismatches} max_abs_err={worst!r}; kernel time over the calls "
+        f"path_ms={path_ms!r} (graph replay of the calls; mean "
+        f"{path_ms / len(calls)!r} ms)"
+    )
+    return {"path_ms": path_ms, "calls": len(calls), "max_abs_err": worst,
+            "choice_mismatches": mismatches}
+
+
 def main_path(dev, n_nodes=10_000, n_jobs=10, count=1000):
     """The slice's two paths. Returns each path's launch counts and the
     recorded kernel calls of each."""
@@ -1115,10 +1219,11 @@ def coupled_steps(name, c, choices):
     return torch.clamp(with_pick + 1, max=total), width
 
 
-def check_coupled(name, c, timed):
-    """One recorded coupled call through the kernel and its plain version
-    on the same inputs: choices identical, scores exact; the kernel timed
-    by graph replay, and with ``timed`` the plain version and bound too."""
+def check_coupled(name, c, timed, label=" (last call of the path)"):
+    """One coupled call through the kernel and its plain version on the
+    same inputs: choices identical, scores exact; the kernel timed by
+    graph replay, and with ``timed`` the plain version and bound too (and
+    for the one-per-value kernel the blocks a lane runs on)."""
     from nomad_tpu_torch.device import score as S
 
     kernel = getattr(S, name)
@@ -1158,16 +1263,21 @@ def check_coupled(name, c, timed):
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "steps_per_launch": int(steps.max()),
+            "us_per_step": out["ms"] * 1e3 / int(steps.max()),
             "slots_per_step": width,
             "picks": picks,
-            "shape": f"G={g} N={n} J={c['max_j']} B={nb} V={nv} (last call of the path)",
+            "shape": f"G={g} N={n} J={c['max_j']} B={nb} V={nv}{label}",
         })
+        if name == "place_spread_opv":
+            out["blocks_per_lane"] = S.opv_cluster_size(n, nb, nv)
         log(
             f"[{name}] kernel_ms={out['ms']!r} plain_ms={out['plain_ms']!r} "
             f"(graph replay; back to back on the stream {out['stream_ms']!r} and "
             f"{out['plain_stream_ms']!r}) bound_ms={out['bound_ms']!r} "
             f"({out['bound_by']}); {out['steps_per_launch']} steps x {width} "
-            f"slots, {picks} picks; {out['shape']}"
+            f"slots, {out['us_per_step']!r} us a step, {picks} picks"
+            + (f", {out['blocks_per_lane']} blocks a lane" if "blocks_per_lane" in out else "")
+            + f"; {out['shape']}"
         )
     return out
 
@@ -1191,6 +1301,84 @@ def replay_coupled(name, calls):
     )
     out.update(worst)
     out["path_ms"] = sum(per_call)
+    return out
+
+
+# (racks, every k-th node without a value, label) of the one-per-value
+# phase: V + 1 = 33 (uint8 value ids), 257 (uint16), value-less nodes, and
+# V 4,096 (the one-block form, its state in global scratch)
+OPV_PHASE_CASES = (
+    (32, 0, "V+1=33"),
+    (256, 0, "V+1=257"),
+    (25, 7, "25 racks, every 7th node without a value"),
+    (4096, 0, "V=4096 one-block form, global scratch"),
+)
+
+
+def opv_inputs(dev, racks, value_less_every, n_nodes=SPREAD_NODES, count=250):
+    """The call ``place_spread_opv`` gets on the spread path (k_seg 16, 20
+    steps, J 16) for one even-spread job of the parity suite's config-3
+    recipe at 10,000 nodes over ``racks`` rack values (V the next power of
+    two), every ``value_less_every``-th node without a value."""
+    from nomad_tpu_torch.device import parity as PAR
+    from nomad_tpu_torch.device.flatten import pad_value_blocks
+
+    ct, asks = PAR.build_config3(n_nodes=n_nodes, n_jobs=1, count=count, racks=racks)
+    if value_less_every:
+        for a in asks:
+            a.blocks.value_ids[0][:n_nodes:value_less_every] = -1
+    pn = ct.padded_n
+
+    def t(x, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(dev)
+
+    c = dict(
+        capacity=t(ct.capacity, np.float32), used0=t(ct.used, np.float32),
+        asks=t(np.stack([a.ask for a in asks]), np.float32),
+        eligible=t(np.stack([a.eligible for a in asks]), bool),
+        job_counts=t(np.stack([a.job_counts for a in asks]), np.int32),
+        desired_totals=t([a.desired_total for a in asks], np.float32),
+        penalty_nodes=t(np.stack([a.penalty_nodes for a in asks]), bool),
+        affinity_scores=t(np.stack([a.affinity_scores for a in asks]), np.float32),
+        has_affinities=t([a.has_affinities for a in asks], bool),
+        distinct_hosts=t([a.distinct_hosts for a in asks], bool),
+        slot_caps=t(np.stack([
+            a.slot_caps if a.slot_caps is not None else np.full(pn, np.inf, np.float32)
+            for a in asks
+        ]), np.float32),
+    )
+    c.update({k: t(v) for k, v in pad_value_blocks([a.blocks for a in asks], pn).items()})
+    k_seg, n_chunks = 16, 20
+    c.update(
+        enforce_idx=torch.zeros(len(asks), dtype=torch.int32, device=dev),
+        algorithm_spread=False,
+        counts=torch.full((len(asks),), min(count + 16, k_seg * n_chunks), dtype=torch.int32,
+                          device=dev),
+        max_j=16, k_seg=k_seg, n_chunks=n_chunks, jitter=None,
+    )
+    return c
+
+
+def opv_kernel_phase(dev):
+    """Phase 10: the one-per-value kernel alone at 10,000 nodes (padded to
+    16,384) at the widths that pick its forms, each case identical to the
+    plain version."""
+    from nomad_tpu_torch.device import score as S
+
+    out = {}
+    for racks, value_less, label in OPV_PHASE_CASES:
+        c = opv_inputs(dev, racks, value_less)
+        r = check_coupled("place_spread_opv", c, timed=True, label=f" (phase 10 {label})")
+        n = c["eligible"].shape[1]
+        nb, nv = c["block_counts0"].shape[1:]
+        scratch = S.coupled_scratch_bytes("nomad_place_spread_opv", n, nb, nv)
+        assert (r["blocks_per_lane"] > 1) == (nv + 1 <= 1024), (label, r["blocks_per_lane"])
+        assert (scratch > 0) == (nv + 1 > 1024), (label, scratch)
+        out[label] = {k: r[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "steps_per_launch", "us_per_step",
+            "picks", "blocks_per_lane", "shape",
+        )}
+        out[label]["scratch_bytes_per_lane"] = scratch
     return out
 
 
@@ -1298,6 +1486,7 @@ def preempt_path(dev, n_nodes=PREEMPT_NODES):
     with contextlib.ExitStack() as stack:
         calls = {name: stack.enter_context(recording(P, name)) for name in PREEMPT}
         ranks = stack.enter_context(recording(P, "rank_preemption_nodes"))
+        stack.enter_context(shared_recording("preempt", score_matrix=False))
         stack.enter_context(timing(P, "build_victim_tensors", host))
         stack.enter_context(timing(P, "rank_preemption_nodes", host))
         stack.enter_context(timing(PH, "select_victims", host))
@@ -1891,7 +2080,8 @@ def cp_path(h, seed=43):
 
     first_result = len(h.results)
     zero_counters()
-    with recording(C, "cp_place") as calls, capturing(SC.CpPlacementKernel) as passes:
+    with recording(C, "cp_place") as calls, capturing(SC.CpPlacementKernel) as passes, \
+            shared_recording("cp", closed_form=False):
         lat = run_evals(h, jobs)
     launches = counters()
 
@@ -1988,7 +2178,8 @@ def gang_path(dev, seed=45):
     first_result = len(h.results)
     zero_counters()
     with recording(C, "cp_gang_place_ids") as calls, \
-            capturing(SC.CpGangPlacementKernel) as passes:
+            capturing(SC.CpGangPlacementKernel) as passes, \
+            shared_recording("gang", closed_form=False):
         lat = run_evals(h, jobs + [bad])
     launches = counters()
 
@@ -2049,7 +2240,7 @@ def batch_paths(dev):
     for path, (module, fn, name, run) in runs.items():
         t0 = time.perf_counter()
         zero_counters()
-        with recording(module, fn) as rec:
+        with recording(module, fn) as rec, shared_recording(path):
             report = run()
         by_path[path] = counters()
         calls[path] = rec
@@ -2126,7 +2317,7 @@ def plugin_ms(name, args, statics):
     if name == "hetero_place":
         policy, steps, max_c = statics
         choices, choice_tp, used = H.hetero_place(*args, policy, steps, max_c)
-        scratch = torch.empty(5 * args[5].shape[0], dtype=torch.int32, device=used.device)
+        scratch = H.hetero_scratch(*args[5].shape, used.device)
 
         def launch():
             used.copy_(args[1])
@@ -2162,6 +2353,8 @@ def check_plugin(name, fn, args, statics, timed, label=""):
     out = {"max_abs_err": 0.0, "choice_mismatches": 0, "ms": plugin_ms(name, args, statics)}
     bound, by, work = plugin_bound(name, args, statics, got)
     out.update(work)
+    if name == "hetero_place":
+        out["us_per_step"] = out["ms"] * 1e3 / max(work["steps"], 1)
     if timed:
         run_plain = lambda: plain(*args, *statics)  # noqa: E731
         g, n = args[4].shape
@@ -2174,9 +2367,10 @@ def check_plugin(name, fn, args, statics, timed, label=""):
             "shape": f"G={g} N={n} C={statics[-1]}{label}",
         })
         out["plain_stream_ms"] = out["plain_ms"]
+        per_step = f", {out['us_per_step']!r} us a step" if "us_per_step" in out else ""
         log(
             f"[{name}{label}] kernel_ms={out['ms']!r} plain_ms={out['plain_ms']!r} "
-            f"bound_ms={bound!r} ({by}); {work}, {out['placed']} placed"
+            f"bound_ms={bound!r} ({by}); {work}{per_step}, {out['placed']} placed"
         )
     return out
 
@@ -2192,10 +2386,14 @@ def replay_plugin(name, fn, calls, path):
                            label=f" ({path}, last call)")
         per_call.append(out["ms"])
         work.append(out.get("steps", out.get("rounds")))
+    per_step = ""
+    if name == "hetero_place":
+        out["path_us_per_step"] = sum(per_call) * 1e3 / max(sum(work), 1)
+        per_step = f" ({out['path_us_per_step']!r} us a step)"
     log(
         f"[{name}] {len(calls)} recorded {path} calls replayed, all identical to "
-        f"plain; kernel time over the calls path_ms={sum(per_call)!r}; steps or "
-        f"rounds per call {work}"
+        f"plain; kernel time over the calls path_ms={sum(per_call)!r}{per_step}; "
+        f"steps or rounds per call {work}"
     )
     out["path_ms"] = sum(per_call)
     out["steps_or_rounds_per_launch"] = work
@@ -2239,6 +2437,28 @@ def plugin_phase_inputs(dev):
     args[6].fill_(1.0)
     cases.append(("hetero_place", "hetero_place", "ties maxmin", args,
                   (0, b.steps, b.max_c), None))
+    # negative cpu asks on every 4th group: a commit can make its node
+    # fit again behind other rows' heads (the one-warp and the block chain)
+    for label, g, count, policy in (("g30", 30, 100, 0), ("g100", 100, 40, 2)):
+        b = H.build_hetero_batch(mixed, H.build_mixed_asks(mixed, g, count, seed=7))
+        args = list(b.tensors(dev))
+        args[2] = args[2].clone()
+        args[2][::4, 0] = -500.0
+        cases.append(("hetero_place", "hetero_place",
+                      f"{label} negative asks {HETERO_POLICIES[policy]}", args,
+                      (policy, b.steps, b.max_c), None))
+    # G 1,024 (the block chain, its state in shared memory) and G 8,192 on
+    # 512 nodes (its state in global memory), one instance a group
+    for label, fleet, g in (("g1024", mixed, 1024),
+                            ("g8192 on 512 nodes", H.build_mixed_fleet(500, seed=42), 8192)):
+        b = H.build_hetero_batch(fleet, H.build_mixed_asks(fleet, g, 1, seed=7))
+        cases.append(("hetero_place", "hetero_place", f"{label} makespan",
+                      list(b.tensors(dev)), (1, b.steps, b.max_c), None))
+    # 1,000 nodes for 30 x 100 allocs: the preferred classes fill mid-pass
+    small = H.build_mixed_fleet(1000, seed=42)
+    b = H.build_hetero_batch(small, H.build_mixed_asks(small, 30, 100, seed=7))
+    cases.append(("hetero_place", "hetero_place", "g30 on 1,000 nodes, classes fill, maxmin",
+                  list(b.tensors(dev)), (0, b.steps, b.max_c), None))
 
     for label, g in (("g1", 1), ("g30", 30), ("g100", 100)):
         asks = SC.build_cp_asks(mixed, g, 40, seed=7)
@@ -2305,7 +2525,7 @@ def plugin_kernel_phase(dev):
                          f"{name} phase 8 {label} one-hot vs id form")
         out.setdefault(name, {})[label] = {k: r[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "placed", "shape",
-            *(("steps",) if name == "hetero_place" else ("rounds", "rounds_run")),
+            *(("steps", "us_per_step") if name == "hetero_place" else ("rounds", "rounds_run")),
         )}
     out["cp_place"]["grid_barrier_us"] = barrier_us("cp", dev)
     return out
@@ -2641,7 +2861,6 @@ def main() -> int:
     by_path, cf_calls, sm_calls = main_path(dev)
     cf_main = replay_closed_form(cf_calls)
     sm_main = replay_score_matrix(sm_calls)
-    del cf_calls, sm_calls
     h, by_path["spread"], spread_calls, _ = spread_path(dev)
     coupled = {name: replay_coupled(name, spread_calls[name]) for name in COUPLED}
     del spread_calls
@@ -2653,7 +2872,7 @@ def main() -> int:
     del preempt_calls
     by_path["system"], system_calls, _ = system_path(h)
     sm_system = replay_score_matrix(system_calls, path="system")
-    del h, system_calls
+    del h
     h, by_path["hetero"], hetero_calls, _ = hetero_path(dev)
     by_path["cp"], cp_calls, _ = cp_path(h)
     del h
@@ -2680,6 +2899,24 @@ def main() -> int:
     by_path["defrag"], defrag_calls, _ = defrag_path(dev)
     migrate_main = replay_migrate(defrag_calls)
     del defrag_calls
+    # the closed-form and score-matrix kernels' time on every path that
+    # launches them
+    shared = {"place_closed_form": {}, "score_matrix": {}}
+    for name, path, calls in (
+        ("place_closed_form", "schedule", cf_calls),
+        ("score_matrix", "score_group", sm_calls),
+        ("score_matrix", "system", system_calls),
+        *[(name, path, calls) for path, rec in SHARED_CALLS.items()
+          for name, calls in rec.items()],
+    ):
+        assert len(calls) == by_path[path][name], (name, path, len(calls))
+        if calls:
+            shared[name][path] = replay_shared(name, calls, path)
+    for name, by in shared.items():
+        for path, counts in by_path.items():
+            assert (counts[name] > 0) == (path in by), (name, path)
+    SHARED_CALLS.clear()
+    del cf_calls, sm_calls, system_calls
 
     # phase 6: the coupled placements against the stepwise oracle
     full_parity(dev)
@@ -2692,6 +2929,9 @@ def main() -> int:
 
     # phase 9: the migration auction alone, A up to 20,000, ties, budgets
     migrate_phase = migrate_kernel_phase(dev)
+
+    # phase 10: the one-per-value kernel alone at the widths of its forms
+    opv_phase = opv_kernel_phase(dev)
 
     def headline(r, shape):
         return {
@@ -2716,12 +2956,18 @@ def main() -> int:
         kernel_entry(
             "place_closed_form", "cuda", "nomad_tpu_torch/csrc/closed_form.cu",
             "nomad_tpu/device/score.py:313", "schedule", by_path, cf_main,
-            {"headline": headline(cf, "G=128 (100 real) N=16384 J=80 k=1024")},
+            {
+                "path_ms": shared["place_closed_form"]["schedule"]["path_ms"],
+                "path_ms_by_path": {p: r["path_ms"] for p, r in shared["place_closed_form"].items()},
+                "headline": headline(cf, "G=128 (100 real) N=16384 J=80 k=1024"),
+            },
         ),
         kernel_entry(
             "score_matrix", "triton", "nomad_tpu_torch/device/score_triton.py",
             "nomad_tpu/device/score.py:914", "score_group", by_path, sm_main,
             {
+                "path_ms": shared["score_matrix"]["score_group"]["path_ms"],
+                "path_ms_by_path": {p: r["path_ms"] for p, r in shared["score_matrix"].items()},
                 "headline": headline(sm, "G=128 N=16384"),
                 "headline_throughputs": headline(sm_tp, "G=128 N=16384"),
                 "system": headline(sm_system, sm_system["shape"]),
@@ -2733,12 +2979,15 @@ def main() -> int:
             by_path, coupled[name],
             {
                 **{k: coupled[name][k] for k in (
-                    "steps_per_launch", "slots_per_step", "picks", "path_ms",
+                    "steps_per_launch", "us_per_step", "slots_per_step", "picks", "path_ms",
+                    *(("blocks_per_lane",) if name == "place_spread_opv" else ()),
                 )},
                 "wide_values": {k: wide[name][k] for k in (
                     "max_abs_err", "choice_mismatches", "ms", "plain_ms",
-                    "bound_ms", "bound_by", "steps_per_launch", "picks", "shape",
+                    "bound_ms", "bound_by", "steps_per_launch", "us_per_step", "picks",
+                    "shape", "path_ms",
                 )},
+                **({"kernel_phase": opv_phase} if name == "place_spread_opv" else {}),
             },
         )
         for name, replaces in (
@@ -2767,9 +3016,11 @@ def main() -> int:
             {
                 "path_ms": plugin_main[name]["path_ms"],
                 "steps_or_rounds_per_launch": plugin_main[name]["steps_or_rounds_per_launch"],
+                **({"path_us_per_step": plugin_main[name]["path_us_per_step"]}
+                   if name == "hetero_place" else {}),
                 "batch": {k: v for k, v in plugin_batch[name].items() if k in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "path_ms", "shape",
-                    "steps_or_rounds_per_launch",
+                    "steps_or_rounds_per_launch", "path_us_per_step",
                 )},
                 "kernel_phase": plugin_phase[name],
             },

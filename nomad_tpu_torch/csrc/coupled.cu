@@ -19,15 +19,19 @@
 // at 16,384 nodes -- but sequential depth. Each step depends on the
 // previous one's pick through the count state, so a lane is a chain of
 // up to 256 steps (value scan) or 20 steps of 16 rounds (chunked), each
-// a pass over all nodes, a block-wide reduction and a few barriers, on
-// one SM. Within a step the pass dominates: each thread reads its 16
-// nodes' value ids from L2 one after another (~10 us a pass at 16,384
-// nodes, from the measured step times in PERF.md), then a round costs
-// ~2 us. Staging the value ids on chip and splitting a lane over several
-// SMs (clusters or cooperative groups) are later work.
+// a pass over all nodes, a block-wide reduction and a few barriers. In
+// the one-block form the pass dominates: each thread reads its 16 nodes'
+// value ids from L2 one after another (~10 us a pass at 16,384 nodes,
+// from the measured step times in PERF.md), then a round costs ~2 us.
+// The one-per-value kernel now runs a lane over a thread-block cluster
+// with its value ids on chip (below); the value scan and the chunked
+// scan keep the one-block form.
 //
-// Design: one 1,024-thread block per lane, the whole scan inside the
-// launch, no [N, J] plane anywhere.
+// Design: one 1,024-thread block per lane (the value scan, the chunked
+// scan and the one-per-value one-block form; the cluster form below
+// shares compute_tables, block_max and candidate.cuh with them, all
+// unchanged), the whole scan inside the launch, no [N, J] plane
+// anywhere.
 //  - Thread t owns nodes t, t + 1024, ... . Per node the lane keeps its
 //    head state in 13 bytes: the numerator at its next column jn
 //    (candidate.cuh), the chunked scan's clamped value, jn, the column
@@ -53,15 +57,43 @@
 //    block argmax over per-node clamped heads; the winner's node takes
 //    its next column and folds it into its running minimum. The pick's
 //    score is its unclamped value.
-//  - One-per-value: segment maxima by 64-bit integer atomicMax on
-//    (order key, ~row) words -- integer, so the result does not depend on
-//    the order of the atomics -- then k_seg - 1 rounds of block argmax
-//    over the V + 1 segments, behind the rotation guard.
+//  - One-per-value, one-block form (V + 1 > 1,024, or a share of the
+//    cluster too large for shared memory: the wide_values call's V
+//    16,384): segment maxima by 64-bit integer atomicMax on (order key,
+//    ~row) words -- integer, so the result does not depend on the order
+//    of the atomics -- then k_seg - 1 rounds of block argmax over the V +
+//    1 segments, behind the rotation guard.
+//  - One-per-value, cluster form (opv_cluster_kernel): a lane is a
+//    cluster of 8 blocks (the portable size: every H100 GPC holds 8 free
+//    SMs, and at the spread path's 16,384 nodes 8 slices already leave
+//    each thread two nodes, so 16 would halve a pass that is no longer
+//    what a step waits on while its cluster barriers cost more), each
+//    block over a slice of N / 8 nodes whose head state and value ids
+//    (+1, in uint8 up to V + 1 = 256, else uint16) it stages once in its
+//    shared memory. The count state and tables are replicated: every
+//    block applies the same picks in the same order, so the copies stay
+//    identical. A step: each block's best first pick, one cluster
+//    barrier, every warp reads the 8 words through distributed shared
+//    memory; the bump and the re-derived tables; each block's segment
+//    maxima (the lanes of a warp on one segment reduce together:
+//    __match_any_sync, then the 64-bit max as two 32-bit
+//    __reduce_max_sync, one shared atomicMax a segment onto the warp's
+//    partial table), the partial tables merged, a second cluster
+//    barrier, and each block merges the 8 blocks' maxima. The top
+//    (k_seg - 1) allowed segments are then one selection: each
+//    candidate segment's rank among the candidates' (value, segment)
+//    words is its pick's place, which keeps the round-by-round loop's
+//    order and its count and -inf stops (seg_best never changes inside
+//    the loop; a round only clears the segment it took). Each pick's
+//    head moves on in the block that owns it. Two cluster barriers a
+//    step; no global scratch.
 //  - A step that takes nothing leaves the state unchanged, so every later
 //    step would take nothing too: the scan stops there.
 //
 // Numerics: candidate.cuh's (IEEE division, expf, -fmad=false). No float
 // atomics; every float sum runs in the reference's order.
+
+#include <cooperative_groups.h>
 
 #include "candidate.cuh"
 
@@ -498,6 +530,361 @@ opv_kernel(Inputs in, Blocks bl, const int32_t* enforce_idx,
   }
 }
 
+// -- one-per-value over a thread-block cluster --------------------------------
+
+constexpr int kCluster = 8;             // blocks a lane (portable cluster size)
+constexpr int kMaxSegments = kThreads;  // V + 1: one thread a segment
+constexpr int kMaxPicks = 16;           // k_seg (the wrapper's CHUNK)
+constexpr size_t kPartialBytes = 32 * 1024;
+
+__host__ __device__ int cluster_slice(int n) { return (n + kCluster - 1) / kCluster; }
+
+// Partial tables of the segments' largest score keys a block keeps, one
+// a warp (warps share one when V is wide), so that only the lanes of a
+// warp contend for a segment's word.
+__host__ __device__ int cluster_partials(int v) {
+  int p = kWarps;
+  while (p > 1 && static_cast<size_t>(p) * (v + 1) * 4 > kPartialBytes) p >>= 1;
+  return p;
+}
+
+// Dynamic shared memory of one cluster block: the segment words (the
+// block's maxima read by the cluster, the candidate words), the
+// replicated count state and tables, the segment keys (partial tables,
+// largest keys, lowest nodes), and the block's node slice (head state,
+// this pass's scores and the value ids in `id_bytes` a value).
+__host__ __device__ size_t cluster_bytes(int n, int b, int v, int id_bytes) {
+  const size_t s = static_cast<size_t>(v) + 1;
+  const size_t bv = static_cast<size_t>(b) * v;
+  const size_t ns = cluster_slice(n);
+  const size_t bytes = 8 * 2 * s +
+                       4 * (2 * bv + 2 * static_cast<size_t>(b) + 2 * ns) +
+                       4 * (bv + 4 * s + v + b + cluster_partials(v) * s) +
+                       2 * 2 * ns + static_cast<size_t>(id_bytes) * b * ns + ns;
+  return (bytes + 15) & ~static_cast<size_t>(15);
+}
+
+// A block's slice of its lane's nodes, [lo, lo + len), in shared memory.
+template <typename VT>
+struct Slice {
+  float* head_num;    // [ns] numerator at column jn
+  uint16_t* jn;       // [ns]
+  uint16_t* jcap;     // [ns]
+  VT* vids;           // [B, ns] value id + 1, 0 = no value
+  uint8_t* head_den;  // [ns]
+  int lo;
+  int len;
+  int ns;
+};
+
+// head_score on the slice's shared copy of the value ids and block kinds.
+template <typename VT>
+__device__ float slice_score(const Lane& L, const Slice<VT>& sl, const int32_t* kinds,
+                             int i) {
+  const int B = L.bl.b;
+  const int V = L.bl.v;
+  float boost = 0.0f;
+  bool allowed = true;
+  for (int b = 0; b < B; ++b) {
+    const int kind = kinds[b];
+    const int v = static_cast<int>(sl.vids[static_cast<size_t>(b) * sl.ns + i]) - 1;
+    if (kind == kTargetSpread || kind == kEvenSpread) {
+      boost = __fadd_rn(boost, v >= 0 ? L.t.tbl[b * V + v] : -1.0f);
+    } else {
+      boost = __fadd_rn(boost, 0.0f);
+      if (kind == kDistinctCap && v >= 0 && !L.t.allow[b * V + v]) allowed = false;
+    }
+  }
+  if (sl.jn[i] >= sl.jcap[i] || !allowed) return -INFINITY;
+  const bool on = L.any_spread && boost != 0.0f;
+  return __fdiv_rn(__fadd_rn(sl.head_num[i], on ? boost : 0.0f),
+                   __fadd_rn(static_cast<float>(sl.head_den[i]), on ? 1.0f : 0.0f));
+}
+
+template <typename VT>
+__device__ void slice_head(const Lane& L, const Slice<VT>& sl, int i, int j) {
+  float den;
+  candidate_terms(L.in, L.g, sl.lo + i, min(j, L.in.j - 1), &sl.head_num[i], &den);
+  sl.head_den[i] = static_cast<uint8_t>(den);
+}
+
+// One-per-value chunks for even-mode spread, a lane a cluster of
+// kCluster blocks, each over its slice of the nodes.
+template <typename VT>
+__global__ void __launch_bounds__(kThreads)
+opv_cluster_kernel(Inputs in, Blocks bl, const int32_t* enforce_idx,
+                   const int32_t* counts, int k_seg, int n_chunks,
+                   int32_t* out_choices, float* out_scores) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ unsigned long long smem_words[];
+  __shared__ unsigned long long red[kWarps + 1];
+  __shared__ unsigned long long s_first;  // the block's best first pick, read by the cluster
+  __shared__ int s_first_seg;             // its enforce-block segment, read by the cluster
+  __shared__ int s_rows[kMaxPicks];
+  __shared__ int s_segs[kMaxPicks];
+  __shared__ float s_vals[kMaxPicks];
+  __shared__ int s_any_empty;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int N = in.n;
+  const int B = bl.b;
+  const int V = bl.v;
+  const int S = V + 1;
+  const int P = cluster_partials(V);
+  const size_t bv = static_cast<size_t>(B) * V;
+
+  Lane L;
+  L.in = in;
+  L.bl = bl;
+  L.g = static_cast<int>(blockIdx.x) / kCluster;
+  const size_t g = static_cast<size_t>(L.g);
+  L.vids = bl.value_ids + g * B * N;
+  L.kinds = bl.kinds + g * B;
+  L.any_spread = false;
+  for (int b = 0; b < B; ++b) {
+    L.any_spread |= L.kinds[b] == kTargetSpread || L.kinds[b] == kEvenSpread;
+  }
+  Slice<VT> sl;
+  sl.ns = cluster_slice(N);
+  sl.lo = rank * sl.ns;
+  sl.len = max(0, min(N - sl.lo, sl.ns));
+  unsigned long long* seg_loc = smem_words;  // [S]
+  unsigned long long* cw = seg_loc + S;     // [S]
+  float* f = reinterpret_cast<float*>(cw + S);
+  L.t.c = f;
+  L.t.tbl = f + bv;
+  L.t.minc = f + 2 * bv;
+  L.t.maxc = f + 2 * bv + B;
+  sl.head_num = f + 2 * bv + 2 * B;
+  float* score1 = sl.head_num + sl.ns;      // [ns] this pass's scores
+  int32_t* ip = reinterpret_cast<int32_t*>(score1 + sl.ns);
+  L.t.allow = ip;
+  int32_t* seg_ok = ip + bv;
+  int32_t* present = seg_ok + S;
+  int32_t* crow = present + V;
+  int32_t* kinds = crow + S;
+  uint32_t* part = reinterpret_cast<uint32_t*>(kinds + B);  // [P, S]
+  uint32_t* seg_key = part + static_cast<size_t>(P) * S;     // [S]
+  uint32_t* seg_low = seg_key + S;                           // [S]
+  sl.jn = reinterpret_cast<uint16_t*>(seg_low + S);
+  sl.jcap = sl.jn + sl.ns;
+  sl.vids = reinterpret_cast<VT*>(sl.jcap + sl.ns);
+  sl.head_den = reinterpret_cast<uint8_t*>(sl.vids + static_cast<size_t>(B) * sl.ns);
+
+  // set-up: the slice's heads at column 0 and value ids, the replicated
+  // counts, and (block 0) every output slot at -1 / -inf
+  const size_t slots = static_cast<size_t>(n_chunks) * k_seg;
+  const size_t out0 = g * slots;
+  for (int b = tid; b < B; b += kThreads) kinds[b] = L.kinds[b];
+  for (int i = tid; i < sl.len; i += kThreads) {
+    const int n = sl.lo + i;
+    const float jmax = feasible_columns(in, L.g, n);
+    const int jcap = jmax >= static_cast<float>(in.j) ? in.j
+                   : jmax > 0.0f ? static_cast<int>(ceilf(jmax)) : 0;
+    sl.jn[i] = 0;
+    sl.jcap[i] = static_cast<uint16_t>(jcap);
+    slice_head(L, sl, i, 0);
+    for (int b = 0; b < B; ++b) {
+      sl.vids[static_cast<size_t>(b) * sl.ns + i] =
+          static_cast<VT>(L.vids[static_cast<size_t>(b) * N + n] + 1);
+    }
+  }
+  for (size_t i = tid; i < bv; i += kThreads) L.t.c[i] = bl.counts0[g * bv + i];
+  for (int v = tid; v < V; v += kThreads) present[v] = 0;
+  if (rank == 0) {
+    for (size_t s = tid; s < slots; s += kThreads) {
+      out_choices[out0 + s] = -1;
+      out_scores[out0 + s] = -INFINITY;
+    }
+  }
+  const int count = counts[L.g];
+  const int eidx = enforce_idx[L.g];
+  const int32_t* evids = L.vids + static_cast<size_t>(eidx) * N;
+  const bool even_enforce = L.kinds[eidx] == kEvenSpread;
+  const VT* my_evids = sl.vids + static_cast<size_t>(eidx) * sl.ns;
+  __syncthreads();
+  L.kinds = kinds;  // compute_tables reads the shared copy from now on
+  // enforce-block values held by at least one eligible node (over every
+  // node, in every block)
+  const uint8_t* elig = in.eligible + g * N;
+  for (int n = tid; n < N; n += kThreads) {
+    if (elig[n] && evids[n] >= 0) present[evids[n]] = 1;
+  }
+  __syncthreads();
+
+  int n_placed = 0;
+  for (int step = 0; step < n_chunks; ++step) {
+    if (tid == 0) s_any_empty = 0;
+    // first pick with the frozen tables: each block's best, then the
+    // cluster's through distributed shared memory
+    compute_tables(L);
+    unsigned long long mine = 0ull;
+    for (int i = tid; i < sl.len; i += kThreads) {
+      const unsigned long long w =
+          pack(slice_score(L, sl, kinds, i), static_cast<uint32_t>(sl.lo + i));
+      mine = w > mine ? w : mine;
+    }
+    const unsigned long long local = block_max(mine, red);
+    if (tid == 0) {
+      s_first = local;
+      const int i = static_cast<int>(packed_index(local)) - sl.lo;
+      s_first_seg = local != 0ull ? static_cast<int>(my_evids[i]) - 1 : -1;
+    }
+    cluster.sync();
+    // lanes 0-7 read the blocks' words, lanes 8-15 their segments
+    unsigned long long best = 0ull;
+    int seg = 0;
+    if (lane < kCluster) best = *cluster.map_shared_rank(&s_first, lane);
+    if (lane >= kCluster && lane < 2 * kCluster) {
+      seg = *cluster.map_shared_rank(&s_first_seg, lane - kCluster);
+    }
+    const unsigned long long mine_best = best;
+    for (int o = 16; o > 0; o >>= 1) {
+      const unsigned long long y = __shfl_xor_sync(0xffffffffu, best, o);
+      best = y > best ? y : best;
+    }
+    const int owner = __ffs(__ballot_sync(0xffffffffu, lane < kCluster && mine_best == best)) - 1;
+    const int ev_first = __shfl_sync(0xffffffffu, seg, kCluster + owner);
+    const float score0 = packed_value(best);
+    if (!(score0 > -INFINITY && n_placed < count)) break;
+    const int first = static_cast<int>(packed_index(best));
+    const int v_first = ev_first >= 0 ? ev_first : V;
+    if (rank == 0 && tid == 0) {
+      out_choices[out0 + static_cast<size_t>(step) * k_seg] = first;
+      out_scores[out0 + static_cast<size_t>(step) * k_seg] = score0;
+    }
+    // the first pick's values counted: the enforce block's is its
+    // segment, the other blocks' are read
+    for (int b = tid; b < B; b += kThreads) {
+      const int v = b == eidx ? ev_first : L.vids[static_cast<size_t>(b) * N + first];
+      if (v >= 0) L.t.c[b * V + v] = __fadd_rn(L.t.c[b * V + v], 1.0f);
+    }
+    __syncthreads();
+    compute_tables(L);  // re-derived after the first pick
+
+    // rotation guard over the enforced block's counts after the bump
+    const float* ec = L.t.c + static_cast<size_t>(eidx) * V;
+    const float minc1 = L.t.minc[eidx];
+    const float maxc1 = L.t.maxc[eidx];
+    for (int v = tid; v < V; v += kThreads) {
+      if (!(ec[v] > 0.0f) && present[v]) s_any_empty = 1;
+    }
+    for (size_t s = tid; s < static_cast<size_t>(P) * S; s += kThreads) part[s] = 0u;
+    __syncthreads();
+    const bool no_empty = s_any_empty == 0;
+    for (int v = tid; v < V; v += kThreads) {
+      const bool pos1 = ec[v] > 0.0f;
+      const bool rotate_ok = no_empty
+          ? pos1 && ec[v] <= minc1 && maxc1 > minc1
+          : !pos1 && present[v];
+      seg_ok[v] = (!even_enforce || rotate_ok) ? 1 : 0;
+    }
+    if (tid == 0) seg_ok[V] = 1;  // value-less nodes
+    // per-segment max of the re-derived scores (first's segment
+    // excluded) as a 64-bit (order key, ~row) word, in two passes of
+    // native 32-bit shared atomics: the largest key (onto the warp's
+    // partial table), then the lowest row at that key
+    uint32_t* mytable = part + static_cast<size_t>(warp % P) * S;
+    for (int i = tid; i < sl.len; i += kThreads) {
+      const int ev = static_cast<int>(my_evids[i]) - 1;
+      const int s = ev >= 0 ? ev : V;
+      const float s1 = s == v_first ? -INFINITY : slice_score(L, sl, kinds, i);
+      score1[i] = s1;
+      atomicMax(&mytable[s], order_key(s1));
+    }
+    __syncthreads();
+    for (int s = tid; s < S; s += kThreads) {
+      uint32_t m = 0u;
+      for (int p = 0; p < P; ++p) m = max(m, part[static_cast<size_t>(p) * S + s]);
+      seg_key[s] = m;
+      seg_low[s] = 0u;
+    }
+    __syncthreads();
+    for (int i = tid; i < sl.len; i += kThreads) {
+      const int ev = static_cast<int>(my_evids[i]) - 1;
+      const int s = ev >= 0 ? ev : V;
+      if (order_key(score1[i]) == seg_key[s]) {
+        atomicMax(&seg_low[s], 0xffffffffu - static_cast<uint32_t>(sl.lo + i));
+      }
+    }
+    __syncthreads();
+    for (int s = tid; s < S; s += kThreads) {
+      // a segment without a node in this slice keeps key 0 (every order
+      // key of a score is above 0)
+      seg_loc[s] = seg_key[s] == 0u
+          ? 0ull
+          : (static_cast<unsigned long long>(seg_key[s]) << 32) | seg_low[s];
+    }
+    cluster.sync();
+
+    // the cluster's segment maxima; the top (k_seg - 1) allowed segments,
+    // value desc then segment asc, by each candidate's rank among them
+    bool cand = false;
+    float val = -INFINITY;
+    if (tid < S) {
+      unsigned long long m = 0ull;
+      for (int r = 0; r < kCluster; ++r) {
+        const unsigned long long y = cluster.map_shared_rank(seg_loc, r)[tid];
+        m = y > m ? y : m;
+      }
+      val = seg_ok[tid] && m != 0ull ? packed_value(m) : -INFINITY;
+      cand = val > -INFINITY;
+      cw[tid] = cand ? pack(val, static_cast<uint32_t>(tid)) : 0ull;
+      crow[tid] = static_cast<int>(packed_index(m));
+    }
+    const int ncand = __syncthreads_count(cand);
+    const int limit = max(0, min(min(k_seg - 1, ncand), count - n_placed - 1));
+    if (cand) {
+      const unsigned long long me = cw[tid];
+      int above = 0;
+      for (int s = 0; s < S; ++s) above += cw[s] > me ? 1 : 0;
+      if (above < limit) {
+        s_rows[above] = crow[tid];
+        s_segs[above] = tid;
+        s_vals[above] = val;
+      }
+    }
+    __syncthreads();
+    if (rank == 0 && tid < limit) {
+      const size_t slot = out0 + static_cast<size_t>(step) * k_seg + 1 + tid;
+      out_choices[slot] = s_rows[tid];
+      out_scores[slot] = s_vals[tid];
+    }
+    // the picks' values counted in every block by warps 1 on, beside
+    // the heads' moves in warp 0: the enforce block's value is the
+    // pick's segment, the other blocks' loads are issued at once
+    for (int b = tid - 32; b >= 0 && b < B; b += kThreads - 32) {
+      int vv[kMaxPicks];
+#pragma unroll
+      for (int r = 0; r < kMaxPicks; ++r) {
+        vv[r] = r >= limit ? -1
+              : b == eidx ? (s_segs[r] < V ? s_segs[r] : -1)
+              : L.vids[static_cast<size_t>(b) * N + s_rows[r]];
+      }
+#pragma unroll
+      for (int r = 0; r < kMaxPicks; ++r) {
+        if (vv[r] >= 0) L.t.c[b * V + vv[r]] = __fadd_rn(L.t.c[b * V + vv[r]], 1.0f);
+      }
+    }
+    // each pick's owner block moves its head on
+    if (tid <= limit) {
+      const int row = tid == 0 ? first : s_rows[tid - 1];
+      const int i = row - sl.lo;
+      if (i >= 0 && i < sl.len) {
+        const int j = sl.jn[i] + 1;
+        sl.jn[i] = static_cast<uint16_t>(j);
+        slice_head(L, sl, i, j);
+      }
+    }
+    n_placed += 1 + limit;
+    __syncthreads();
+  }
+  cluster.sync();  // no block leaves while another may read its shared memory
+}
+
 // Dynamic shared memory each kernel may take: the card's opt-in maximum
 // less the kernel's static shared memory, granted once per process by a
 // thread-safe static (the launchers run with the GIL released), and never
@@ -506,6 +893,8 @@ struct SmemGrant {
   int error;
   size_t chunked;
   size_t opv;
+  size_t cluster8;   // opv_cluster_kernel<uint8_t>
+  size_t cluster16;  // opv_cluster_kernel<uint16_t>
 };
 
 cudaError_t grant(const void* kernel, int optin, size_t* room) {
@@ -517,9 +906,9 @@ cudaError_t grant(const void* kernel, int optin, size_t* room) {
                               static_cast<int>(*room));
 }
 
-int smem_limit(const void* kernel, size_t* limit) {
+const SmemGrant& smem_grant() {
   static const SmemGrant granted = [] {
-    SmemGrant out{0, 0, 0};
+    SmemGrant out{0, 0, 0, 0, 0};
     int dev = 0, optin = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess) {
@@ -531,12 +920,61 @@ int smem_limit(const void* kernel, size_t* limit) {
     if (e == cudaSuccess) {
       e = grant(reinterpret_cast<const void*>(opv_kernel), optin, &out.opv);
     }
+    if (e == cudaSuccess) {
+      e = grant(reinterpret_cast<const void*>(opv_cluster_kernel<uint8_t>), optin,
+                &out.cluster8);
+    }
+    if (e == cudaSuccess) {
+      e = grant(reinterpret_cast<const void*>(opv_cluster_kernel<uint16_t>), optin,
+                &out.cluster16);
+    }
     out.error = static_cast<int>(e);
     return out;
   }();
+  return granted;
+}
+
+int smem_limit(const void* kernel, size_t* limit) {
+  const SmemGrant& granted = smem_grant();
   *limit = kernel == reinterpret_cast<const void*>(opv_kernel) ? granted.opv
                                                                : granted.chunked;
   return granted.error;
+}
+
+// Whether a one-per-value launch runs a lane as a cluster: V + 1 within
+// one thread a segment and the block's share in shared memory. Sets the
+// block's dynamic shared memory (0: the one-block form) and the bytes of
+// a staged value id.
+int plan_cluster(int n, int b, int v, size_t* smem, int* id_bytes) {
+  const SmemGrant& granted = smem_grant();
+  *smem = 0;
+  *id_bytes = v + 1 <= 256 ? 1 : 2;
+  if (granted.error != 0) return granted.error;
+  if (v + 1 > kMaxSegments) return 0;
+  const size_t bytes = cluster_bytes(n, b, v, *id_bytes);
+  if (bytes <= (*id_bytes == 1 ? granted.cluster8 : granted.cluster16)) *smem = bytes;
+  return 0;
+}
+
+template <typename VT>
+cudaError_t launch_cluster(const Inputs& in, const Blocks& bl, const int32_t* enforce_idx,
+                           const int32_t* counts, int k_seg, int n_chunks, int g,
+                           size_t smem, int32_t* out_choices, float* out_scores,
+                           cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(g) * kCluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, opv_cluster_kernel<VT>, in, bl, enforce_idx, counts,
+                            k_seg, n_chunks, out_choices, out_scores);
 }
 
 // The lane region goes to shared memory when it fits, else to the
@@ -581,7 +1019,26 @@ int plan_launch(int opv, int n, int b, int v, const unsigned char* scratch,
 extern "C" int nomad_coupled_scratch_bytes(int opv, int n, int b, int v,
                                            size_t* bytes) {
   size_t smem = 0;
+  if (opv) {
+    int id_bytes = 0;
+    const int e = plan_cluster(n, b, v, &smem, &id_bytes);
+    if (e != 0) return e;
+    if (smem > 0) {
+      *bytes = 0;
+      return 0;
+    }
+  }
   return plan_region(kernel_of(opv), n, b, v, &smem, bytes);
+}
+
+// Blocks a lane of the one-per-value kernel runs on at N nodes, B blocks
+// and V values: the cluster size, or 1 for the one-block form.
+extern "C" int nomad_place_spread_opv_cluster(int n, int b, int v, int* blocks) {
+  size_t smem = 0;
+  int id_bytes = 0;
+  const int e = plan_cluster(n, b, v, &smem, &id_bytes);
+  *blocks = smem > 0 ? kCluster : 1;
+  return e;
 }
 
 #define NOMAD_COUPLED_PARAMS                                                   \
@@ -632,8 +1089,22 @@ extern "C" int nomad_place_spread_opv(
     void* stream) {
   NOMAD_COUPLED_STRUCTS
   size_t smem = 0;
+  int id_bytes = 0;
+  int e = plan_cluster(n, b, v, &smem, &id_bytes);
+  if (e != 0) return e;
+  if (smem > 0) {
+    if (k_seg > kMaxPicks) return static_cast<int>(cudaErrorInvalidValue);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const cudaError_t err = id_bytes == 1
+        ? launch_cluster<uint8_t>(in, bl, enforce_idx, counts, k_seg, n_chunks, g, smem,
+                                  out_choices, out_scores, st)
+        : launch_cluster<uint16_t>(in, bl, enforce_idx, counts, k_seg, n_chunks, g, smem,
+                                   out_choices, out_scores, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+  }
   int in_smem = 0;
-  const int e = plan_launch(1, n, b, v, scratch, &smem, &in_smem);
+  e = plan_launch(1, n, b, v, scratch, &smem, &in_smem);
   if (e != 0) return e;
   opv_kernel<<<g, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       in, bl, enforce_idx, counts, k_seg, n_chunks, scratch, in_smem,

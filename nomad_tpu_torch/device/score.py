@@ -762,6 +762,21 @@ def coupled_scratch_bytes(symbol: str, n: int, nb: int, nv: int) -> int:
     return out.value
 
 
+def opv_cluster_size(n: int, nb: int, nv: int) -> int:
+    """Blocks a lane of ``place_spread_opv`` runs on at N nodes, B blocks
+    and V values: the thread-block cluster's size, or 1 where the lane
+    runs as one block (V + 1 above 1,024, or a share too large for shared
+    memory)."""
+    lib, _ = _coupled_library("nomad_place_spread_opv")
+    fn = lib.nomad_place_spread_opv_cluster
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    check_launch(fn(n, nb, nv, ctypes.byref(out)), "place_spread_opv")
+    return out.value
+
+
 def _launch_coupled(what, symbol, lane, blocks, counts, algorithm_spread,
                     max_j, slots, extra, jitter):
     """Check a coupled kernel's inputs, allocate its outputs (and its

@@ -216,8 +216,28 @@ def _check_hetero(what, capacity, used0, asks, counts, eligible, tp, tpmax,
 _HETERO_ARGTYPES = (
     [ctypes.c_void_p] * 7  # capacity, asks … cost
     + [ctypes.c_int] * 5  # policy, g, n, steps, max_c
-    + [ctypes.c_void_p] * 5  # scratch, choices, choice_tp, used, stream
+    + [ctypes.c_void_p, ctypes.c_size_t]  # scratch and its bytes
+    + [ctypes.c_void_p] * 4  # choices, choice_tp, used, stream
 )
+
+# Nodes a block of the kernel's list build sorts (csrc/hetero.cu kChunk).
+HETERO_SORT_CHUNK = 2048
+# Bytes of the chain's per-group state (csrc/hetero.cu state_bytes).
+HETERO_STATE_BYTES = 56
+
+
+def hetero_scratch_bytes(g: int, n: int) -> int:
+    """Global scratch bytes of one ``csrc/hetero.cu`` pass, in its layout:
+    the sorted chunks and the per-group node lists (8 bytes a slot each,
+    nodes rounded up to the sort chunk), the list lengths (16-byte
+    aligned) and the chain's per-group state, for when it does not fit in
+    shared memory. The kernel refuses a smaller scratch."""
+    slots = g * -(-n // HETERO_SORT_CHUNK) * HETERO_SORT_CHUNK
+    return ((16 * slots + 4 * g + 15) & ~15) + HETERO_STATE_BYTES * g
+
+
+def hetero_scratch(g: int, n: int, device) -> torch.Tensor:
+    return torch.empty(hetero_scratch_bytes(g, n), dtype=torch.uint8, device=device)
 
 
 def _hetero_library():
@@ -264,8 +284,7 @@ def _launch_hetero(args, policy, steps, max_c):
     used = used0.clone()
     if g == 0 or steps < 1:
         return choices, choice_tp, used
-    # placed, accum, best node and two row lists, one word per group each
-    scratch = torch.empty(5 * g, dtype=torch.int32, device=dev)
+    scratch = hetero_scratch(g, n, dev)
     _hetero_call(args, policy, steps, max_c, scratch, choices, choice_tp, used)
     hetero_place.launches += 1
     return choices, choice_tp, used
@@ -273,11 +292,12 @@ def _launch_hetero(args, policy, steps, max_c):
 
 def _hetero_call(args, policy, steps, max_c, scratch, choices, choice_tp, used):
     """The bare launch on checked inputs and allocated outputs (``used``
-    holding used0, ``choices`` -1, ``choice_tp`` 0); no host sync."""
+    holding used0, ``choices`` -1, ``choice_tp`` 0, ``scratch`` a uint8
+    tensor of ``hetero_scratch_bytes(G, N)``); no host sync."""
     g, n = args[5].shape
     status = _hetero_library()(
         *[t.data_ptr() for t in (args[0], *args[2:])], int(policy), g, n, int(steps),
-        int(max_c), scratch.data_ptr(), choices.data_ptr(),
+        int(max_c), scratch.data_ptr(), scratch.numel(), choices.data_ptr(),
         choice_tp.data_ptr(), used.data_ptr(), current_stream(used.device),
     )
     check_launch(status, "hetero_place")
