@@ -19,7 +19,11 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
    groups x 1,000 allocs, binpack (the JAX package's ``bench.py kernel``
    shape) — and on a smaller case with every score component live;
 3. ``score_matrix`` (Triton) against ``component_scores`` at
-   [128, 16,384], without and with the throughput term;
+   [128, 16,384], without and with the throughput term, and at G 1, 3
+   and 100; then one batched ``build_cp_batch`` pass (``run_cp_ab``'s
+   fleet and asks: 10,000 nodes, 100 jobs) against the per-ask
+   ``score_group`` loop it replaced: the same rows bit for bit from one
+   score-matrix launch (two with mixed throughputs);
 4. a small end-to-end run on the card against the same run on the CPU,
    service jobs and one each of even-spread, target-spread and
    distinct_property jobs;
@@ -40,8 +44,10 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
      distinct_property jobs x 200 capped at 10 per rack (value-scan
      kernel); the cut from bench.py's 100 jobs to 30 is for time;
    - "wide_values": on the spread path's cluster, one job per coupled
-     route keyed on ``${node.unique.id}`` (V 16,384), whose working
-     state does not fit in shared memory and runs from global scratch;
+     route keyed on ``${node.unique.id}`` (V 16,384): the one-per-value
+     kernel's working state does not fit in shared memory and runs from
+     global scratch, the value scan and the chunked scan run the form
+     their shape picks (a cluster, each block holding the 196 KB tables);
    - "preempt": 10,000 mock nodes filled by direct store upserts with
      3-6 ballast allocs each (600-1,200 MHz, 512-2,048 MiB, from batch
      jobs at priorities 20, 30 and 40 and a service at 75; under 1,000
@@ -62,8 +68,10 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
      hetero-makespan and hetero-cost (one hetero-greedy launch per eval);
    - "cp": on that cluster with cp-pack, 12 jobs of 3 groups x 40 allocs
      at ``build_cp_asks``'s asks (profile asks x 4, priorities 30 / 50 /
-     80, every 4th job distinct_hosts): one CP launch and three
-     score-matrix launches per eval;
+     80, every 4th job distinct_hosts): one CP launch and one
+     score-matrix launch per eval (two where only some of its groups
+     carry throughputs; the same on "gang", "cp_batch" and "gang_batch":
+     one a ``build_cp_batch`` pass);
    - "gang": 10,000 mock nodes in 250 racks of 40 (pods of 10 racks, ici
      slices of half a rack) under a seeded 0-30 % ballast load, cp-gang,
      16 gang jobs of 3 groups x 4 allocs (even jobs colocate in a rack,
@@ -119,7 +127,14 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
    ids staged as uint8 and uint16), every 7th node without a value, and V
    4,096 (one block a lane from global scratch); identical to the plain
    version, its µs a step and blocks a lane logged;
-11. the total seconds, one JSON line of per-kernel results, the card's
+11. the value scan and the chunked scan alone on the config-3 recipe at
+   10,000 nodes (``CLUSTER_PHASE_CASES``): V + 1 = 33 and 257, every 7th
+   node without a value, B = 2 with a distinct_property cap, a count
+   that stops mid-chunk, all-tie scores, N 10,001, three lanes (a
+   cluster of 8 blocks a lane each) and two blocks of 16,384 values (one
+   block a lane from global scratch); identical to the plain version, µs
+   a step and blocks a lane logged;
+12. the total seconds, one JSON line of per-kernel results, the card's
    name and power limit, then the device line last.
 
 Times, kernels and plain versions alike, are device times per launch
@@ -550,6 +565,59 @@ def score_matrix_inputs(b, dev):
         b["desired_totals"], pen, aff, haff, dh,
     ]
     return args, tp
+
+
+SCORE_MATRIX_GROUPS = (1, 3, 100)
+
+
+def score_matrix_by_g(args, dev):
+    """Phase 3's score matrix at G 1, 3 and 100: the headline inputs' first
+    G groups, each against its plain version, timed."""
+    return {
+        g: check_score_matrix(
+            f"G={g}", [a if i < 2 else a[:g].contiguous() for i, a in enumerate(args)],
+            False, None, timed=True,
+        )
+        for g in SCORE_MATRIX_GROUPS
+    }
+
+
+def cp_batch_scoring(dev):
+    """Phase 3's batched pass: ``build_cp_batch`` at the cp_batch path's
+    shape (``run_cp_ab``'s fleet and asks: 10,000 nodes, 100 jobs) against
+    the per-ask ``score_group`` loop it replaced, on the card: the same
+    scores (bit for bit) and eligibility, from one score-matrix launch
+    (two with mixed throughputs). Host seconds of both logged."""
+    from nomad_tpu_torch.device import score_triton as ST
+    from nomad_tpu_torch.scheduler import cp as SC
+    from nomad_tpu_torch.scheduler import hetero as H
+    from nomad_tpu_torch.scheduler.algorithms import score_group
+
+    ct = H.build_mixed_fleet(PLUGIN_NODES, seed=42)
+    asks = SC.build_cp_asks(ct, 100, 40, seed=42)
+    zero_counters()
+    t0 = time.perf_counter()
+    with cp_batches() as want:
+        batch = SC.build_cp_batch(ct, asks, device=dev)
+    batch_s = time.perf_counter() - t0
+    launches = ST.score_matrix_triton.launches
+    t0 = time.perf_counter()
+    rows = [score_group(ct, a, float(a.desired_total), device=dev) for a in asks]
+    loop_s = time.perf_counter() - t0
+    scores = np.stack([np.where(fits, finals, np.float32(0.0)) for finals, fits in rows])
+    eligible = np.stack([a.eligible for a in asks]) & np.stack([fits for _, fits in rows])
+    mismatches = int((batch.scores.view(np.uint32) != scores.view(np.uint32)).sum()) + int(
+        (batch.eligible != eligible).sum()
+    )
+    log(
+        f"[score_matrix:cp batch] G={len(asks)} N={ct.padded_n}: {launches} launches "
+        f"(want {sum(want)}), mismatches against the per-ask loop {mismatches}; host "
+        f"seconds batched {batch_s!r}, per-ask loop {loop_s!r} ({len(asks)} launches)"
+    )
+    assert launches == sum(want) and len(want) == 1 and launches in (1, 2), (launches, want)
+    assert mismatches == 0, "build_cp_batch: the batched rows differ from score_group's"
+    return {"launches": launches, "groups": len(asks), "choice_mismatches": mismatches,
+            "host_s": batch_s, "per_ask_host_s": loop_s}
 
 
 # -- phases 4 and 5 -----------------------------------------------------------
@@ -1128,10 +1196,13 @@ def wide_values_path(h):
     coupled route with its block keyed on ``${node.unique.id}`` -- an
     even spread (one-per-value), a target spread over five nodes
     (chunked) and a distinct_property cap of one per node (value scan).
-    The 10,000 values bucket V to 16,384, so a lane's working state
-    (~0.7 MB) does not fit in a block's shared memory and every call runs
-    from global scratch (asserted). Returns the launch counts and the
-    recorded calls of each coupled kernel."""
+    The 10,000 values bucket V to 16,384: the one-per-value kernel's
+    lane (~0.7 MB) does not fit in a block's shared memory and runs from
+    global scratch; the value scan and the chunked scan run in the form
+    their shape picks (each block of a cluster replicates 196 KB of tables
+    beside its slice; asserted against ``coupled_cluster_size`` and the
+    scratch it asks for). Returns the launch counts and the recorded calls
+    of each coupled kernel."""
     from nomad_tpu_torch import mock
     from nomad_tpu_torch.device import score as S
     from nomad_tpu_torch.obs.trace import global_tracer as tracer
@@ -1201,7 +1272,14 @@ def wide_values_path(h):
         assert launches[name] == split[route] >= 1, (name, launches[name], split)
         assert len(calls[name]) == launches[name]
         assert calls[name][0]["block_counts0"].shape[2] >= SPREAD_NODES
-        assert min(scratch[name]) > 0, (name, "region fit in shared memory")
+        blocks = {
+            S.coupled_cluster_size(
+                f"nomad_{name}", c["eligible"].shape[1], *c["block_counts0"].shape[1:]
+            )
+            for c in calls[name]
+        }
+        assert (blocks == {1}) == (min(scratch[name]) > 0), (name, blocks, scratch[name])
+        assert name != "place_spread_opv" or blocks == {1}, (name, blocks)
     return launches, calls
 
 
@@ -1222,8 +1300,8 @@ def coupled_steps(name, c, choices):
 def check_coupled(name, c, timed, label=" (last call of the path)"):
     """One coupled call through the kernel and its plain version on the
     same inputs: choices identical, scores exact; the kernel timed by
-    graph replay, and with ``timed`` the plain version and bound too (and
-    for the one-per-value kernel the blocks a lane runs on)."""
+    graph replay, and with ``timed`` the plain version and bound too, and
+    the blocks a lane runs on."""
     from nomad_tpu_torch.device import score as S
 
     kernel = getattr(S, name)
@@ -1268,16 +1346,14 @@ def check_coupled(name, c, timed, label=" (last call of the path)"):
             "picks": picks,
             "shape": f"G={g} N={n} J={c['max_j']} B={nb} V={nv}{label}",
         })
-        if name == "place_spread_opv":
-            out["blocks_per_lane"] = S.opv_cluster_size(n, nb, nv)
+        out["blocks_per_lane"] = S.coupled_cluster_size(f"nomad_{name}", n, nb, nv)
         log(
             f"[{name}] kernel_ms={out['ms']!r} plain_ms={out['plain_ms']!r} "
             f"(graph replay; back to back on the stream {out['stream_ms']!r} and "
             f"{out['plain_stream_ms']!r}) bound_ms={out['bound_ms']!r} "
             f"({out['bound_by']}); {out['steps_per_launch']} steps x {width} "
             f"slots, {out['us_per_step']!r} us a step, {picks} picks"
-            + (f", {out['blocks_per_lane']} blocks a lane" if "blocks_per_lane" in out else "")
-            + f"; {out['shape']}"
+            + f", {out['blocks_per_lane']} blocks a lane; {out['shape']}"
         )
     return out
 
@@ -1315,21 +1391,62 @@ OPV_PHASE_CASES = (
 )
 
 
-def opv_inputs(dev, racks, value_less_every, n_nodes=SPREAD_NODES, count=250):
-    """The call ``place_spread_opv`` gets on the spread path (k_seg 16, 20
-    steps, J 16) for one even-spread job of the parity suite's config-3
-    recipe at 10,000 nodes over ``racks`` rack values (V the next power of
-    two), every ``value_less_every``-th node without a value."""
+def coupled_inputs(dev, racks, value_less_every=0, route="opv", n_nodes=SPREAD_NODES,
+                   count=250, cap_zones=0, ties=False, node_blocks=0, pad=True, n_jobs=1):
+    """The call a coupled wrapper gets on the spread path (J 16; the
+    one-per-value kernel: k_seg 16, 20 steps; the chunked scan: CHUNK 16
+    and the chunk count ``PlacementKernel`` picks; the value scan: the
+    steps bucket) for one job of the parity suite's config-3 recipe at
+    ``n_nodes`` nodes over ``racks`` rack values (V the next power of
+    two), every ``value_less_every``-th node without a value. Further
+    shapes: ``cap_zones`` adds a block capping the job at 2 a zone over
+    that many zones; ``ties`` gives every node one shape, no load and no
+    affinity, so every score ties; ``node_blocks`` replaces the blocks by
+    that many keyed on the node, capped at one each (V 16,384 at 10,000
+    nodes); ``pad`` False cuts N from the node bucket to ``n_nodes``;
+    ``n_jobs`` lanes (jobs of the recipe, each its own ask)."""
     from nomad_tpu_torch.device import parity as PAR
-    from nomad_tpu_torch.device.flatten import pad_value_blocks
+    from nomad_tpu_torch.device import score as S
+    from nomad_tpu_torch.device.flatten import ValueBlocks, pad_value_blocks
 
-    ct, asks = PAR.build_config3(n_nodes=n_nodes, n_jobs=1, count=count, racks=racks)
+    ct, asks = PAR.build_config3(n_nodes=n_nodes, n_jobs=n_jobs, count=count, racks=racks)
+    pn = ct.padded_n
+    rack = asks[0].blocks.value_ids[0]
     if value_less_every:
         for a in asks:
             a.blocks.value_ids[0][:n_nodes:value_less_every] = -1
-    pn = ct.padded_n
+    if ties:
+        ct.capacity[:n_nodes] = ct.capacity[0]
+        ct.used[:] = 0.0
+        for a in asks:
+            a.has_affinities = False
+            a.affinity_scores[:] = 0.0
+    if cap_zones or node_blocks:
+        zone = np.pad((np.arange(n_nodes) % max(cap_zones, 1)).astype(np.int32),
+                      (0, pn - n_nodes), constant_values=-1)
+        node = np.pad(np.arange(n_nodes, dtype=np.int32), (0, pn - n_nodes), constant_values=-1)
+        if node_blocks:
+            ids, kinds, nv = [node] * node_blocks, [S.BLOCK_DISTINCT_CAP] * node_blocks, n_nodes
+        else:
+            ids, kinds = [rack, zone], [S.BLOCK_EVEN_SPREAD, S.BLOCK_DISTINCT_CAP]
+            nv = max(racks, cap_zones)
+        nb = len(kinds)
+        caps = np.full((nb, nv), np.inf, np.float32)
+        caps[1 if cap_zones else 0:] = 1.0 if node_blocks else 2.0
+        for a in asks:
+            a.blocks = ValueBlocks(
+                value_ids=np.stack(ids), counts0=np.zeros((nb, nv), np.float32),
+                desired=np.full((nb, nv), -1.0, np.float32), caps=caps,
+                weights=np.full(nb, 1.0 / nb, np.float32), kinds=np.array(kinds, np.int32),
+            )
+    n = pn if pad else n_nodes
 
     def t(x, dtype=None):
+        x = np.asarray(x)
+        if x.ndim >= 2 and x.shape[-1] == pn:
+            x = x[..., :n]
+        elif x.shape[:1] == (pn,):
+            x = x[:n]
         return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(dev)
 
     c = dict(
@@ -1348,13 +1465,23 @@ def opv_inputs(dev, racks, value_less_every, n_nodes=SPREAD_NODES, count=250):
         ]), np.float32),
     )
     c.update({k: t(v) for k, v in pad_value_blocks([a.blocks for a in asks], pn).items()})
-    k_seg, n_chunks = 16, 20
+    want = count + 16
+    if route == "opv":
+        k_seg, n_chunks = 16, 20
+        c.update(enforce_idx=torch.zeros(len(asks), dtype=torch.int32, device=dev),
+                 k_seg=k_seg, n_chunks=n_chunks)
+        slots = k_seg * n_chunks
+    elif route == "chunked":
+        n_chunks = max(4, -(-(-(-want // S.CHUNK)) // 4) * 4)
+        c.update(chunk=S.CHUNK, n_chunks=n_chunks)
+        slots = S.CHUNK * n_chunks
+    else:
+        slots = S._steps_bucket(want)
+        c.update(max_steps=slots)
     c.update(
-        enforce_idx=torch.zeros(len(asks), dtype=torch.int32, device=dev),
         algorithm_spread=False,
-        counts=torch.full((len(asks),), min(count + 16, k_seg * n_chunks), dtype=torch.int32,
-                          device=dev),
-        max_j=16, k_seg=k_seg, n_chunks=n_chunks, jitter=None,
+        counts=torch.full((len(asks),), min(want, slots), dtype=torch.int32, device=dev),
+        max_j=16, jitter=None,
     )
     return c
 
@@ -1367,7 +1494,7 @@ def opv_kernel_phase(dev):
 
     out = {}
     for racks, value_less, label in OPV_PHASE_CASES:
-        c = opv_inputs(dev, racks, value_less)
+        c = coupled_inputs(dev, racks, value_less)
         r = check_coupled("place_spread_opv", c, timed=True, label=f" (phase 10 {label})")
         n = c["eligible"].shape[1]
         nb, nv = c["block_counts0"].shape[1:]
@@ -1379,6 +1506,57 @@ def opv_kernel_phase(dev):
             "picks", "blocks_per_lane", "shape",
         )}
         out[label]["scratch_bytes_per_lane"] = scratch
+    return out
+
+
+# (label, coupled_inputs arguments) of phase 11, each case through the
+# value scan and the chunked scan: V + 1 = 33 (uint8 value ids) and 257
+# (uint16), value-less nodes, B = 2 with a distinct_property cap, a count
+# that stops mid-chunk, all-tie scores, N not a multiple of 8, three
+# lanes (three clusters), and two blocks of 16,384 values, whose
+# replicated tables do not fit in shared memory (the one-block form, its
+# state in global scratch)
+CLUSTER_PHASE_CASES = (
+    ("V+1=33", dict(racks=32)),
+    ("V+1=257", dict(racks=256)),
+    ("every 7th node without a value", dict(racks=25, value_less_every=7)),
+    ("B=2 with a cap of 2 a zone over 40 zones", dict(racks=25, cap_zones=40)),
+    ("count 21: stops mid-chunk", dict(racks=25, count=21)),
+    ("all-tie scores", dict(racks=32, ties=True)),
+    ("N=10,001", dict(racks=25, n_nodes=10_001, pad=False)),
+    ("G=3 lanes", dict(racks=25, n_jobs=3)),
+    ("B=2 x V=16,384: the one-block form", dict(racks=25, node_blocks=2)),
+)
+
+
+def coupled_cluster_phase(dev):
+    """Phase 11: the value scan and the chunked scan alone, on the
+    config-3 recipe at 10,000 nodes, in the form each case's shape picks
+    (a cluster of 8 blocks a lane, or one block from global scratch),
+    identical to the plain version; µs a step and blocks a lane logged."""
+    from nomad_tpu_torch.device import score as S
+
+    t0 = time.perf_counter()
+    out = {}
+    for name, route in (("place_value_scan", "scan"), ("place_spread_chunked", "chunked")):
+        out[name] = {}
+        for label, kw in CLUSTER_PHASE_CASES:
+            c = coupled_inputs(dev, route=route, **kw)
+            r = check_coupled(name, c, timed=True, label=f" (phase 11 {label})")
+            n = c["eligible"].shape[1]
+            nb, nv = c["block_counts0"].shape[1:]
+            scratch = S.coupled_scratch_bytes(f"nomad_{name}", n, nb, nv)
+            one_block = "node_blocks" in kw
+            assert r["blocks_per_lane"] == (1 if one_block else 8), (label, r["blocks_per_lane"])
+            assert (scratch > 0) == one_block, (label, scratch)
+            assert r["picks"] > 0, label
+            out[name][label] = {k: r[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "steps_per_launch", "us_per_step",
+                "picks", "blocks_per_lane", "shape",
+            )}
+            out[name][label]["scratch_bytes_per_lane"] = scratch
+    log(f"[coupled] phase 11: {2 * len(CLUSTER_PHASE_CASES)} cases identical to plain in "
+        f"{time.perf_counter() - t0:.3f} s")
     return out
 
 
@@ -1922,6 +2100,28 @@ def capturing(cls):
         cls.place = real
 
 
+@contextlib.contextmanager
+def cp_batches():
+    """Stands in for ``build_cp_batch`` while a path runs and keeps, per
+    call, the score-matrix launches its pass should make: one over every
+    ask, two where only some carry a throughput axis."""
+    from nomad_tpu_torch.scheduler import cp as SC
+    from nomad_tpu_torch.scheduler.algorithms import _normalized_throughputs
+
+    real = SC.build_cp_batch
+    launches = []
+
+    def build(cluster, asks, *args, **kwargs):
+        launches.append(len({_normalized_throughputs(a) is not None for a in asks}))
+        return real(cluster, asks, *args, **kwargs)
+
+    SC.build_cp_batch = build
+    try:
+        yield launches
+    finally:
+        SC.build_cp_batch = real
+
+
 def committed_nodes(h, job):
     """(job id, group) → sorted node ids of the job's live allocs."""
     out = {}
@@ -2081,7 +2281,7 @@ def cp_path(h, seed=43):
     first_result = len(h.results)
     zero_counters()
     with recording(C, "cp_place") as calls, capturing(SC.CpPlacementKernel) as passes, \
-            shared_recording("cp", closed_form=False):
+            shared_recording("cp", closed_form=False), cp_batches() as batches:
         lat = run_evals(h, jobs)
     launches = counters()
 
@@ -2093,7 +2293,8 @@ def cp_path(h, seed=43):
         nodes = [a.node_id for a in live(h, [j])]
         assert len(nodes) == len(set(nodes)), f"{j.id}: distinct_hosts broken"
     assert launches["cp_place"] == len(jobs) == len(calls)
-    assert launches["score_matrix"] == CP_GROUPS * len(jobs)
+    # one score-matrix launch a pass (two with mixed throughputs)
+    assert len(batches) == len(jobs) and launches["score_matrix"] == sum(batches), batches
     assert launches["place_closed_form"] == launches["hetero_place"] == 0
     return launches, calls, summary
 
@@ -2179,7 +2380,7 @@ def gang_path(dev, seed=45):
     zero_counters()
     with recording(C, "cp_gang_place_ids") as calls, \
             capturing(SC.CpGangPlacementKernel) as passes, \
-            shared_recording("gang", closed_form=False):
+            shared_recording("gang", closed_form=False), cp_batches() as batches:
         lat = run_evals(h, jobs + [bad])
     launches = counters()
 
@@ -2210,7 +2411,7 @@ def gang_path(dev, seed=45):
     log(f"[gang] {len(jobs)} gangs placed whole with their topology term satisfied; "
         f"gang-infeasible released whole into one blocked eval")
     assert launches["cp_gang_place"] == len(jobs) + 1 == len(calls)
-    assert launches["score_matrix"] == GANG_GROUPS * len(jobs) + 2
+    assert launches["score_matrix"] == sum(batches) == len(batches), batches
     assert launches["place_closed_form"] == launches["cp_place"] == 0
     return launches, calls, summary
 
@@ -2240,7 +2441,7 @@ def batch_paths(dev):
     for path, (module, fn, name, run) in runs.items():
         t0 = time.perf_counter()
         zero_counters()
-        with recording(module, fn) as rec, shared_recording(path):
+        with recording(module, fn) as rec, shared_recording(path), cp_batches() as batches:
             report = run()
         by_path[path] = counters()
         calls[path] = rec
@@ -2252,8 +2453,10 @@ def batch_paths(dev):
             if path == "gang_batch":
                 c = r["cp_gang"]
                 assert c["gangs_intact"] == c["topology_satisfied"] == r["config"]["gangs"]
-        log(f"[{path}] launches {by_path[path]}")
+        log(f"[{path}] launches {by_path[path]}; build_cp_batch calls {len(batches)}")
         assert by_path[path][name] == len(rec) > 0
+        if path != "hetero_batch":
+            assert batches and by_path[path]["score_matrix"] == sum(batches), batches
     return by_path, calls, reports
 
 
@@ -2851,6 +3054,8 @@ def main() -> int:
     log(f"[build] triton score_matrix first launch {time.perf_counter() - t0:.3f} s")
     sm = check_score_matrix("plain", sm_args, False, None, timed=True)
     sm_tp = check_score_matrix("throughputs", sm_args, False, tp, timed=True)
+    sm_g = score_matrix_by_g(sm_args, dev)
+    sm_batch = cp_batch_scoring(dev)
     del b, args, ex_args, sm_args, tp
 
     # phase 4: small run, card against CPU
@@ -2933,6 +3138,10 @@ def main() -> int:
     # phase 10: the one-per-value kernel alone at the widths of its forms
     opv_phase = opv_kernel_phase(dev)
 
+    # phase 11: the value scan and the chunked scan alone, cluster and
+    # one-block forms
+    cluster_phase = coupled_cluster_phase(dev)
+
     def headline(r, shape):
         return {
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -2946,11 +3155,12 @@ def main() -> int:
     cf_main["choice_mismatches"] += cf["choice_mismatches"] + cf_ex["choice_mismatches"]
     sm_main["max_abs_err"] = max(
         sm_main["max_abs_err"], sm["max_abs_err"], sm_tp["max_abs_err"],
-        sm_system["max_abs_err"],
+        sm_system["max_abs_err"], *[r["max_abs_err"] for r in sm_g.values()],
     )
     sm_main["choice_mismatches"] += (
         sm["choice_mismatches"] + sm_tp["choice_mismatches"]
-        + sm_system["choice_mismatches"]
+        + sm_system["choice_mismatches"] + sm_batch["choice_mismatches"]
+        + sum(r["choice_mismatches"] for r in sm_g.values())
     )
     kernels = [
         kernel_entry(
@@ -2970,6 +3180,8 @@ def main() -> int:
                 "path_ms_by_path": {p: r["path_ms"] for p, r in shared["score_matrix"].items()},
                 "headline": headline(sm, "G=128 N=16384"),
                 "headline_throughputs": headline(sm_tp, "G=128 N=16384"),
+                "by_groups": {f"G={g}": headline(r, f"G={g} N=16384") for g, r in sm_g.items()},
+                "cp_batch_scoring": sm_batch,
                 "system": headline(sm_system, sm_system["shape"]),
             },
         ),
@@ -2980,14 +3192,14 @@ def main() -> int:
             {
                 **{k: coupled[name][k] for k in (
                     "steps_per_launch", "us_per_step", "slots_per_step", "picks", "path_ms",
-                    *(("blocks_per_lane",) if name == "place_spread_opv" else ()),
+                    "blocks_per_lane",
                 )},
                 "wide_values": {k: wide[name][k] for k in (
                     "max_abs_err", "choice_mismatches", "ms", "plain_ms",
                     "bound_ms", "bound_by", "steps_per_launch", "us_per_step", "picks",
-                    "shape", "path_ms",
+                    "shape", "path_ms", "blocks_per_lane",
                 )},
-                **({"kernel_phase": opv_phase} if name == "place_spread_opv" else {}),
+                "kernel_phase": opv_phase if name == "place_spread_opv" else cluster_phase[name],
             },
         )
         for name, replaces in (

@@ -23,15 +23,14 @@
 // the one-block form the pass dominates: each thread reads its 16 nodes'
 // value ids from L2 one after another (~10 us a pass at 16,384 nodes,
 // from the measured step times in PERF.md), then a round costs ~2 us.
-// The one-per-value kernel now runs a lane over a thread-block cluster
-// with its value ids on chip (below); the value scan and the chunked
-// scan keep the one-block form.
+// So every kernel runs a lane over a thread-block cluster with its value
+// ids on chip where its state fits (below), and one block a lane where
+// it does not.
 //
-// Design: one 1,024-thread block per lane (the value scan, the chunked
-// scan and the one-per-value one-block form; the cluster form below
-// shares compute_tables, block_max and candidate.cuh with them, all
-// unchanged), the whole scan inside the launch, no [N, J] plane
-// anywhere.
+// Design: the one-block form is one 1,024-thread block per lane (the
+// value scan, the chunked scan and the one-per-value kernel; the cluster
+// forms below share compute_tables, block_max and candidate.cuh with
+// them), the whole scan inside the launch, no [N, J] plane anywhere.
 //  - Thread t owns nodes t, t + 1024, ... . Per node the lane keeps its
 //    head state in 13 bytes: the numerator at its next column jn
 //    (candidate.cuh), the chunked scan's clamped value, jn, the column
@@ -87,6 +86,24 @@
 //    the loop; a round only clears the segment it took). Each pick's
 //    head moves on in the block that owns it. Two cluster barriers a
 //    step; no global scratch.
+//  - Chunked and value scan, cluster form (chunked_cluster_kernel): the
+//    same slices, staged value ids and replicated count state. A chunk's
+//    top CHUNK entries of the plane, by (value desc, node asc, column
+//    asc), are the top CHUNK of the union of each slice's own top CHUNK:
+//    the slices are disjoint and a node's clamped sequence is
+//    non-increasing, so its next column enters only after its current
+//    one. Each block finds its slice's top entries on its own, without a
+//    block-wide round a pick: they come from the nodes whose heads are
+//    among the slice's top CHUNK, so the warps take their own top heads,
+//    warp 0 merges them, every candidate's next columns are scored at
+//    once and clamped, and warp 0 merges those column lists. Then one
+//    cluster barrier, and every block merges the 8 sorted walks into the
+//    same picks: each entry's place is its rank in its own walk plus the
+//    entries of the other walks above it, and it is taken below the
+//    lane's count. Each block moves the heads of the nodes its taken
+//    entries came from, and counts every pick's values (staged beside
+//    the walk) in merge order. With chunks of one (the value scan) a walk
+//    is the slice's best head. One cluster barrier a step.
 //  - A step that takes nothing leaves the state unchanged, so every later
 //    step would take nothing too: the scan stops there.
 //
@@ -94,6 +111,8 @@
 // atomics; every float sum runs in the reference's order.
 
 #include <cooperative_groups.h>
+
+#include <utility>
 
 #include "candidate.cuh"
 
@@ -189,23 +208,25 @@ __device__ __forceinline__ uint32_t packed_index(unsigned long long w) {
   return 0xffffffffu - static_cast<uint32_t>(w);
 }
 
+// Warp-wide max of one word per lane, as two 32-bit reductions: the
+// high words, then the low words of the lanes at the highest.
+__device__ __forceinline__ unsigned long long warp_max(unsigned long long x) {
+  const uint32_t hi = __reduce_max_sync(0xffffffffu, static_cast<uint32_t>(x >> 32));
+  const uint32_t lo = __reduce_max_sync(
+      0xffffffffu, static_cast<uint32_t>(x >> 32) == hi ? static_cast<uint32_t>(x) : 0u);
+  return (static_cast<unsigned long long>(hi) << 32) | lo;
+}
+
 // Block-wide max of one word per thread; every thread gets the result.
 __device__ unsigned long long block_max(unsigned long long x,
                                         unsigned long long* red) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  for (int o = 16; o > 0; o >>= 1) {
-    const unsigned long long y = __shfl_xor_sync(0xffffffffu, x, o);
-    x = y > x ? y : x;
-  }
+  x = warp_max(x);
   if (lane == 0) red[warp] = x;
   __syncthreads();
   if (warp == 0) {
-    x = lane < kWarps ? red[lane] : 0ull;
-    for (int o = 16; o > 0; o >>= 1) {
-      const unsigned long long y = __shfl_xor_sync(0xffffffffu, x, o);
-      x = y > x ? y : x;
-    }
+    x = warp_max(lane < kWarps ? red[lane] : 0ull);
     if (lane == 0) red[kWarps] = x;
   }
   __syncthreads();
@@ -577,10 +598,12 @@ struct Slice {
   int ns;
 };
 
-// head_score on the slice's shared copy of the value ids and block kinds.
+// A slice node's summed spread boost under the current tables, and
+// whether its distinct caps allow it (head_score's block loop, on the
+// slice's shared copy of the value ids and block kinds).
 template <typename VT>
-__device__ float slice_score(const Lane& L, const Slice<VT>& sl, const int32_t* kinds,
-                             int i) {
+__device__ bool slice_terms(const Lane& L, const Slice<VT>& sl, const int32_t* kinds, int i,
+                            float* boost_out) {
   const int B = L.bl.b;
   const int V = L.bl.v;
   float boost = 0.0f;
@@ -595,10 +618,37 @@ __device__ float slice_score(const Lane& L, const Slice<VT>& sl, const int32_t* 
       if (kind == kDistinctCap && v >= 0 && !L.t.allow[b * V + v]) allowed = false;
     }
   }
-  if (sl.jn[i] >= sl.jcap[i] || !allowed) return -INFINITY;
+  *boost_out = boost;
+  return allowed;
+}
+
+// The score of numerator / denominator with the node's boost (head_score).
+__device__ __forceinline__ float boosted(const Lane& L, float num, float den, float boost) {
   const bool on = L.any_spread && boost != 0.0f;
-  return __fdiv_rn(__fadd_rn(sl.head_num[i], on ? boost : 0.0f),
-                   __fadd_rn(static_cast<float>(sl.head_den[i]), on ? 1.0f : 0.0f));
+  return __fdiv_rn(__fadd_rn(num, on ? boost : 0.0f), __fadd_rn(den, on ? 1.0f : 0.0f));
+}
+
+// head_score on the slice's shared state.
+template <typename VT>
+__device__ float slice_score(const Lane& L, const Slice<VT>& sl, const int32_t* kinds,
+                             int i) {
+  float boost;
+  const bool allowed = slice_terms(L, sl, kinds, i, &boost);
+  if (sl.jn[i] >= sl.jcap[i] || !allowed) return -INFINITY;
+  return boosted(L, sl.head_num[i], static_cast<float>(sl.head_den[i]), boost);
+}
+
+// The score of a slice node's column j under the current tables (-inf
+// where it does not fit or a cap is full): slice_score at jn = j.
+template <typename VT>
+__device__ float column_score(const Lane& L, const Slice<VT>& sl, const int32_t* kinds, int i,
+                              int j) {
+  float boost;
+  const bool allowed = slice_terms(L, sl, kinds, i, &boost);
+  if (j >= sl.jcap[i] || !allowed) return -INFINITY;
+  float num, den;
+  candidate_terms(L.in, L.g, sl.lo + i, min(j, L.in.j - 1), &num, &den);
+  return boosted(L, num, den, boost);
 }
 
 template <typename VT>
@@ -885,6 +935,362 @@ opv_cluster_kernel(Inputs in, Blocks bl, const int32_t* enforce_idx,
   cluster.sync();  // no block leaves while another may read its shared memory
 }
 
+// -- chunked scan (and value scan) over a thread-block cluster ---------------
+
+constexpr int kMaxChunk = kMaxPicks;  // chunk (the wrapper's CHUNK; 1 for the value scan)
+constexpr int kWalkWords = kCluster * kMaxChunk;
+constexpr int kColumns = kMaxChunk * kMaxChunk;  // the candidates' next columns
+
+// Entry words of the clamped plane, ordered as the reference's top-k over
+// it: value desc, then node asc, then column asc (k counts columns from
+// the node's next one). Words of two nodes never tie.
+__device__ __forceinline__ unsigned long long pack_column(float value, int node, int k) {
+  return pack(value, static_cast<uint32_t>(node) * kMaxChunk + k);
+}
+__device__ __forceinline__ int column_node(unsigned long long w) {
+  return static_cast<int>(packed_index(w) / kMaxChunk);
+}
+__device__ __forceinline__ int column_k(unsigned long long w) {
+  return static_cast<int>(packed_index(w) % kMaxChunk);
+}
+
+// Warp 0 merges up to 32 sorted lists of words (list l at lists[l *
+// kMaxChunk], 0 past its end) into their top `want`: lane l holds list
+// l's head. Calls take(lane's list, its position, round) on the lane whose
+// head each round takes; returns the words taken.
+template <typename Take>
+__device__ int warp_merge(const unsigned long long* lists, int n_lists, int want, Take take) {
+  const int lane = threadIdx.x & 31;
+  int p = 0;
+  unsigned long long head = lane < n_lists ? lists[lane * kMaxChunk] : 0ull;
+  int len = 0;
+  for (int r = 0; r < want; ++r) {
+    const unsigned long long top = warp_max(head);
+    if (top == 0ull) break;
+    len = r + 1;
+    if (head == top) {
+      take(lane, p, r);
+      ++p;
+      head = p < kMaxChunk ? lists[lane * kMaxChunk + p] : 0ull;
+    }
+  }
+  return len;
+}
+
+// Dynamic shared memory of one chunked_cluster_kernel block: the
+// replicated count state and tables, the block's node slice (head state,
+// this chunk's heads and the value ids in `id_bytes` a value), and the
+// value ids of each walk entry's node, by step parity.
+__host__ __device__ size_t chunked_cluster_bytes(int n, int b, int v, int id_bytes) {
+  const size_t bv = static_cast<size_t>(b) * v;
+  const size_t ns = cluster_slice(n);
+  const size_t bytes = 4 * (3 * bv + 3 * static_cast<size_t>(b) + 2 * ns) + 2 * 2 * ns +
+                       static_cast<size_t>(id_bytes) * b * (ns + 2 * kMaxChunk) + ns;
+  return (bytes + 15) & ~static_cast<size_t>(15);
+}
+
+// Chunked greedy (and, with chunk 1, the exact value scan), a lane a
+// cluster of kCluster blocks, each over its slice of the nodes.
+//
+// Every block holds the same count state and tables: each block starts
+// from the lane's counts0, derives the tables with the same code, and
+// counts the same picks in the same order, so the copies agree bit for
+// bit and every block takes the same decisions (picks, stops, breaks)
+// without telling the others. Only the walks cross blocks.
+//
+// A block's walk is its slice's top `want` entries of the clamped plane.
+// They come only from the nodes whose heads are among the slice's top
+// `want` heads (each of those heads lies above every entry of a node
+// outside them), so: each warp takes its own nodes' heads among those
+// (rounds of warp max, down to the want-th largest of the warps' best
+// heads), warp 0 merges the 32 warps' lists into the slice's, every
+// candidate's next `want` columns are scored at once and clamped by their
+// running minimum, and warp 0 merges the candidates' column lists into
+// the walk. No round waits on a column's arithmetic.
+//
+// One cluster barrier a step is enough because each block's walk buffers
+// are double-buffered by step parity: the cluster reads step s's walks
+// after barrier s and before it arrives at barrier s + 1, and no block
+// writes those buffers again before step s + 2, which it starts only
+// after barrier s + 1.
+template <typename VT>
+__global__ void __launch_bounds__(kThreads)
+chunked_cluster_kernel(Inputs in, Blocks bl, const int32_t* counts, int chunk, int n_chunks,
+                       int32_t* out_choices, float* out_scores) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ unsigned long long smem_words[];
+  // per step, by phase: the warps' head lists [kWarps][kMaxChunk]; the
+  // candidates' column words [kColumns] and unclamped scores [kColumns];
+  // the cluster's walks [kWalkWords]
+  __shared__ unsigned long long s_scratch[kWarps * kMaxChunk];
+  // this block's walk (entry words, 0 past its end) by step parity, read
+  // by the cluster, and each entry's unclamped score
+  __shared__ unsigned long long s_walk[2][kMaxChunk];
+  __shared__ float s_raw[kMaxChunk];
+  __shared__ unsigned long long s_top[kMaxChunk];  // the slice's top heads
+  __shared__ unsigned long long s_floor;  // the want-th largest of the warps' best heads
+  __shared__ int s_ntop;
+  __shared__ int s_src[kMaxChunk];  // the step's picks in merge order: b * kMaxChunk + entry
+  __shared__ uint8_t s_kept[kMaxChunk];  // the merge took this entry of the walk
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int N = in.n;
+  const int B = bl.b;
+  const int V = bl.v;
+  const size_t bv = static_cast<size_t>(B) * V;
+  unsigned long long* heads = s_scratch;                                     // phase 1-2
+  unsigned long long* col_words = s_scratch;                                 // phase 3-4
+  float* col_raw = reinterpret_cast<float*>(s_scratch + kColumns);           // phase 3-4
+  unsigned long long* s_all = s_scratch;                                     // the merge
+
+  Lane L;
+  L.in = in;
+  L.bl = bl;
+  L.g = static_cast<int>(blockIdx.x) / kCluster;
+  const size_t g = static_cast<size_t>(L.g);
+  L.vids = bl.value_ids + g * B * N;
+  L.kinds = bl.kinds + g * B;
+  L.any_spread = false;
+  for (int b = 0; b < B; ++b) {
+    L.any_spread |= L.kinds[b] == kTargetSpread || L.kinds[b] == kEvenSpread;
+  }
+  Slice<VT> sl;
+  sl.ns = cluster_slice(N);
+  sl.lo = rank * sl.ns;
+  sl.len = max(0, min(N - sl.lo, sl.ns));
+  float* f = reinterpret_cast<float*>(smem_words);
+  L.t.c = f;
+  L.t.tbl = f + bv;
+  L.t.minc = f + 2 * bv;
+  L.t.maxc = f + 2 * bv + B;
+  sl.head_num = f + 2 * bv + 2 * B;
+  float* sel = sl.head_num + sl.ns;  // [ns] this chunk's head scores
+  int32_t* ip = reinterpret_cast<int32_t*>(sel + sl.ns);
+  L.t.allow = ip;
+  int32_t* kinds = ip + bv;
+  sl.jn = reinterpret_cast<uint16_t*>(kinds + B);
+  sl.jcap = sl.jn + sl.ns;
+  sl.vids = reinterpret_cast<VT*>(sl.jcap + sl.ns);
+  // [2][kMaxChunk][B]: the staged value ids of each walk entry's node,
+  // read by the cluster with the walk
+  VT* walk_vids = sl.vids + static_cast<size_t>(B) * sl.ns;
+  sl.head_den = reinterpret_cast<uint8_t*>(walk_vids + 2 * kMaxChunk * static_cast<size_t>(B));
+
+  // set-up: the slice's heads at column 0 and value ids, the replicated
+  // counts, and (block 0) every output slot at -1 / -inf
+  const size_t slots = static_cast<size_t>(n_chunks) * chunk;
+  const size_t out0 = g * slots;
+  for (int b = tid; b < B; b += kThreads) kinds[b] = L.kinds[b];
+  for (int i = tid; i < sl.len; i += kThreads) {
+    const int n = sl.lo + i;
+    const float jmax = feasible_columns(in, L.g, n);
+    const int jcap = jmax >= static_cast<float>(in.j) ? in.j
+                   : jmax > 0.0f ? static_cast<int>(ceilf(jmax)) : 0;
+    sl.jn[i] = 0;
+    sl.jcap[i] = static_cast<uint16_t>(jcap);
+    slice_head(L, sl, i, 0);
+    for (int b = 0; b < B; ++b) {
+      sl.vids[static_cast<size_t>(b) * sl.ns + i] =
+          static_cast<VT>(L.vids[static_cast<size_t>(b) * N + n] + 1);
+    }
+  }
+  for (size_t i = tid; i < bv; i += kThreads) L.t.c[i] = bl.counts0[g * bv + i];
+  if (rank == 0) {
+    for (size_t s = tid; s < slots; s += kThreads) {
+      out_choices[out0 + s] = -1;
+      out_scores[out0 + s] = -INFINITY;
+    }
+  }
+  const int count = counts[L.g];
+  __syncthreads();
+  L.kinds = kinds;  // compute_tables reads the shared copy from now on
+
+  // a walk entry: its word, unclamped score and node's value ids
+  const auto add_to_walk = [&](int par, int r, unsigned long long w, float raw) {
+    const int i = column_node(w) - sl.lo;
+    s_walk[par][r] = w;
+    s_raw[r] = raw;
+    for (int b = 0; b < B; ++b) {
+      walk_vids[(static_cast<size_t>(par) * kMaxChunk + r) * B + b] =
+          sl.vids[static_cast<size_t>(b) * sl.ns + i];
+    }
+  };
+
+  int n_placed = 0;
+  for (int step = 0; step < n_chunks; ++step) {
+    const int want = min(chunk, count - n_placed);
+    if (want <= 0) break;
+    const int par = step & 1;
+    compute_tables(L);  // frozen for the whole chunk
+    unsigned long long mine = 0ull;  // this thread's best head (0: none fits)
+    for (int i = tid; i < sl.len; i += kThreads) {
+      sel[i] = slice_score(L, sl, kinds, i);
+      const unsigned long long w = pack_column(sel[i], sl.lo + i, 0);
+      if (sel[i] > -INFINITY && w > mine) mine = w;
+    }
+
+    // 1. each warp's heads among the slice's top `want` (a lane's nodes
+    // are tid, tid + kThreads, ...). The warps' best heads bound those
+    // from below: `want` of them lie at or above the want-th largest, so
+    // each warp takes its own heads down to that one
+    unsigned long long floor_word = 1ull;  // every head's word is above 0
+    if (want > 1) {
+      if (tid == 0) s_floor = 1ull;  // fewer than `want` warps hold a head
+      const unsigned long long best = warp_max(mine);
+      if (lane == 0) heads[warp * kMaxChunk] = best;
+      __syncthreads();
+      if (warp == 0) {
+        const unsigned long long x = heads[lane * kMaxChunk];
+        int above = 0;
+        for (int l = 0; l < kWarps; ++l) above += heads[l * kMaxChunk] > x ? 1 : 0;
+        if (x != 0ull && above == want - 1) s_floor = x;
+      }
+      __syncthreads();
+      floor_word = s_floor;
+    }
+    uint32_t taken_mask = 0u;
+    int n_heads = 0;
+    for (int r = 0; r < want; ++r) {
+      const unsigned long long top = warp_max(mine);
+      if (top < floor_word) break;
+      n_heads = r + 1;
+      if (lane == 0) heads[warp * kMaxChunk + r] = top;
+      if (mine == top && r + 1 < want) {  // this thread's best of the rest
+        taken_mask |= 1u << ((column_node(top) - sl.lo - tid) / kThreads);
+        mine = 0ull;
+        for (int q = 0, i = tid; i < sl.len; ++q, i += kThreads) {
+          const unsigned long long w = pack_column(sel[i], sl.lo + i, 0);
+          if (!(taken_mask >> q & 1u) && sel[i] > -INFINITY && w > mine) mine = w;
+        }
+      }
+    }
+    if (lane >= n_heads && lane < kMaxChunk) heads[warp * kMaxChunk + lane] = 0ull;
+    __syncthreads();
+    // 2. the slice's top `want` heads
+    if (warp == 0) {
+      const int nh = warp_merge(heads, kWarps, want, [&](int l, int p, int r) {
+        s_top[r] = heads[l * kMaxChunk + p];
+      });
+      if (lane == 0) s_ntop = nh;
+    }
+    __syncthreads();
+    const int nh = s_ntop;
+    if (want == 1) {
+      // a walk of one entry: the slice's best head
+      if (tid == 0) {
+        if (nh > 0) add_to_walk(par, 0, s_top[0], sel[column_node(s_top[0]) - sl.lo]);
+        for (int r = nh; r < kMaxChunk; ++r) s_walk[par][r] = 0ull;
+      }
+    } else {
+      // 3. candidate m's columns jn + k, k < want, scored at once, then
+      // clamped by their running minimum (-inf from the first that does
+      // not fit)
+      const int m = tid / kMaxChunk;
+      const int k = tid % kMaxChunk;
+      const bool live = tid < kColumns && m < nh && k < want;
+      const int ci = live ? column_node(s_top[m]) - sl.lo : 0;
+      if (tid < kColumns) {
+        col_raw[tid] = !live ? -INFINITY
+                     : k == 0 ? sel[ci]
+                     : column_score(L, sl, kinds, ci, sl.jn[ci] + k);
+      }
+      __syncthreads();
+      if (tid < kColumns) {
+        float clamped = col_raw[m * kMaxChunk];
+        for (int q = 1; q <= k; ++q) clamped = fminf(clamped, col_raw[m * kMaxChunk + q]);
+        col_words[tid] = live && clamped > -INFINITY ? pack_column(clamped, sl.lo + ci, k)
+                                                      : 0ull;
+      }
+      __syncthreads();
+      // 4. the walk: the candidates' column lists merged
+      if (warp == 0) {
+        const int len = warp_merge(col_words, nh, want, [&](int l, int p, int r) {
+          add_to_walk(par, r, col_words[l * kMaxChunk + p], col_raw[l * kMaxChunk + p]);
+        });
+        if (lane >= len && lane < kMaxChunk) s_walk[par][lane] = 0ull;
+      }
+    }
+    cluster.sync();
+
+    // every block merges the cluster's walks into the same picks
+    if (tid < kWalkWords) {
+      s_all[tid] = cluster.map_shared_rank(s_walk[par], tid / kMaxChunk)[tid % kMaxChunk];
+    }
+    __syncthreads();
+    bool take = false;
+    int pos = 0;
+    unsigned long long w = 0ull;
+    if (tid < kWalkWords) {
+      w = s_all[tid];
+      if (w != 0ull) {
+        // its place in its own walk, plus the other walks' entries above
+        // it (a 0 word never counts)
+        const int b = tid / kMaxChunk;
+        pos = tid % kMaxChunk;
+        for (int o = 0; o < kCluster; ++o) {
+          if (o == b) continue;
+          for (int q = 0; q < chunk; ++q) pos += s_all[o * kMaxChunk + q] > w ? 1 : 0;
+        }
+        take = pos < want;
+        if (take) s_src[pos] = tid;
+      }
+      if (tid / kMaxChunk == rank) s_kept[tid % kMaxChunk] = take ? 1 : 0;
+    }
+    const int taken = __syncthreads_count(take);
+    if (take && tid / kMaxChunk == rank) {  // the owner block writes its picks
+      const size_t slot = out0 + static_cast<size_t>(step) * chunk + pos;
+      out_choices[slot] = column_node(w);
+      out_scores[slot] = s_raw[tid % kMaxChunk];
+    }
+    // the picks' values counted in every block, in merge order, by warps
+    // 1 on, beside the head moves in warp 0: each pick's staged value ids
+    // read from the block that walked it (the reads issued at once)
+    for (int b = tid - 32; b >= 0 && b < B; b += kThreads - 32) {
+      int vv[kMaxChunk];
+#pragma unroll
+      for (int p = 0; p < kMaxChunk; ++p) {
+        vv[p] = -1;
+        if (p < taken) {
+          const int src = s_src[p];
+          const VT* ids = cluster.map_shared_rank(walk_vids, src / kMaxChunk);
+          vv[p] = static_cast<int>(
+                      ids[(static_cast<size_t>(par) * kMaxChunk + src % kMaxChunk) * B + b]) -
+                  1;
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < kMaxChunk; ++p) {
+        if (vv[p] >= 0) L.t.c[b * V + vv[p]] = __fadd_rn(L.t.c[b * V + vv[p]], 1.0f);
+      }
+    }
+    // the walk's taken entries are its prefix, and a node's are its next
+    // columns in order: the last taken entry of each node moves its head
+    if (tid < kMaxChunk && s_kept[tid]) {
+      const unsigned long long mine_w = s_walk[par][tid];
+      const int node = column_node(mine_w);
+      const int k = column_k(mine_w);
+      bool last = true;
+      for (int r = 0; r < kMaxChunk && s_kept[r]; ++r) {
+        const unsigned long long o = s_walk[par][r];
+        last &= !(column_node(o) == node && column_k(o) == k + 1);
+      }
+      if (last) {
+        const int i = node - sl.lo;
+        const int j = sl.jn[i] + k + 1;
+        sl.jn[i] = static_cast<uint16_t>(j);
+        slice_head(L, sl, i, j);
+      }
+    }
+    __syncthreads();  // counts bumped this chunk feed the next tables
+    if (taken == 0) break;
+    n_placed += taken;
+  }
+  cluster.sync();  // no block leaves while another may read its shared memory
+}
+
 // Dynamic shared memory each kernel may take: the card's opt-in maximum
 // less the kernel's static shared memory, granted once per process by a
 // thread-safe static (the launchers run with the GIL released), and never
@@ -895,6 +1301,8 @@ struct SmemGrant {
   size_t opv;
   size_t cluster8;   // opv_cluster_kernel<uint8_t>
   size_t cluster16;  // opv_cluster_kernel<uint16_t>
+  size_t chunked8;   // chunked_cluster_kernel<uint8_t>
+  size_t chunked16;  // chunked_cluster_kernel<uint16_t>
 };
 
 cudaError_t grant(const void* kernel, int optin, size_t* room) {
@@ -908,25 +1316,22 @@ cudaError_t grant(const void* kernel, int optin, size_t* room) {
 
 const SmemGrant& smem_grant() {
   static const SmemGrant granted = [] {
-    SmemGrant out{0, 0, 0, 0, 0};
+    SmemGrant out{0, 0, 0, 0, 0, 0, 0};
     int dev = 0, optin = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess) {
       e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     }
-    if (e == cudaSuccess) {
-      e = grant(reinterpret_cast<const void*>(chunked_kernel), optin, &out.chunked);
-    }
-    if (e == cudaSuccess) {
-      e = grant(reinterpret_cast<const void*>(opv_kernel), optin, &out.opv);
-    }
-    if (e == cudaSuccess) {
-      e = grant(reinterpret_cast<const void*>(opv_cluster_kernel<uint8_t>), optin,
-                &out.cluster8);
-    }
-    if (e == cudaSuccess) {
-      e = grant(reinterpret_cast<const void*>(opv_cluster_kernel<uint16_t>), optin,
-                &out.cluster16);
+    const std::pair<const void*, size_t*> kernels[] = {
+        {reinterpret_cast<const void*>(chunked_kernel), &out.chunked},
+        {reinterpret_cast<const void*>(opv_kernel), &out.opv},
+        {reinterpret_cast<const void*>(opv_cluster_kernel<uint8_t>), &out.cluster8},
+        {reinterpret_cast<const void*>(opv_cluster_kernel<uint16_t>), &out.cluster16},
+        {reinterpret_cast<const void*>(chunked_cluster_kernel<uint8_t>), &out.chunked8},
+        {reinterpret_cast<const void*>(chunked_cluster_kernel<uint16_t>), &out.chunked16},
+    };
+    for (const auto& k : kernels) {
+      if (e == cudaSuccess) e = grant(k.first, optin, k.second);
     }
     out.error = static_cast<int>(e);
     return out;
@@ -941,26 +1346,33 @@ int smem_limit(const void* kernel, size_t* limit) {
   return granted.error;
 }
 
-// Whether a one-per-value launch runs a lane as a cluster: V + 1 within
-// one thread a segment and the block's share in shared memory. Sets the
-// block's dynamic shared memory (0: the one-block form) and the bytes of
-// a staged value id.
-int plan_cluster(int n, int b, int v, size_t* smem, int* id_bytes) {
+// Whether a launch runs a lane as a cluster, decided by shape alone: the
+// one-per-value kernel (`opv`) needs V + 1 within one thread a segment,
+// the chunked one at most 32 slice nodes a thread (its per-thread mask),
+// both the block's share (the replicated tables and its node slice) in
+// shared memory and value ids + 1 within 16 bits. Sets the block's
+// dynamic shared memory (0: the one-block form) and the bytes of a staged
+// value id.
+int plan_cluster(int opv, int n, int b, int v, size_t* smem, int* id_bytes) {
   const SmemGrant& granted = smem_grant();
   *smem = 0;
   *id_bytes = v + 1 <= 256 ? 1 : 2;
   if (granted.error != 0) return granted.error;
-  if (v + 1 > kMaxSegments) return 0;
-  const size_t bytes = cluster_bytes(n, b, v, *id_bytes);
-  if (bytes <= (*id_bytes == 1 ? granted.cluster8 : granted.cluster16)) *smem = bytes;
+  if (v + 1 > (opv ? kMaxSegments : 65536)) return 0;
+  if (!opv && cluster_slice(n) > 32 * kThreads) return 0;
+  const bool narrow = *id_bytes == 1;
+  const size_t bytes = opv ? cluster_bytes(n, b, v, *id_bytes)
+                           : chunked_cluster_bytes(n, b, v, *id_bytes);
+  const size_t room = opv ? (narrow ? granted.cluster8 : granted.cluster16)
+                          : (narrow ? granted.chunked8 : granted.chunked16);
+  if (bytes <= room) *smem = bytes;
   return 0;
 }
 
-template <typename VT>
-cudaError_t launch_cluster(const Inputs& in, const Blocks& bl, const int32_t* enforce_idx,
-                           const int32_t* counts, int k_seg, int n_chunks, int g,
-                           size_t smem, int32_t* out_choices, float* out_scores,
-                           cudaStream_t stream) {
+// Launches `kernel` with a lane a cluster of kCluster blocks.
+template <typename... Params, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), int g, size_t smem,
+                           cudaStream_t stream, Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(g) * kCluster);
   cfg.blockDim = dim3(kThreads);
@@ -973,8 +1385,8 @@ cudaError_t launch_cluster(const Inputs& in, const Blocks& bl, const int32_t* en
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, opv_cluster_kernel<VT>, in, bl, enforce_idx, counts,
-                            k_seg, n_chunks, out_choices, out_scores);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 // The lane region goes to shared memory when it fits, else to the
@@ -1007,6 +1419,31 @@ int plan_launch(int opv, int n, int b, int v, const unsigned char* scratch,
   return 0;
 }
 
+// The chunked scan (chunk 1: the value scan) in the form its shape picks.
+int launch_chunked(const Inputs& in, const Blocks& bl, const int32_t* counts, int chunk,
+                   int n_chunks, int g, unsigned char* scratch, int32_t* out_choices,
+                   float* out_scores, cudaStream_t stream) {
+  size_t smem = 0;
+  int id_bytes = 0;
+  int e = plan_cluster(0, in.n, bl.b, bl.v, &smem, &id_bytes);
+  if (e != 0) return e;
+  if (smem > 0) {
+    if (chunk < 1 || chunk > kMaxChunk) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(
+        id_bytes == 1
+            ? launch_cluster(chunked_cluster_kernel<uint8_t>, g, smem, stream, in, bl,
+                             counts, chunk, n_chunks, out_choices, out_scores)
+            : launch_cluster(chunked_cluster_kernel<uint16_t>, g, smem, stream, in, bl,
+                             counts, chunk, n_chunks, out_choices, out_scores));
+  }
+  int in_smem = 0;
+  e = plan_launch(0, in.n, bl.b, bl.v, scratch, &smem, &in_smem);
+  if (e != 0) return e;
+  chunked_kernel<<<g, kThreads, smem, stream>>>(in, bl, counts, chunk, n_chunks, scratch,
+                                                in_smem, out_choices, out_scores);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // C entry points, bound with ctypes (nomad_tpu_torch/device/score.py).
@@ -1019,24 +1456,23 @@ int plan_launch(int opv, int n, int b, int v, const unsigned char* scratch,
 extern "C" int nomad_coupled_scratch_bytes(int opv, int n, int b, int v,
                                            size_t* bytes) {
   size_t smem = 0;
-  if (opv) {
-    int id_bytes = 0;
-    const int e = plan_cluster(n, b, v, &smem, &id_bytes);
-    if (e != 0) return e;
-    if (smem > 0) {
-      *bytes = 0;
-      return 0;
-    }
+  int id_bytes = 0;
+  const int e = plan_cluster(opv, n, b, v, &smem, &id_bytes);
+  if (e != 0) return e;
+  if (smem > 0) {
+    *bytes = 0;
+    return 0;
   }
   return plan_region(kernel_of(opv), n, b, v, &smem, bytes);
 }
 
-// Blocks a lane of the one-per-value kernel runs on at N nodes, B blocks
-// and V values: the cluster size, or 1 for the one-block form.
-extern "C" int nomad_place_spread_opv_cluster(int n, int b, int v, int* blocks) {
+// Blocks a lane runs on at N nodes, B blocks and V values: the cluster
+// size, or 1 for the one-block form (`opv`: the one-per-value kernel,
+// else the chunked one and the value scan).
+extern "C" int nomad_coupled_cluster(int opv, int n, int b, int v, int* blocks) {
   size_t smem = 0;
   int id_bytes = 0;
-  const int e = plan_cluster(n, b, v, &smem, &id_bytes);
+  const int e = plan_cluster(opv, n, b, v, &smem, &id_bytes);
   *blocks = smem > 0 ? kCluster : 1;
   return e;
 }
@@ -1061,26 +1497,16 @@ extern "C" int nomad_place_value_scan(
     NOMAD_COUPLED_PARAMS, int max_steps, unsigned char* scratch,
     int32_t* out_choices, float* out_scores, void* stream) {
   NOMAD_COUPLED_STRUCTS
-  size_t smem = 0;
-  int in_smem = 0;
-  const int e = plan_launch(0, n, b, v, scratch, &smem, &in_smem);
-  if (e != 0) return e;
-  chunked_kernel<<<g, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      in, bl, counts, 1, max_steps, scratch, in_smem, out_choices, out_scores);
-  return static_cast<int>(cudaGetLastError());
+  return launch_chunked(in, bl, counts, 1, max_steps, g, scratch, out_choices, out_scores,
+                        static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int nomad_place_spread_chunked(
     NOMAD_COUPLED_PARAMS, int chunk, int n_chunks, unsigned char* scratch,
     int32_t* out_choices, float* out_scores, void* stream) {
   NOMAD_COUPLED_STRUCTS
-  size_t smem = 0;
-  int in_smem = 0;
-  const int e = plan_launch(0, n, b, v, scratch, &smem, &in_smem);
-  if (e != 0) return e;
-  chunked_kernel<<<g, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      in, bl, counts, chunk, n_chunks, scratch, in_smem, out_choices, out_scores);
-  return static_cast<int>(cudaGetLastError());
+  return launch_chunked(in, bl, counts, chunk, n_chunks, g, scratch, out_choices,
+                        out_scores, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int nomad_place_spread_opv(
@@ -1090,23 +1516,22 @@ extern "C" int nomad_place_spread_opv(
   NOMAD_COUPLED_STRUCTS
   size_t smem = 0;
   int id_bytes = 0;
-  int e = plan_cluster(n, b, v, &smem, &id_bytes);
+  int e = plan_cluster(1, n, b, v, &smem, &id_bytes);
   if (e != 0) return e;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (smem > 0) {
     if (k_seg > kMaxPicks) return static_cast<int>(cudaErrorInvalidValue);
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const cudaError_t err = id_bytes == 1
-        ? launch_cluster<uint8_t>(in, bl, enforce_idx, counts, k_seg, n_chunks, g, smem,
-                                  out_choices, out_scores, st)
-        : launch_cluster<uint16_t>(in, bl, enforce_idx, counts, k_seg, n_chunks, g, smem,
-                                   out_choices, out_scores, st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(
+        id_bytes == 1
+            ? launch_cluster(opv_cluster_kernel<uint8_t>, g, smem, st, in, bl, enforce_idx,
+                             counts, k_seg, n_chunks, out_choices, out_scores)
+            : launch_cluster(opv_cluster_kernel<uint16_t>, g, smem, st, in, bl, enforce_idx,
+                             counts, k_seg, n_chunks, out_choices, out_scores));
   }
   int in_smem = 0;
   e = plan_launch(1, n, b, v, scratch, &smem, &in_smem);
   if (e != 0) return e;
-  opv_kernel<<<g, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  opv_kernel<<<g, kThreads, smem, st>>>(
       in, bl, enforce_idx, counts, k_seg, n_chunks, scratch, in_smem,
       out_choices, out_scores);
   return static_cast<int>(cudaGetLastError());

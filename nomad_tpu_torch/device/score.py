@@ -762,18 +762,21 @@ def coupled_scratch_bytes(symbol: str, n: int, nb: int, nv: int) -> int:
     return out.value
 
 
-def opv_cluster_size(n: int, nb: int, nv: int) -> int:
-    """Blocks a lane of ``place_spread_opv`` runs on at N nodes, B blocks
-    and V values: the thread-block cluster's size, or 1 where the lane
-    runs as one block (V + 1 above 1,024, or a share too large for shared
-    memory)."""
-    lib, _ = _coupled_library("nomad_place_spread_opv")
-    fn = lib.nomad_place_spread_opv_cluster
+def coupled_cluster_size(symbol: str, n: int, nb: int, nv: int) -> int:
+    """Blocks a lane of the coupled kernel ``symbol`` runs on at N nodes,
+    B blocks and V values, decided by shape alone: the thread-block
+    cluster's size, or 1 where the lane runs as one block (the block's
+    share of the replicated tables and its node slice too large for
+    shared memory; for the one-per-value kernel also V + 1 above
+    1,024)."""
+    lib, _ = _coupled_library(symbol)
+    fn = lib.nomad_coupled_cluster
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
     out = ctypes.c_int(0)
-    check_launch(fn(n, nb, nv, ctypes.byref(out)), "place_spread_opv")
+    status = fn(int(symbol == "nomad_place_spread_opv"), n, nb, nv, ctypes.byref(out))
+    check_launch(status, symbol)
     return out.value
 
 
@@ -881,6 +884,8 @@ def place_spread_chunked(
         return place_spread_chunked_plain(
             *args, algorithm_spread, counts, max_j, chunk, n_chunks, jitter
         )
+    if not 1 <= chunk <= CHUNK:
+        raise ValueError(f"place_spread_chunked: chunk {chunk} outside [1, CHUNK]")
     return _launch_coupled(
         "place_spread_chunked", "nomad_place_spread_chunked", args[:11],
         args[11:], counts, algorithm_spread, max_j, n_chunks * chunk,

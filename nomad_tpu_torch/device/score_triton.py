@@ -4,15 +4,26 @@ Replaces ``nomad_tpu/device/score.py:score_matrix_kernel`` (the vmapped
 ``component_scores``). The function is one elementwise pass over the
 groups × nodes grid with a 4-wide reduction over the resource dims
 (``all(used + ask <= capacity)``): no sequential state, no selection and
-no matrix product. Each program takes one group and a block of nodes,
-masks the ragged edge, and writes (final f32, fits u8).
+no matrix product, so it stays Triton. Each program takes one group and
+``BLOCK_N`` nodes, masks the ragged edge, and writes (final f32, fits
+u8).
 
-What bounds it on the H100: memory. Per (g, n) it reads 14 bytes of
+What bounds it on the H100: memory. Per (g, n) it reads 10 bytes of
 per-lane node inputs (eligible and penalty as bytes, job_counts i32,
-affinity f32, throughputs f32 when given) and writes 5 (final f32, fits
+affinity f32; throughputs f32 when given) and writes 5 (final f32, fits
 u8), against ~30 f32 operations; capacity and usage ([N, 4]) are shared
 by every group and stay in L2. The design keeps it to one pass that
 reads each input once, with no [G, N, D] intermediate in device memory.
+
+Design: one cell a thread (``BLOCK_N`` 128 in four warps), so a call at
+G = 1 spreads over 128 programs at 16,384 nodes and 79 at 10,000, and
+each node's capacity and usage row arrives as one 16-byte vector load
+(a [BLOCK_N, 4] tile) whose cpu and mem columns are picked out within the
+thread. A thread's byte inputs and its fits byte are single accesses
+that a warp coalesces into one 32-byte sector. Tiles of 1,024 nodes with
+eight cells a thread and four scalar loads a row held 150 registers a
+thread and left 16 programs at G = 1 (``tools/score_matrix_profile.py``
+times both bodies at several tilings; PERF.md keeps the numbers).
 
 Numerics follow the reference: IEEE division (``div_rn``), libdevice's
 ``expf`` rather than the approximate ``ex2``, and no FMA contraction
@@ -34,7 +45,8 @@ from ..backend import BUILD_DIR, same_device
 
 # ln(10) and BINPACK_MAX_SCORE appear as literals in the kernel body:
 # Triton kernels may read only constexpr globals
-BLOCK_N = 1024
+BLOCK_N = 128
+NUM_WARPS = 4
 
 _build_lock = threading.Lock()
 _kernel = None
@@ -52,30 +64,30 @@ def _score_matrix_body(
     offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
     mask = offs < n_nodes
     gn = g.to(tl.int64) * n_nodes + offs
+    dim = tl.arange(0, 4)
 
-    a0 = tl.load(asks_ptr + g * 4 + 0)
-    a1 = tl.load(asks_ptr + g * 4 + 1)
-    a2 = tl.load(asks_ptr + g * 4 + 2)
-    a3 = tl.load(asks_ptr + g * 4 + 3)
+    ask = tl.load(asks_ptr + g * 4 + dim)
     dt = tl.load(dt_ptr + g)
     haff = tl.load(haff_ptr + g) != 0
     dh = tl.load(dh_ptr + g) != 0
 
-    c0 = tl.load(cap_ptr + offs * 4 + 0, mask=mask, other=0.0)
-    c1 = tl.load(cap_ptr + offs * 4 + 1, mask=mask, other=0.0)
-    c2 = tl.load(cap_ptr + offs * 4 + 2, mask=mask, other=0.0)
-    c3 = tl.load(cap_ptr + offs * 4 + 3, mask=mask, other=0.0)
-    p0 = tl.load(used_ptr + offs * 4 + 0, mask=mask, other=0.0) + a0
-    p1 = tl.load(used_ptr + offs * 4 + 1, mask=mask, other=0.0) + a1
-    p2 = tl.load(used_ptr + offs * 4 + 2, mask=mask, other=0.0) + a2
-    p3 = tl.load(used_ptr + offs * 4 + 3, mask=mask, other=0.0) + a3
+    # each node's capacity and usage row as one 16-byte vector
+    row = offs[:, None] * 4 + dim[None, :]
+    cap = tl.load(cap_ptr + row, mask=mask[:, None], other=0.0)
+    prop = tl.load(used_ptr + row, mask=mask[:, None], other=0.0) + ask[None, :]
+    fits = tl.min((prop <= cap).to(tl.int32), axis=1) != 0
+    # the cpu and mem columns: a max over one value and -infs is exact
+    ninf = -float("inf")
+    c0 = tl.max(tl.where(dim[None, :] == 0, cap, ninf), axis=1)
+    c1 = tl.max(tl.where(dim[None, :] == 1, cap, ninf), axis=1)
+    p0 = tl.max(tl.where(dim[None, :] == 0, prop, ninf), axis=1)
+    p1 = tl.max(tl.where(dim[None, :] == 1, prop, ninf), axis=1)
     elig = tl.load(elig_ptr + gn, mask=mask, other=0) != 0
     jc = tl.load(jc_ptr + gn, mask=mask, other=0)
     pen = tl.load(pen_ptr + gn, mask=mask, other=0) != 0
     aff = tl.load(aff_ptr + gn, mask=mask, other=0.0)
 
-    fits = (p0 <= c0) & (p1 <= c1) & (p2 <= c2) & (p3 <= c3) & elig
-    fits = fits & ((jc == 0) | (dh == 0))
+    fits = fits & elig & ((jc == 0) | (dh == 0))
 
     f0 = tl.where(c0 > 0, libdevice.div_rn(c0 - p0, tl.maximum(c0, 1e-9)), 1.0)
     f1 = tl.where(c1 > 0, libdevice.div_rn(c1 - p1, tl.maximum(c1, 1e-9)), 1.0)
@@ -183,7 +195,7 @@ def score_matrix_triton(
         ALG_SPREAD=bool(algorithm_spread),
         HAS_TP=throughputs is not None,
         BLOCK=BLOCK_N,
-        num_warps=4,
+        num_warps=NUM_WARPS,
         enable_fp_fusion=False,
     )
     score_matrix_triton.launches += 1

@@ -14,7 +14,8 @@ In the port every factory takes the ``device`` its tensors live on:
 ``binpack`` and ``spread`` build the closed-form ``PlacementKernel``,
 the three ``hetero-*`` algorithms ``HeteroPlacementKernel`` (the
 hetero-greedy kernel), ``cp-pack`` and ``cp-gang`` the CP auction
-kernels, and ``score_group`` runs the port's ``score_matrix``.
+kernels, and ``score_group`` and ``score_groups`` run the port's
+``score_matrix``.
 """
 
 from __future__ import annotations
@@ -170,6 +171,65 @@ class CpGangAlgorithm(SchedulerAlgorithm):
 # -- registry-routed score matrix -------------------------------------------
 
 
+def _normalized_throughputs(ga):
+    """The ask's heterogeneity axis normalized by its best eligible class
+    (f32[N]), or None where it carries none or no eligible class has a
+    positive rate."""
+    if not (ga.has_throughputs and ga.throughputs is not None):
+        return None
+    tp = ga.throughputs.astype(np.float32)
+    best = float(np.max(np.where(ga.eligible, tp, 0.0)))
+    return tp / np.float32(best) if best > 0.0 else None
+
+
+def score_groups(ct, asks: list, desired_totals, algorithm_spread: bool = False,
+                 device="cuda"):
+    """Dense score rows of several flattened group asks against one
+    cluster snapshot: row i equals ``score_group(ct, asks[i],
+    desired_totals[i], algorithm_spread)``. One ``score_matrix`` launch
+    over every ask, or two where only some carry a throughput axis (with
+    and without it); each input is copied to the device once a launch.
+
+    Returns (finals f32[G, N], fits bool[G, N]) as numpy."""
+    import torch
+
+    from ..backend import resolve_device
+    from ..device.score import score_matrix
+
+    dev = resolve_device(device)
+    g, pn = len(asks), ct.capacity.shape[0]
+    finals = np.empty((g, pn), dtype=np.float32)
+    fits = np.empty((g, pn), dtype=bool)
+    tps = [_normalized_throughputs(ga) for ga in asks]
+
+    def t(x, dtype):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(dev)
+
+    capacity, used = t(ct.capacity, np.float32), t(ct.used, np.float32)
+    for with_tp in (False, True):
+        rows = [i for i, tp in enumerate(tps) if (tp is not None) == with_tp]
+        if not rows:
+            continue
+        sub = [asks[i] for i in rows]
+        f, ok = score_matrix(
+            capacity,
+            used,
+            t(np.stack([ga.ask for ga in sub]), np.float32),
+            t(np.stack([ga.eligible for ga in sub]), bool),
+            t(np.stack([ga.job_counts for ga in sub]), np.int32),
+            t([float(max(desired_totals[i], 1)) for i in rows], np.float32),
+            t(np.stack([ga.penalty_nodes for ga in sub]), bool),
+            t(np.stack([ga.affinity_scores for ga in sub]), np.float32),
+            t([ga.has_affinities for ga in sub], bool),
+            t([ga.distinct_hosts for ga in sub], bool),
+            bool(algorithm_spread),
+            t(np.stack([tps[i] for i in rows]), np.float32) if with_tp else None,
+        )
+        finals[rows] = f.cpu().numpy()
+        fits[rows] = ok.cpu().numpy()
+    return finals, fits
+
+
 def score_group(
     ct,
     ga,
@@ -187,38 +247,8 @@ def score_group(
     Returns (finals f32[N], fits bool[N]) as numpy; with ``explain`` the
     return grows a third element, an ``obs.explain.PlacementExplanation``
     carrying top-k candidates and the feasibility-rejection histogram."""
-    import torch
-
-    from ..backend import resolve_device
-    from ..device.score import score_matrix
-
-    dev = resolve_device(device)
-    throughputs = None
-    if ga.has_throughputs and ga.throughputs is not None:
-        tp = ga.throughputs.astype(np.float32)
-        best = float(np.max(np.where(ga.eligible, tp, 0.0)))
-        if best > 0.0:
-            throughputs = (tp / np.float32(best))[None, :]
-
-    def t(x, dtype):
-        return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(dev)
-
-    finals, fits = score_matrix(
-        t(ct.capacity, np.float32),
-        t(ct.used, np.float32),
-        t(ga.ask[None, :], np.float32),
-        t(ga.eligible[None, :], bool),
-        t(ga.job_counts[None, :], np.int32),
-        t([float(max(desired_total, 1))], np.float32),
-        t(ga.penalty_nodes[None, :], bool),
-        t(ga.affinity_scores[None, :], np.float32),
-        t([ga.has_affinities], bool),
-        t([ga.distinct_hosts], bool),
-        bool(algorithm_spread),
-        None if throughputs is None else t(throughputs, np.float32),
-    )
-    finals = finals.cpu().numpy()[0]
-    fits = fits.cpu().numpy()[0]
+    finals, fits = score_groups(ct, [ga], [desired_total], algorithm_spread, device)
+    finals, fits = finals[0], fits[0]
     if not explain:
         return finals, fits
     from ..obs.explain import explain_group
@@ -229,7 +259,7 @@ def score_group(
         np.asarray(ct.used),
         algorithm="spread" if algorithm_spread else "binpack",
         algorithm_spread=algorithm_spread,
-        throughputs=throughputs[0] if throughputs is not None else None,
+        throughputs=_normalized_throughputs(ga),
         desired_total=float(max(desired_total, 1)),
     )
     return finals, fits, ex

@@ -4,9 +4,9 @@ PyTorch and CUDA.
 Ports ``nomad_tpu/scheduler/cp.py``: the ``cp-pack`` and ``cp-gang``
 algorithm plugins (scheduler/algorithms.py). One pass takes EVERY
 pending group at once, assembles the dense score matrix through the
-registry's ``score_group`` seam (the port's score-matrix kernel, the
-same finals binpack ranks by), and hands the whole batch to
-``device/cp.py``'s auction — congestion prices mediate contention
+registry's score seam (``score_groups``: one launch of the port's
+score-matrix kernel a pass, the same finals binpack ranks by), and
+hands the whole batch to ``device/cp.py``'s auction — congestion prices mediate contention
 instead of per-group greedy order:
 
 - per-node capacity across all resource dims is exact by construction
@@ -110,25 +110,23 @@ def perturb_prices(pn: int) -> np.ndarray:
 
 def build_cp_batch(cluster, asks: list, used_override=None,
                    lam0=None, device="cuda") -> CpBatch:
-    """Score rows come from the registry's ``score_group`` seam on
-    ``device`` — the identical finals binpack ranks by, so the A/B
-    compares solvers, not scoring functions. Scoring runs against the
-    cluster's base usage snapshot; feasibility inside the solver is exact
-    against ``used_override`` + committed rounds."""
-    from .algorithms import score_group
+    """Score rows come from the registry's score seam on ``device``
+    (``score_groups``: every ask of the pass in one score-matrix launch,
+    each row what ``score_group`` gives that ask) — the identical finals
+    binpack ranks by, so the A/B compares solvers, not scoring functions.
+    Scoring runs against the cluster's base usage snapshot; feasibility
+    inside the solver is exact against ``used_override`` + committed
+    rounds."""
+    from .algorithms import score_groups
 
     pn = cluster.padded_n
-    g = len(asks)
     ask_m = np.stack([a.ask for a in asks]).astype(np.float32)
     counts = np.array([a.count for a in asks], dtype=np.int32)
-    eligible = np.stack([a.eligible for a in asks]).copy()
-    scores = np.zeros((g, pn), dtype=np.float32)
-    for i, a in enumerate(asks):
-        finals, fits = score_group(
-            cluster, a, float(a.desired_total), device=device
-        )
-        scores[i] = np.where(fits, finals, np.float32(0.0))
-        eligible[i] &= fits
+    finals, fits = score_groups(
+        cluster, asks, [float(a.desired_total) for a in asks], device=device
+    )
+    scores = np.where(fits, finals, np.float32(0.0))
+    eligible = np.stack([a.eligible for a in asks]) & fits
     prio = np.array(
         [float(getattr(a, "priority", 50)) for a in asks], dtype=np.float32
     )
