@@ -173,6 +173,7 @@ made and the card did not.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import dataclasses
@@ -272,7 +273,9 @@ def graph_ms(fn, iters: int = TIMED_LAUNCHES) -> float:
     """Mean device time of one ``fn`` launch: ``iters`` launches captured
     in a CUDA graph and replayed, so no host launch overhead sits between
     them (a kernel shorter than its Python wrapper would otherwise be
-    timed at the host's launch rate)."""
+    timed at the host's launch rate). The warm-up call runs on the
+    capture stream, so whatever a wrapper keeps per stream exists before
+    the capture."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -280,7 +283,7 @@ def graph_ms(fn, iters: int = TIMED_LAUNCHES) -> float:
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -416,10 +419,26 @@ def closed_form_args(b):
 # -- phase 2 -----------------------------------------------------------------
 
 
+def launched_form(launch):
+    """Runs ``launch``, one closed-form call, and returns its result and
+    the form it launched as the wrapper counted it at the launch
+    (``place_closed_form.forms``: blocks a lane, 1 the one-block form)."""
+    from nomad_tpu_torch.device import score as S
+
+    forms = S.place_closed_form.forms
+    forms.clear()
+    out = launch()
+    assert sum(forms.values()) == 1, f"closed form: one call launched {forms}"
+    (blocks,) = forms
+    return out, blocks
+
+
 def check_closed_form(name, args, spread, max_j, k, jitter, timed):
     from nomad_tpu_torch.device import score as S
 
-    ch, sc = S.place_closed_form(*args, spread, max_j, k, jitter)
+    (ch, sc), blocks = launched_form(
+        lambda: S.place_closed_form(*args, spread, max_j, k, jitter)
+    )
     chp, scp = S.place_closed_form_plain(*args, spread, max_j, k, jitter)
     torch.cuda.synchronize()
     mismatches = int((ch != chp).sum())
@@ -431,12 +450,15 @@ def check_closed_form(name, args, spread, max_j, k, jitter, timed):
     out = {
         "max_abs_err": err,
         "choice_mismatches": mismatches,
+        "inf_agree": inf_agree,
         "lowest_row": int(picked.min()),
         "nodes_picked": int(torch.unique(picked).numel()),
+        "placed_slots": int(picked.numel()),
+        "blocks_per_lane": blocks,
     }
     log(
         f"[closed_form:{name}] G={args[2].shape[0]} N={args[0].shape[0]} "
-        f"J={max_j} k={k} placed_slots={picked.numel()} on "
+        f"J={max_j} k={k} form S={out['blocks_per_lane']} placed_slots={picked.numel()} on "
         f"{out['nodes_picked']} nodes from row {out['lowest_row']} "
         f"choice_mismatches={mismatches} max_abs_err={err!r} inf_agree={inf_agree}"
     )
@@ -473,6 +495,142 @@ def check_closed_form(name, args, spread, max_j, k, jitter, timed):
             f"{g * n * max_j} candidates)"
         )
     return out
+
+
+# the schedule path's pass: mock nodes (3,900 MHz / 7,936 MiB after the
+# reserved carve-out), 500 MHz / 256 MiB asks, J 16, k 1,024
+SCHEDULE_CAPACITY = (3900.0, 7936.0, 98304.0, 1000.0)
+SCHEDULE_ASK = (500.0, 256.0, 300.0, 0.0)
+SCHEDULE_J = 16
+SCHEDULE_K = 1024
+
+
+def schedule_inputs(dev, g=1, n_nodes=10_000, seed=0, k=SCHEDULE_K, pad=True):
+    """Closed-form inputs shaped like the schedule path's later passes, at
+    G lanes: identical mock nodes padded to a power of two, the first
+    1,000 full, the next 1,900 holding two allocs and 100 after them three
+    (so the top k hold 100 heads above one class of 1,900 tied heads, and
+    the ties taken, rows 1,000 to 1,923, straddle the boundary at 1,024 of
+    a lane's 16 slices), the rest empty. Each lane asks
+    500 or 1,000 MHz and holds one earlier alloc of its job on a window of
+    rows of its own, so the lanes differ. ``pad=False`` keeps N = n_nodes.
+    Returns (args, max_j, k)."""
+    from nomad_tpu_torch.device.flatten import node_bucket
+
+    rng = np.random.default_rng(seed)
+    pn = node_bucket(n_nodes) if pad else n_nodes
+    cap = np.zeros((pn, 4), np.float32)
+    cap[:n_nodes] = SCHEDULE_CAPACITY
+    used = np.zeros((pn, 4), np.float32)
+    one = np.array(SCHEDULE_ASK, np.float32)
+    used[:1000] = 7 * one
+    used[1000:2900] = 2 * one
+    used[2900:3000] = 3 * one
+    asks = np.tile(one, (g, 1))
+    asks[1:, 0] = rng.choice([500.0, 1000.0], g - 1)
+    eligible = np.zeros((g, pn), bool)
+    eligible[:, :n_nodes] = True
+    job_counts = np.zeros((g, pn), np.int32)
+    for i in range(1, g):
+        lo = int(rng.integers(3000, n_nodes - 500))
+        job_counts[i, lo:lo + 500] = 1
+    arrays = {
+        "capacity": cap, "used0": used, "asks": asks, "eligible": eligible,
+        "job_counts": job_counts,
+        "desired_totals": np.full(g, 1000.0, np.float32),
+        "penalty_nodes": np.zeros((g, pn), bool),
+        "affinity_scores": np.zeros((g, pn), np.float32),
+        "has_affinities": np.zeros(g, bool),
+        "distinct_hosts": np.zeros(g, bool),
+        "slot_caps": np.full((g, pn), np.inf, np.float32),
+    }
+    return (
+        [torch.from_numpy(np.ascontiguousarray(arrays[key])).to(dev)
+         for key in CLOSED_FORM_INPUTS],
+        SCHEDULE_J, k,
+    )
+
+
+# phase 2's sweep: the schedule pass at each lane count, then the edges
+CLOSED_FORM_SWEEP_G = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+
+
+def closed_form_edges(dev):
+    """(label, args, spread, max_j, k, jitter) of phase 2's edge cases, on
+    the schedule pass's shape at G 1 unless named."""
+    out = []
+    args, j, k = schedule_inputs(dev, 1, k=8192)
+    out.append(("k 8,192 (k_eff above 4,096)", args, False, j, k, None))
+    args, j, k = schedule_inputs(dev, 4, k=16384)
+    out.append(("G 4, k 16,384", args, False, j, k, None))
+    args, j, k = schedule_inputs(dev, 1)
+    args[3] = args[3].clone()
+    args[3][:, 1300:] = False  # 300 rows with room: 1,500 slots
+    out.append(("k above the finite picks (-inf slots)", args, False, j, 2048, None))
+    args, j, k = schedule_inputs(dev, 2, n_nodes=10_001, pad=False)
+    out.append(("N 10,001 (not a multiple of S)", args, False, j, k, None))
+    args, j, k = schedule_inputs(dev, 1, n_nodes=262_144)
+    out.append(("N 262,144 (a block's share past shared memory: one block a lane)",
+                args, False, j, k, None))
+    args, j, k = schedule_inputs(dev, 1)
+    args[4] = torch.ones_like(args[4])  # one earlier alloc on every node
+    args[5] = torch.full_like(args[5], 1e30)  # anti-affinity below an ulp
+    args[0] = args[0].clone()
+    args[1] = torch.zeros_like(args[1])  # identical empty nodes
+    out.append(("flat all-tie columns", args, False, j, k, None))
+    args, j, k = schedule_inputs(dev, 1, k=1)
+    out.append(("k 1", args, False, j, k, None))
+    args, j, k = schedule_inputs(dev, 1)
+    rows = np.arange(args[0].shape[0], dtype=np.int64)
+    h = (rows * 2654435761 + 40503) & 0xFFFFFFFF
+    jitter = torch.from_numpy(((h % 65536).astype(np.float32) / 65536.0) * 2e-5).to(dev)
+    out.append(("jitter", args, False, j, k, jitter))
+    args, j, k = schedule_inputs(dev, 1)
+    out.append(("spread algorithm", args, True, j, k, None))
+    args, j, k = schedule_inputs(dev, 8)
+    args[9] = torch.ones_like(args[9])  # distinct_hosts on every lane
+    out.append(("G 8 distinct_hosts", args, False, j, k, None))
+    return out
+
+
+def closed_form_sweep(dev):
+    """Phase 2's sweep: the schedule pass at G 1 to 256, the edge cases
+    and G 64 in 2 blocks a lane, each identical to plain (choices, scores
+    bit for bit, -inf in the same slots), with the form it launched, its
+    ms by graph replay and its bound."""
+    out = {}
+    for g in CLOSED_FORM_SWEEP_G:
+        args, max_j, k = schedule_inputs(dev, g)
+        r = check_closed_form(f"sweep G={g}", args, False, max_j, k, None, timed=True)
+        out[f"G={g}"] = {key: r[key] for key in SWEEP_KEYS}
+    for label, args, spread, max_j, k, jitter in closed_form_edges(dev):
+        r = check_closed_form(f"edge {label}", args, spread, max_j, k, jitter, timed=True)
+        out[label] = {key: r[key] for key in SWEEP_KEYS}
+    # 2 blocks a lane, a size the rule picks only where no cluster of 4
+    # can be resident, asked for at G 64
+    from nomad_tpu_torch.device import score as S
+
+    plan = S.closed_form_plan
+    S.closed_form_plan = lambda g, n, kpad: plan(g, n, kpad, 2)
+    try:
+        args, max_j, k = schedule_inputs(dev, 64)
+        r = check_closed_form("G=64 asking for S=2", args, False, max_j, k, None, timed=True)
+    finally:
+        S.closed_form_plan = plan
+    out["G=64 asking for S=2"] = {key: r[key] for key in SWEEP_KEYS}
+    forms_run = {r["blocks_per_lane"] for r in out.values()}
+    assert {1, 2, 4, 8, 16} <= forms_run, f"closed form: phase 2 ran only forms {forms_run}"
+    bits = all(r["max_abs_err"] == 0.0 and r["choice_mismatches"] == 0 and r["inf_agree"]
+               for r in out.values())
+    assert bits, "closed form: a phase 2 case differs from plain"
+    forms = ", ".join(f"{case}: S={r['blocks_per_lane']}" for case, r in out.items())
+    log(f"[closed_form] phase 2: {len(out)} sweep and edge cases identical to plain; "
+        f"forms {forms}")
+    return out
+
+
+SWEEP_KEYS = ("blocks_per_lane", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+              "choice_mismatches", "inf_agree", "placed_slots")
 
 
 def extras_case(dev):
@@ -709,7 +867,9 @@ class Recorder:
     counters have been read. The wrapper itself still runs each call and
     counts it: it bumps ``<its name>.launches`` through the module global,
     which is this object while it stands in, so ``launches`` is passed
-    through to the wrapper's own counter."""
+    through to the wrapper's own counter, and so are its other counters.
+    A call to the closed form also keeps the forms it launched
+    (``launched_forms``, from the wrapper's ``forms`` count)."""
 
     def __init__(self, real):
         self.real = real
@@ -719,8 +879,16 @@ class Recorder:
     def __call__(self, *args, **kwargs):
         bound = self.sig.bind(*args, **kwargs)
         bound.apply_defaults()
-        self.calls.append(dict(bound.arguments))
-        return self.real(*args, **kwargs)
+        call = dict(bound.arguments)
+        self.calls.append(call)
+        forms = getattr(self.real, "forms", None)  # the closed form's, by blocks a lane
+        before = dict(forms or {})
+        out = self.real(*args, **kwargs)
+        if forms is not None:  # what this call launched, as the wrapper counted it
+            call["launched_forms"] = {
+                s: n - before.get(s, 0) for s, n in forms.items() if n != before.get(s, 0)
+            }
+        return out
 
     @property
     def launches(self):
@@ -729,6 +897,9 @@ class Recorder:
     @launches.setter
     def launches(self, value):
         self.real.launches = value
+
+    def __getattr__(self, name):  # the wrapper's other counters
+        return getattr(self.real, name)
 
 
 @contextlib.contextmanager
@@ -795,6 +966,7 @@ def zero_counters() -> None:
     from nomad_tpu_torch.device import score_triton as ST
 
     S.place_closed_form.launches = 0
+    S.place_closed_form.forms.clear()
     ST.score_matrix_triton.launches = 0
     for name in COUPLED:
         getattr(S, name).launches = 0
@@ -921,7 +1093,8 @@ def replay_shared(name, calls, path):
     """A path's recorded closed-form ("place_closed_form") or score-matrix
     calls, each through the kernel and its plain version (identical
     choices or fits, scores within MAX_ABS_ERR), then the kernel's device
-    time over them ("path_ms", ``calls_ms``)."""
+    time over them ("path_ms", ``calls_ms``); for the closed form also the
+    forms the path's run launched, by blocks a lane (``Recorder``)."""
     worst, mismatches = 0.0, 0
     for c in calls:
         got = shared_launch(name, c)()
@@ -938,14 +1111,28 @@ def replay_shared(name, calls, path):
     assert mismatches == 0, f"{name} ({path}): {mismatches} choices or fits differ from plain"
     assert worst <= MAX_ABS_ERR, f"{name} ({path}): |err| {worst} > {MAX_ABS_ERR}"
     path_ms = calls_ms([shared_launch(name, c) for c in calls])
+    out = {"path_ms": path_ms, "calls": len(calls), "max_abs_err": worst,
+           "choice_mismatches": mismatches}
+    forms = ""
+    if name == "place_closed_form":
+        # the forms the path's own run launched, by blocks a lane
+        launched = collections.Counter()
+        for c in calls:
+            assert sum(c["launched_forms"].values()) == 1, (path, c["launched_forms"])
+            launched.update(c["launched_forms"])
+        out["blocks_per_lane"] = dict(sorted(launched.items()))
+        out["shapes"] = sorted({
+            f"G={c['eligible'].shape[0]} N={c['eligible'].shape[1]} J={c['max_j']} k={c['k']}"
+            for c in calls
+        })
+        forms = f"; forms S={out['blocks_per_lane']} at {out['shapes']}"
     log(
         f"[{name}] {len(calls)} recorded {path} calls replayed: choice_mismatches="
         f"{mismatches} max_abs_err={worst!r}; kernel time over the calls "
         f"path_ms={path_ms!r} (graph replay of the calls; mean "
-        f"{path_ms / len(calls)!r} ms)"
+        f"{path_ms / len(calls)!r} ms){forms}"
     )
-    return {"path_ms": path_ms, "calls": len(calls), "max_abs_err": worst,
-            "choice_mismatches": mismatches}
+    return out
 
 
 def main_path(dev, n_nodes=10_000, n_jobs=10, count=1000):
@@ -1882,6 +2069,10 @@ def check_preempt(name, c, timed, label=""):
     assert err == 0.0, f"{name}{label}: |score error| {err}"
     launch = lambda: kernel(*args)  # noqa: E731
     out = {"max_abs_err": err, "choice_mismatches": 0, "ms": graph_ms(launch)}
+    if name == "choose_preemption_node":
+        # the choice kernel's own launch, on the find pass's outputs
+        feasible, net = got[1], got[3]
+        out["choice_ms"] = graph_ms(lambda: P.launch_choice(args, feasible, net))
     if timed:
         run_plain = lambda: plain(*args)  # noqa: E731
         bound, by = preempt_bound(name, dict(zip(PREEMPT_INPUTS, args)), got)
@@ -1896,11 +2087,13 @@ def check_preempt(name, c, timed, label=""):
             "victims": int(c["victim_mask"].sum()),
             "shape": f"N={n} V={v}{label}",
         })
+        choice = (f"; the choice kernel's launch alone {out['choice_ms']!r}"
+                  if "choice_ms" in out else "")
         log(
             f"[{name}{label}] kernel_ms={out['ms']!r} plain_ms={out['plain_ms']!r} "
             f"(graph replay; back to back on the stream {out['stream_ms']!r} and "
             f"{out['plain_stream_ms']!r}) bound_ms={out['bound_ms']!r} ({by}); "
-            f"{out['victims']} victims, {out['feasible_nodes']} feasible nodes"
+            f"{out['victims']} victims, {out['feasible_nodes']} feasible nodes{choice}"
         )
     return out
 
@@ -1909,16 +2102,22 @@ def replay_preempt(name, calls):
     """Every recorded call of one preemption kernel on the preempt path,
     through the kernel and the plain version; each call's kernel timed
     ("path_ms" is their sum), the last one in full."""
-    per_call = []
+    per_call, choice = [], []
     for i, c in enumerate(calls):
         out = check_preempt(name, c, timed=i == len(calls) - 1, label=" (last path call)")
         per_call.append(out["ms"])
+        if "choice_ms" in out:
+            choice.append(out["choice_ms"])
+    alone = (f"; the choice kernel's launches alone {sum(choice)!r} (per call "
+             f"{[round(t, 4) for t in choice]})" if choice else "")
     log(
         f"[{name}] {len(calls)} recorded calls replayed, all identical to plain; "
         f"kernel time over the calls path_ms={sum(per_call)!r} "
-        f"(per call {[round(t, 4) for t in per_call]})"
+        f"(per call {[round(t, 4) for t in per_call]}){alone}"
     )
     out["path_ms"] = sum(per_call)
+    if choice:
+        out["choice_path_ms"] = sum(choice)
     return out
 
 
@@ -2005,8 +2204,8 @@ def preempt_kernel_phase(dev):
             out.setdefault(name, {})[label] = {
                 **{k: r[k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "feasible_nodes", "victims", "shape",
-                )},
+                    "feasible_nodes", "victims", "shape", "choice_ms",
+                ) if k in r},
                 "form": P.find_form(v),
                 "largest_prefix_at_k": largest,
                 "nodes_past_2_24": over,
@@ -2015,7 +2214,64 @@ def preempt_kernel_phase(dev):
             f"sum at k {largest!r} (< 2^24, exact); {over} nodes whose cpu or "
             f"memory total reaches 2^24, each scored 0 or -inf")
         del c
+    out["choose_preemption_node"].update(choice_protocol(dev))
     return out
+
+
+def graph_nodes(fn) -> int:
+    """Nodes of a CUDA graph capturing one call of ``fn``, after a call on
+    the capture stream outside the capture (so first-use set-up is not
+    captured), read with ``cuGraphGetNodes`` from libcuda."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    libcuda.cuGraphGetNodes.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t),
+    ]
+    count = ctypes.c_size_t(0)
+    status = libcuda.cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(count)
+    )
+    assert status == 0, f"cuGraphGetNodes returned {status}"
+    return count.value
+
+
+def choice_protocol(dev):
+    """The choice kernel's scratch protocol: calls of both forms queued
+    back to back on one stream with different inputs and no host sync
+    between them, each identical to plain; one graph node a choice launch
+    (two a ``choose_preemption_node`` call: the find pass and the
+    choice)."""
+    from nomad_tpu_torch.device import preempt as P
+
+    cases = [preempt_inputs(dev, v, n=n, seed=seed) for v, n, seed in (
+        (8, KERNEL_PHASE_NODES, 41), (8, 4096, 42), (64, 2048, 43), (8, 1000, 44),
+    )]
+    args = [[c[k] for k in PREEMPT_INPUTS] for c in cases]
+    torch.cuda.synchronize()
+    got = [P.choose_preemption_node(*a) for a in args]
+    torch.cuda.synchronize()
+    for i, (a, g) in enumerate(zip(args, got)):
+        want = P.choose_preemption_node_plain(*a)
+        for out, x, w in zip(PREEMPT_OUTPUTS["choose_preemption_node"], g, want):
+            assert torch.equal(x, w.to(x.dtype)), f"back-to-back call {i}: {out} differs"
+    a = args[0]
+    feasible, net = got[0][1], got[0][3]
+    nodes = {
+        "choice": graph_nodes(lambda: P.launch_choice(a, feasible, net)),
+        "call": graph_nodes(lambda: P.choose_preemption_node(*a)),
+    }
+    assert nodes == {"choice": 1, "call": 2}, nodes
+    log(f"[choose_preemption_node phase 7] {len(args)} calls back to back on one stream "
+        f"(V 8 / 8 / 64 / 8, no sync between), each identical to plain; graph nodes a "
+        f"choice launch {nodes['choice']}, a call (find + choice) {nodes['call']}")
+    return {"back_to_back_calls": len(args), "graph_nodes": nodes}
 
 
 # -- phase 5, the plugin paths, and phase 8 -----------------------------------
@@ -3045,6 +3301,7 @@ def main() -> int:
     cf_ex = check_closed_form(
         "extras+spread+jitter", ex_args, True, ex_j, ex_k, jitter, timed=False
     )
+    cf_sweep = closed_form_sweep(dev)
 
     # phase 3: score matrix, both variants
     t0 = time.perf_counter()
@@ -3169,7 +3426,14 @@ def main() -> int:
             {
                 "path_ms": shared["place_closed_form"]["schedule"]["path_ms"],
                 "path_ms_by_path": {p: r["path_ms"] for p, r in shared["place_closed_form"].items()},
-                "headline": headline(cf, "G=128 (100 real) N=16384 J=80 k=1024"),
+                "blocks_per_lane_by_path": {
+                    p: r["blocks_per_lane"] for p, r in shared["place_closed_form"].items()
+                },
+                "headline": {
+                    **headline(cf, "G=128 (100 real) N=16384 J=80 k=1024"),
+                    "blocks_per_lane": cf["blocks_per_lane"],
+                },
+                "phase2_sweep": cf_sweep,
             },
         ),
         kernel_entry(
@@ -3213,8 +3477,8 @@ def main() -> int:
             by_path, preempt_main[name],
             {
                 **{k: preempt_main[name][k] for k in (
-                    "path_ms", "feasible_nodes", "victims",
-                )},
+                    "path_ms", "feasible_nodes", "victims", "choice_ms", "choice_path_ms",
+                ) if k in preempt_main[name]},
                 "kernel_phase": preempt_phase[name],
             },
         )

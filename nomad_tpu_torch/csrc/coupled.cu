@@ -115,6 +115,7 @@
 #include <utility>
 
 #include "candidate.cuh"
+#include "cluster.cuh"
 
 namespace {
 
@@ -1369,26 +1370,6 @@ int plan_cluster(int opv, int n, int b, int v, size_t* smem, int* id_bytes) {
   return 0;
 }
 
-// Launches `kernel` with a lane a cluster of kCluster blocks.
-template <typename... Params, typename... Args>
-cudaError_t launch_cluster(void (*kernel)(Params...), int g, size_t smem,
-                           cudaStream_t stream, Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(g) * kCluster);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
-  return e != cudaSuccess ? e : cudaGetLastError();
-}
-
 // The lane region goes to shared memory when it fits, else to the
 // caller's global scratch: sets the dynamic shared memory to launch with
 // and the scratch bytes each lane needs (one of them 0).
@@ -1431,10 +1412,10 @@ int launch_chunked(const Inputs& in, const Blocks& bl, const int32_t* counts, in
     if (chunk < 1 || chunk > kMaxChunk) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(
         id_bytes == 1
-            ? launch_cluster(chunked_cluster_kernel<uint8_t>, g, smem, stream, in, bl,
-                             counts, chunk, n_chunks, out_choices, out_scores)
-            : launch_cluster(chunked_cluster_kernel<uint16_t>, g, smem, stream, in, bl,
-                             counts, chunk, n_chunks, out_choices, out_scores));
+            ? launch_cluster(chunked_cluster_kernel<uint8_t>, g, kCluster, kThreads, smem,
+                             stream, in, bl, counts, chunk, n_chunks, out_choices, out_scores)
+            : launch_cluster(chunked_cluster_kernel<uint16_t>, g, kCluster, kThreads, smem,
+                             stream, in, bl, counts, chunk, n_chunks, out_choices, out_scores));
   }
   int in_smem = 0;
   e = plan_launch(0, in.n, bl.b, bl.v, scratch, &smem, &in_smem);
@@ -1523,10 +1504,10 @@ extern "C" int nomad_place_spread_opv(
     if (k_seg > kMaxPicks) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(
         id_bytes == 1
-            ? launch_cluster(opv_cluster_kernel<uint8_t>, g, smem, st, in, bl, enforce_idx,
-                             counts, k_seg, n_chunks, out_choices, out_scores)
-            : launch_cluster(opv_cluster_kernel<uint16_t>, g, smem, st, in, bl, enforce_idx,
-                             counts, k_seg, n_chunks, out_choices, out_scores));
+            ? launch_cluster(opv_cluster_kernel<uint8_t>, g, kCluster, kThreads, smem, st, in,
+                             bl, enforce_idx, counts, k_seg, n_chunks, out_choices, out_scores)
+            : launch_cluster(opv_cluster_kernel<uint16_t>, g, kCluster, kThreads, smem, st, in,
+                             bl, enforce_idx, counts, k_seg, n_chunks, out_choices, out_scores));
   }
   int in_smem = 0;
   e = plan_launch(1, n, b, v, scratch, &smem, &in_smem);

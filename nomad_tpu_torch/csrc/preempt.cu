@@ -44,12 +44,29 @@
 //    looping over the rows so that the scratch is resident blocks x Vp
 //    words, not N x Vp. Every form addresses a row's words with an int
 //    Vp and keeps a victim's index in a word's low 32 bits: V <= 2^30.
-//  - choose: one thread per node for V <= 32, one warp per node above
-//    (the lanes' strided sums added by a butterfly of shuffles); the
-//    argmax is a block reduction of (order_key(score) << 32 | ~row)
-//    words and a 64-bit atomicMax across blocks (the largest score, then
-//    the lowest row, whatever the atomics' order); the last block to
-//    finish decodes it.
+//  - choose, V <= 32: a warp holds 32 / Vp rows, one victim a lane, so
+//    its loads are one contiguous run of 16-byte victim records and mask
+//    bytes (at V 8, four rows a warp), loaded whatever the mask says and
+//    masked by a select; a butterfly of shuffles inside each row's Vp
+//    lanes sums the row, and its first lane scores it. V > 32: one warp
+//    a row, each lane adding every 32nd victim with 16-byte loads, then a
+//    butterfly. The argmax is a block reduction of (order_key(score) <<
+//    32 | ~row) words and a 64-bit atomicMax across blocks (the largest
+//    score, then the lowest row, whatever the atomics' order); the last
+//    block to finish decodes it.
+//  - choose is one kernel node a call, with no memset: its two-word
+//    cross-block scratch (the best word, the finished blocks) must be
+//    zero when a launch starts, and the last block, after it has read
+//    the word, sets both back to zero, so every launch leaves it zero.
+//    The wrapper keeps one scratch per device and stream, zeroed once
+//    when made (never during a graph capture: a stream is called once
+//    eagerly before it is captured): launches on one stream run one
+//    after another (a CUDA graph replays its captured launches in their
+//    order), so each finds it zero, and eager launches on different
+//    streams never share one. A captured graph keeps the scratch of its
+//    capture stream, so it must not replay while a launch on that stream
+//    (eager, or another replay of a graph captured there) can run
+//    alongside it: replay it on its capture stream, or order the streams.
 //
 // Numerics: IEEE division, sqrt and expf (no fast math) and the build's
 // -fmad=false, so the key, the free fractions and the score round as the
@@ -363,6 +380,27 @@ cudaError_t opt_in_block_form() {
   return e;
 }
 
+// Blocks of the warp-form choice: `blocks`, at most as many as are
+// resident at once (the warps loop over the rows beyond), so that the
+// cross-block argmax takes one atomic pair a block. The SM count is
+// taken once a device, so that a captured launch makes no query.
+cudaError_t choose_grid(long long blocks, int* grid) {
+  static int resident[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  int most = dev < kMaxDevices ? resident[dev] : 0;
+  if (most == 0) {
+    int sms = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    most = sms * (2048 / kChooseThreads);
+    if (dev < kMaxDevices) resident[dev] = most;
+  }
+  *grid = static_cast<int>(blocks < most ? blocks : most);
+  return cudaSuccess;
+}
+
 int padded_width(int v) {
   int vp = 1;
   while (vp < v) vp <<= 1;
@@ -379,19 +417,36 @@ struct Choose {
   const float* net;            // [N]
   int n;
   int v;
-  unsigned long long* scratch;  // [2] zeroed: best word, finished blocks
+  unsigned long long* scratch;  // [2] best word, finished blocks: zero at launch, left zero
   int32_t* best;               // []
   float* score;                // [N]
 };
 
+// What the choice reads of a row besides its victims, loaded before the
+// victims are summed so that both loads are in flight together.
+struct ChooseRow {
+  float2 cap;   // cpu, mem capacity
+  float2 used;  // cpu, mem usage
+  float net;
+  bool feasible;
+};
+
+__device__ ChooseRow choose_row(const Choose& c, int row) {
+  const size_t r4 = 4 * static_cast<size_t>(row);
+  return ChooseRow{*reinterpret_cast<const float2*>(c.capacity + r4),
+                   *reinterpret_cast<const float2*>(c.used + r4), c.net[row],
+                   c.feasible[row] != 0};
+}
+
 // The choice's score of a feasible row once `freed` (every masked victim)
 // is released and the ask placed.
-__device__ float choose_score(const Choose& c, int row, const float* freed) {
+__device__ float choose_score(const Choose& c, const ChooseRow& r, const float* freed) {
+  const float caps[2] = {r.cap.x, r.cap.y};
+  const float used[2] = {r.used.x, r.used.y};
   float pow_sum_terms[2];
   for (int d = 0; d < 2; ++d) {  // cpu, mem drive the fit
-    const size_t rd = 4 * static_cast<size_t>(row) + d;
-    const float cap = c.capacity[rd];
-    const float proposed = __fadd_rn(__fsub_rn(c.used[rd], freed[d]), c.ask[d]);
+    const float cap = caps[d];
+    const float proposed = __fadd_rn(__fsub_rn(used[d], freed[d]), c.ask[d]);
     const float ff = cap > 0.0f
         ? __fdiv_rn(__fsub_rn(cap, proposed), fmaxf(cap, 1e-9f))
         : 1.0f;
@@ -405,14 +460,15 @@ __device__ float choose_score(const Choose& c, int row, const float* freed) {
   const float penalty = __fdiv_rn(
       1.0f,
       __fadd_rn(1.0f,
-                expf(__fdiv_rn(__fsub_rn(c.net[row], 2048.0f), 256.0f))));
+                expf(__fdiv_rn(__fsub_rn(r.net, 2048.0f), 256.0f))));
   return __fmul_rn(fit, penalty);
 }
 
 // Row `row`'s argmax word (order_key(score) << 32 | ~row), its score
 // written.
-__device__ unsigned long long choose_word(const Choose& c, int row, const float* freed) {
-  const float s = c.feasible[row] ? choose_score(c, row, freed) : -INFINITY;
+__device__ unsigned long long choose_word(const Choose& c, int row, const ChooseRow& r,
+                                          const float* freed) {
+  const float s = r.feasible ? choose_score(c, r, freed) : -INFINITY;
   c.score[row] = s;
   return (static_cast<unsigned long long>(order_key(s)) << 32) |
          (0xffffffffu - static_cast<unsigned>(row));
@@ -439,34 +495,53 @@ __device__ void choose_argmax(const Choose& c, unsigned long long word,
     __threadfence();
     const unsigned long long done = atomicAdd(&c.scratch[1], 1ULL);
     if (done == gridDim.x - 1) {
-      // every block's maximum has landed: decode the winner's row
+      // every block's maximum has landed: decode the winner's row, and
+      // leave the scratch zero for the next launch on this stream
       __threadfence();
-      const unsigned long long won = atomicMax(&c.scratch[0], 0ULL);
+      const unsigned long long won = __ldcg(&c.scratch[0]);
       *c.best = static_cast<int32_t>(0xffffffffu -
                                      static_cast<unsigned>(won & 0xffffffffu));
+      __stcg(&c.scratch[0], 0ULL);  // every block is done with both words
+      __stcg(&c.scratch[1], 0ULL);
     }
   }
 }
 
-// V <= 32: one thread a node adds its victims in index order.
+// V <= 32: a warp holds 32 / vp rows (vp the next power of two of V),
+// lane l victim l % vp of row l / vp; the warps loop over the rows.
 __global__ void __launch_bounds__(kChooseThreads)
-choose_kernel(Choose c) {
+choose_kernel(Choose c, int vp) {
   __shared__ unsigned long long warp_best[kChooseThreads / 32];
-  const long long wide_row =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int i = lane % vp;
+  const long long rows_per_warp = 32 / vp;
+  const long long warps = static_cast<long long>(gridDim.x) * (kChooseThreads / 32);
   unsigned long long word = 0;
-  if (wide_row < c.n) {
-    const int row = static_cast<int>(wide_row);
-    float freed[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int i = 0; i < c.v; ++i) {
-      const size_t rv = static_cast<size_t>(row) * c.v + i;
-      if (c.victim_mask[rv]) {
-        for (int d = 0; d < 4; ++d) {
-          freed[d] = __fadd_rn(freed[d], c.victim_res[4 * rv + d]);
-        }
-      }
+  for (long long first = (static_cast<long long>(blockIdx.x) * (kChooseThreads / 32) +
+                          (threadIdx.x >> 5)) * rows_per_warp;
+       first < c.n; first += warps * rows_per_warp) {
+    const long long wide_row = first + lane / vp;
+    const bool in = wide_row < c.n && i < c.v;
+    ChooseRow row_in{};
+    if (i == 0 && wide_row < c.n) row_in = choose_row(c, static_cast<int>(wide_row));
+    float4 r = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (in) {
+      const size_t rv = static_cast<size_t>(wide_row) * c.v + i;
+      const float4 x = *reinterpret_cast<const float4*>(c.victim_res + 4 * rv);
+      const bool masked = c.victim_mask[rv] != 0;
+      r = masked ? x : r;
     }
-    word = choose_word(c, row, freed);
+    for (int off = vp >> 1; off > 0; off >>= 1) {
+      r.x = __fadd_rn(r.x, __shfl_xor_sync(kFull, r.x, off));
+      r.y = __fadd_rn(r.y, __shfl_xor_sync(kFull, r.y, off));
+      r.z = __fadd_rn(r.z, __shfl_xor_sync(kFull, r.z, off));
+      r.w = __fadd_rn(r.w, __shfl_xor_sync(kFull, r.w, off));
+    }
+    if (i == 0 && wide_row < c.n) {
+      const float freed[4] = {r.x, r.y, r.z, r.w};
+      const unsigned long long w = choose_word(c, static_cast<int>(wide_row), row_in, freed);
+      word = w > word ? w : word;
+    }
   }
   choose_argmax(c, word, warp_best);
 }
@@ -481,6 +556,8 @@ choose_wide_kernel(Choose c) {
       static_cast<long long>(blockIdx.x) * (kChooseThreads / 32) + (threadIdx.x >> 5);
   const bool in = wide_row < c.n;
   const int row = in ? static_cast<int>(wide_row) : 0;
+  ChooseRow row_in{};
+  if (in && lane == 0) row_in = choose_row(c, row);
   float freed[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   if (in) {
     const size_t row_v = static_cast<size_t>(row) * c.v;
@@ -500,7 +577,7 @@ choose_wide_kernel(Choose c) {
     }
   }
   unsigned long long word = 0;
-  if (in && lane == 0) word = choose_word(c, row, freed);
+  if (in && lane == 0) word = choose_word(c, row, row_in, freed);
   choose_argmax(c, word, warp_best);
 }
 
@@ -572,13 +649,18 @@ extern "C" int nomad_choose_preemption_node(
   const Choose c{capacity, used, ask,     victim_res, victim_mask, feasible,
                  net,      n,    v,       scratch,    best,        score};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (reinterpret_cast<uintptr_t>(victim_res) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (v <= 32) {
-    const long long blocks = (static_cast<long long>(n) + kChooseThreads - 1) / kChooseThreads;
-    choose_kernel<<<static_cast<unsigned>(blocks), kChooseThreads, 0, s>>>(c);
+    const int vp = padded_width(v);
+    const long long warps = (static_cast<long long>(n) + 32 / vp - 1) / (32 / vp);
+    const long long blocks = (warps + kChooseThreads / 32 - 1) / (kChooseThreads / 32);
+    int grid = 0;
+    const cudaError_t e = choose_grid(blocks, &grid);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    choose_kernel<<<static_cast<unsigned>(grid), kChooseThreads, 0, s>>>(c, vp);
   } else {
-    if (reinterpret_cast<uintptr_t>(victim_res) % 16 != 0) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
     const int rows = kChooseThreads / 32;
     const long long blocks = (static_cast<long long>(n) + rows - 1) / rows;
     choose_wide_kernel<<<static_cast<unsigned>(blocks), kChooseThreads, 0, s>>>(c);

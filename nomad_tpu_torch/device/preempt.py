@@ -288,25 +288,55 @@ def choose_preemption_node(
 
 def _launch_choose(inputs):
     """``find_preemption``'s pass through the module-level wrapper (which
-    checks the inputs), then ``nomad_choose_preemption_node`` on its
-    outputs, counted on ``choose_preemption_node``."""
+    checks the inputs), then the choice kernel on its outputs."""
     feasible, k, net, order = find_preemption(*inputs)
+    best, score = launch_choice(inputs, feasible, net)
+    return best, feasible, k, net, order, score
+
+
+# the choice kernel's two-word cross-block scratch, one per (device,
+# stream): zeroed once when made, and left zero by every launch
+_choice_scratch: dict = {}
+
+
+def _scratch_for(dev) -> torch.Tensor:
+    """This stream's scratch, made (zeroed) at its first call. Never made
+    inside a CUDA graph capture: its memset would become a node of the
+    graph and its memory the graph's, zero only once the graph has run.
+    A stream being captured needs an eager call first."""
+    key = (dev.index, current_stream(dev))
+    scratch = _choice_scratch.get(key)
+    if scratch is None:
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "choose_preemption_node: the capture stream has no choice "
+                "scratch yet; call it once on that stream before capturing"
+            )
+        scratch = _choice_scratch[key] = torch.zeros(2, dtype=torch.int64, device=dev)
+    return scratch
+
+
+def launch_choice(inputs, feasible, net):
+    """One launch of ``nomad_choose_preemption_node`` on the find pass's
+    ``feasible`` and ``net`` (checked inputs on the card), counted on
+    ``choose_preemption_node``: (best i32, score f32[N]). One kernel node a
+    call: its cross-block scratch is this stream's, which every launch
+    leaves zero (``csrc/preempt.cu``), so nothing is cleared per call."""
     capacity, used, ask, _, victim_res, victim_prio, victim_mask = inputs
     dev = capacity.device
     n, v = victim_prio.shape
-    scratch = torch.zeros(2, dtype=torch.int64, device=dev)
     best = torch.empty((), dtype=torch.int32, device=dev)
     score = torch.empty(n, dtype=torch.float32, device=dev)
     fn = _library("nomad_choose_preemption_node", _CHOOSE_ARGTYPES)
     status = fn(
         capacity.data_ptr(), used.data_ptr(), ask.data_ptr(),
         victim_res.data_ptr(), victim_mask.data_ptr(), feasible.data_ptr(),
-        net.data_ptr(), n, v, scratch.data_ptr(), best.data_ptr(),
+        net.data_ptr(), n, v, _scratch_for(dev).data_ptr(), best.data_ptr(),
         score.data_ptr(), current_stream(dev),
     )
     check_launch(status, "choose_preemption_node")
     choose_preemption_node.launches += 1
-    return best, feasible, k, net, order, score
+    return best, score
 
 
 choose_preemption_node.launches = 0

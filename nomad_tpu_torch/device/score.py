@@ -31,6 +31,7 @@ the plain version here: the wrapper launches its kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import logging
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -303,7 +304,7 @@ def place_closed_form_plain(
 
 _CLOSED_FORM_ARGTYPES = (
     [ctypes.c_void_p] * 12  # capacity … jitter
-    + [ctypes.c_int] * 7  # algorithm_spread, g, n, j, k, k_eff, kpad
+    + [ctypes.c_int] * 9  # algorithm_spread, g, n, j, k, k_eff, kpad, cluster, cached
     + [ctypes.c_void_p] * 4  # cand, choices, scores, stream
 )
 
@@ -314,7 +315,47 @@ def _closed_form_library():
     if fn.argtypes is None:
         fn.argtypes = _CLOSED_FORM_ARGTYPES
         fn.restype = ctypes.c_int
-    return fn
+        lib.nomad_closed_form_cluster.argtypes = [ctypes.c_int] * 4 + [
+            ctypes.POINTER(ctypes.c_int)
+        ] * 3
+        lib.nomad_closed_form_cluster.restype = ctypes.c_int
+    return lib, fn
+
+
+_closed_form_plans: dict = {}
+
+
+def closed_form_plan(g: int, n: int, kpad: int, blocks: int = 0) -> tuple[int, int]:
+    """(blocks a lane, columns a cluster block keeps a node) of the
+    closed-form kernel at G lanes, N nodes and kpad top-k slots, on the
+    current device (``nomad_closed_form_cluster``). ``blocks`` 0 picks
+    the thread-block cluster's size by shape, never rising with G: 16
+    while G x 16 is within the SM count, 8 while all G clusters of 8 can
+    be resident at once, else 4; or 1, the one-block form, where a
+    block's share does not fit in shared memory. A size from 1 to 16 asks for
+    that form, and is refused where its share does not fit. Where no
+    cluster of the size can be resident (``cudaOccupancyMaxActiveClusters``)
+    it is halved until one can, and the choice is logged. The kept
+    columns are the most (2 to 6) at which all G clusters stay resident;
+    0 in the one-block form."""
+    key = (torch.cuda.current_device(), g, n, kpad, blocks)
+    plan = _closed_form_plans.get(key)
+    if plan is None:
+        lib, _ = _closed_form_library()
+        by_shape, size, cached = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+        status = lib.nomad_closed_form_cluster(
+            g, n, kpad, blocks, ctypes.byref(by_shape), ctypes.byref(size),
+            ctypes.byref(cached),
+        )
+        check_launch(status, "place_closed_form")
+        if size.value != by_shape.value:
+            logging.getLogger(__name__).warning(
+                "place_closed_form: no cluster of %d blocks can be resident "
+                "at G=%d N=%d kpad=%d; a lane runs on %d block(s)",
+                by_shape.value, g, n, kpad, size.value,
+            )
+        plan = _closed_form_plans[key] = (size.value, cached.value)
+    return plan
 
 
 def _lane_specs(capacity, used0, asks, eligible, job_counts, desired_totals,
@@ -374,7 +415,8 @@ def place_closed_form(
     the port of ``place_closed_form_kernel``. Entries past a lane's
     feasible candidates are −1/−inf; entries in [count, k) are overflow
     candidates for conflict repair. CPU tensors run the plain version;
-    CUDA tensors launch ``csrc/closed_form.cu``."""
+    CUDA tensors launch ``csrc/closed_form.cu`` in the form
+    ``closed_form_plan`` picks for the shape."""
     dev = capacity.device
     if dev.type == "cpu":
         return place_closed_form_plain(
@@ -399,24 +441,34 @@ def place_closed_form(
     kpad = 1
     while kpad < k_eff:
         kpad <<= 1
-    cand = torch.empty((g, kpad), dtype=torch.int64, device=dev)
     choices = torch.empty((g, k), dtype=torch.int32, device=dev)
     scores = torch.empty((g, k), dtype=torch.float32, device=dev)
     if g == 0:
         return choices, scores
-    fn = _closed_form_library()
+    _, fn = _closed_form_library()
+    with torch.cuda.device(dev):  # the form is chosen for this card
+        blocks, cached = closed_form_plan(g, n, kpad)
+    # scratch: the top-k words, kpad a lane (one-block form); or a block's
+    # words above the threshold and their scores, 2 * kpad words a block
+    # (cluster form)
+    cand = torch.empty(
+        (g * blocks, kpad if blocks == 1 else 2 * kpad), dtype=torch.int64, device=dev
+    )
     status = fn(
         *[None if t is None else t.data_ptr() for t in inputs],
-        int(bool(algorithm_spread)), g, n, max_j, k, k_eff, kpad,
+        int(bool(algorithm_spread)), g, n, max_j, k, k_eff, kpad, blocks, cached,
         cand.data_ptr(), choices.data_ptr(), scores.data_ptr(),
         current_stream(dev),
     )
     check_launch(status, "place_closed_form")
     place_closed_form.launches += 1
+    forms = place_closed_form.forms
+    forms[blocks] = forms.get(blocks, 0) + 1
     return choices, scores
 
 
 place_closed_form.launches = 0
+place_closed_form.forms = {}  # launches by blocks a lane
 
 
 # -- coupled placement (spread / distinct_property groups) -------------------
