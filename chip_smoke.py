@@ -54,8 +54,10 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
      MHz left on every node), then, with service and batch preemption
      on, 20 service jobs at priority 80 and 4 batch jobs at priority 60,
      16 allocs of 1,000 MHz / 1,024 MiB each: every placement evicts
-     (one find-preemption and one choose-preemption-node launch per
-     failed group, the victims chosen on the host);
+     (one choose-preemption-node launch per failed group, which carries
+     the find pass at the path's V 8; the victims chosen on the host;
+     each recorded call is replayed through the choice and through the
+     find pass alone);
    - "system": on that cluster with the default configuration (system
      preemption on), one system job at priority 50 (500 MHz / 512 MiB)
      and one sysbatch job at priority 50 (one score-matrix launch per
@@ -99,13 +101,19 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
 6. the port's parity suite (``device/parity.py``) at full size on the
    card: each coupled config's placements against the stepwise host
    oracle, within the reference's 0.5 % score bar;
-7. the preemption kernels alone at N 16,384 with seeded integer victims
-   at V 8 (the warp form), 64 and 256 (the block form) and a tie-heavy
-   case, then V 8,192 on 256 nodes (the block form in opt-in shared
-   memory) and V 32,768 on 64 nodes (the global-scratch form), every
-   output identical to the plain version, with the largest partial sum
-   the outputs depend on checked below 2^24 (where float32 integer sums
-   are exact in any order);
+7. the preemption kernels alone with seeded integer victims
+   (``PREEMPT_PHASE_CASES``): at N 16,384 V 8 (the warp form, carried in
+   the choice's launch), 32 and 33, 64 and 256 (a warp a row) and V 8
+   with every key tied; V 256 tied and V 1,024 / 1,025 on 4,096 nodes
+   (the last warp-a-row width, the first cluster one), 1,025 tied; V
+   8,192 on 256 nodes and 32,768 on 64 (a row over a cluster); V 196,608
+   on 8 nodes (the cluster form's capacity) and one past it (the
+   global-scratch form); each case's form as the wrapper counted it at
+   the launch, every output identical to the plain version, with the
+   largest partial sum the outputs depend on checked below 2^24 (where
+   float32 integer sums are exact in any order); then the choice's
+   scratch protocol (calls back to back, graph replays between eager
+   calls) and the graph nodes of a call (1 at V 8);
 8. the plugin kernels alone at N 16,384 on seeded inputs, G 1, 30 and
    100 and a tie-heavy case (equal keys, scores and priorities,
    all-infeasible rows, -0.0 in used0), and for the hetero-greedy kernel
@@ -866,10 +874,11 @@ class Recorder:
     inputs can be replayed against the plain version once its launch
     counters have been read. The wrapper itself still runs each call and
     counts it: it bumps ``<its name>.launches`` through the module global,
-    which is this object while it stands in, so ``launches`` is passed
-    through to the wrapper's own counter, and so are its other counters.
-    A call to the closed form also keeps the forms it launched
-    (``launched_forms``, from the wrapper's ``forms`` count)."""
+    which is this object while it stands in, so every counter read or set
+    on it (``launches``, ``carried``) is the wrapper's own. A call to a
+    wrapper that counts its forms (the closed form, the find pass) also
+    keeps the forms it launched (``launched_forms``, from the wrapper's
+    ``forms`` count)."""
 
     def __init__(self, real):
         self.real = real
@@ -890,16 +899,14 @@ class Recorder:
             }
         return out
 
-    @property
-    def launches(self):
-        return self.real.launches
-
-    @launches.setter
-    def launches(self, value):
-        self.real.launches = value
-
-    def __getattr__(self, name):  # the wrapper's other counters
+    def __getattr__(self, name):  # the wrapper's counters
         return getattr(self.real, name)
+
+    def __setattr__(self, name, value):  # ... are set on the wrapper itself
+        if name in ("real", "sig", "calls"):
+            object.__setattr__(self, name, value)
+        else:
+            setattr(self.real, name, value)
 
 
 @contextlib.contextmanager
@@ -943,6 +950,10 @@ COUPLED = {
 
 # the preemption kernels' wrappers in nomad_tpu_torch.device.preempt
 PREEMPT = ("find_preemption", "choose_preemption_node")
+# the find passes carried inside the choice's launch (V <= 32), counted
+# apart from find_preemption's own launches
+CARRIED = "find_preemption_carried"
+PREEMPT_COUNTS = (*PREEMPT, CARRIED)
 
 
 def counters() -> dict:
@@ -955,6 +966,7 @@ def counters() -> dict:
         "score_matrix": ST.score_matrix_triton.launches,
         **{name: getattr(S, name).launches for name in COUPLED},
         **{name: getattr(P, name).launches for name in PREEMPT},
+        CARRIED: P.find_preemption.carried,
         **{name: getattr(plugin_module(name), name).launches for name in PLUGIN},
         "migrate_plan": migrate_module().migrate_plan.launches,
     }
@@ -972,6 +984,8 @@ def zero_counters() -> None:
         getattr(S, name).launches = 0
     for name in PREEMPT:
         getattr(P, name).launches = 0
+    P.find_preemption.carried = 0
+    P.find_preemption.forms.clear()
     for name in PLUGIN:
         getattr(plugin_module(name), name).launches = 0
     migrate_module().migrate_plan.launches = 0
@@ -1219,7 +1233,7 @@ def main_path(dev, n_nodes=10_000, n_jobs=10, count=1000):
     assert rejected == 0, "a plan had rejected nodes"
     assert over == 0, "a node is over-committed in the store"
     assert statuses == ["complete"]
-    idle = {name: 0 for name in (*COUPLED, *PREEMPT, *PLUGIN, "migrate_plan")}
+    idle = {name: 0 for name in (*COUPLED, *PREEMPT_COUNTS, *PLUGIN, "migrate_plan")}
     assert schedule == {"place_closed_form": passes, "score_matrix": 0, **idle} and passes > 0
     assert annotate == {"place_closed_form": 0, "score_matrix": n_jobs, **idle}
     assert len(cf_calls) == passes and len(sm_calls) == n_jobs
@@ -1365,7 +1379,7 @@ def spread_path(dev, n_nodes=SPREAD_NODES):
     assert statuses == ["complete"]
     assert worst_rack <= DISTINCT_CAP, "a distinct_property cap was exceeded"
     assert launches["place_closed_form"] == 0 and launches["score_matrix"] == 0
-    assert all(launches[name] == 0 for name in (*PREEMPT, *PLUGIN))
+    assert all(launches[name] == 0 for name in (*PREEMPT_COUNTS, *PLUGIN))
     assert split["fast"] == 0
     for name, route in COUPLED.items():
         assert launches[name] == split[route], (name, launches[name], split[route])
@@ -1919,11 +1933,15 @@ def preempt_path(dev, n_nodes=PREEMPT_NODES):
     assert len(followups) == victim_jobs > 0, "not one follow-up eval per victim job"
     assert {e.job_id for e in followups} <= {j.id for j in ballast}
     assert len(ranks) >= len(jobs)
-    for name in PREEMPT:
-        assert launches[name] == len(ranks) == len(calls[name]), (name, launches[name])
+    # V 8: one launch a call, the find pass carried in the choice's launch
+    chosen = calls["choose_preemption_node"]
+    assert launches["choose_preemption_node"] == len(ranks) == len(chosen) == launches[CARRIED]
+    assert launches["find_preemption"] == len(calls["find_preemption"]) == 0
     assert launches["place_closed_form"] >= len(jobs) and launches["score_matrix"] == 0
     assert all(launches[name] == 0 for name in (*COUPLED, *PLUGIN))
-    assert calls["choose_preemption_node"][0]["victim_prio"].shape[1] == 8
+    assert all(c["victim_prio"].shape[1] == 8 for c in chosen)
+    # the find pass each call carried, replayed through find_preemption
+    calls["find_preemption"] = chosen
     return h, launches, calls, {
         "evals": len(jobs), "placed": placed, "seconds": run_s,
         "p50_ms": float(np.percentile(lat_ms, 50)),
@@ -2000,7 +2018,9 @@ def system_path(h):
     assert rejected == 0 and over == 0
     # one pass per eval, one task group each: one score-matrix launch each
     assert launches["score_matrix"] == len(jobs) == len(sm_calls)
-    assert all(launches[name] == 0 for name in ("place_closed_form", *COUPLED, *PREEMPT, *PLUGIN))
+    assert all(
+        launches[name] == 0 for name in ("place_closed_form", *COUPLED, *PREEMPT_COUNTS, *PLUGIN)
+    )
     return launches, sm_calls, {"eval_ms": [t * 1e3 for t in lat], "host_seconds": host}
 
 
@@ -2056,6 +2076,7 @@ def check_preempt(name, c, timed, label=""):
     kernel = getattr(P, name)
     plain = getattr(P, f"{name}_plain")
     args = [c[k] for k in PREEMPT_INPUTS]
+    form = launched_find_form(lambda: kernel(*args))
     got = kernel(*args)
     want = plain(*args)
     torch.cuda.synchronize()
@@ -2068,7 +2089,7 @@ def check_preempt(name, c, timed, label=""):
         err = float((score - plain_score).abs()[fin].max()) if bool(fin.any()) else 0.0
     assert err == 0.0, f"{name}{label}: |score error| {err}"
     launch = lambda: kernel(*args)  # noqa: E731
-    out = {"max_abs_err": err, "choice_mismatches": 0, "ms": graph_ms(launch)}
+    out = {"max_abs_err": err, "choice_mismatches": 0, "ms": graph_ms(launch), "form": form}
     if name == "choose_preemption_node":
         # the choice kernel's own launch, on the find pass's outputs
         feasible, net = got[1], got[3]
@@ -2090,7 +2111,8 @@ def check_preempt(name, c, timed, label=""):
         choice = (f"; the choice kernel's launch alone {out['choice_ms']!r}"
                   if "choice_ms" in out else "")
         log(
-            f"[{name}{label}] kernel_ms={out['ms']!r} plain_ms={out['plain_ms']!r} "
+            f"[{name}{label}] form {form!r}; kernel_ms={out['ms']!r} "
+            f"plain_ms={out['plain_ms']!r} "
             f"(graph replay; back to back on the stream {out['stream_ms']!r} and "
             f"{out['plain_stream_ms']!r}) bound_ms={out['bound_ms']!r} ({by}); "
             f"{out['victims']} victims, {out['feasible_nodes']} feasible nodes{choice}"
@@ -2098,24 +2120,42 @@ def check_preempt(name, c, timed, label=""):
     return out
 
 
+def launched_find_form(launch) -> str:
+    """The find pass's form that one ``launch`` ran, as the wrapper counted
+    it at the launch: its own launch's (``find_preemption.forms``), or the
+    warp form carried in the choice's launch."""
+    from nomad_tpu_torch.device import preempt as P
+
+    forms = dict(P.find_preemption.forms)
+    carried = P.find_preemption.carried
+    launch()
+    ran = [f for f, n in P.find_preemption.forms.items() if n != forms.get(f, 0)]
+    if P.find_preemption.carried != carried:
+        ran.append("warp, carried in the choice's launch")
+    assert len(ran) == 1, ran
+    return ran[0]
+
+
 def replay_preempt(name, calls):
     """Every recorded call of one preemption kernel on the preempt path,
     through the kernel and the plain version; each call's kernel timed
     ("path_ms" is their sum), the last one in full."""
-    per_call, choice = [], []
+    per_call, choice, forms = [], [], collections.Counter()
     for i, c in enumerate(calls):
         out = check_preempt(name, c, timed=i == len(calls) - 1, label=" (last path call)")
         per_call.append(out["ms"])
+        forms[out["form"]] += 1
         if "choice_ms" in out:
             choice.append(out["choice_ms"])
     alone = (f"; the choice kernel's launches alone {sum(choice)!r} (per call "
              f"{[round(t, 4) for t in choice]})" if choice else "")
     log(
         f"[{name}] {len(calls)} recorded calls replayed, all identical to plain; "
-        f"kernel time over the calls path_ms={sum(per_call)!r} "
-        f"(per call {[round(t, 4) for t in per_call]}){alone}"
+        f"find forms launched {dict(forms)}; kernel time over the calls "
+        f"path_ms={sum(per_call)!r} (per call {[round(t, 4) for t in per_call]}){alone}"
     )
     out["path_ms"] = sum(per_call)
+    out["forms"] = dict(forms)
     if choice:
         out["choice_path_ms"] = sum(choice)
     return out
@@ -2180,37 +2220,57 @@ def exact_sums(c, got):
     return largest, int(over.sum())
 
 
+# (label, V, every key tied?, N): the path's width, each form's edges
+# (the warp form up to V 32, a warp a row up to 1,024, a cluster up to 16
+# blocks of 12,288 positions, the global scratch past it) and tied keys
+PREEMPT_PHASE_CASES = (
+    ("v8", 8, False, KERNEL_PHASE_NODES),
+    ("v8_ties", 8, True, KERNEL_PHASE_NODES),
+    ("v32", 32, False, KERNEL_PHASE_NODES),
+    ("v33", 33, False, KERNEL_PHASE_NODES),
+    ("v64", 64, False, KERNEL_PHASE_NODES),
+    ("v256", 256, False, KERNEL_PHASE_NODES),
+    ("v256_ties", 256, True, 4096),
+    ("v1024", 1024, False, 4096),
+    ("v1025", 1025, False, 4096),
+    ("v1025_ties", 1025, True, 1024),
+    ("v8192", 8192, False, 256),
+    ("v32768", 32768, False, 64),
+    ("v196608", 196608, False, 8),
+    ("v196609", 196609, False, 8),
+)
+
+
 def preempt_kernel_phase(dev):
-    """Both preemption kernels alone: V 8 (the warp form, the preempt
-    path's width), 64 and 256 (the block form) and V 8 with every key
-    tied at N 16,384; V 8,192 on 256 nodes (the block form in opt-in
-    shared memory) and V 32,768 on 64 nodes (the global-scratch form),
-    about 44 MB of victims each."""
+    """Both preemption kernels alone on ``PREEMPT_PHASE_CASES``: at N
+    16,384 V 8 (the preempt path's width: the choice's launch carries the
+    find pass), V 32 and 33, 64 and 256, and V 8 and 256 with every key
+    tied; V 1,024 and 1,025 on 4,096 nodes (the last warp-a-row width and
+    the first cluster one) and 1,025 tied; V 8,192 on 256 nodes and
+    32,768 on 64 (about 44 MB of victims each); V 196,608 on 8 nodes (the
+    cluster form's capacity) and one past it (the global-scratch form).
+    Each case logs the form the wrapper launched, read at the launch."""
     from nomad_tpu_torch.device import preempt as P
 
     out = {}
-    for label, v, ties, n in (("v8", 8, False, KERNEL_PHASE_NODES),
-                              ("v64", 64, False, KERNEL_PHASE_NODES),
-                              ("v256", 256, False, KERNEL_PHASE_NODES),
-                              ("v8_ties", 8, True, KERNEL_PHASE_NODES),
-                              ("v8192", 8192, False, 256),
-                              ("v32768", 32768, False, 64)):
+    for label, v, ties, n in PREEMPT_PHASE_CASES:
         c = preempt_inputs(dev, v, ties, n=n)
         largest, over = exact_sums(
             c, P.choose_preemption_node_plain(*[c[k] for k in PREEMPT_INPUTS])
         )
+        forms = {}
         for name in PREEMPT:
             r = check_preempt(name, c, timed=True, label=f" phase 7 {label}")
+            forms[name] = r["form"]
             out.setdefault(name, {})[label] = {
                 **{k: r[k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "feasible_nodes", "victims", "shape", "choice_ms",
+                    "feasible_nodes", "victims", "shape", "choice_ms", "form",
                 ) if k in r},
-                "form": P.find_form(v),
                 "largest_prefix_at_k": largest,
                 "nodes_past_2_24": over,
             }
-        log(f"[preempt phase 7 {label}] form {P.find_form(v)!r}; largest prefix "
+        log(f"[preempt phase 7 {label}] forms launched {forms}; largest prefix "
             f"sum at k {largest!r} (< 2^24, exact); {over} nodes whose cpu or "
             f"memory total reaches 2^24, each scored 0 or -inf")
         del c
@@ -2245,33 +2305,63 @@ def graph_nodes(fn) -> int:
 def choice_protocol(dev):
     """The choice kernel's scratch protocol: calls of both forms queued
     back to back on one stream with different inputs and no host sync
-    between them, each identical to plain; one graph node a choice launch
-    (two a ``choose_preemption_node`` call: the find pass and the
-    choice)."""
+    between them, each identical to plain; a graph of one V 8 call (the
+    find pass and the choice in one launch), captured after an eager call
+    on its stream, replayed between eager calls with other inputs there
+    and no sync, each identical to plain; one graph node a choice launch,
+    and one a V 8 ``choose_preemption_node`` call (two at V 64: the find
+    pass and the choice)."""
     from nomad_tpu_torch.device import preempt as P
 
     cases = [preempt_inputs(dev, v, n=n, seed=seed) for v, n, seed in (
         (8, KERNEL_PHASE_NODES, 41), (8, 4096, 42), (64, 2048, 43), (8, 1000, 44),
     )]
     args = [[c[k] for k in PREEMPT_INPUTS] for c in cases]
+    want = [P.choose_preemption_node_plain(*a) for a in args]
     torch.cuda.synchronize()
     got = [P.choose_preemption_node(*a) for a in args]
     torch.cuda.synchronize()
-    for i, (a, g) in enumerate(zip(args, got)):
-        want = P.choose_preemption_node_plain(*a)
-        for out, x, w in zip(PREEMPT_OUTPUTS["choose_preemption_node"], g, want):
-            assert torch.equal(x, w.to(x.dtype)), f"back-to-back call {i}: {out} differs"
+
+    def same(g, w, what):
+        for out, x, y in zip(PREEMPT_OUTPUTS["choose_preemption_node"], g, w):
+            assert torch.equal(x, y.to(x.dtype)), f"{what}: {out} differs"
+
+    for i, g in enumerate(got):
+        same(g, want[i], f"back-to-back call {i}")
+    # graph replays between eager calls on the capture stream
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        P.choose_preemption_node(*args[0])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        graphed = P.choose_preemption_node(*args[0])
+    eager = []
+    with torch.cuda.stream(stream):
+        for i in (1, 3, 1, 3):
+            graph.replay()
+            eager.append((i, P.choose_preemption_node(*args[i])))
+        graph.replay()
+    torch.cuda.synchronize()
+    same(graphed, want[0], "graph replay")
+    for i, g in eager:
+        same(g, want[i], f"eager call {i} between replays")
     a = args[0]
     feasible, net = got[0][1], got[0][3]
     nodes = {
         "choice": graph_nodes(lambda: P.launch_choice(a, feasible, net)),
         "call": graph_nodes(lambda: P.choose_preemption_node(*a)),
+        "call_v64": graph_nodes(lambda: P.choose_preemption_node(*args[2])),
     }
-    assert nodes == {"choice": 1, "call": 2}, nodes
+    assert nodes == {"choice": 1, "call": 1, "call_v64": 2}, nodes
     log(f"[choose_preemption_node phase 7] {len(args)} calls back to back on one stream "
-        f"(V 8 / 8 / 64 / 8, no sync between), each identical to plain; graph nodes a "
-        f"choice launch {nodes['choice']}, a call (find + choice) {nodes['call']}")
-    return {"back_to_back_calls": len(args), "graph_nodes": nodes}
+        f"(V 8 / 8 / 64 / 8, no sync between), and 5 replays of a graph of a V 8 call "
+        f"between 4 eager calls on its stream, each identical to plain; graph nodes a "
+        f"choice launch {nodes['choice']}, a V 8 call {nodes['call']} (find and choice "
+        f"in one launch), a V 64 call {nodes['call_v64']}")
+    return {"back_to_back_calls": len(args), "graph_replays_between_eager_calls": 5,
+            "graph_nodes": nodes}
 
 
 # -- phase 5, the plugin paths, and phase 8 -----------------------------------
@@ -3251,6 +3341,20 @@ def migrate_kernel_phase(dev):
     return out
 
 
+def find_launches(by_path) -> dict:
+    """The find pass's launches on each path: its own launches plus the
+    passes carried in the choice's launch (each a launch of its device
+    code: ``find_warp_pass`` runs inside ``choose_kernel<true>``)."""
+    return {
+        "launches": by_path["preempt"]["find_preemption"] + by_path["preempt"][CARRIED],
+        "launches_by_path": {
+            p: c["find_preemption"] + c[CARRIED] for p, c in by_path.items()
+        },
+        "launched_alone": by_path["preempt"]["find_preemption"],
+        "carried_in_choice_launch": by_path["preempt"][CARRIED],
+    }
+
+
 def kernel_entry(name, route, source, replaces, path, by_path, main, extra):
     keys = ("max_abs_err", "choice_mismatches", "ms", "plain_ms", "bound_ms",
             "bound_by", "stream_ms", "plain_stream_ms", "shape")
@@ -3478,7 +3582,9 @@ def main() -> int:
             {
                 **{k: preempt_main[name][k] for k in (
                     "path_ms", "feasible_nodes", "victims", "choice_ms", "choice_path_ms",
+                    "forms",
                 ) if k in preempt_main[name]},
+                **(find_launches(by_path) if name == "find_preemption" else {}),
                 "kernel_phase": preempt_phase[name],
             },
         )

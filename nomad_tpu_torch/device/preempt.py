@@ -55,15 +55,17 @@ NET_PRIORITY_INFLECTION = 2048.0
 MAX_VICTIM_WIDTH = 1 << 30
 # The most nodes: the row count is a 32-bit int.
 MAX_NODES = 2**31 - 1
-# Forms of the find pass by padded width Vp: (largest Vp, where a row's
-# sort words live). Above the last, a global scratch of Vp words for each
-# resident block, which the wrapper allocates.
-FIND_FORMS = (
-    (32, "warp: registers"),
-    (4096, "block: default shared memory"),
-    (16384, "block: opt-in shared memory"),
-)
-GLOBAL_FORM = "block: global scratch"
+# The find pass's forms (``csrc/preempt.cu``, ``find_plan``): a warp over
+# 32 / Vp rows up to padded width Vp 32; a warp a row up to ROW_WIDTH; a
+# row over a thread-block cluster up to CLUSTER_VICTIMS (16 blocks of
+# 12,288 positions), its size picked at the launch from the shape and the
+# card's occupancy; past that the global form, with a global scratch of Vp
+# words for each resident block that the wrapper allocates. By the code
+# ``nomad_find_preemption`` reports for the form it launched:
+FIND_FORMS = ("warp", "warp a row", "cluster", "global")
+ROW_WIDTH = 1024
+CLUSTER_VICTIMS = 16 * 12288
+GLOBAL_FORM = FIND_FORMS[3]
 _PAD_KEY = 1e9
 
 
@@ -185,12 +187,24 @@ def _check_pass(what: str, inputs) -> None:
 
 
 def find_form(v: int) -> str:
-    """The find pass's form for V victims a node, by padded width."""
+    """The find pass's form for V victims a node, by the documented rule
+    (the cluster form can still be picked down to another size, or to the
+    global form, by the card's occupancy: the wrapper's ``forms`` count
+    says what was launched)."""
     vp = _victim_bucket(v)
-    for top, form in FIND_FORMS:
-        if vp <= top:
-            return form
-    return GLOBAL_FORM
+    if vp <= 32:
+        return FIND_FORMS[0]
+    if vp <= ROW_WIDTH:
+        return FIND_FORMS[1]
+    return FIND_FORMS[2] if v <= CLUSTER_VICTIMS else GLOBAL_FORM
+
+
+def _check_aligned(what: str, inputs) -> None:
+    """The kernels read capacity, usage and victim records as 16-byte
+    float4s: each must start on 16 bytes (a fresh tensor does)."""
+    for name, t in (("capacity", inputs[0]), ("used", inputs[1]), ("victim_res", inputs[4])):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must start on 16 bytes")
 
 
 def _library(symbol: str, argtypes):
@@ -204,9 +218,16 @@ def _library(symbol: str, argtypes):
 _FIND_ARGTYPES = (
     [ctypes.c_void_p] * 7  # capacity … victim_mask
     + [ctypes.c_int] * 2  # n, v
-    + [ctypes.c_void_p] * 6  # feasible, k, net, order, scratch, stream
+    + [ctypes.c_void_p] * 5  # feasible, k, net, order, scratch
+    + [ctypes.c_int]  # want
+    + [ctypes.c_void_p] * 2  # launched, stream
 )
-_SCRATCH_ARGTYPES = [ctypes.c_int] * 2  # n, v
+_FIND_CHOOSE_ARGTYPES = (
+    [ctypes.c_void_p] * 7  # capacity … victim_mask
+    + [ctypes.c_int] * 2  # n, v
+    + [ctypes.c_void_p] * 8  # feasible, k, net, order, scratch, best, score, stream
+)
+_SCRATCH_ARGTYPES = [ctypes.c_int] * 3  # n, v, want
 _CHOOSE_ARGTYPES = (
     [ctypes.c_void_p] * 7  # capacity, used, ask, victim_res, victim_mask,
     # feasible, net
@@ -235,39 +256,65 @@ def find_preemption(
     return _launch_find(inputs)
 
 
-def _launch_find(inputs):
+def _launch_find(inputs, want=None):
     """Check the pass's inputs, allocate its outputs and the form's
     scratch (the global form's sort words, sized by the library for this
-    card), launch ``nomad_find_preemption`` on the current stream and
-    count the launch on ``find_preemption``."""
+    card), launch ``nomad_find_preemption`` on the current stream, count
+    the launch on ``find_preemption`` and the form the library reports it
+    launched in ``find_preemption.forms``. ``want`` = (form code, blocks a
+    row) asks for a form (``tools/preempt_find_profile.py`` times every
+    form at one width); None: the library's plan."""
     _check_pass("find_preemption", inputs)
+    _check_aligned("find_preemption", inputs)
     dev = inputs[0].device
     n, v = inputs[5].shape
-    feasible = torch.empty(n, dtype=torch.bool, device=dev)
-    k = torch.empty(n, dtype=torch.int32, device=dev)
-    net = torch.empty(n, dtype=torch.float32, device=dev)
-    order = torch.empty((n, v), dtype=torch.int32, device=dev)
+    feasible, k, net, order = _pass_outputs(n, v, dev)
+    code = -1 if want is None else want[0] << 8 | want[1]
     scratch = None
-    if find_form(v) == GLOBAL_FORM:
-        with torch.cuda.device(dev):  # the library sizes the grid for this card
-            words = _library("nomad_find_preemption_scratch_words", _SCRATCH_ARGTYPES)(n, v)
+    if v > ROW_WIDTH or want is not None:  # the global form's scratch, sized by the library
+        with torch.cuda.device(dev):
+            words = _library("nomad_find_preemption_scratch_words", _SCRATCH_ARGTYPES)(n, v, code)
         if words < 0:
             raise RuntimeError(
                 f"find_preemption: scratch sizing failed with cudaError {-words}"
             )
-        scratch = torch.empty(int(words), dtype=torch.int64, device=dev)
+        if words > 0:
+            scratch = torch.empty(int(words), dtype=torch.int64, device=dev)
+    launched = (ctypes.c_int * 3)()
     fn = _library("nomad_find_preemption", _FIND_ARGTYPES)
     status = fn(
         *[t.data_ptr() for t in inputs], n, v, feasible.data_ptr(),
         k.data_ptr(), net.data_ptr(), order.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), current_stream(dev),
+        None if scratch is None else scratch.data_ptr(), code, launched, current_stream(dev),
     )
     check_launch(status, "find_preemption")
     find_preemption.launches += 1
+    form, size, asked = launched
+    name = FIND_FORMS[form]
+    if name == "cluster":
+        name += f" S={size}" + (f" (asked {asked}, not resident)" if asked != size else "")
+    elif name == GLOBAL_FORM and want is None and v <= CLUSTER_VICTIMS:
+        name += f" (a cluster of {asked} not resident)"
+    find_preemption.forms[name] = find_preemption.forms.get(name, 0) + 1
     return feasible, k, net, order
 
 
+def _pass_outputs(n, v, dev):
+    return (
+        torch.empty(n, dtype=torch.bool, device=dev),
+        torch.empty(n, dtype=torch.int32, device=dev),
+        torch.empty(n, dtype=torch.float32, device=dev),
+        torch.empty((n, v), dtype=torch.int32, device=dev),
+    )
+
+
 find_preemption.launches = 0
+# launches by the form the library reported ("warp", "warp a row",
+# "cluster S=<blocks a row>", "global"), counted at the launch
+find_preemption.forms = {}
+# find passes carried inside the choice's launch (V <= 32), which counts
+# the launch itself on ``choose_preemption_node``
+find_preemption.carried = 0
 
 
 def choose_preemption_node(
@@ -277,9 +324,12 @@ def choose_preemption_node(
     victim and placing the ask, scaled by the preemption penalty — the
     port of ``choose_preemption_node_kernel``. Returns (best i32,
     feasible, k, net, order, score f32[N]), −inf scores on infeasible
-    rows, best 0 when none is feasible. On CUDA tensors: the per-node pass
-    of ``find_preemption`` (its own launch and count), then this
-    wrapper's kernel for the score and the first-index argmax."""
+    rows, best 0 when none is feasible. On CUDA tensors at V <= 32: one
+    launch, the find pass and the choice in one kernel (counted on this
+    wrapper, and the pass it carries on ``find_preemption.carried``);
+    above: the per-node pass of ``find_preemption`` (its own launch and
+    count), then this wrapper's kernel for the score and the first-index
+    argmax."""
     inputs = (capacity, used, ask, eligible, victim_res, victim_prio, victim_mask)
     if capacity.device.type == "cpu":
         return choose_preemption_node_plain(*inputs)
@@ -287,10 +337,30 @@ def choose_preemption_node(
 
 
 def _launch_choose(inputs):
-    """``find_preemption``'s pass through the module-level wrapper (which
-    checks the inputs), then the choice kernel on its outputs."""
-    feasible, k, net, order = find_preemption(*inputs)
-    best, score = launch_choice(inputs, feasible, net)
+    """V <= 32: one launch of ``nomad_find_choose_preemption``, the find
+    pass and the choice in one kernel node. Above: ``find_preemption``'s
+    pass through the module-level wrapper (which checks the inputs), then
+    the choice kernel on its outputs."""
+    n, v = inputs[5].shape
+    if v > 32:
+        feasible, k, net, order = find_preemption(*inputs)
+        best, score = launch_choice(inputs, feasible, net)
+        return best, feasible, k, net, order, score
+    _check_pass("choose_preemption_node", inputs)
+    _check_aligned("choose_preemption_node", inputs)
+    dev = inputs[0].device
+    feasible, k, net, order = _pass_outputs(n, v, dev)
+    best = torch.empty((), dtype=torch.int32, device=dev)
+    score = torch.empty(n, dtype=torch.float32, device=dev)
+    fn = _library("nomad_find_choose_preemption", _FIND_CHOOSE_ARGTYPES)
+    status = fn(
+        *[t.data_ptr() for t in inputs], n, v, feasible.data_ptr(), k.data_ptr(),
+        net.data_ptr(), order.data_ptr(), _scratch_for(dev).data_ptr(),
+        best.data_ptr(), score.data_ptr(), current_stream(dev),
+    )
+    check_launch(status, "choose_preemption_node")
+    choose_preemption_node.launches += 1
+    find_preemption.carried += 1
     return best, feasible, k, net, order, score
 
 

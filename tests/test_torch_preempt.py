@@ -732,42 +732,51 @@ class _FakeEntry:
 @pytest.mark.parametrize("status", [0, 1])
 def test_wrappers_count_only_launches(monkeypatch, status):
     """Each wrapper's count moves by one for a launch the library
-    accepted and by nothing for one it refused (which raises); the choice
+    accepted and by nothing for one it refused (which raises). At V <= 32
+    the choice is one launch that carries the find pass (counted on
+    ``find_preemption.carried``, not as a find launch); above, the choice
     runs the pass through ``find_preemption``, whose own count moves."""
     launched = []
 
     class Lib:
         nomad_find_preemption = _FakeEntry("find", 0, launched)
         nomad_choose_preemption_node = _FakeEntry("choose", status, launched)
+        nomad_find_choose_preemption = _FakeEntry("find_choose", status, launched)
+        nomad_find_preemption_scratch_words = _FakeEntry("scratch", 0, [])
 
     monkeypatch.setattr(port_preempt, "cuda_library", lambda name: Lib)
     monkeypatch.setattr(port_preempt, "current_stream", lambda dev: 0)
+    monkeypatch.setattr(port_preempt, "_choice_scratch", {})
     # the CPU tensors here would route the wrapper to its plain version
     def find(*inputs):
         return port_preempt._launch_find(inputs)
 
-    find.launches = 0
+    find.launches, find.forms, find.carried = 0, {}, 0
     monkeypatch.setattr(port_preempt, "find_preemption", find)
-    inputs = tuple(torch.from_numpy(a) for a in _inputs("random", 8, n=16))
-    choose_before = port_preempt.choose_preemption_node.launches
-    if status:
-        with pytest.raises(RuntimeError, match="cudaError 1"):
-            port_preempt._launch_choose(inputs)
-    else:
-        best, feasible, k, net, order, score = port_preempt._launch_choose(inputs)
-        assert best.shape == () and score.shape == feasible.shape == (16,)
-        assert order.shape == (16, 8)
-    assert launched == ["find", "choose"]
-    assert find.launches == 1
-    assert port_preempt.choose_preemption_node.launches - choose_before == (status == 0)
+    for v, want, finds in ((8, ["find_choose"], 0), (64, ["find", "choose"], 1)):
+        inputs = tuple(torch.from_numpy(a) for a in _inputs("random", v, n=16))
+        launched.clear()
+        choose_before = port_preempt.choose_preemption_node.launches
+        find_before, carried_before = find.launches, find.carried
+        if status:
+            with pytest.raises(RuntimeError, match="cudaError 1"):
+                port_preempt._launch_choose(inputs)
+        else:
+            best, feasible, k, net, order, score = port_preempt._launch_choose(inputs)
+            assert best.shape == () and score.shape == feasible.shape == (16,)
+            assert order.shape == (16, v)
+        assert launched == want
+        assert find.launches - find_before == finds
+        assert find.carried - carried_before == (finds == 0 and status == 0)
+        assert port_preempt.choose_preemption_node.launches - choose_before == (status == 0)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("v", [8192, 32768])
 def test_cuda_wide_find_matches_plain_version(v):
-    """On the card: the find pass past the default shared memory (the
-    opt-in form at V 8,192, the global-scratch form at V 32,768) and the
-    choice on it, every output identical to the plain versions."""
+    """On the card: the find pass on wide rows (a row over a thread-block
+    cluster at V 8,192 and 32,768) and the choice on it, every output
+    identical to the plain versions."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA")
     t = [torch.from_numpy(a).cuda() for a in _wide_inputs(v, n=64)]
@@ -787,7 +796,8 @@ def test_cuda_wide_find_matches_plain_version(v):
 @pytest.mark.parametrize("v", [8, 64, 256])
 def test_cuda_kernels_match_plain_versions(v):
     """On the card: both kernels against their plain versions on integer
-    inputs (the warp form at V 8, the block form above 32) — every output
+    inputs (at V 8 the choice's launch carrying the warp form, a warp a
+    row above 32) — every output
     identical, scores exact (the comparison chip_smoke.py makes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA")
