@@ -36,6 +36,26 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
    - "score_group": each job's group annotated against the committed
      state through the registry's ``score_group`` seam (one score-matrix
      launch per job, no closed form);
+   - "incremental": the schedule recipe's 10 evals (the same nodes and
+     jobs, built once) on four fresh harnesses, ``NOMAD_TPU_INCREMENTAL``
+     off, on, on and off, a ``score_commit`` and ``verify_score_view()
+     == []`` after each eval on: the same node rows and uint32 scores a
+     pass and the same allocs, and the score-state counters that
+     ``tests/test_torch_incremental.py`` predicts; every ``used`` upload
+     timed (host clock, and CUDA events around it), then
+     ``UPLOAD_REPEATS`` uploads a kind on the committed state;
+   - "incremental_spread", "incremental_hetero", "incremental_cp": the
+     same check, seam off then on, for the kernels that read ``used``
+     through the seam beside the closed form: 8 of the spread path's
+     jobs (one-per-value, chunked and value-scan kernels), the hetero
+     path's 12 jobs under hetero-maxmin and the cp path's 12 under
+     cp-pack (score matrix and CP auction), each on 10,000 nodes; their
+     recorded calls replayed against the plain versions;
+   - "batch": those 10 evals prepared against one ClusterTensors and
+     merged into ONE closed-form call (``Harness.process_merged``):
+     every alloc placed, no rejected or over-committed node;
+   - "plan": ``plan_job`` (the dry-run ``job plan``) of a new job of
+     1,000 allocs on the batch path's store, nothing committed;
    - "spread": the JAX package's ``bench.py end_to_end`` node recipe
      (10,000 nodes over 25 racks, ssd on every 4th, every 3rd at
      8,000 MHz / 16,384 MiB) and 30 jobs through the Harness: its 20
@@ -62,6 +82,10 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
      preemption on), one system job at priority 50 (500 MHz / 512 MiB)
      and one sysbatch job at priority 50 (one score-matrix launch per
      task group, victims chosen on the host);
+   - "restore": that store saved with ``save_snapshot`` and restored
+     with ``restore_snapshot`` (the restricted unpickler), every table
+     the same size, then one new eval of 20 small allocs on the restored
+     store and on the original: the same plan;
    - "hetero": 10,000 mock nodes on ``build_mixed_fleet``'s recipe (a
      seeded device class of tpu-v5e / tpu-v4 / gpu-a100 / cpu, 4,000 /
      8,000 / 16,000 MHz and 8,192 / 16,384 / 32,768 MiB by class index
@@ -83,6 +107,10 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
      ``run_hetero_ab`` (10,000 nodes, 30 jobs x 100), ``run_cp_ab``
      (10,000 nodes, 100 jobs x 40) and ``run_gang_ab`` (64 nodes x 8
      jobs, and 10,000 nodes x 100 gang jobs of 3 groups);
+   - "calib": the port's ``run_calib_ab`` at its defaults (1,000 mixed
+     nodes, 12 jobs x 25; throughputs learned from synthetic execute
+     spans through a flight recorder): its gate held and declared mode
+     byte-identical, every hetero-greedy call replayed against plain;
    - "defrag": the port's ``run_defrag_ab`` at 10,000 nodes x 20,000
      allocs (``build_defrag_fleet``'s recipe: 4,000 MHz / 8,192 MiB
      nodes, allocs of 200/400/800 MHz and 512/1,024/2,048 MiB scattered
@@ -142,8 +170,11 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
    cluster of 8 blocks a lane each) and two blocks of 16,384 values (one
    block a lane from global scratch); identical to the plain version, µs
    a step and blocks a lane logged;
-12. the total seconds, one JSON line of per-kernel results, the card's
-   name and power limit, then the device line last.
+12. a ``[server]`` line with the summaries of "incremental", "batch"
+   (its kernel ms beside the same evals' 10 calls one by one, and host
+   seconds beside the incremental path's first off arm), "plan", "calib" and
+   "restore"; the total seconds, one JSON line of per-kernel results,
+   the card's name and power limit, then the device line last.
 
 Times, kernels and plain versions alike, are device times per launch
 from a CUDA-graph replay of 20 launches (3 for the coupled plain
@@ -183,11 +214,13 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import ctypes
 import dataclasses
 import importlib
 import inspect
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1243,10 +1276,11 @@ def main_path(dev, n_nodes=10_000, n_jobs=10, count=1000):
 # -- phase 5, "spread" path, and phase 6 ---------------------------------------
 
 
-def spread_nodes(h, n_nodes=SPREAD_NODES, racks=SPREAD_RACKS):
-    """The JAX package's bench.py end_to_end node recipe."""
+def spread_fleet(n_nodes=SPREAD_NODES, racks=SPREAD_RACKS):
+    """The JAX package's bench.py end_to_end node recipe, as mock nodes."""
     from nomad_tpu_torch import mock
 
+    nodes = []
     for i in range(n_nodes):
         node = mock.node()
         node.datacenter = "dc1"
@@ -1256,6 +1290,12 @@ def spread_nodes(h, n_nodes=SPREAD_NODES, racks=SPREAD_RACKS):
             node.node_resources.cpu = 8000
             node.node_resources.memory_mb = 16384
         node.compute_class()
+        nodes.append(node)
+    return nodes
+
+
+def spread_nodes(h, n_nodes=SPREAD_NODES, racks=SPREAD_RACKS):
+    for node in spread_fleet(n_nodes, racks):
         h.store.upsert_node(h.next_index(), node)
 
 
@@ -2407,18 +2447,25 @@ def plugin_module(name):
     return importlib.import_module(PLUGIN[name])
 
 
-def mixed_nodes(h, n_nodes=PLUGIN_NODES, seed=42):
-    """``build_mixed_fleet``'s recipe as mock nodes in the store: a device
-    class drawn seeded from ``DEVICE_CLASSES``, 4,000 / 8,000 / 16,000
-    MHz and 8,192 / 16,384 / 32,768 MiB by class index mod 3."""
+def mixed_fleet(n_nodes=PLUGIN_NODES, seed=42):
+    """``build_mixed_fleet``'s recipe as mock nodes: a device class drawn
+    seeded from ``DEVICE_CLASSES``, 4,000 / 8,000 / 16,000 MHz and 8,192
+    / 16,384 / 32,768 MiB by class index mod 3."""
     from nomad_tpu_torch import mock
 
     kind = np.random.default_rng(seed).integers(0, len(DEVICE_CLASSES), n_nodes)
+    nodes = []
     for i in range(n_nodes):
         node = mock.node(device_class=DEVICE_CLASSES[kind[i]])
         node.node_resources.cpu = (4000, 8000, 16000)[kind[i] % 3]
         node.node_resources.memory_mb = (8192, 16384, 32768)[kind[i] % 3]
         node.compute_class()
+        nodes.append(node)
+    return nodes
+
+
+def mixed_nodes(h, n_nodes=PLUGIN_NODES, seed=42):
+    for node in mixed_fleet(n_nodes, seed):
         h.store.upsert_node(h.next_index(), node)
 
 
@@ -2531,20 +2578,13 @@ def live(h, jobs):
     ]
 
 
-def hetero_path(dev, seed=42):
-    """The "hetero" path: 10,000 mixed-class nodes, 12 jobs carrying
-    ``build_mixed_asks``'s throughput profiles, 250 allocs each, four
-    under each hetero policy in turn. Returns the Harness, the launch
-    counts, the recorded calls and the summary."""
+def hetero_jobs(seed=43):
+    """The hetero path's 12 jobs: ``build_mixed_asks``'s throughput
+    profiles, 250 allocs each, cpu and memory drawn from ``seed``."""
     from nomad_tpu_torch import mock
-    from nomad_tpu_torch.scheduler import Harness
     from nomad_tpu_torch.scheduler import hetero as H
-    from nomad_tpu_torch.state import SchedulerConfiguration
 
-    t0 = time.perf_counter()
-    h = Harness(device=dev)
-    mixed_nodes(h)
-    rng = np.random.default_rng(seed + 1)
+    rng = np.random.default_rng(seed)
     jobs = []
     for j in range(len(HETERO_POLICIES) * HETERO_JOBS_PER_POLICY):
         job = mock.job()
@@ -2554,8 +2594,25 @@ def hetero_path(dev, seed=42):
         tg.count = HETERO_COUNT
         tg.tasks[0].resources.cpu = int(rng.choice([500, 1000, 2000]))
         tg.tasks[0].resources.memory_mb = int(rng.choice([512, 1024, 2048]))
-        h.store.upsert_job(h.next_index(), job)
         jobs.append(job)
+    return jobs
+
+
+def hetero_path(dev, seed=42):
+    """The "hetero" path: 10,000 mixed-class nodes, 12 jobs carrying
+    ``build_mixed_asks``'s throughput profiles, 250 allocs each, four
+    under each hetero policy in turn. Returns the Harness, the launch
+    counts, the recorded calls and the summary."""
+    from nomad_tpu_torch.scheduler import Harness
+    from nomad_tpu_torch.scheduler import hetero as H
+    from nomad_tpu_torch.state import SchedulerConfiguration
+
+    t0 = time.perf_counter()
+    h = Harness(device=dev)
+    mixed_nodes(h, seed=seed)
+    jobs = hetero_jobs(seed + 1)
+    for job in jobs:
+        h.store.upsert_job(h.next_index(), job)
     log(f"[hetero] set-up {time.perf_counter() - t0:.3f} s ({PLUGIN_NODES} nodes, {len(jobs)} jobs)")
 
     first_result = len(h.results)
@@ -2590,21 +2647,14 @@ def hetero_path(dev, seed=42):
     return h, launches, calls, summary
 
 
-def cp_path(h, seed=43):
-    """The "cp" path, on the hetero path's cluster with cp-pack: 12 jobs of
-    3 groups x 40 allocs at ``build_cp_asks``'s asks (the profile asks x 4,
-    priorities 30 / 50 / 80, every 4th job distinct_hosts). Returns the
-    launch counts, the recorded calls and the summary."""
+def cp_jobs(seed=43):
+    """The cp path's 12 jobs of 3 groups x 40 allocs at ``build_cp_asks``'s
+    asks (the profile asks x 4, priorities 30 / 50 / 80, every 4th job
+    distinct_hosts)."""
     from nomad_tpu_torch import mock
-    from nomad_tpu_torch.device import cp as C
-    from nomad_tpu_torch.scheduler import cp as SC
     from nomad_tpu_torch.scheduler import hetero as H
-    from nomad_tpu_torch.state import SchedulerConfiguration
     from nomad_tpu_torch.structs import Constraint, Resources, Task, TaskGroup
 
-    h.store.set_scheduler_config(h.next_index(), SchedulerConfiguration(
-        scheduler_algorithm="cp-pack"
-    ))
     rng = np.random.default_rng(seed)
     jobs = []
     for j in range(CP_JOBS):
@@ -2621,8 +2671,25 @@ def cp_path(h, seed=43):
         ]
         if j % 4 == 3:
             job.constraints.append(Constraint(operand="distinct_hosts"))
-        h.store.upsert_job(h.next_index(), job)
         jobs.append(job)
+    return jobs
+
+
+def cp_path(h, seed=43):
+    """The "cp" path, on the hetero path's cluster with cp-pack: 12 jobs of
+    3 groups x 40 allocs at ``build_cp_asks``'s asks (the profile asks x 4,
+    priorities 30 / 50 / 80, every 4th job distinct_hosts). Returns the
+    launch counts, the recorded calls and the summary."""
+    from nomad_tpu_torch.device import cp as C
+    from nomad_tpu_torch.scheduler import cp as SC
+    from nomad_tpu_torch.state import SchedulerConfiguration
+
+    h.store.set_scheduler_config(h.next_index(), SchedulerConfiguration(
+        scheduler_algorithm="cp-pack"
+    ))
+    jobs = cp_jobs(seed)
+    for job in jobs:
+        h.store.upsert_job(h.next_index(), job)
 
     first_result = len(h.results)
     zero_counters()
@@ -3341,6 +3408,578 @@ def migrate_kernel_phase(dev):
     return out
 
 
+# -- phase 5, what the server stands on ----------------------------------------
+
+SERVER_NODES = 10_000
+SERVER_JOBS = 10
+SERVER_COUNT = 1000
+PLAN_COUNT = 1000
+RESTORE_COUNT = 20
+RESTORE_ASK = (100, 64)  # MHz, MiB: fits beside the preempt path's ballast
+UPLOAD_REPEATS = 20  # steady-state used uploads timed a kind
+
+
+def schedule_fleet(n_nodes=SERVER_NODES, n_jobs=SERVER_JOBS, count=SERVER_COUNT):
+    """The schedule path's recipe (mock nodes, service jobs of 500 MHz /
+    256 MiB tasks), built once so that every harness of these paths holds
+    the same ids."""
+    from nomad_tpu_torch import mock
+
+    nodes = [mock.node() for _ in range(n_nodes)]
+    jobs = []
+    for i in range(n_jobs):
+        j = mock.job()
+        j.id = f"sched-{i}"
+        j.task_groups[0].count = count
+        jobs.append(j)
+    return nodes, jobs
+
+
+def fleet_harness(dev, nodes, jobs):
+    """A Harness on ``dev`` holding copies of ``nodes`` and ``jobs``."""
+    from nomad_tpu_torch.scheduler import Harness
+
+    h = Harness(device=dev)
+    for n in nodes:
+        h.store.upsert_node(h.next_index(), copy.deepcopy(n))
+    for j in jobs:
+        h.store.upsert_job(h.next_index(), copy.deepcopy(j))
+    return h
+
+
+def eval_of(h, job, tag):
+    from nomad_tpu_torch import mock
+
+    ev = mock.eval_for(h.store.job_by_id(job.namespace, job.id), id=f"{tag}-{job.id}")
+    h.store.upsert_evals(h.next_index(), [ev])
+    return ev
+
+
+@contextlib.contextmanager
+def incremental_seam(on: bool):
+    """``NOMAD_TPU_INCREMENTAL`` set on or off for a block, then restored."""
+    from nomad_tpu_torch import backend
+
+    prev = os.environ.get("NOMAD_TPU_INCREMENTAL")
+    os.environ["NOMAD_TPU_INCREMENTAL"] = "on" if on else "off"
+    backend.reset_incremental()
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("NOMAD_TPU_INCREMENTAL", None)
+        else:
+            os.environ["NOMAD_TPU_INCREMENTAL"] = prev
+        backend.reset_incremental()
+
+
+@contextlib.contextmanager
+def timed_uploads():
+    """Stands in for the ``used_device`` seam while a block runs and times
+    each call: host ms (the call to its return, the cache's bytewise diff
+    included, then a sync) and ms between CUDA events on the current
+    stream around it (which holds the host's work too: the stream waits
+    on it). Each record says what the call did, from the cache's
+    counters: "scratch" (seam off: a whole upload), "rebuild", "patch"
+    (with its dirty rows) or "reuse". The seam is replaced in every port
+    module that bound it by name (the hetero and CP kernel objects) as
+    well as in ``device/score.py``."""
+    import nomad_tpu_torch.scheduler.cp  # noqa: F401  (bind before the swap)
+    import nomad_tpu_torch.scheduler.hetero  # noqa: F401
+    from nomad_tpu_torch.device import score as S
+
+    real = S.used_device
+    holders = [
+        m for name, m in sorted(sys.modules.items())
+        if name.startswith("nomad_tpu_torch") and getattr(m, "used_device", None) is real
+    ]
+    records = []
+
+    def timed(cluster, used0, device):
+        cache = getattr(cluster, "score_cache", None)
+        before = cache.device_counters() if cache is not None else None
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        out = real(cluster, used0, device)
+        end.record()
+        torch.cuda.synchronize()
+        rec = {
+            "host_ms": (time.perf_counter() - t0) * 1e3,
+            "device_ms": start.elapsed_time(end),
+            "bytes": int(np.asarray(used0).nbytes),
+            "rows": int(np.asarray(used0).shape[0]),
+        }
+        if cache is None:
+            rec.update(kind="scratch", dirty_rows=rec["rows"])
+        else:
+            after = cache.device_counters()
+            d = {k: after[k] - before[k] for k in after if isinstance(after[k], int)}
+            kind = ("rebuild" if d["score_full_rebuilds"] else
+                    "patch" if d["score_patch_uploads"] else "reuse")
+            rec.update(kind=kind, dirty_rows=d["score_rows_rescored"])
+        records.append(rec)
+        return out
+
+    for m in holders:
+        m.used_device = timed
+    try:
+        yield records
+    finally:
+        for m in holders:
+            m.used_device = real
+
+
+@contextlib.contextmanager
+def placement_results(cls):
+    """Stands in for ``cls.place`` (a placement kernel object) and keeps,
+    per pass, each lane's node rows and scores (uint32 views) as the
+    kernel gave them, before the repair walk."""
+    real = cls.place
+    passes = []
+
+    def place(self, cluster, asks, **kwargs):
+        results = real(self, cluster, asks, **kwargs)
+        passes.append([
+            (np.asarray(r.node_rows).copy(),
+             np.asarray(r.scores, np.float32).view(np.uint32).copy())
+            for r in results
+        ])
+        return results
+
+    cls.place = place
+    try:
+        yield passes
+    finally:
+        cls.place = real
+
+
+def upload_summary(records) -> dict:
+    """The timed ``used`` uploads by what each did: calls, dirty rows, and
+    host and event ms of the first call and the median."""
+    out = {}
+    for kind in ("scratch", "rebuild", "patch", "reuse"):
+        recs = [r for r in records if r["kind"] == kind]
+        if not recs:
+            continue
+        out[kind] = {
+            "calls": len(recs),
+            "dirty_rows_mean": float(np.mean([r["dirty_rows"] for r in recs])),
+            "bytes": recs[0]["bytes"],
+        }
+        for key in ("host_ms", "device_ms"):
+            out[kind][f"{key}_first"] = recs[0][key]
+            out[kind][f"{key}_median"] = float(np.median([r[key] for r in recs]))
+    return out
+
+
+def expected_eval_counters(dirty, rows, uploads) -> dict:
+    """The score-state counters of evals with a commit after each, as
+    ``tests/test_torch_incremental.py`` predicts them for one-pass evals:
+    the first upload rebuilds every row, the first upload of each later
+    eval patches the rows the previous eval placed on (``dirty``: those
+    row counts, in eval order; none after an eval that placed nothing),
+    and every other upload of an eval (a CP pass's second) is served as
+    is. ``rows``: the uploaded array's rows; ``uploads``: the seam's
+    calls over the evals."""
+    patches = sum(1 for d in dirty if d)
+    return {
+        "score_rows_rescored": rows + sum(dirty),
+        "score_rows_reused": (uploads - 1) * rows - sum(dirty),
+        "score_patch_uploads": patches,
+        "score_full_rebuilds": 1,
+        "score_swaps": patches + 1,
+        "score_gen": patches + 1,
+    }
+
+
+def seam_run(dev, nodes, jobs, on, algorithm=None, kernel_cls=None):
+    """One arm of the "incremental" path: an eval a job of ``jobs`` on a
+    fresh harness holding copies of ``nodes`` (under ``algorithm`` when
+    given), the seam on or off; on, a commit and ``verify_score_view() ==
+    []`` after each eval. Returns the harness, the kernel object's node
+    rows and uint32 scores a pass (``kernel_cls``, the closed form's
+    ``PlacementKernel`` by default), where each job's allocs landed, the
+    cache's counters, the timed ``used`` uploads and the summary."""
+    from nomad_tpu_torch.device import score as S
+    from nomad_tpu_torch.state import SchedulerConfiguration
+
+    with incremental_seam(on), timed_uploads() as uploads, \
+            placement_results(kernel_cls or S.PlacementKernel) as passes:
+        h = fleet_harness(dev, nodes, jobs)
+        if algorithm is not None:
+            h.store.set_scheduler_config(h.next_index(), SchedulerConfiguration(
+                scheduler_algorithm=algorithm
+            ))
+        cache = h.device_cache
+        lat = []
+        for j in jobs:
+            ev = eval_of(h, j, "incr")
+            t1 = time.perf_counter()
+            h.process(ev)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t1)
+            if on:
+                cache.score_commit()
+                assert cache.verify_score_view() == [], "a generation diverged"
+    placed = {
+        j.id: sorted((a.name, a.node_id) for a in h.store.allocs_by_job(j.namespace, j.id))
+        for j in jobs
+    }
+    name = f"incremental {algorithm or 'binpack'} {'on' if on else 'off'}"
+    return {
+        "h": h, "on": on, "passes": passes, "placed": placed,
+        "counters": cache.device_counters(), "uploads": list(uploads),
+        "summary": path_summary(name, lat, sum(map(len, placed.values())), h, 0, "-"),
+    }
+
+
+def check_seam_arms(runs, jobs, what) -> dict:
+    """Every arm gave the first arm's node rows and uint32 scores a pass
+    and placed every alloc where it did; each off arm touched no score
+    state, and each on arm counted what ``expected_eval_counters``
+    predicts from where the allocs landed. Returns the on arms'
+    counters (all equal)."""
+    base = runs[0]
+    for run in runs:
+        assert len(run["passes"]) == len(base["passes"]) >= len(jobs), what
+        for p, (a, b) in enumerate(zip(base["passes"], run["passes"])):
+            assert len(a) == len(b), f"{what}: pass {p} lanes differ"
+            for (ra, sa), (rb, sb) in zip(a, b):
+                assert np.array_equal(ra, rb) and np.array_equal(sa, sb), \
+                    f"{what}: pass {p} differs with the seam on and off"
+        assert run["placed"] == base["placed"], f"{what}: the seam changed where allocs landed"
+    got = None
+    for run in runs:
+        if not run["on"]:
+            assert run["counters"]["score_gen"] == 0, what
+            continue
+        rows = {r["rows"] for r in run["uploads"]}
+        assert len(rows) == 1, (what, rows)
+        dirty = [len({node for _, node in run["placed"][j.id]}) for j in jobs[:-1]]
+        want = expected_eval_counters(dirty, rows.pop(), len(run["uploads"]))
+        got = {k: run["counters"][k] for k in want}
+        assert got == want, (what, got, want)
+    return got
+
+
+# the spread path's jobs the "incremental" path's spread arm runs: four
+# one-per-value, two chunked and two value-scan jobs
+SEAM_SPREAD_JOBS = (0, 1, 2, 3, 20, 21, 25, 26)
+# the schedule arms' seam order: off, on, on, off, so that neither seam
+# always runs first on its fresh harness
+SEAM_ORDER = (False, True, True, False)
+
+
+def seam_upload_tail(dev, h, last_job, on):
+    """After an arm's evals: one more upload on its committed state (the
+    last eval's rows dirty) and, on, one with no dirty row; then
+    ``UPLOAD_REPEATS`` uploads of each kind on that state, its ``used``
+    and a copy with the last eval's rows moved in turn (off: whole
+    uploads; on: patches of those rows, a commit after each, then passes
+    with nothing dirty)."""
+    from nomad_tpu_torch.device import score as S
+
+    cache = h.device_cache
+    with incremental_seam(on), timed_uploads() as uploads:
+        ct = cache.tensors(h.store.snapshot())
+        S.used_device(ct, ct.used, dev)
+        if on:
+            cache.score_commit()
+            assert cache.verify_score_view() == []
+            S.used_device(ct, ct.used, dev)
+            assert cache.verify_score_view() == []
+        post = len(uploads)
+        moved = ct.used.copy()
+        last = {a.node_id for a in h.store.allocs_by_job(last_job.namespace, last_job.id)}
+        moved[[ct.node_row[n] for n in last], 0] += 1.0
+        variants = (moved, ct.used)
+        for i in range(UPLOAD_REPEATS):
+            S.used_device(ct, variants[i % 2], dev)
+            if on:
+                cache.score_commit()
+        if on:
+            for _ in range(UPLOAD_REPEATS):
+                S.used_device(ct, variants[(UPLOAD_REPEATS - 1) % 2], dev)
+            assert cache.verify_score_view() == []
+    return upload_summary(uploads[:post]), upload_summary(uploads[post:])
+
+
+def incremental_path(dev, nodes, jobs):
+    """The "incremental" path: the schedule path's evals on four fresh
+    harnesses, the seam off, on, on and off (``SEAM_ORDER``), every
+    ``used`` upload timed; then each arm's ``seam_upload_tail``. Every
+    arm gives identical node rows and uint32 scores a pass and places the
+    same allocs, and each on arm's counters are what the CPU test
+    predicts. Returns the launch counts and the summary."""
+    zero_counters()
+    runs = []
+    with shared_recording("incremental", score_matrix=False):
+        for on in SEAM_ORDER:
+            run = seam_run(dev, nodes, jobs, on)
+            run["post"], run["steady"] = seam_upload_tail(dev, run["h"], jobs[-1], on)
+            runs.append(run)
+    launches = counters()
+    got = check_seam_arms(runs, jobs, "schedule")
+    assert all(len(v) == SERVER_COUNT for v in runs[0]["placed"].values())
+    assert launches["place_closed_form"] == len(SEAM_ORDER) * len(jobs)
+    assert all(launches[n] == 0 for n in launches if n != "place_closed_form")
+    dirty = [len({node for _, node in runs[0]["placed"][j.id]}) for j in jobs[:-1]]
+    arms = [
+        {
+            "seam": "on" if r["on"] else "off",
+            "p50_ms": r["summary"]["p50_ms"], "seconds": r["summary"]["seconds"],
+            "uploads": upload_summary(r["uploads"]), "post_commit": r["post"],
+            "steady": r["steady"],
+        }
+        for r in runs
+    ]
+    out = {
+        "passes": len(jobs), "counters_on": got, "dirty_rows_by_pass": dirty,
+        "rows": runs[0]["uploads"][0]["rows"], "arms": arms,
+        "eval_p50_ms": {
+            seam: [a["p50_ms"] for a in arms if a["seam"] == seam] for seam in ("off", "on")
+        },
+    }
+    log(f"[incremental] counters on (as predicted) {got}; dirty rows by pass {dirty}")
+    for i, a in enumerate(arms):
+        log(
+            f"[incremental] arm {i} seam {a['seam']}: eval p50 {a['p50_ms']!r} ms; used "
+            f"uploads in the evals {a['uploads']}; one pass after the last commit "
+            f"{a['post_commit']}; steady state, {UPLOAD_REPEATS} uploads a kind {a['steady']}"
+        )
+    return launches, out
+
+
+def incremental_kernel_arms(dev, n_nodes=PLUGIN_NODES):
+    """The "incremental" path's kernel arms at 10,000 nodes, each run
+    twice on fresh harnesses, the seam off and then on: spread (``SEAM_SPREAD_JOBS``: the
+    one-per-value, chunked and value-scan kernels), hetero-maxmin (the
+    hetero path's 12 jobs) and cp-pack (the cp path's 12 jobs: the
+    score matrix, then the CP auction, each pass). Each arm is a path of
+    its own ("incremental_spread", "incremental_hetero",
+    "incremental_cp"), its counters zeroed just before it; its kernel
+    calls are recorded for replay against the plain versions. Returns
+    the launch counts by path, the recorded calls by path and kernel,
+    and the summary."""
+    from nomad_tpu_torch.device import cp as DC
+    from nomad_tpu_torch.device import score as S
+    from nomad_tpu_torch.scheduler import cp as SC
+    from nomad_tpu_torch.scheduler import hetero as H
+
+    routed = spread_jobs()
+    mixed = mixed_fleet(n_nodes)
+    arms = (
+        ("incremental_spread", spread_fleet(n_nodes), [routed[i][1] for i in SEAM_SPREAD_JOBS],
+         None, S.PlacementKernel, [(S, name) for name in COUPLED]),
+        ("incremental_hetero", mixed, hetero_jobs(), "hetero-maxmin",
+         H.HeteroPlacementKernel, [(H, "hetero_place")]),
+        ("incremental_cp", mixed, cp_jobs(), "cp-pack", SC.CpPlacementKernel,
+         [(DC, "cp_place")]),
+    )
+    launches, calls, out = {}, {}, {}
+    for path, nodes, jobs, algorithm, cls, kernels in arms:
+        zero_counters()
+        with contextlib.ExitStack() as stack:
+            rec = {name: stack.enter_context(recording(mod, name)) for mod, name in kernels}
+            stack.enter_context(shared_recording(path, closed_form=False))
+            runs = [seam_run(dev, nodes, jobs, on, algorithm, cls) for on in (False, True)]
+        launches[path] = counters()
+        calls[path] = rec
+        got = check_seam_arms(runs, jobs, path)
+        for name, c in rec.items():
+            assert launches[path][name] == len(c), (path, name)
+        assert sum(launches[path][name] for _, name in kernels) >= 2 * len(jobs), launches[path]
+        assert launches[path]["place_closed_form"] == 0, launches[path]
+        out[path] = {
+            "evals": len(jobs), "counters_on": got,
+            "uploads": {"off": upload_summary(runs[0]["uploads"]),
+                        "on": upload_summary(runs[1]["uploads"])},
+            "eval_p50_ms": {"off": runs[0]["summary"]["p50_ms"],
+                            "on": runs[1]["summary"]["p50_ms"]},
+        }
+        log(
+            f"[{path}] seam on = off on {len(runs[0]['passes'])} passes; counters on (as "
+            f"predicted) {got}; launches {launches[path]}; used uploads {out[path]['uploads']}"
+        )
+    return launches, calls, out
+
+
+def batch_path(dev, nodes, jobs):
+    """The "batch" path: the schedule path's evals prepared against one
+    ClusterTensors and merged into ONE closed-form call
+    (``Harness.process_merged``: concatenated asks, ``lane_groups``, one
+    ``kernel.place``, ``repair_batch_conflicts``, ``build_batch_plan``
+    per eval, submit, ``complete_merged_attempt``). Every alloc placed,
+    no rejected or over-committed node. Returns the launch counts, the
+    summary and the harness."""
+    from nomad_tpu_torch.device import score as S
+
+    h = fleet_harness(dev, nodes, jobs)
+    evs = [eval_of(h, j, "batch") for j in jobs]
+    host = {}
+    zero_counters()
+    with shared_recording("batch", score_matrix=False), \
+            timing(S, "repair_batch_conflicts", host), \
+            timing(S.PlacementKernel, "place", host):
+        t0 = time.perf_counter()
+        out = h.process_merged(evs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = counters()
+    allocs = live(h, jobs)
+    rejected = sum(len(r.rejected_nodes) for r in h.results)
+    over = committed_overcommit(h.store)
+    conflicts = sum(1 for ok in out["lane_ok"] if not ok)
+    summary = {
+        "evals": len(evs), "lanes": out["lanes"], "merged": len(out["merged"]),
+        "individual": len(out["individual"]), "placed": len(allocs),
+        "host_seconds": seconds, "kernel_place_seconds": host["place"],
+        "repair_seconds": host["repair_batch_conflicts"],
+    }
+    log(
+        f"[batch] {len(evs)} evals merged into {launches['place_closed_form']} closed-form "
+        f"call(s) in {seconds:.3f} s (kernel.place {host['place']:.3f} s, repair "
+        f"{host['repair_batch_conflicts']:.3f} s); {summary}; lanes given up {conflicts}; "
+        f"rejected plan nodes {rejected}; over-committed nodes {over}; launches {launches}"
+    )
+    assert out["merged"] == [ev.id for ev in evs] and not out["individual"], out
+    assert all(out["completed"].values())
+    assert len(allocs) == len(jobs) * SERVER_COUNT, "not every alloc was placed"
+    assert rejected == 0 and over == 0
+    assert sorted({e.status for e in h.evals}) == ["complete"]
+    assert launches["place_closed_form"] == 1
+    assert all(launches[n] == 0 for n in launches if n != "place_closed_form")
+    return launches, summary, h
+
+
+def plan_path(dev, h):
+    """The "plan" path: ``plan_job`` (the dry-run ``job plan``) of a new
+    service job of ``PLAN_COUNT`` allocs on the batch path's store at
+    10,000 nodes: every alloc annotated for placement, no failed group,
+    explanations inline, nothing committed. Returns the launch counts
+    and the summary."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.scheduler.annotate import plan_job
+
+    job = mock.job()
+    job.id = "planned"
+    job.task_groups[0].count = PLAN_COUNT
+    allocs_before = len(list(h.store.allocs()))
+    zero_counters()
+    with shared_recording("plan", score_matrix=False):
+        t0 = time.perf_counter()
+        out = plan_job(h.store, job, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = counters()
+    ann = out["annotations"]
+    log(
+        f"[plan] plan_job at {SERVER_NODES} nodes in {seconds:.3f} s: annotations {ann}; "
+        f"failed groups {sorted(out['failed_tg_allocs'])}; explanations for "
+        f"{sorted(out['placement_explanations'])}; launches {launches}"
+    )
+    assert ann == {"web": {"place": PLAN_COUNT, "stop": 0, "preemptions": 0}}, ann
+    assert not out["failed_tg_allocs"] and "web" in out["placement_explanations"]
+    assert h.store.job_by_id(job.namespace, job.id) is None
+    assert len(list(h.store.allocs())) == allocs_before
+    assert launches["place_closed_form"] >= 1
+    assert all(launches[n] == 0 for n in launches if n != "place_closed_form")
+    return launches, {"seconds": seconds, "annotations": ann}
+
+
+def calib_path(dev):
+    """The "calib" path: ``run_calib_ab`` at its defaults on the card (the
+    hetero A/B rerun with throughputs learned from synthetic execute
+    spans through a flight recorder). Its gate holds and declared mode is
+    byte-identical; every hetero-greedy call is recorded and replayed
+    against its plain version afterwards. Returns the launch counts, the
+    recorded hetero calls and the report."""
+    from nomad_tpu_torch.obs.calibrate import run_calib_ab
+    from nomad_tpu_torch.scheduler import hetero as H
+
+    zero_counters()
+    with recording(H, "hetero_place") as calls, shared_recording("calib"):
+        t0 = time.perf_counter()
+        report = run_calib_ab(device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = counters()
+    log(
+        f"[calib] run_calib_ab in {seconds:.3f} s; report "
+        f"{json.dumps(report, sort_keys=True)}; launches {launches}"
+    )
+    assert report["ok"], report["ab"]
+    assert report["declared_mode_identical"] is True
+    est = report["estimator"]
+    assert est["learned_cells"] == est["cell_count"] > 0
+    assert launches["hetero_place"] == len(calls) > 0
+    return launches, calls, {"seconds": seconds, "ok": report["ok"], "ab": report["ab"]}
+
+
+def restore_path(dev, h):
+    """The "restore" path: the preempt path's store (10,000 nodes full of
+    ballast, the preemptors' and the system path's allocs) saved with
+    ``save_snapshot`` and restored with ``restore_snapshot`` through the
+    restricted unpickler; every table the same size, and one new service
+    eval (``RESTORE_COUNT`` small allocs) scheduled on the restored store
+    and on the original to the same plan. Returns the launch counts and
+    the summary."""
+    import tempfile
+
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.scheduler import Harness
+    from nomad_tpu_torch.state.snapshot import restore_snapshot, save_snapshot
+
+    from nomad_tpu_torch.backend import BUILD_DIR
+
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:  # inside the checkout
+        path = f"{tmp}/state.snap"
+        t0 = time.perf_counter()
+        index = save_snapshot(h.store, path)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        restored = restore_snapshot(path)
+        restore_s = time.perf_counter() - t0
+    sizes = {}
+    for what, store in (("saved", h.store), ("restored", restored)):
+        snap = store.snapshot()
+        sizes[what] = (len(list(snap.nodes())), len(list(snap.jobs())),
+                       len(list(snap.allocs())), len(list(snap.evals())))
+    job = mock.job()
+    job.id = "after-restore"
+    job.task_groups[0].count = RESTORE_COUNT
+    res = job.task_groups[0].tasks[0].resources
+    res.cpu, res.memory_mb = RESTORE_ASK
+    plans = []
+    zero_counters()
+    with shared_recording("restore", score_matrix=False):
+        for hh in (Harness(restored, device=dev), h):
+            hh.store.upsert_job(hh.next_index(), copy.deepcopy(job))
+            hh.process(eval_of(hh, job, "restore"))
+            plans.append(sorted(
+                (a.name, a.node_id) for a in hh.store.allocs_by_job(job.namespace, job.id)
+            ))
+    launches = counters()
+    log(
+        f"[restore] snapshot at index {index}: {size} bytes; save {save_s:.3f} s, "
+        f"restore {restore_s:.3f} s; (nodes, jobs, allocs, evals) saved {sizes['saved']} "
+        f"restored {sizes['restored']}; one eval of {RESTORE_COUNT} allocs on each "
+        f"store: same plan {plans[0] == plans[1]}; launches {launches}"
+    )
+    assert sizes["saved"] == sizes["restored"]
+    assert plans[0] == plans[1] and len(plans[0]) == RESTORE_COUNT
+    assert launches["place_closed_form"] == 2
+    assert all(launches[n] == 0 for n in launches if n != "place_closed_form")
+    return launches, {
+        "save_s": save_s, "restore_s": restore_s, "bytes": size,
+        "allocs": sizes["restored"][2], "nodes": sizes["restored"][0],
+    }
+
+
 def find_launches(by_path) -> dict:
     """The find pass's launches on each path: its own launches plus the
     passes carried in the choice's launch (each a launch of its device
@@ -3427,6 +4066,27 @@ def main() -> int:
     by_path, cf_calls, sm_calls = main_path(dev)
     cf_main = replay_closed_form(cf_calls)
     sm_main = replay_score_matrix(sm_calls)
+    # what the server stands on: the incremental seam, the merged batch
+    # pass and the dry-run plan, on the schedule path's recipe
+    fleet = schedule_fleet()
+    by_path["incremental"], incr = incremental_path(dev, *fleet)
+    arm_launches, arm_calls, incr["kernel_arms"] = incremental_kernel_arms(dev)
+    by_path.update(arm_launches)
+    for path, rec in arm_calls.items():
+        for name, calls in rec.items():
+            if not calls:
+                continue
+            if name in COUPLED:
+                r = replay_coupled(name, calls)
+            else:
+                r = replay_plugin(name, name, calls, path)
+            incr["kernel_arms"][path].setdefault("replayed", {})[name] = {
+                "calls": len(calls), "path_ms": r["path_ms"], "max_abs_err": r["max_abs_err"],
+            }
+    del arm_launches, arm_calls
+    by_path["batch"], batch, batch_h = batch_path(dev, *fleet)
+    by_path["plan"], plan = plan_path(dev, batch_h)
+    del fleet, batch_h
     h, by_path["spread"], spread_calls, _ = spread_path(dev)
     coupled = {name: replay_coupled(name, spread_calls[name]) for name in COUPLED}
     del spread_calls
@@ -3438,6 +4098,7 @@ def main() -> int:
     del preempt_calls
     by_path["system"], system_calls, _ = system_path(h)
     sm_system = replay_score_matrix(system_calls, path="system")
+    by_path["restore"], restore = restore_path(dev, h)
     del h
     h, by_path["hetero"], hetero_calls, _ = hetero_path(dev)
     by_path["cp"], cp_calls, _ = cp_path(h)
@@ -3445,6 +4106,9 @@ def main() -> int:
     by_path["gang"], gang_calls, _ = gang_path(dev)
     batch_by_path, batch_calls, _ = batch_paths(dev)
     by_path.update(batch_by_path)
+    by_path["calib"], calib_calls, calib = calib_path(dev)
+    calib_replay = replay_plugin("hetero_place", "hetero_place", calib_calls, "calib")
+    del calib_calls
     plugin_main = {
         name: replay_plugin(name, fn, calls, path)
         for name, fn, calls, path in (
@@ -3467,6 +4131,7 @@ def main() -> int:
     del defrag_calls
     # the closed-form and score-matrix kernels' time on every path that
     # launches them
+    one_by_one = SHARED_CALLS["incremental"]["place_closed_form"][:SERVER_JOBS]
     shared = {"place_closed_form": {}, "score_matrix": {}}
     for name, path, calls in (
         ("place_closed_form", "schedule", cf_calls),
@@ -3483,6 +4148,16 @@ def main() -> int:
             assert (counts[name] > 0) == (path in by), (name, path)
     SHARED_CALLS.clear()
     del cf_calls, sm_calls, system_calls
+    batch.update(
+        kernel_ms=shared["place_closed_form"]["batch"]["path_ms"],
+        one_by_one_kernel_ms=calls_ms([shared_launch("place_closed_form", c) for c in one_by_one]),
+        one_by_one_host_seconds=incr["arms"][0]["seconds"],
+    )
+    del one_by_one
+    log("[server] " + json.dumps({
+        "incremental": incr, "batch": batch, "plan": plan, "calib": calib,
+        "restore": restore,
+    }, sort_keys=True))
 
     # phase 6: the coupled placements against the stepwise oracle
     full_parity(dev)
@@ -3598,8 +4273,11 @@ def main() -> int:
             {
                 "path_ms": plugin_main[name]["path_ms"],
                 "steps_or_rounds_per_launch": plugin_main[name]["steps_or_rounds_per_launch"],
-                **({"path_us_per_step": plugin_main[name]["path_us_per_step"]}
-                   if name == "hetero_place" else {}),
+                **({"path_us_per_step": plugin_main[name]["path_us_per_step"],
+                    "calib": {k: calib_replay[k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by", "path_ms", "shape",
+                        "steps_or_rounds_per_launch", "path_us_per_step",
+                    )}} if name == "hetero_place" else {}),
                 "batch": {k: v for k, v in plugin_batch[name].items() if k in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "path_ms", "shape",
                     "steps_or_rounds_per_launch", "path_us_per_step",

@@ -15,6 +15,10 @@ Layer map of this slice:
 - ``nomad_tpu_torch.device``    — cluster flattening + placement kernels.
 - ``nomad_tpu_torch.scheduler`` — reconciler + generic scheduler + Harness.
 - ``nomad_tpu_torch.broker``    — plan verification.
+- ``nomad_tpu_torch.obs``       — tracing, explanations, the flight
+  recorder and the calibration plane.
+- ``nomad_tpu_torch.chaos``     — the seeded fault plane.
+- ``nomad_tpu_torch.rpc``       — the restricted unpickler (snapshots).
 - ``nomad_tpu_torch.backend``   — device resolution, kernel builds.
 - ``nomad_tpu_torch.interop``   — build port objects from plain records.
 

@@ -16,6 +16,9 @@ needs: where the tensors live, and how the device programs are built.
 - **Launch counters** are plain ints on each kernel wrapper
   (``wrapper.launches``); a wrapper adds one where it launches its
   kernel and nowhere else.
+- **Incremental rescoring** (``incremental_enabled``) resolves the same
+  ``NOMAD_TPU_INCREMENTAL`` variable as the JAX package, so one setting
+  drives both.
 """
 
 from __future__ import annotations
@@ -154,3 +157,40 @@ def same_device(tensors, device: torch.device, what: str) -> None:
             raise ValueError(
                 f"{what}: tensor on {t.device}, expected {device}"
             )
+
+
+# -- incremental score-state seam ---------------------------------------------
+#
+# ``NOMAD_TPU_INCREMENTAL`` gates the DeviceStateCache's score-state
+# persistence (device/cache.py): with it on, the per-pass ``used``
+# tensor stays device-resident across passes and only dirty rows
+# re-upload. Resolved once; the gate is Python-level (the resident
+# tensor has the same shape and dtype as a fresh upload), so flipping it
+# never changes what a kernel is launched with.
+
+_INCR_ENV = "NOMAD_TPU_INCREMENTAL"
+
+_incr_lock = threading.Lock()
+_incr_enabled = None  # cached bool | None (None = not resolved yet)
+
+
+def incremental_enabled() -> bool:
+    """The process-wide incremental-rescoring decision, resolved once
+    from ``NOMAD_TPU_INCREMENTAL`` (``on``/``1``/``true`` enable; unset
+    or anything else is off — the from-scratch path). Call
+    ``reset_incremental()`` after changing the env in tests."""
+    global _incr_enabled
+    val = _incr_enabled
+    if val is not None:
+        return val
+    with _incr_lock:
+        if _incr_enabled is None:
+            spec = os.environ.get(_INCR_ENV, "")
+            _incr_enabled = spec.strip().lower() in ("on", "1", "true")
+        return _incr_enabled
+
+
+def reset_incremental() -> None:
+    global _incr_enabled
+    with _incr_lock:
+        _incr_enabled = None

@@ -15,12 +15,21 @@ Full rebuilds happen only when the journal can't cover the interval, a
 node disappears or changes class/datacenter (representative-node
 semantics would go stale), or the padded node bucket overflows.
 
-The port carries the host half: ``tensors(snap)``/``invalidate`` and the
-journal-driven row refresh, with the capacity tensor moved to the card
-once per layout generation (and again only when a refresh rewrote
-capacity rows). The reference's incremental rescoring — the
-device-resident ``used`` generations behind ``score_view`` — is not
-ported yet (ROADMAP A6); each pass uploads its ``used`` whole.
+The port carries the journal-driven row refresh, with the capacity
+tensor moved to the card once per layout generation (and again only when
+a refresh rewrote capacity rows), and the incremental rescoring of the
+reference (``NOMAD_TPU_INCREMENTAL``): the pass's ``used`` stays on the
+device as immutable generations behind ``score_view``, which serves the
+resident tensor when no row's bytes changed. One card is one shard, so a
+dirty pass uploads the whole tensor, as the reference does on a
+degenerate mesh, and counts one patch of its dirty rows;
+``score_commit`` waits on a CUDA event recorded after that upload, never
+on the whole device.
+
+Left for later items: the mesh half (``verify_device_view``, the dirty
+regions and per-shard capacity, ROADMAP A13; ``device_counters`` reports
+their counters as 0) and the chaos site ``cache.score_refresh_drop``
+(A14).
 """
 
 from __future__ import annotations
@@ -32,8 +41,23 @@ import numpy as np
 import torch
 
 from ..structs.resources import node_comparable_capacity
-from ..backend import resolve_device
+from ..backend import incremental_enabled, resolve_device
 from .flatten import ClusterTensors, flatten_cluster
+
+
+def _dirty_rows(old: np.ndarray, new: np.ndarray) -> np.ndarray:
+    """Rows whose bytes differ between two C-contiguous arrays of one
+    shape: compared as unsigned words, so a row that flips between 0.0
+    and -0.0 (or carries a NaN) is dirty exactly when its bits changed —
+    the reference compares the floats, which would leave a generation
+    that is not bitwise equal to its ``used``. The per-column OR is a
+    tenth of the cost of ``np.any(axis=1)`` at 16,384 × 4."""
+    word = np.uint64 if (old.shape[1] * old.itemsize) % 8 == 0 else np.uint32
+    ne = old.view(word) != new.view(word)
+    acc = ne[:, 0].copy()
+    for col in range(1, ne.shape[1]):
+        acc |= ne[:, col]
+    return np.flatnonzero(acc)
 
 
 def _node_used(snap, node_id: str, dims: int) -> np.ndarray:
@@ -44,11 +68,44 @@ def _node_used(snap, node_id: str, dims: int) -> np.ndarray:
     return vec
 
 
+class ScoreState:
+    """One generation of the persisted device-resident score view.
+
+    The score planes every placement kernel computes are pure functions
+    of ``(capacity, used, ask)``; capacity is already device-resident
+    (``_device_capacity_locked``) and the asks are per-pass, so the
+    persisted half of the score state is ``used`` — the alloc-churn-hot
+    tensor that the from-scratch path re-uploads whole every pass. A
+    generation is immutable once built (its tensor is never written, and
+    the host mirror is a private copy): an in-flight pass keeps reading
+    the previous generation while the next one is staged, and
+    ``score_commit`` swaps staged → committed at the merge point.
+    ``used_host`` is the exact bytes on device — the dirty-row diff and
+    ``verify_score_view`` both compare against it bitwise. ``fence`` is
+    the CUDA event recorded after the generation's upload (None on the
+    CPU)."""
+
+    __slots__ = ("used_dev", "used_host", "layout_gen", "gen", "fence")
+
+    def __init__(self, used_dev, used_host, layout_gen: int, gen: int,
+                 fence=None):
+        self.used_dev = used_dev
+        self.used_host = used_host
+        self.layout_gen = layout_gen
+        self.gen = gen
+        self.fence = fence
+
+
 class DeviceStateCache:
     """One per harness; thread-safe. ``tensors(snap)`` returns a
     ClusterTensors at exactly ``snap.index`` whose ``used`` array is a
     private copy (schedulers overlay in-plan stops onto it) and whose
     ``device_capacity`` is the resident capacity tensor on ``device``."""
+
+    # the mesh half's counters (per-shard capacity refreshes, dirty
+    # regions) stay 0 until node-axis sharding is ported (ROADMAP A13)
+    shard_uploads = 0
+    full_uploads = 0
 
     def __init__(self, device="cuda"):
         self.device = resolve_device(device)
@@ -64,6 +121,22 @@ class DeviceStateCache:
         self._dev_capacity: torch.Tensor | None = None
         self._dev_layout_gen = 0
         self._capacity_dirty = False
+        # score-state persistence (NOMAD_TPU_INCREMENTAL): double-
+        # buffered device-resident ``used`` generations. ``_score`` is
+        # the committed generation; ``score_view`` stages the next one
+        # (dirty rows diffed bitwise against the newest mirror) and
+        # ``score_commit`` swaps it in. Dirty detection is an exact host
+        # compare rather than journal bookkeeping: overrides and
+        # partially-landed commits self-heal on the next pass because
+        # ANY divergence from the mirror re-uploads.
+        self._score: ScoreState | None = None  # committed generation
+        self._score_staged: ScoreState | None = None
+        self.score_rows_rescored = 0  # rows re-uploaded (score inputs changed)
+        self.score_rows_reused = 0  # rows served from the resident buffer
+        self.score_patch_uploads = 0  # partial (dirty-row) refreshes
+        self.score_full_rebuilds = 0  # whole-tensor score-state uploads
+        self.score_swaps = 0  # staged → committed generation swaps
+        self.pipeline_overlap_ms = 0.0  # commit time hidden behind passes
 
     # -- public -----------------------------------------------------------
     def tensors(self, snap) -> ClusterTensors:
@@ -71,6 +144,13 @@ class DeviceStateCache:
             ct = self._refresh_locked(snap)
             out = replace(ct, used=ct.used.copy())
             out.device_capacity = self._device_capacity_locked(ct)
+            if incremental_enabled():
+                # the incremental seam the kernels read (device/score.py
+                # used_device): present ⇒ the pass's ``used`` upload may
+                # be served from the persisted score state. Off-mode
+                # tensors carry None and take the from-scratch path
+                # untouched.
+                out.score_cache = self
             return out
 
     def invalidate(self) -> None:
@@ -78,6 +158,149 @@ class DeviceStateCache:
             self._ct = None
             self._dev_capacity = None
             self._capacity_dirty = False
+            self._score = None
+            self._score_staged = None
+
+    def device_counters(self) -> dict:
+        with self._lock:
+            state = self._score_staged or self._score
+            return {
+                "shard_uploads": self.shard_uploads,
+                "full_uploads": self.full_uploads,
+                "dirty_regions": 0,
+                "score_rows_rescored": self.score_rows_rescored,
+                "score_rows_reused": self.score_rows_reused,
+                "score_patch_uploads": self.score_patch_uploads,
+                "score_full_rebuilds": self.score_full_rebuilds,
+                "score_swaps": self.score_swaps,
+                "score_gen": 0 if state is None else state.gen,
+                "pipeline_overlap_ms": round(self.pipeline_overlap_ms, 3),
+            }
+
+    def note_overlap(self, ms: float) -> None:
+        """Worker-reported pipeline overlap: wall-clock the commit
+        thread ran underneath the NEXT pass's prepare + device work."""
+        with self._lock:
+            self.pipeline_overlap_ms += max(0.0, float(ms))
+
+    # -- score-state persistence (incremental rescoring) -------------------
+    def score_view(self, ct, used0: np.ndarray):
+        """Device-resident ``used`` for one scoring pass, bitwise equal
+        to ``used0`` — or None when the incremental path is inactive
+        (callers upload from scratch, exactly the off-mode path).
+
+        Stages the next score-state generation: with no dirty row the
+        pass gets the resident tensor and no bytes travel; otherwise a
+        new generation is uploaded whole (one card is one shard: the
+        reference's degenerate-mesh patch) and counted as one patch of
+        the dirty rows. The staged generation becomes committed at
+        ``score_commit``."""
+        if not incremental_enabled():
+            return None
+        used0 = np.ascontiguousarray(used0, dtype=np.float32)
+        layout_gen = getattr(ct, "layout_gen", 0)
+        with self._lock:
+            base = self._score_staged or self._score
+            n_rows = int(used0.shape[0])
+            if (
+                base is None
+                or base.layout_gen != layout_gen
+                or base.used_host.shape != used0.shape
+            ):
+                # first access, layout change (full reflatten re-sorts
+                # rows: every cached row is misaligned), or a shape flip
+                # — rebuild the whole score state
+                return self._score_rebuild_locked(used0, layout_gen)
+            dirty = _dirty_rows(base.used_host, used0)
+            if dirty.size == 0:
+                self.score_rows_reused += n_rows
+                self._score_staged = ScoreState(
+                    base.used_dev, base.used_host, layout_gen, base.gen,
+                    base.fence,
+                )
+                return base.used_dev
+            self.score_rows_rescored += int(dirty.size)
+            self.score_rows_reused += n_rows - int(dirty.size)
+            dev, host, fence = self._upload(used0)
+            self._score_staged = ScoreState(
+                dev, host, layout_gen, base.gen + 1, fence
+            )
+            self.score_patch_uploads += 1
+            return dev
+
+    def _upload(self, used0):
+        """(tensor, mirror, fence) of a new generation. The mirror is a
+        PRIVATE copy of the caller's live ``used``, and so is the tensor:
+        on the CPU ``torch.from_numpy(...).to("cpu")`` aliases its array,
+        and a generation must hold the exact bytes it was built from,
+        never track the mirror or the caller. The fence is an event after
+        the upload on the current stream (None on the CPU)."""
+        host = used0.copy()
+        src = torch.from_numpy(host)
+        if self.device.type != "cuda":
+            return src.clone(), host, None
+        dev = src.to(self.device)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return dev, host, ev
+
+    def _score_rebuild_locked(self, used0, layout_gen: int):
+        dev, host, fence = self._upload(used0)
+        base = self._score_staged or self._score
+        gen = 1 if base is None else base.gen + 1
+        self._score_staged = ScoreState(dev, host, layout_gen, gen, fence)
+        self.score_full_rebuilds += 1
+        self.score_rows_rescored += int(used0.shape[0])
+        return dev
+
+    def score_commit(self) -> None:
+        """Swap the staged score-state generation in as committed — the
+        double buffer's merge point. The one wait of the pipeline lives
+        here: it waits on the staged generation's CUDA event (its
+        upload), never on the whole device; on the CPU it waits on
+        nothing."""
+        with self._lock:
+            staged = self._score_staged
+            if staged is None:
+                return
+            self._score_staged = None
+            if self._score is not None and staged.gen == self._score.gen:
+                return  # zero-dirty pass: same generation, no swap
+            self._score = staged
+            self.score_swaps += 1
+        if staged.fence is not None:
+            staged.fence.synchronize()
+
+    def score_abort(self) -> None:
+        """Drop the staged generation (a pass that died before commit);
+        the next pass diffs against the committed mirror and re-uploads
+        whatever the aborted pass had staged — correctness never
+        depends on an abort being observed."""
+        with self._lock:
+            self._score_staged = None
+
+    def verify_score_view(self) -> list[str] | None:
+        """Invariant law 12 (shard_consistency), score half: copy the
+        newest score-state generation back to the host and compare it
+        *bitwise* (uint32 views) against its mirror. One card is one
+        shard. Returns None when no score state is materialized
+        (incremental off, or never accessed); else a list of mismatch
+        details (empty == consistent)."""
+        with self._lock:
+            state = self._score_staged or self._score
+            if state is None:
+                return None
+            host = state.used_dev.detach().cpu().numpy()
+            want = state.used_host
+            if host.shape != want.shape or not np.array_equal(
+                host.view(np.uint32), want.view(np.uint32)
+            ):
+                return [
+                    f"score rows[0:{host.shape[0]}] on "
+                    f"{state.used_dev.device} diverge bitwise from the "
+                    f"gen-{state.gen} mirror"
+                ]
+            return []
 
     def _device_capacity_locked(self, ct: ClusterTensors) -> torch.Tensor:
         if (

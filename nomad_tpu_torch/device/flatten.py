@@ -128,6 +128,14 @@ class ClusterTensors:
     # DeviceStateCache.tensors; None = upload on the fly). Shared by
     # reference across the per-call used-copy wrappers.
     device_capacity: object = None
+    # incremental-rescoring seam (NOMAD_TPU_INCREMENTAL): the owning
+    # DeviceStateCache, attached by ``tensors()`` only when the
+    # incremental path is on. Kernels route their per-pass ``used``
+    # upload through ``cache.score_view`` when present (device/score.py
+    # used_device); None ⇒ the from-scratch upload, byte for byte the
+    # pre-incremental one. The cached score tensors are written only by
+    # the DeviceStateCache's refresh API.
+    score_cache: object = None
     # row-layout generation: bumped ONLY by a full reflatten (which may
     # re-sort rows); preserved across incremental refreshes and the
     # per-call used-copy. Consumers holding row-indexed overlays (the

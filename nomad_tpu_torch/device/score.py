@@ -1079,6 +1079,26 @@ class PlacementResult:
     explanation: Optional[object] = None
 
 
+def used_device(cluster, used0, device: torch.device) -> torch.Tensor:
+    """The one seam every kernel's per-pass ``used`` upload routes
+    through. With incremental rescoring on (the tensors carry a
+    ``score_cache``), the DeviceStateCache serves a device-resident
+    tensor bitwise equal to ``used0`` — only dirty rows travelled;
+    otherwise the from-scratch upload, byte for byte the
+    pre-incremental one. The tensor has the same shape and dtype either
+    way, and no kernel writes into it. ``used0`` is the very array the
+    kernel reads (padded rows included), so the cache diffs what the
+    kernel sees."""
+    cache = getattr(cluster, "score_cache", None)
+    if cache is not None:
+        dev = cache.score_view(cluster, used0)
+        if dev is not None:
+            return dev
+    return torch.from_numpy(
+        np.ascontiguousarray(used0, dtype=np.float32)
+    ).to(device)
+
+
 def capacity_on(cluster, device: torch.device) -> torch.Tensor:
     """The cluster's f32[N, 4] capacity on ``device``: the
     DeviceStateCache's resident tensor when one rode along on the tensors
@@ -1243,7 +1263,7 @@ class PlacementKernel:
         dev = self.device
         choices_t, scores_t = place_closed_form(
             capacity_on(cluster, self.device),
-            torch.from_numpy(np.ascontiguousarray(used0, dtype=np.float32)).to(dev),
+            used_device(cluster, used0, dev),
             **_device_batch(batch, dev),
             algorithm_spread=self.algorithm_spread,
             max_j=max_j,
@@ -1273,9 +1293,7 @@ class PlacementKernel:
         batch.update(pad_value_blocks([a.blocks for a in asks], pn))
         out = _device_batch(batch, self.device)
         out["capacity"] = capacity_on(cluster, self.device)
-        out["used0"] = torch.from_numpy(
-            np.ascontiguousarray(used0, dtype=np.float32)
-        ).to(self.device)
+        out["used0"] = used_device(cluster, used0, self.device)
         return out
 
     def _lane_counts(self, asks: list, overflow: int, cap: int):

@@ -41,6 +41,7 @@ from contextlib import contextmanager
 from typing import Optional
 
 from ..utils.metrics import global_metrics
+from .recorder import flight_recorder
 
 _ids = itertools.count(1)
 
@@ -368,4 +369,4 @@ class Tracer:
         )
 
 
-global_tracer = Tracer()
+global_tracer = Tracer(recorder=flight_recorder)

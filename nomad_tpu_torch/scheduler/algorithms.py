@@ -194,7 +194,7 @@ def score_groups(ct, asks: list, desired_totals, algorithm_spread: bool = False,
     import torch
 
     from ..backend import resolve_device
-    from ..device.score import score_matrix
+    from ..device.score import score_matrix, used_device
 
     dev = resolve_device(device)
     g, pn = len(asks), ct.capacity.shape[0]
@@ -205,7 +205,8 @@ def score_groups(ct, asks: list, desired_totals, algorithm_spread: bool = False,
     def t(x, dtype):
         return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(dev)
 
-    capacity, used = t(ct.capacity, np.float32), t(ct.used, np.float32)
+    capacity = t(ct.capacity, np.float32)
+    used = used_device(ct, np.asarray(ct.used), dev)
     for with_tp in (False, True):
         rows = [i for i, tp in enumerate(tps) if (tp is not None) == with_tp]
         if not rows:

@@ -51,7 +51,7 @@ from ..device.cp import (
     topo_onehot,
     topology_term_host,
 )
-from ..device.score import capacity_on
+from ..device.score import capacity_on, used_device
 from ..utils.metrics import global_metrics
 from .hetero import _outputs_mismatch
 
@@ -83,13 +83,14 @@ class CpBatch:
     steps: int
     max_c: int
 
-    def tensors(self, device, capacity=None) -> tuple:
+    def tensors(self, device, capacity=None, used=None) -> tuple:
         """The pass's inputs on ``device`` in ``cp_place``'s order, lam0
-        last; ``capacity`` may be a resident tensor already there."""
+        last; ``capacity`` and ``used`` may be tensors already there
+        (the resident capacity, the ``used_device`` seam's tensor)."""
         return (
             capacity if capacity is not None
             else _t(self.capacity, np.float32, device),
-            _t(self.used, np.float32, device),
+            used if used is not None else _t(self.used, np.float32, device),
             _t(self.asks, np.float32, device),
             _t(self.counts, np.int32, device),
             _t(self.eligible, bool, device),
@@ -256,7 +257,10 @@ class CpPlacementKernel:
             return self._base.place(cluster, asks, **kwargs)
         batch = self._batch(cluster, asks, kwargs)
         out = device_cp.cp_place(
-            *batch.tensors(self.device, capacity_on(cluster, self.device)),
+            *batch.tensors(
+                self.device, capacity_on(cluster, self.device),
+                used_device(cluster, batch.used, self.device),
+            ),
             steps=batch.steps, max_c=batch.max_c,
         )
         choices, choice_scores, used_out, rounds, _lam = (
@@ -401,7 +405,10 @@ class CpGangPlacementKernel(CpPlacementKernel):
             )
         batch = self._batch(cluster, asks, kwargs)
         gi = build_gang_inputs(cluster, asks)
-        common = batch.tensors(self.device, capacity_on(cluster, self.device))
+        common = batch.tensors(
+            self.device, capacity_on(cluster, self.device),
+            used_device(cluster, batch.used, self.device),
+        )
         out = device_cp.cp_gang_place_ids(
             *common[:10], *gi.id_tensors(self.device), common[10],
             steps=batch.steps, max_c=batch.max_c,

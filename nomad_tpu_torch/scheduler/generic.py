@@ -14,10 +14,13 @@ scheduler's ``device`` reaches the kernel factory, the device-state
 cache and the preemption search (``device/preempt.py``); every
 registered algorithm (binpack, spread, hetero-*, cp-pack, cp-gang) runs
 on its ported kernel. Learned throughputs (``throughput_source =
-"learned"``, the calibration plane) are not ported and raise naming
-ROADMAP A10.
-The server's batched multi-eval pass (``prepare_batch_attempt`` and the
-merged commit) belongs with the server and is not ported yet (A9).
+"learned"``) read the calibration plane's estimator
+(``wire_throughput_source``). The batched multi-eval methods
+(``prepare_batch_attempt``, ``build_batch_plan``,
+``complete_merged_attempt``, ``complete_batch_attempt``) are ported; the
+server worker that merges evals through them, with its lanes, overlay
+and decorrelation, and the ``overlay`` / ``node_filter`` hooks are not
+yet (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -65,18 +68,19 @@ class FailedTGAlloc:
 
 
 def wire_throughput_source(kernel, cfg) -> None:
-    """Calibration seam: in learned mode the reference's hetero kernel
-    reads the process-global throughput estimator instead of declared
-    jobspec coefficients. "declared" (the default, and every non-hetero
-    kernel) touches nothing; the port has no estimator, so learned mode
-    on a hetero kernel raises (ROADMAP A10, calibrate half)."""
+    """Calibration seam: in learned mode the hetero kernel reads the
+    process-global ThroughputEstimator instead of declared jobspec
+    coefficients. Same Python-level gating discipline as explain —
+    "declared" (the default, and every non-hetero kernel) touches
+    nothing, so the pre-calibration path stays bit-identical."""
     if (
         getattr(cfg, "throughput_source", "declared") == "learned"
         and hasattr(kernel, "throughput_source")
     ):
-        from .hetero import learned_unported
+        from ..obs.calibrate import global_estimator
 
-        raise learned_unported()
+        kernel.throughput_source = "learned"
+        kernel.estimator = global_estimator
 
 
 def tainted_nodes(snapshot, allocs) -> dict:
@@ -207,6 +211,86 @@ class GenericScheduler:
             self._finish_placements(ct, tg_order, results)
             self._adjust_queued()
         return self._submit_attempt()
+
+    # -- batched multi-eval pass (SURVEY.md §7 step 5) --------------------
+    def prepare_batch_attempt(self, evaluation: Evaluation, ct=None):
+        """Phase A of a batched multi-eval device pass: run the host side
+        (reconcile + flatten) and return this eval's group asks for the
+        caller to merge into one kernel call across evals — the batch
+        dimension replacing the reference's worker-per-core concurrency
+        (nomad/worker.go:85, SURVEY.md §2.7).
+
+        ``ct`` is the batch-shared ClusterTensors the caller fetched ONCE
+        for the whole batch: every eval's masks must be built against the
+        same row order as the capacity/used arrays of the combined kernel
+        call (a mid-batch cache-generation advance would otherwise hand
+        later evals a differently-ordered transient build).
+
+        Returns the list of GroupAsks, or None when the eval needs the
+        individual path: no placement work at all, or a plan whose
+        evictions couple placements to freed capacity (the in-plan used
+        overlay is eval-local and can't share one batched ``used0``).
+        """
+        self.eval = evaluation
+        self.batch = self.batch or evaluation.type == "batch"
+        cfg = self.snapshot.scheduler_config()
+        self.scheduler_config = cfg
+        self.kernel = make_kernel(cfg.scheduler_algorithm, device=self.device)
+        wire_throughput_source(self.kernel, cfg)
+        self._explain = bool(getattr(cfg, "placement_explanations", True))
+        placements = self._start_attempt()
+        if not placements or self.job is None:
+            return None
+        if self.plan.node_update or self.plan.node_preemptions:
+            return None  # evictions free capacity only for this eval's plan
+        ct, tg_order = self._build_group_asks(placements, ct=ct)
+        self._batch_ctx = (ct, tg_order)
+        return [t[3] for t in tg_order]
+
+    def complete_batch_attempt(self, results) -> bool:
+        """Phase B: consume this eval's slice of the combined kernel
+        results. Returns True when the eval is fully handled (plan
+        committed, eval finalized); False when the caller must fall back
+        to the individual retry path on a fresh scheduler (partial
+        commit against the optimistic shared snapshot)."""
+        plan = self.build_batch_plan(results)
+        if plan is None:
+            return True
+        result, new_snap = self.planner.submit_plan(plan)
+        return self.complete_merged_attempt(result, new_snapshot=new_snap)
+
+    def build_batch_plan(self, results) -> Optional[Plan]:
+        """Phase B1 of the coalesced commit path: consume this eval's
+        slice of the combined kernel results and hand back the plan for
+        the worker to merge into ONE batch submit. Creates any followup
+        evals eagerly (their ids are referenced by in-plan allocs, so
+        they must commit before the plan does). Returns None when there
+        is nothing to submit — the eval is finalized in place."""
+        ct, tg_order = self._batch_ctx
+        self._finish_placements(ct, tg_order, results)
+        self._adjust_queued()
+        if self.plan.is_no_op() and not self.followup_evals:
+            self._finished = True
+            self._finalize()
+            return None
+        for f in self.followup_evals:
+            self.planner.create_eval(f)
+        return self.plan
+
+    def complete_merged_attempt(self, result, new_snapshot=None) -> bool:
+        """Phase B2: consume this member's PlanResult from the merged
+        apply. Full commit → finalize, True. Partial commit (this member
+        went stale under the shared optimistic snapshot) → False: the
+        caller retries the eval individually on fresh state; batch
+        siblings are unaffected."""
+        if new_snapshot is not None:
+            self.snapshot = new_snapshot
+        full, _expected, _actual = result.full_commit(self.plan)
+        if not full:
+            return False
+        self._finished = True
+        self._finalize()
+        return True
 
     def _start_attempt(self):
         """Host-side first half of one attempt: reconcile and build the
@@ -794,6 +878,25 @@ class GenericScheduler:
             blocked.snapshot_index = getattr(self.snapshot, "index", 0)
             self.planner.create_eval(blocked)
             self.blocked = blocked
+        if self.explanations and not ev.annotate_plan:
+            # ring the per-group explanations so `alloc why` /
+            # `/v1/evaluations/:id/placement` can answer after the fact;
+            # dry-run (job plan) returns them inline and skips the ring
+            from ..obs.explain import explanation_to_dict
+            from ..obs.recorder import flight_recorder
+
+            flight_recorder.record_explanation(
+                ev.id,
+                {
+                    "eval_id": ev.id,
+                    "job_id": ev.job_id,
+                    "namespace": getattr(ev, "namespace", "default"),
+                    "groups": {
+                        tg: explanation_to_dict(ex)
+                        for tg, ex in self.explanations.items()
+                    },
+                },
+            )
         self._set_status(EVAL_STATUS_COMPLETE, "")
 
     def _set_status(self, status: str, desc: str) -> None:

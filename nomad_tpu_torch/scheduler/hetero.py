@@ -40,9 +40,11 @@ delegates to the base ``PlacementKernel`` whenever no ask carries a
 throughput vector, so pre-heterogeneity clusters place bit-identically
 to the binpack/spread kernels.
 
-Left out of the port, raising where reached: learned throughputs
-(``throughput_source="learned"``, the calibrate half of ROADMAP A10) and
-the node-axis mesh (A13).
+In learned mode (``throughput_source="learned"``) the kernel object
+reads the calibration plane's ThroughputEstimator through
+``obs.calibrate.learned_tp_matrix`` and launches the same kernel. Left
+out of the port, raising where reached: the node-axis mesh (ROADMAP
+A13).
 """
 
 from __future__ import annotations
@@ -60,7 +62,13 @@ from ..backend import (
     resolve_device,
     same_device,
 )
-from ..device.score import _check_inputs, _first_argmax, _steps_bucket, capacity_on
+from ..device.score import (
+    _check_inputs,
+    _first_argmax,
+    _steps_bucket,
+    capacity_on,
+    used_device,
+)
 
 # Policy ids (the kernel branches on these).
 POLICY_MAXMIN = 0
@@ -89,18 +97,11 @@ DEVICE_CLASS_COSTS: dict[str, float] = {
 _EPS = np.float32(1e-9)
 
 # Where the policies' throughput matrix comes from (SchedulerConfiguration
-# knob). Declared is the only source the port has; "learned" names the
-# calibration plane, which is not ported (ROADMAP A10).
+# knob): the jobspec's declared coefficients, or the calibration plane's
+# ThroughputEstimator (obs/calibrate.py), learned from execute spans.
 THROUGHPUT_DECLARED = "declared"
 THROUGHPUT_LEARNED = "learned"
 THROUGHPUT_SOURCES = (THROUGHPUT_DECLARED, THROUGHPUT_LEARNED)
-
-
-def learned_unported() -> NotImplementedError:
-    return NotImplementedError(
-        "nomad_tpu_torch: learned throughputs (the calibration plane, "
-        "obs/calibrate.py) are not ported yet (ROADMAP A10, calibrate half)"
-    )
 
 
 def class_cost_vector(ct, costs: dict | None = None) -> np.ndarray:
@@ -324,15 +325,16 @@ class HeteroBatch:
     steps: int
     max_c: int
 
-    def tensors(self, device, capacity=None) -> tuple:
+    def tensors(self, device, capacity=None, used=None) -> tuple:
         """The pass's eight inputs on ``device``, in ``hetero_place``'s
-        order; ``capacity`` may be a resident tensor already there."""
+        order; ``capacity`` and ``used`` may be tensors already there
+        (the resident capacity, the ``used_device`` seam's tensor)."""
         def t(x, dtype):
             return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(device)
 
         return (
             capacity if capacity is not None else t(self.capacity, np.float32),
-            t(self.used, np.float32),
+            used if used is not None else t(self.used, np.float32),
             t(self.asks, np.float32),
             t(self.counts, np.int32),
             t(self.eligible, bool),
@@ -386,6 +388,7 @@ class HeteroPlacementKernel:
         force_scan: bool = False,
         mesh=None,
         throughput_source: str = "declared",
+        estimator=None,
         device="cuda",
     ):
         from ..device.score import PlacementKernel
@@ -396,8 +399,6 @@ class HeteroPlacementKernel:
             raise ValueError(
                 f"unknown throughput source {throughput_source!r}"
             )
-        if throughput_source == THROUGHPUT_LEARNED:
-            raise learned_unported()
         # the base kernel raises for a mesh (ROADMAP A13) and resolves
         # the device (raising without CUDA)
         self._base = PlacementKernel("binpack", force_scan, mesh=mesh, device=device)
@@ -406,12 +407,29 @@ class HeteroPlacementKernel:
         self.policy_id = POLICY_IDS[policy]
         self.algorithm_spread = False
         self.force_scan = force_scan
+        # calibration seam (obs/calibrate.py): in learned mode the batch's
+        # declared tp matrix is substituted on the host — same shape and
+        # dtype, so the kernel is launched exactly as in declared mode.
+        # Declared mode never consults the estimator (bit-identity gate).
         self.throughput_source = throughput_source
+        self.estimator = estimator
+
+    def _learned(self) -> bool:
+        return (
+            self.throughput_source == THROUGHPUT_LEARNED
+            and self.estimator is not None
+        )
 
     def _hetero_eligible(self, cluster, asks: list) -> bool:
         if not getattr(cluster, "has_device_classes", False):
             return False
-        if not any(a.has_throughputs for a in asks):
+        # learned mode qualifies on profile keys alone: the whole point
+        # is running the policies on jobs whose declared coefficients are
+        # absent (or hidden), estimated from telemetry instead
+        if not any(a.has_throughputs for a in asks) and not (
+            self._learned()
+            and any(getattr(a, "profile", "") for a in asks)
+        ):
             return False
         # coupled features stay on the base scan
         return not any(
@@ -430,8 +448,23 @@ class HeteroPlacementKernel:
         batch = build_hetero_batch(
             cluster, asks, used_override=kwargs.get("used_override")
         )
+        if self._learned():
+            # host-side substitution before the upload: learned
+            # per-(class × profile) values replace the declared matrix
+            # cell-wise (declared anchors stay the fallback below the
+            # sample floor), shapes and dtypes unchanged
+            from ..obs.calibrate import learned_tp_matrix
+
+            batch.tp = learned_tp_matrix(
+                self.estimator, cluster, asks, batch.tp
+            )
+            elig_tp = np.where(batch.eligible, batch.tp, np.float32(0.0))
+            batch.tpmax = elig_tp.max(axis=1).astype(np.float32)
         choices, choice_tp, _ = hetero_place(
-            *batch.tensors(self.device, capacity_on(cluster, self.device)),
+            *batch.tensors(
+                self.device, capacity_on(cluster, self.device),
+                used_device(cluster, batch.used, self.device),
+            ),
             policy=self.policy_id,
             steps=batch.steps,
             max_c=batch.max_c,

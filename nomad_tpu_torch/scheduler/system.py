@@ -9,9 +9,8 @@ job never stack on one node).
 
 The port scores each group through the registry's ``score_group`` on the
 scheduler's ``device`` (the score-matrix kernel) and selects victims on
-the host (``preempt_host.select_victims``). The flight recorder that the
-reference feeds with each eval's explanations is not ported yet
-(ROADMAP A14).
+the host (``preempt_host.select_victims``). Each eval's explanations go to
+the flight recorder's ring (``obs/recorder.py``), as in the reference.
 """
 
 from __future__ import annotations
@@ -73,6 +72,22 @@ class SystemScheduler:
         for _ in range(MAX_SYSTEM_SCHEDULE_ATTEMPTS):
             if self._process_once():
                 break
+        if self.explanations and not evaluation.annotate_plan:
+            from ..obs.explain import explanation_to_dict
+            from ..obs.recorder import flight_recorder
+
+            flight_recorder.record_explanation(
+                evaluation.id,
+                {
+                    "eval_id": evaluation.id,
+                    "job_id": evaluation.job_id,
+                    "namespace": evaluation.namespace,
+                    "groups": {
+                        tg: explanation_to_dict(ex)
+                        for tg, ex in self.explanations.items()
+                    },
+                },
+            )
         import copy
 
         updated = copy.copy(evaluation)

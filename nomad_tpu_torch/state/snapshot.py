@@ -7,8 +7,9 @@ Reference: nomadFSM.Snapshot/Restore with 21 typed record streams
 tables (the record types are plain dataclasses); the format carries a
 magic + version header so future migrations can dispatch.
 
-The port writes snapshots only; restoring one is not ported yet (see
-ROADMAP queue A).
+``restore_snapshot`` reads through the port's restricted unpickler
+(``rpc/framing.py``): a snapshot is the port's own, and a file that
+names a class of another package is refused with ``FramingError``.
 """
 
 from __future__ import annotations
@@ -75,3 +76,53 @@ def save_snapshot(store, path: str) -> int:
     finally:
         os.close(dirfd)
     return snap.index
+
+
+def restore_snapshot(path: str):
+    """Rebuild a StateStore from a snapshot file (indexes re-derived)."""
+    from .store import StateStore
+
+    with open(path, "rb") as f:
+        magic = f.read(len(SNAPSHOT_MAGIC))
+        if magic != SNAPSHOT_MAGIC:
+            raise ValueError(f"{path} is not a nomad-tpu snapshot")
+        # snapshot blobs arrive over the wire too (Raft InstallSnapshot) —
+        # deserialize through the framework allowlist, not bare pickle
+        from ..rpc.framing import restricted_loads
+
+        payload = restricted_loads(f.read())
+    if payload["version"] != SNAPSHOT_VERSION:
+        raise ValueError(f"unsupported snapshot version {payload['version']}")
+
+    store = StateStore()
+    index = max(payload["index"], 1)
+    for node in payload["nodes"].values():
+        store.upsert_node(index, node)
+    # jobs: preserve versions (upsert_job would re-version)
+    with store._lock:
+        jobs = store._own("jobs")
+        jobs.update(payload["jobs"])
+        versions = store._own("job_versions")
+        versions.update(payload["job_versions"])
+        store._bump(index, "jobs", "job_versions")
+    store.upsert_evals(index, list(payload["evals"].values()))
+    store.upsert_allocs(index, list(payload["allocs"].values()))
+    for d in payload["deployments"].values():
+        store.upsert_deployment(index, d)
+    if payload.get("acl_policies"):
+        store.upsert_acl_policies(index, list(payload["acl_policies"].values()))
+    if payload.get("acl_tokens"):
+        store.upsert_acl_tokens(index, list(payload["acl_tokens"].values()))
+    if payload.get("acl_bootstrap"):
+        with store._lock:
+            store._own("indexes")["acl_bootstrap"] = payload["acl_bootstrap"]
+    for vol in payload.get("csi_volumes", {}).values():
+        store.restore_csi_volume(vol)
+    for ns in payload.get("namespaces", {}).values():
+        store.restore_namespace(ns)
+    if payload.get("scaling_events"):
+        with store._lock:
+            store._own("scaling_events").update(payload["scaling_events"])
+    store.set_scheduler_config(index, payload["scheduler_config"])
+    store._latest_index = max(store._latest_index, payload["index"])
+    return store

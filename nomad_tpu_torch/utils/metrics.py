@@ -14,6 +14,7 @@ sorted-list answer; count/mean/max stay exact.
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from contextlib import contextmanager
@@ -85,3 +86,35 @@ class Metrics:
 
 
 global_metrics = Metrics()
+
+
+_swallow_log = logging.getLogger("nomad_tpu_torch.swallowed")
+
+
+def count_swallowed(component: str, exc: BaseException | None = None) -> None:
+    """Account an intentionally-swallowed exception: bumps the
+    ``<component>.swallowed_errors`` counter and logs at debug. Every
+    ``except`` that deliberately eats an error in server/broker/state
+    code calls this (or logs outright) — the NTA003 lint rule rejects
+    handlers that do neither, so swallows stay visible on the metrics
+    surface instead of silently zeroing throughput. Each swallow also
+    lands in the flight recorder's error ring (/v1/agent/trace).
+
+    Faults injected by nomad_tpu_torch.chaos carry ``nta_chaos_fault``; a
+    swallow site that absorbs one is additionally tallied under
+    ``nomad.chaos.swallowed_faults`` and the fault object is marked
+    accounted, so the chaos tests can prove no swallow site absorbs an
+    injected fault invisibly."""
+    global_metrics.incr(f"{component}.swallowed_errors")
+    if exc is not None and getattr(exc, "nta_chaos_fault", False):
+        global_metrics.incr("nomad.chaos.swallowed_faults")
+        exc.accounted = True
+    _swallow_log.debug(
+        "%s: swallowed %s: %s", component, type(exc).__name__ if exc else
+        "error", exc, exc_info=exc is not None,
+    )
+    from ..obs.recorder import flight_recorder
+
+    flight_recorder.record_error(
+        component, repr(exc) if exc is not None else "error"
+    )

@@ -251,15 +251,27 @@ def test_run_hetero_ab_matches_reference(monkeypatch):
 
 
 def test_learned_throughputs_raise():
-    with pytest.raises(NotImplementedError, match="A10"):
-        port_hetero.HeteroPlacementKernel("maxmin", throughput_source="learned",
+    """Learned mode is ported (the calibration plane): it wires the
+    process-global estimator and raises nothing; an unknown source still
+    raises, and declared mode and non-hetero kernels touch nothing."""
+    from nomad_tpu_torch.obs.calibrate import global_estimator
+
+    with pytest.raises(ValueError, match="throughput source"):
+        port_hetero.HeteroPlacementKernel("maxmin", throughput_source="bogus",
                                           device="cpu")
+    kern = port_hetero.HeteroPlacementKernel(
+        "maxmin", throughput_source="learned", device="cpu"
+    )
+    assert kern.throughput_source == "learned" and kern.estimator is None
     kern = make_kernel("hetero-cost", device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        wire_throughput_source(kern, PortConfig(throughput_source="learned"))
     wire_throughput_source(kern, PortConfig())  # declared: nothing to wire
+    assert kern.throughput_source == "declared" and kern.estimator is None
+    wire_throughput_source(kern, PortConfig(throughput_source="learned"))
+    assert kern.throughput_source == "learned"
+    assert kern.estimator is global_estimator
     binpack = make_kernel("binpack", device="cpu")
     wire_throughput_source(binpack, PortConfig(throughput_source="learned"))
+    assert not hasattr(binpack, "estimator")
 
 
 # -- whole evaluations -----------------------------------------------------------
