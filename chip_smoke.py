@@ -56,6 +56,17 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
      every alloc placed, no rejected or over-committed node;
    - "plan": ``plan_job`` (the dry-run ``job plan``) of a new job of
      1,000 allocs on the batch path's store, nothing committed;
+   - "server": ``bench_torch.py``'s end-to-end bench on the card
+     (``SERVER_BENCH``: bench.py's end_to_end shape, 10,000 nodes over
+     25 racks, 100 jobs x 250 allocs with an even rack spread and an ssd
+     affinity, mixed service/batch) through the port's server: the
+     broker, one batching worker whose pipelined commit thread overlaps
+     the next pass, the plan queue and the merged-plan applier, after
+     the bench's warmup and drain; drained, no unaccounted alloc, no
+     over-committed node, no failed eval, no swallowed exception and no
+     batched pass retried solo; its allocs/s, evals/s, eval p50 / p99 and
+     ``phase_breakdown_ms`` logged; every closed-form and coupled call
+     of both threads recorded and replayed against the plain version;
    - "spread": the JAX package's ``bench.py end_to_end`` node recipe
      (10,000 nodes over 25 racks, ssd on every 4th, every 3rd at
      8,000 MHz / 16,384 MiB) and 30 jobs through the Harness: its 20
@@ -172,8 +183,8 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
    a step and blocks a lane logged;
 12. a ``[server]`` line with the summaries of "incremental", "batch"
    (its kernel ms beside the same evals' 10 calls one by one, and host
-   seconds beside the incremental path's first off arm), "plan", "calib" and
-   "restore"; the total seconds, one JSON line of per-kernel results,
+   seconds beside the incremental path's first off arm), "plan", "calib",
+   "restore" and "server"; the total seconds, one JSON line of per-kernel results,
    the card's name and power limit, then the device line last.
 
 Times, kernels and plain versions alike, are device times per launch
@@ -223,10 +234,13 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
 import torch
+
+from bench_torch import card_line, committed_overcommit
 
 MAX_ABS_ERR = 1e-6
 TIMED_LAUNCHES = 20
@@ -284,14 +298,6 @@ EXACT_F32_INTEGERS = 2**24
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, iters: int = TIMED_LAUNCHES, warmup: int = 3) -> float:
@@ -822,21 +828,6 @@ def cp_batch_scoring(dev):
 # -- phases 4 and 5 -----------------------------------------------------------
 
 
-def committed_overcommit(store) -> int:
-    """Nodes whose committed (non-terminal) usage exceeds capacity."""
-    from nomad_tpu_torch.structs.resources import node_comparable_capacity
-
-    bad = 0
-    for node in store.nodes():
-        cap = node_comparable_capacity(node).to_vector()
-        used = np.zeros_like(cap)
-        for a in store.allocs_by_node(node.id):
-            if not a.terminal_status():
-                used += a.comparable_resources().to_vector()
-        bad += int(np.any(used > cap))
-    return bad
-
-
 def cross_device_check(dev):
     """The same small scheduling run on the card and on the CPU must
     place the same nodes with the same scores: service jobs, then an
@@ -911,32 +902,37 @@ class Recorder:
     on it (``launches``, ``carried``) is the wrapper's own. A call to a
     wrapper that counts its forms (the closed form, the find pass) also
     keeps the forms it launched (``launched_forms``, from the wrapper's
-    ``forms`` count)."""
+    ``forms`` count). Calls pass through one at a time (a lock): the
+    server's worker and its commit thread may call a wrapper at once, and
+    a call's launched forms are the count's change across that call
+    alone."""
 
     def __init__(self, real):
         self.real = real
         self.sig = inspect.signature(real)
         self.calls = []
+        self.lock = threading.Lock()
 
     def __call__(self, *args, **kwargs):
         bound = self.sig.bind(*args, **kwargs)
         bound.apply_defaults()
         call = dict(bound.arguments)
-        self.calls.append(call)
-        forms = getattr(self.real, "forms", None)  # the closed form's, by blocks a lane
-        before = dict(forms or {})
-        out = self.real(*args, **kwargs)
-        if forms is not None:  # what this call launched, as the wrapper counted it
-            call["launched_forms"] = {
-                s: n - before.get(s, 0) for s, n in forms.items() if n != before.get(s, 0)
-            }
+        with self.lock:
+            self.calls.append(call)
+            forms = getattr(self.real, "forms", None)  # the closed form's, by blocks a lane
+            before = dict(forms or {})
+            out = self.real(*args, **kwargs)
+            if forms is not None:  # what this call launched, as the wrapper counted it
+                call["launched_forms"] = {
+                    s: n - before.get(s, 0) for s, n in forms.items() if n != before.get(s, 0)
+                }
         return out
 
     def __getattr__(self, name):  # the wrapper's counters
         return getattr(self.real, name)
 
     def __setattr__(self, name, value):  # ... are set on the wrapper itself
-        if name in ("real", "sig", "calls"):
+        if name in ("real", "sig", "calls", "lock"):
             object.__setattr__(self, name, value)
         else:
             setattr(self.real, name, value)
@@ -3890,6 +3886,59 @@ def plan_path(dev, h):
     return launches, {"seconds": seconds, "annotations": ann}
 
 
+# bench_torch.py's end-to-end bench at bench.py's end_to_end shape
+SERVER_BENCH = {"n_nodes": 10_000, "n_jobs": 100, "per_job": 250}
+
+
+def server_path(dev):
+    """The "server" path: ``bench_torch.bench_end_to_end`` on the card at
+    ``SERVER_BENCH`` — the port's server (broker, one batching worker
+    with its pipelined commit thread, plan queue, applier) schedules
+    bench.py's end_to_end jobs (spread + affinity, mixed service/batch)
+    after its warmup and drain. Every closed-form and coupled call is
+    recorded from both threads. Drained, no unaccounted alloc, no
+    over-committed node, no failed eval, no swallowed exception in the
+    worker or the applier and no batched pass retried solo (a failing
+    launch would hide there). Returns the launch counts, the coupled
+    calls by kernel and the bench's result."""
+    import bench_torch
+    from nomad_tpu_torch.device import score as S
+
+    zero_counters()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(shared_recording("server", score_matrix=False))
+        coupled = {name: stack.enter_context(recording(S, name)) for name in COUPLED}
+        t0 = time.perf_counter()
+        out = bench_torch.bench_end_to_end(**SERVER_BENCH, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = counters()
+    log(
+        f"[server] bench_torch at {out['config']} on {out['card']}: "
+        f"allocs_per_sec={out['allocs_per_sec']!r} evals_per_sec={out['evals_per_sec']!r} "
+        f"eval p50_ms={out['eval_latency_ms']['p50']!r} "
+        f"p99_ms={out['eval_latency_ms']['p99']!r} "
+        f"({out['eval_latency_ms']['evals']} evals); elapsed {out['elapsed_s']!r} s of a "
+        f"{seconds:.1f} s path; placed {out['placed']}/{out['total']}, unaccounted "
+        f"{out['unaccounted_allocs']}, failed evals {out['failed_evals']}, over-committed "
+        f"nodes {out['committed_overcommit']}, swallowed {out['swallowed']}; launches {launches}"
+    )
+    for key in ("phase_breakdown_ms", "commit_train", "batch", "device_cache"):
+        log(f"[server] {key} " + json.dumps(out[key], sort_keys=True))
+    assert out["drained"], "the server did not drain"
+    assert out["unaccounted_allocs"] == 0 and out["warm_allocs_live_at_start"] == 0
+    assert out["committed_overcommit"] == 0, "a node is over-committed in the store"
+    assert out["failed_evals"] == 0
+    assert not any(out["swallowed"].values()), out["swallowed"]
+    for name, calls in coupled.items():
+        assert len(calls) == launches[name], (name, len(calls), launches[name])
+    assert launches["place_spread_opv"] > 0
+    off = (*PREEMPT_COUNTS, *PLUGIN, "migrate_plan", "score_matrix")
+    assert all(launches[n] == 0 for n in off), launches
+    out["path_seconds"] = seconds
+    return launches, coupled, out
+
+
 def calib_path(dev):
     """The "calib" path: ``run_calib_ab`` at its defaults on the card (the
     hetero A/B rerun with throughputs learned from synthetic execute
@@ -4087,6 +4136,11 @@ def main() -> int:
     by_path["batch"], batch, batch_h = batch_path(dev, *fleet)
     by_path["plan"], plan = plan_path(dev, batch_h)
     del fleet, batch_h
+    by_path["server"], server_calls, server = server_path(dev)
+    server_coupled = {
+        name: replay_coupled(name, calls) for name, calls in server_calls.items() if calls
+    }
+    del server_calls
     h, by_path["spread"], spread_calls, _ = spread_path(dev)
     coupled = {name: replay_coupled(name, spread_calls[name]) for name in COUPLED}
     del spread_calls
@@ -4156,7 +4210,15 @@ def main() -> int:
     del one_by_one
     log("[server] " + json.dumps({
         "incremental": incr, "batch": batch, "plan": plan, "calib": calib,
-        "restore": restore,
+        "restore": restore, "server": {
+            k: server[k] for k in (
+                "config", "card", "allocs_per_sec", "evals_per_sec", "eval_latency_ms",
+                "elapsed_s", "path_seconds", "placed", "total", "unaccounted_allocs",
+                "failed_evals", "committed_overcommit", "swallowed", "phase_breakdown_ms",
+                "commit_train", "batch", "device_cache", "plan_apply_p99_ms",
+                "invoke_scheduler_p99_ms",
+            )
+        },
     }, sort_keys=True))
 
     # phase 6: the coupled placements against the stepwise oracle
@@ -4243,6 +4305,9 @@ def main() -> int:
                     "shape", "path_ms", "blocks_per_lane",
                 )},
                 "kernel_phase": opv_phase if name == "place_spread_opv" else cluster_phase[name],
+                **({"server": {k: server_coupled[name][k] for k in (
+                    "path_ms", "max_abs_err", "choice_mismatches", "ms", "shape",
+                )} | {"calls": by_path["server"][name]}} if name in server_coupled else {}),
             },
         )
         for name, replaces in (

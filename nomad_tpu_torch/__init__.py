@@ -14,7 +14,12 @@ Layer map of this slice:
 - ``nomad_tpu_torch.state``     — MVCC snapshot state store.
 - ``nomad_tpu_torch.device``    — cluster flattening + placement kernels.
 - ``nomad_tpu_torch.scheduler`` — reconciler + generic scheduler + Harness.
-- ``nomad_tpu_torch.broker``    — plan verification.
+- ``nomad_tpu_torch.broker``    — the eval broker, blocked evals, the
+  event stream, the plan queue and the plan applier.
+- ``nomad_tpu_torch.server``    — the server that schedules: workers,
+  lanes, the optimistic overlay, the FSM (leader services: ROADMAP A9b).
+- ``nomad_tpu_torch.raft`` / ``native`` — the single-server raft seam on
+  the C++ WAL.
 - ``nomad_tpu_torch.obs``       — tracing, explanations, the flight
   recorder and the calibration plane.
 - ``nomad_tpu_torch.chaos``     — the seeded fault plane.

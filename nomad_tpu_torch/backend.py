@@ -13,9 +13,11 @@ needs: where the tensors live, and how the device programs are built.
   loads it with ``ctypes``. The library's file name carries a hash of the
   source, of every shared header (``csrc/*.cuh``) and of the flags, so
   an edited source or header never loads a stale build.
-- **Launch counters** are plain ints on each kernel wrapper
-  (``wrapper.launches``); a wrapper adds one where it launches its
-  kernel and nowhere else.
+- **Launch counters** are ints on each kernel wrapper
+  (``wrapper.launches``, and a form tally where the wrapper keeps one); a
+  wrapper adds one through ``count_launch`` where it launches its kernel
+  and nowhere else. The server's worker and its commit thread launch on
+  one card at once, so the add holds a lock and the counts stay exact.
 - **Incremental rescoring** (``incremental_enabled``) resolves the same
   ``NOMAD_TPU_INCREMENTAL`` variable as the JAX package, so one setting
   drives both.
@@ -140,6 +142,20 @@ def cuda_library(name: str) -> ctypes.CDLL:
 
 def current_stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper, attr: str = "launches", form=None) -> None:
+    """Add one to ``wrapper.<attr>`` (and to ``wrapper.forms[form]`` when
+    a form is given) under a lock: ``+=`` on an attribute is a read, an
+    add and a write, and two host threads launching at once would lose
+    counts."""
+    with _COUNT_LOCK:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+        if form is not None:
+            wrapper.forms[form] = wrapper.forms.get(form, 0) + 1
 
 
 def check_launch(status: int, kernel: str) -> None:

@@ -7,10 +7,15 @@ branch. When a plane is installed, each site keeps a monotone
 Nth effective call at that site injects a fault. The one kind carried
 here is ``drop``, whose meaning the site decides.
 
-The port carries only what its one seam needs: the calibration
-estimator's ``calib.telemetry_drop``. The other sites and fault kinds,
-seeded schedules, the skewable clock and the commit ledger come with the
-seams that use them (ROADMAP A14).
+The port carries what its seams need: the one schedulable site, the
+calibration estimator's ``calib.telemetry_drop``; the server's sites
+(broker, plan queue, applier, raft, lanes, worker), which call
+:func:`chaos_site` and find nothing scheduled; the fault types they
+raise or catch (:class:`ChaosFault` through :func:`make_fault`,
+:class:`ChaosThreadKill`); and the commit ledger the applier reports to
+(:func:`note_committed`). Scheduling faults at the server's sites, the
+other fault kinds, seeded schedules and the skewable clock come with
+ROADMAP A14.
 """
 
 from __future__ import annotations
@@ -52,6 +57,35 @@ class FaultSpec:
         return f"FaultSpec({self.row()})"
 
 
+class ChaosFault(RuntimeError):
+    """Injected failure. An ``Exception`` on purpose: the same recovery
+    paths that absorb infrastructure errors must absorb it, and
+    ``count_swallowed`` tags it (``nomad.chaos.swallowed_faults``) so a
+    swallow site can never absorb one silently."""
+
+    nta_chaos_fault = True
+
+    def __init__(self, site: str, index: int):
+        super().__init__(f"chaos: injected fault at {site}[{index}]")
+        self.site = site
+        self.index = index
+        self.accounted = False
+
+
+class ChaosThreadKill(BaseException):
+    """Cooperative thread crash. Derives from ``BaseException`` so the
+    ``except Exception`` recovery handlers between the site and the
+    thread boundary cannot absorb it — the thread dies with its work
+    half done (``finally`` blocks still run; Python cannot skip them)."""
+
+    nta_chaos_fault = True
+
+    def __init__(self, site: str, index: int):
+        super().__init__(f"chaos: thread kill at {site}[{index}]")
+        self.site = site
+        self.index = index
+
+
 class FaultPlane:
     def __init__(self, schedule: list[FaultSpec]):
         self.schedule = list(schedule)
@@ -62,6 +96,12 @@ class FaultPlane:
         self._counts: dict[str, int] = {}
         # runtime log: (site, effective index, action) actually fired
         self.triggered: list[tuple[str, int, str]] = []
+        # every ChaosFault object made at a site (swallow accounting)
+        self.raised: list[ChaosFault] = []
+        # plan-commit ledger: alloc id → times committed. The plan
+        # applier reports every committed placement through
+        # note_committed(); each id must land exactly once.
+        self.committed: dict[str, int] = {}
 
     def hit(self, site: str) -> Optional[str]:
         """Consult the schedule for one effective call at ``site``:
@@ -75,6 +115,11 @@ class FaultPlane:
                 return None
             self.triggered.append((site, n, spec.action))
         return spec.action
+
+    def ledger_commit(self, alloc_ids) -> None:
+        with self._lock:
+            for aid in alloc_ids:
+                self.committed[aid] = self.committed.get(aid, 0) + 1
 
     def site_counts(self) -> dict[str, int]:
         with self._lock:
@@ -109,3 +154,23 @@ def chaos_site(site: str) -> Optional[str]:
     if p is None:
         return None
     return p.hit(site)
+
+
+def make_fault(site: str) -> ChaosFault:
+    """For sites where a caller-interpreted action ("drop") surfaces as
+    an error: builds the fault AND registers it with the active plane so
+    swallow accounting still sees it."""
+    fault = ChaosFault(site, -1)
+    p = _ACTIVE
+    if p is not None:
+        with p._lock:
+            p.raised.append(fault)
+    return fault
+
+
+def note_committed(alloc_ids) -> None:
+    """Plan applier → ledger: these placements were committed."""
+    p = _ACTIVE
+    if p is None:
+        return
+    p.ledger_commit(alloc_ids)

@@ -220,7 +220,10 @@ __device__ __forceinline__ float4 load_ask(const Pass& p) {
   return make_float4(p.ask[0], p.ask[1], p.ask[2], p.ask[3]);
 }
 
-// The order of a victim's sort key.
+// The order of a victim's sort key. The squares are summed by a chain of
+// explicit fused multiply-adds in dimension order, as the reference's
+// jnp.sum(rel * rel, axis=-1) compiles on the CPU (-fmad=false only stops
+// the compiler from contracting on its own).
 __device__ uint32_t victim_key(const float4& ask, const Victim& x) {
   if (!x.mask) return order_key(1e9f);
   const float a[4] = {ask.x, ask.y, ask.z, ask.w};
@@ -228,7 +231,7 @@ __device__ uint32_t victim_key(const float4& ask, const Victim& x) {
   float sum = 0.0f;
   for (int d = 0; d < 4; ++d) {
     const float rel = __fdiv_rn(__fsub_rn(r[d], a[d]), fmaxf(a[d], 1.0f));
-    sum = __fadd_rn(sum, __fmul_rn(rel, rel));
+    sum = __fmaf_rn(rel, rel, sum);
   }
   const float dist = __fsqrt_rn(sum);
   return order_key(__fadd_rn(__fmul_rn(static_cast<float>(x.prio), 1e4f), fminf(dist, 9e3f)));

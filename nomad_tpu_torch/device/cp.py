@@ -47,6 +47,7 @@ import torch
 
 from ..backend import (
     check_launch,
+    count_launch,
     cuda_library,
     current_stream,
     same_device,
@@ -404,7 +405,7 @@ def _launch_auction(what, common, steps, max_c, gang_args=None):
         return _auction_outputs(common, max_c)
     call()
     # the module-level name, so a stand-in for the wrapper sees the count
-    globals()[what].launches += 1
+    count_launch(globals()[what])
     return call.outputs
 
 

@@ -38,7 +38,13 @@ import ctypes
 import numpy as np
 import torch
 
-from ..backend import check_launch, cuda_library, current_stream, same_device
+from ..backend import (
+    check_launch,
+    count_launch,
+    cuda_library,
+    current_stream,
+    same_device,
+)
 from .cp import _NEG_INF, ETA, _cp_winners
 from .score import _check_inputs
 
@@ -256,7 +262,7 @@ def _launch_migrate(inputs, budget, steps):
         return _initial_outputs(inputs[1], inputs[5], inputs[8])
     call()
     # the module-level name, so a stand-in for the wrapper sees the count
-    globals()["migrate_plan"].launches += 1
+    count_launch(globals()["migrate_plan"])
     return call.outputs
 
 

@@ -37,6 +37,7 @@ import torch
 
 from ..backend import (
     check_launch,
+    count_launch,
     cuda_library,
     current_stream,
     resolve_device,
@@ -77,14 +78,41 @@ def preemption_score(net_priority):
     )
 
 
+def fma_square_add(x, acc):
+    """float32 ``fma(x, x, acc)``: x * x + acc with one rounding, as a
+    fused multiply-add gives it. PyTorch has no single-rounding FMA, so
+    the sum is formed in float64, where the square of a float32 is exact,
+    rounded to odd (TwoSum gives the sum's error; an inexact sum with an
+    even last bit steps one ulp toward it), then rounded to float32:
+    rounding to odd at 53 bits and then to nearest at 24 is one correct
+    rounding, where two roundings to nearest could land on a false tie.
+    The same elementwise float64 ops on the CPU and on the card."""
+    p = x.double() * x.double()
+    c = acc.double()
+    s = p + c
+    back = s - p
+    err = (p - (s - back)) + (c - back)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(torch.float64)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
 def resource_distance(ask, victim):
     """basicResourceDistance (preemption.go:608-624) as the kernel takes
-    it: L2 over the relative deltas of all four dimensions, summed in
-    dimension order (the host's ``preempt_host.basic_resource_distance``
-    is a different function: three dimensions, zero asks skipped)."""
+    it: L2 over the relative deltas of all four dimensions, the squares
+    summed in dimension order by a chain of fused multiply-adds,
+    ``fma(r3, r3, fma(r2, r2, fma(r1, r1, r0 * r0)))``, which is what the
+    reference's ``jnp.sum(rel * rel, axis=-1)`` compiles to on the CPU,
+    and a correctly rounded square root: taken in float64 and rounded to
+    float32, since PyTorch's float32 ``sqrt`` on the CPU is off by an ulp
+    on some inputs (the host's ``preempt_host.basic_resource_distance`` is
+    a different function: three dimensions, zero asks skipped)."""
     rel = (victim - ask) / torch.clamp(ask, min=1.0)
-    sq = rel * rel
-    return torch.sqrt(((sq[..., 0] + sq[..., 1]) + sq[..., 2]) + sq[..., 3])
+    total = rel[..., 0] * rel[..., 0]
+    for d in range(1, 4):
+        total = fma_square_add(rel[..., d], total)
+    return torch.sqrt(total.double()).to(torch.float32)
 
 
 # -- the per-node pass --------------------------------------------------------
@@ -288,14 +316,13 @@ def _launch_find(inputs, want=None):
         None if scratch is None else scratch.data_ptr(), code, launched, current_stream(dev),
     )
     check_launch(status, "find_preemption")
-    find_preemption.launches += 1
     form, size, asked = launched
     name = FIND_FORMS[form]
     if name == "cluster":
         name += f" S={size}" + (f" (asked {asked}, not resident)" if asked != size else "")
     elif name == GLOBAL_FORM and want is None and v <= CLUSTER_VICTIMS:
         name += f" (a cluster of {asked} not resident)"
-    find_preemption.forms[name] = find_preemption.forms.get(name, 0) + 1
+    count_launch(find_preemption, form=name)
     return feasible, k, net, order
 
 
@@ -359,8 +386,8 @@ def _launch_choose(inputs):
         best.data_ptr(), score.data_ptr(), current_stream(dev),
     )
     check_launch(status, "choose_preemption_node")
-    choose_preemption_node.launches += 1
-    find_preemption.carried += 1
+    count_launch(choose_preemption_node)
+    count_launch(find_preemption, "carried")
     return best, feasible, k, net, order, score
 
 
@@ -382,7 +409,11 @@ def _scratch_for(dev) -> torch.Tensor:
                 "choose_preemption_node: the capture stream has no choice "
                 "scratch yet; call it once on that stream before capturing"
             )
-        scratch = _choice_scratch[key] = torch.zeros(2, dtype=torch.int64, device=dev)
+        # setdefault: two host threads (the server's worker and its commit
+        # thread) may both miss at once; both must get the one scratch
+        scratch = _choice_scratch.setdefault(
+            key, torch.zeros(2, dtype=torch.int64, device=dev)
+        )
     return scratch
 
 
@@ -405,7 +436,7 @@ def launch_choice(inputs, feasible, net):
         score.data_ptr(), current_stream(dev),
     )
     check_launch(status, "choose_preemption_node")
-    choose_preemption_node.launches += 1
+    count_launch(choose_preemption_node)
     return best, score
 
 

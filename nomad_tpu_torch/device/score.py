@@ -40,6 +40,7 @@ import torch
 
 from ..backend import (
     check_launch,
+    count_launch,
     cuda_library,
     current_stream,
     resolve_device,
@@ -461,9 +462,7 @@ def place_closed_form(
         current_stream(dev),
     )
     check_launch(status, "place_closed_form")
-    place_closed_form.launches += 1
-    forms = place_closed_form.forms
-    forms[blocks] = forms.get(blocks, 0) + 1
+    count_launch(place_closed_form, form=blocks)
     return choices, scores
 
 
@@ -880,7 +879,7 @@ def _launch_coupled(what, symbol, lane, blocks, counts, algorithm_spread,
     )
     check_launch(status, what)
     # the module-level name, so a stand-in for the wrapper sees the count
-    globals()[what].launches += 1
+    count_launch(globals()[what])
     return choices, scores
 
 
@@ -1139,23 +1138,47 @@ class PlacementKernel:
         asks: list,
         *,
         overflow: int = OVERFLOW_CANDIDATES,
+        decorrelate: bool = False,
+        decorrelate_salt: int = 0,
+        decorrelate_workers: int = 1,  # concurrent batching workers
         used_override=None,  # [pn, D] usage to score against instead
         explain: bool = False,  # attach score provenance (obs/explain)
     ) -> list[PlacementResult]:
         """``overflow`` = extra greedy candidates emitted per lane for
         conflict repair. ``used_override`` replaces the cluster's usage
-        as the pass's base (the parity stream commits its own placements
-        there)."""
+        as the pass's base (the server's optimistic overlay, or the
+        parity stream's own commits). ``decorrelate``: stripe each lane
+        onto a disjoint node partition so concurrent-eval lanes stop
+        argmaxing onto the same nodes — the vector analog of the
+        reference's per-worker shuffle sampling (stack.go:74-90); repair
+        re-scores any shortfall against the full node set, so
+        partitioning is purely an optimization. ``decorrelate_salt``
+        (worker id, or the first eval's job lane) permutes the stripes
+        and seeds the tie-break jitter, one f32[N] every kernel of the
+        pass takes, so concurrent workers' batches collide at ~1/stripes
+        instead of stripe-for-stripe."""
         if not asks:
             return []
         used0 = np.asarray(
             cluster.used if used_override is None else used_override
         )
+        work = asks
+        jitter = None
+        if decorrelate:
+            work = _decorrelate_lanes(
+                cluster, asks, salt=decorrelate_salt, used0=used0,
+                n_workers=decorrelate_workers,
+            )
+            rows = np.arange(cluster.padded_n, dtype=np.int64)
+            h = (rows * 2654435761 + (decorrelate_salt + 1) * 40503) & 0xFFFFFFFF
+            jitter = torch.from_numpy(
+                ((h % 65536).astype(np.float32) / 65536.0) * 2e-5
+            ).to(self.device)
         # routing: uncoupled groups → closed-form top-k; large
         # spread-coupled groups → chunked (one-per-value variant when an
         # even block is present); small / capped groups → exact scan
         fast, chunked, opv, scan = [], [], [], []
-        for i, a in enumerate(asks):
+        for i, a in enumerate(work):
             coupled = a.blocks is not None and a.blocks.num_blocks > 0
             if self.force_scan or (coupled and self._needs_exact_scan(a)):
                 scan.append(i)
@@ -1186,10 +1209,16 @@ class PlacementKernel:
                 (scan, self._place_scan_batch),
             ):
                 if idxs:
-                    results = fn(cluster, [asks[i] for i in idxs], overflow, used0)
+                    results = fn(
+                        cluster, [work[i] for i in idxs], overflow, jitter, used0
+                    )
                     for i, r in zip(idxs, results):
                         out[i] = r
         if explain:
+            # explanations are built host-side against the ORIGINAL asks
+            # and the pass's base usage — decorrelation stripes and
+            # jitter are a placement optimization repair undoes, not
+            # part of the score semantics being explained
             from ..obs.explain import explain_group
 
             for a, res in zip(asks, out):
@@ -1236,7 +1265,7 @@ class PlacementKernel:
         return self._j_bucket(max_j)
 
     def _place_closed_form(
-        self, cluster, asks: list, overflow: int, used0,
+        self, cluster, asks: list, overflow: int, jitter, used0,
     ) -> list[PlacementResult]:
         pn = cluster.padded_n
         max_count = max(a.count for a in asks)
@@ -1252,7 +1281,7 @@ class PlacementKernel:
             for i in range(0, len(asks), chunk):
                 out.extend(
                     self._place_closed_form(
-                        cluster, asks[i:i + chunk], overflow, used0
+                        cluster, asks[i:i + chunk], overflow, jitter, used0
                     )
                 )
             return out
@@ -1268,6 +1297,7 @@ class PlacementKernel:
             algorithm_spread=self.algorithm_spread,
             max_j=max_j,
             k=k,
+            jitter=jitter,
         )
         # writable host copies: repair mutates rows in place
         choices = choices_t.cpu().numpy().copy()
@@ -1305,7 +1335,7 @@ class PlacementKernel:
         ).to(self.device)
 
     def _place_scan_batch(
-        self, cluster, asks: list, overflow: int, used0,
+        self, cluster, asks: list, overflow: int, jitter, used0,
     ) -> list[PlacementResult]:
         real_n = len(asks)
         asks = _pad_group_axis(asks, cluster.padded_n)
@@ -1318,11 +1348,12 @@ class PlacementKernel:
             counts=self._lane_counts(asks, overflow, max_steps),
             max_j=max_j,
             max_steps=max_steps,
+            jitter=jitter,
         )
         return self._unpack_coupled(choices, scores, asks[:real_n], overflow)
 
     def _place_spread_chunked(
-        self, cluster, asks: list, overflow: int, used0,
+        self, cluster, asks: list, overflow: int, jitter, used0,
     ) -> list[PlacementResult]:
         real_n = len(asks)
         asks = _pad_group_axis(asks, cluster.padded_n)
@@ -1338,11 +1369,12 @@ class PlacementKernel:
             max_j=max_j,
             chunk=CHUNK,
             n_chunks=n_chunks,
+            jitter=jitter,
         )
         return self._unpack_coupled(choices, scores, asks[:real_n], overflow)
 
     def _place_spread_opv(
-        self, cluster, asks: list, overflow: int, used0,
+        self, cluster, asks: list, overflow: int, jitter, used0,
     ) -> list[PlacementResult]:
         real_n = len(asks)
         asks = _pad_group_axis(asks, cluster.padded_n)
@@ -1385,6 +1417,7 @@ class PlacementKernel:
             max_j=max_j,
             k_seg=k_seg,
             n_chunks=n_chunks,
+            jitter=jitter,
         )
         return self._unpack_coupled(choices, scores, asks[:real_n], overflow)
 
@@ -1422,6 +1455,173 @@ class PlacementKernel:
                 )
             )
         return out
+
+
+def _decorrelate_lanes(
+    cluster, asks: list, salt: int = 0, used0=None, n_workers: int = 1
+) -> list:
+    """Stripe each batch lane onto a disjoint subset of node rows
+    (row % n_lanes == lane). Concurrent lanes scoring the same snapshot
+    otherwise compute near-identical greedy sequences and pile onto the
+    same nodes — the r3 bench measured a 92.9% conflict-fallback rate.
+    The reference decorrelates its parallel workers by per-worker node
+    shuffling + limit sampling (stack.go:74-90); a 1/L stripe of a 10k
+    cluster still offers each lane more candidates than the reference's
+    ≥100-node sample. Lanes whose stripe leaves thin headroom (or whose
+    constraints concentrate eligibility) keep the full node set — repair
+    resolves whatever conflicts remain."""
+    from dataclasses import replace
+
+    n_lanes = len(asks)
+    if n_lanes < 2:
+        return asks
+    pn = cluster.padded_n
+    # stripes decorrelate lanes WITHIN one batch; concurrent workers are
+    # decorrelated by the score jitter (mod-l permutations of the row
+    # index only relabel the same congruence classes, so salting the
+    # stripe math cross-worker is a no-op — the salt instead rotates
+    # which lane gets which class, and seeds the jitter in place())
+    rows = np.arange(pn)
+    # Stripe on a HASHED row index, not the raw row: raw `rows % l_eff`
+    # interacts arithmetically with any attribute laid out periodically
+    # over rows (racks assigned round-robin: rack = row % n_racks). When
+    # gcd(l_eff, n_racks) > 1 each stripe reaches only n_racks/gcd of the
+    # rack values, the reachability guard below rejects every lane, and
+    # the whole batch falls back to the full node set — measured as a
+    # 34× repair blow-up at 64 lanes × 25 racks. A multiplicative hash
+    # de-correlates stripe membership from any row-periodic attribute, so
+    # each stripe samples all values ~uniformly.
+    row_hash = (rows.astype(np.uint64) * np.uint64(2654435761)) & np.uint64(
+        0xFFFFFFFF
+    )
+    # CONCURRENT batching workers must not share stripes at all: the salt
+    # only rotates lane→stripe assignment within the same congruence
+    # classes, so two workers' passes land one lane from each on every
+    # stripe and argmax the same best nodes (measured 0.83+ conflict at
+    # 2×32 deep). Partition the node universe by worker FIRST (a second,
+    # independent hash so it doesn't alias the lane stripes), then stripe
+    # within each worker's slice.
+    worker_universe = None
+    if n_workers > 1:
+        h2 = (rows.astype(np.uint64) * np.uint64(0x9E3779B1)) & np.uint64(
+            0xFFFFFFFF
+        )
+        worker_universe = (h2 % np.uint64(n_workers)).astype(np.int64) == (
+            salt % n_workers
+        )
+    free = np.asarray(cluster.capacity) - (
+        np.asarray(cluster.used) if used0 is None else np.asarray(used0)
+    )  # [pn, D]
+    out = []
+    for i, a in enumerate(asks):
+        if a.count <= 0:
+            out.append(a)
+            continue
+        # Widest stripe count that still leaves this lane comfortable
+        # headroom, measured in feasible INSTANCE SLOTS (Σ per-node jmax),
+        # not node count — a node holds many instances of one ask, and
+        # sizing by nodes (the old 2×count heuristic) capped l_eff at
+        # ~N/(2·count), forcing lanes to share stripes and collide (the
+        # measured 11.7 s repair blow-up at 64 lanes). When even the
+        # slot-based 1/n_lanes stripe is too thin, lanes SHARE coarser
+        # stripes (conflicts only within a stripe group) instead of
+        # abandoning decorrelation entirely.
+        pos = a.ask > 0
+        if pos.any():
+            jn = np.floor(
+                np.min(free[:, pos] / a.ask[pos], axis=1)
+            ).clip(min=0)
+        else:
+            jn = np.full(pn, float(a.count))
+        jn = np.where(a.eligible, jn, 0.0)
+
+        # full-set value vocabulary per block, computed ONCE per ask —
+        # the reachability closure runs up to twice per lane in the hot
+        # decorrelation path
+        full_vals_per_block = (
+            [
+                np.unique(
+                    a.blocks.value_ids[b][
+                        (a.blocks.value_ids[b] >= 0) & a.eligible
+                    ]
+                ).shape[0]
+                for b in range(a.blocks.num_blocks)
+            ]
+            if a.blocks is not None
+            else []
+        )
+
+        def values_reachable(mask) -> bool:
+            # a node subset must not silently amputate spread/cap values:
+            # every value reachable from the full eligible set must stay
+            # reachable from the subset (rack-contiguous row orderings
+            # with racks smaller than the lane count would otherwise skew
+            # the spread with no error surfaced)
+            if a.blocks is None:
+                return True
+            for b in range(a.blocks.num_blocks):
+                vids = a.blocks.value_ids[b]
+                sub_vals = np.unique(vids[(vids >= 0) & mask])
+                if full_vals_per_block[b] != sub_vals.shape[0]:
+                    return False
+            return True
+
+        # this worker's node slice first (cross-worker disjointness),
+        # provided it still holds the lane's ask comfortably — else fall
+        # back to the full set and let repair/applier arbitrate
+        from ..utils.metrics import global_metrics as _metrics
+
+        base_elig = a.eligible
+        if worker_universe is not None:
+            wu_elig = a.eligible & worker_universe
+            if (
+                float(jn[wu_elig].sum()) >= 2 * a.count
+                and int(wu_elig.sum()) >= 8
+                and values_reachable(wu_elig)
+            ):
+                base_elig = wu_elig
+                _metrics.incr("nomad.kernel.lane_universe_applied")
+            else:
+                _metrics.incr("nomad.kernel.lane_universe_skipped")
+        jn_w = np.where(base_elig, jn, 0.0)
+        total_elig = int(base_elig.sum())
+        slots = float(jn_w.sum())
+        l_eff = min(
+            n_lanes,
+            max(1, min(
+                int(slots // max(4 * a.count, 1)), total_elig // 8
+            )),
+        )
+        if l_eff < 2:
+            out.append(
+                replace(a, eligible=base_elig)
+                if base_elig is not a.eligible
+                else a
+            )
+            continue
+        in_stripe = (
+            (row_hash % np.uint64(l_eff)).astype(np.int64)
+            == ((i + salt) % l_eff)
+        )
+        elig = base_elig & in_stripe
+        # the stripe must still hold 2× the lane's ask in feasible slots
+        ok = float(jn_w[elig].sum()) >= 2 * a.count and int(
+            elig.sum()
+        ) >= 8
+        if ok:
+            ok = values_reachable(elig)
+        if ok:
+            _metrics.incr("nomad.kernel.lane_striped")
+            out.append(replace(a, eligible=elig))
+        elif base_elig is not a.eligible:
+            # stripe rejected but the worker slice is viable: keep
+            # cross-worker disjointness at least
+            _metrics.incr("nomad.kernel.lane_universe_only")
+            out.append(replace(a, eligible=base_elig))
+        else:
+            _metrics.incr("nomad.kernel.lane_full_set")
+            out.append(a)
+    return out
 
 
 def _host_block_tables(c, blocks):
@@ -1521,9 +1721,8 @@ def repair_batch_conflicts(
     Every lane scored against the same snapshot ``used0``, so lanes can
     pile onto the same best nodes (true argmax removes the decorrelation
     the reference gets from per-worker shuffle sampling, stack.go:74-90;
-    the reference's lane striping, not ported yet, removes most of it up
-    front). Walk
-    the lanes in order with a usage overlay: placements that no longer
+    ``_decorrelate_lanes`` removes most of it up front). Walk the lanes
+    in order with a usage overlay: placements that no longer
     fit move to the lane's next overflow candidate, and when overflow
     runs out an exact NumPy re-score places them directly — only the
     *conflicted placement* is re-placed, never the whole eval. Kernel

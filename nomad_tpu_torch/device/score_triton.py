@@ -41,7 +41,7 @@ import threading
 
 import torch
 
-from ..backend import BUILD_DIR, same_device
+from ..backend import BUILD_DIR, count_launch, same_device
 
 # ln(10) and BINPACK_MAX_SCORE appear as literals in the kernel body:
 # Triton kernels may read only constexpr globals
@@ -198,7 +198,7 @@ def score_matrix_triton(
         num_warps=NUM_WARPS,
         enable_fp_fusion=False,
     )
-    score_matrix_triton.launches += 1
+    count_launch(score_matrix_triton)
     return final, fits
 
 

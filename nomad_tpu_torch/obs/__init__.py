@@ -1,7 +1,7 @@
 """Span tracing, placement explanations, the flight recorder and the
 calibration plane for the port."""
 
-from .recorder import FlightRecorder, flight_recorder
+from .recorder import FlightRecorder, flight_recorder, phase_breakdown, trace_latencies
 from .trace import Span, SpanContext, Tracer, global_tracer
 
 __all__ = [
@@ -11,4 +11,6 @@ __all__ = [
     "Tracer",
     "flight_recorder",
     "global_tracer",
+    "phase_breakdown",
+    "trace_latencies",
 ]

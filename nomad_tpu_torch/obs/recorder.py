@@ -28,8 +28,8 @@ DEFAULT_ERROR_CAPACITY = 100
 
 def _is_high_tier(priority: int) -> bool:
     """The admission plane's high tier (``server/admission.py``
-    ``tier_of``: priority >= 70). The admission module comes with the
-    server (ROADMAP A9); until then the recorder keeps its own copy of
+    ``tier_of``: priority >= 70). The admission module is a leader
+    service (ROADMAP A9b); until it lands the recorder keeps its own copy of
     the one cut it reads."""
     return priority >= 70
 

@@ -17,10 +17,10 @@ on its ported kernel. Learned throughputs (``throughput_source =
 "learned"``) read the calibration plane's estimator
 (``wire_throughput_source``). The batched multi-eval methods
 (``prepare_batch_attempt``, ``build_batch_plan``,
-``complete_merged_attempt``, ``complete_batch_attempt``) are ported; the
-server worker that merges evals through them, with its lanes, overlay
-and decorrelation, and the ``overlay`` / ``node_filter`` hooks are not
-yet (ROADMAP A9).
+``complete_merged_attempt``, ``complete_batch_attempt``) serve the server
+worker (``server/worker.py``), which merges evals through them with its
+lanes, overlay and decorrelation; the ``overlay`` and ``node_filter``
+hooks keep a solo eval inside that accounting.
 """
 
 from __future__ import annotations
@@ -113,6 +113,8 @@ class GenericScheduler:
         batch: bool = False,
         cache=None,
         clock=None,
+        overlay=None,
+        node_filter=None,
         device="cuda",
     ):
         self.snapshot = snapshot
@@ -127,6 +129,19 @@ class GenericScheduler:
         # here keeps standalone scheduler construction working
         self.cache = cache if cache is not None else DeviceStateCache(device)
         self.device = self.cache.device
+        # server-shared optimistic overlay (server/overlay.py): single-
+        # eval processing runs CONCURRENTLY with pipelined batch commits
+        # (fallback evals execute inside commit threads), so an
+        # overlay-blind single pass seeds the very conflicts it was
+        # retrying — it must score against, and reserve into, the same
+        # in-flight accounting as the batched passes
+        self.overlay = overlay
+        # optional eligibility restriction: callable(ct) → bool[padded_n]
+        # row mask ANDed into every ask. Lane mode uses it to keep a
+        # batch worker's solo fallback inside its own lanes (a solo
+        # plan has no cross-lane handoff, so foreign nodes are out);
+        # shortfalls become blocked evals, never foreign-node writes.
+        self.node_filter = node_filter
         # any registered algorithm's kernel (scheduler/algorithms.py) —
         # all satisfy the PlacementKernel.place contract
         self.kernel = None
@@ -182,34 +197,61 @@ class GenericScheduler:
         if placements and self.job is not None:
             ct, tg_order = self._build_group_asks(placements)
             asks = [t[3] for t in tg_order]
-            with tracer.span(
-                "kernel_score",
-                tags={"lanes": len(asks), "explain": self._explain},
-            ):
-                results = self.kernel.place(ct, asks, explain=self._explain)
-                # the repair walk is also the single-eval safety net: it
-                # resolves cross-TG conflicts within this plan and
-                # re-places kernel shortfalls by exact host re-score
-                # before they read as placement failures
-                from ..device.score import repair_batch_conflicts
+            if self.node_filter is not None and asks:
+                mask = self.node_filter(ct)
+                for a in asks:
+                    a.eligible &= mask
+            used_override = None
+            if self.overlay is not None:
+                used_override = self.overlay.begin_pass(ct)
+            try:
+                with tracer.span(
+                    "kernel_score",
+                    tags={"lanes": len(asks), "explain": self._explain},
+                ):
+                    results = self.kernel.place(
+                        ct, asks, used_override=used_override,
+                        explain=self._explain,
+                    )
+                    # the repair walk is also the single-eval safety net:
+                    # it resolves cross-TG conflicts within this plan and
+                    # re-places kernel shortfalls by exact host re-score
+                    # before they read as placement failures
+                    from ..device.score import repair_batch_conflicts
 
-                repair_batch_conflicts(
-                    ct, asks, results,
-                    algorithm_spread=self.kernel.algorithm_spread,
-                    # single-eval: no fresh state to re-run against, so
-                    # an unplaceable placement fails into the
-                    # blocked-eval accounting instead of aborting the
-                    # lane
-                    fail_on_contention=True,
-                )
-                if self._explain:
-                    # repair moves rows in place, so provenance is
-                    # stamped from the POST-repair (= committed) rows
-                    from ..obs.explain import finalize_explanations
+                    repair_batch_conflicts(
+                        ct, asks, results,
+                        algorithm_spread=self.kernel.algorithm_spread,
+                        # single-eval: no fresh state to re-run against,
+                        # so an unplaceable placement fails into the
+                        # blocked-eval accounting instead of aborting the
+                        # lane
+                        fail_on_contention=True,
+                        used_override=used_override,
+                    )
+                    if self._explain:
+                        # repair moves rows in place, so provenance is
+                        # stamped from the POST-repair (= committed) rows
+                        from ..obs.explain import finalize_explanations
 
-                    finalize_explanations(ct, asks, results)
-            self._finish_placements(ct, tg_order, results)
-            self._adjust_queued()
+                        finalize_explanations(
+                            ct, asks, results, used_override=used_override
+                        )
+                if self.overlay is not None:
+                    for a, res in zip(asks, results):
+                        rows = res.node_rows[res.node_rows >= 0]
+                        if rows.size:
+                            self.overlay.add_delta(ct, rows, a.ask)
+                self._finish_placements(ct, tg_order, results)
+                self._adjust_queued()
+                # the pass marker is held through plan SUBMISSION: once
+                # released with the commit not yet applied, a concurrent
+                # worker's maybe_reset() could drop the overlay while
+                # these placements are still only predictions
+                return self._submit_attempt()
+            finally:
+                if self.overlay is not None:
+                    self.overlay.pass_finished()
         return self._submit_attempt()
 
     # -- batched multi-eval pass (SURVEY.md §7 step 5) --------------------

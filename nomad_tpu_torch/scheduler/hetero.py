@@ -57,6 +57,7 @@ import torch
 
 from ..backend import (
     check_launch,
+    count_launch,
     cuda_library,
     current_stream,
     resolve_device,
@@ -287,7 +288,7 @@ def _launch_hetero(args, policy, steps, max_c):
         return choices, choice_tp, used
     scratch = hetero_scratch(g, n, dev)
     _hetero_call(args, policy, steps, max_c, scratch, choices, choice_tp, used)
-    hetero_place.launches += 1
+    count_launch(hetero_place)
     return choices, choice_tp, used
 
 

@@ -46,6 +46,10 @@ class SystemScheduler:
         *,
         sysbatch: bool = False,
         cache=None,
+        overlay=None,  # accepted for factory uniformity; system placement
+        # is per-node (no greedy packing), so the overlay isn't consulted
+        node_filter=None,  # likewise unused: a system job runs on EVERY
+        # eligible node, so lane restriction would be semantically wrong
         device="cuda",
     ):
         self.snapshot = snapshot

@@ -11,9 +11,9 @@ same harness (scheduler/benchmarks/benchmarks_test.go).
 
 ``Harness.process_merged`` runs several service/batch evals as ONE
 batched device pass through ``GenericScheduler``'s multi-eval methods —
-a small mirror of the reference server worker's batch pass
-(``server/worker.py``) without its lanes, overlay or decorrelation,
-which come with the server (ROADMAP A9).
+a small mirror of the server worker's batch pass (``server/worker.py``)
+without its lanes, overlay, decorrelation or commit thread, for tests
+and paths that drive the scheduler without a server.
 """
 
 from __future__ import annotations

@@ -46,6 +46,19 @@ def test_imports_with_jax_blocked():
         "nomad_tpu_torch.scheduler.annotate",
         "nomad_tpu_torch.state.snapshot",
         "nomad_tpu_torch.rpc.framing",
+        "nomad_tpu_torch.resilience.errors",
+        "nomad_tpu_torch.server.fsm",
+        "nomad_tpu_torch.native.wal",
+        "nomad_tpu_torch.raft.inline",
+        "nomad_tpu_torch.broker.blocked",
+        "nomad_tpu_torch.broker.eval_broker",
+        "nomad_tpu_torch.broker.event_broker",
+        "nomad_tpu_torch.broker.plan_apply",
+        "nomad_tpu_torch.broker.plan_queue",
+        "nomad_tpu_torch.server.overlay",
+        "nomad_tpu_torch.server.lanes",
+        "nomad_tpu_torch.server.worker",
+        "nomad_tpu_torch.server.server",
     ):
         assert m in mods
     code = (
@@ -107,6 +120,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from nomad_tpu_torch.scheduler.cp import run_cp_ab, run_gang_ab
     from nomad_tpu_torch.scheduler.hetero import run_hetero_ab
     from nomad_tpu_torch.obs.calibrate import run_calib_ab
+    from nomad_tpu_torch.server import Server, ServerConfig
 
     _no_cuda(monkeypatch)
     for build in (
@@ -119,6 +133,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         run_cp_ab,
         run_gang_ab,
         run_calib_ab,
+        ServerConfig,
+        Server,
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()
