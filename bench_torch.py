@@ -10,8 +10,11 @@ tasks), the same warmup and drain, and the same result keys, with
 ``phase_breakdown_ms`` from the port's flight recorder. It adds the
 device, eval latency p50 / p99 from ``trace_latencies`` (queue wait plus
 dequeue → ack, one per measured eval), the checks a run must pass
-(``failed_evals``, ``committed_overcommit``, ``swallowed``) and, on the
-card, the card's name and power limit as ``nvidia-smi`` gives them.
+(``failed_evals``, ``committed_overcommit``, ``swallowed``), the admission
+controller's state at the end of the run (``admission``: level, level
+changes, deferred and shed decisions, broker deferrals) and, on the card,
+the card's name and power limit as ``nvidia-smi`` gives them. The server
+runs every leader service, as the reference's bench does.
 
 Every kernel library is built and loaded before the server starts, so no
 eval's deadline meets a compiler. Prints one JSON line. Defaults: the
@@ -70,11 +73,13 @@ def percentile_ms(values_s, q: float) -> float:
 
 def bench_end_to_end(
     n_nodes: int = 10_000, n_jobs: int = 100, per_job: int = 250, racks: int = 25,
-    device="cuda",
+    device="cuda", admission_overrides=None,
 ) -> dict:
     """BASELINE config-3 shape: mixed service/batch with spread+affinity
     through the full server pipeline, on ``device``, with one batching
-    worker (the reference bench's default)."""
+    worker (the reference bench's default). ``admission_overrides`` go to
+    ``ServerConfig`` as they are (``tools/admission_ab.py`` compares the
+    shipped thresholds with thresholds the run never reaches)."""
     from nomad_tpu_torch import mock
     from nomad_tpu_torch.obs import flight_recorder, phase_breakdown
     from nomad_tpu_torch.obs.recorder import trace_latencies
@@ -84,7 +89,10 @@ def bench_end_to_end(
     from nomad_tpu_torch.utils.metrics import global_metrics
 
     build_kernels(device)
-    server = Server(ServerConfig(num_workers=1, num_batch_workers=1, device=device))
+    server = Server(ServerConfig(
+        num_workers=1, num_batch_workers=1, device=device,
+        admission_overrides=admission_overrides,
+    ))
     server.establish_leadership()
     try:
         # seed nodes directly into state (setup, not the measured path)
@@ -181,6 +189,7 @@ def bench_end_to_end(
                     failed_reasons[key] = failed_reasons.get(key, 0) + cnt
         traces = flight_recorder.traces()
         eval_s = [trace_latencies(t)[0] for t in traces]
+        adm = server.admission.snapshot()
         return {
             "config": f"{n_nodes} nodes, {n_jobs} jobs x {per_job} allocs, "
             f"spread+affinity, mixed service/batch",
@@ -211,6 +220,17 @@ def bench_end_to_end(
                 "batch_kernel_errors": int(
                     counters.get("nomad.worker.batch_kernel_errors", 0)
                 ),
+            },
+            # the overload plane over the whole run (warmup included):
+            # at this load it stays NORMAL and admits everything
+            "admission": {
+                "level": adm["level"],
+                "level_changes": adm["level_changes"],
+                "deferred": sum(c["deferred"] for c in adm["counters"].values()),
+                "shed": sum(c["shed"] for c in adm["counters"].values()),
+                "submitted": sum(c["submitted"] for c in adm["counters"].values()),
+                "broker_deferred": int(server.eval_broker.counters["admission_deferred"]),
+                "conserved": server.admission.conserved(),
             },
             "elapsed_s": round(elapsed, 3),
             "evals_per_sec": round(evals / elapsed, 1),

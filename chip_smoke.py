@@ -67,6 +67,26 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
      batched pass retried solo; its allocs/s, evals/s, eval p50 / p99 and
      ``phase_breakdown_ms`` logged; every closed-form and coupled call
      of both threads recorded and replayed against the plain version;
+   - "leader": a server with every leader service running (admission,
+     heartbeats, drainer, deployment watcher, periodic dispatch, core GC,
+     volume watcher, ACL, defrag controller) at 10,000 mock nodes on the
+     reference's fragmentation recipe (``tests/test_defrag.py``) scaled
+     up: a filler job of one 3,000 MHz alloc a node, 40 thin jobs x 250
+     allocs of 800 MHz / 512 MiB (one beside each filler), the filler
+     deregistered; a fake client brings allocs up through
+     ``update_allocs_from_client``. 100 nodes drained through
+     ``update_node_drain`` (every alloc on them replaced by the
+     scheduler's kernels, the nodes ineligible, none unaccounted for);
+     then 4 defrag cycles called directly, each planned by the
+     controller with the migration kernel on the server's card (A the
+     candidates, at least 5,000; at most 512 moves; no node over
+     capacity; every completed move the replacement / stopped-source
+     pair; each thin job's live count unchanged; packing efficiency up),
+     each kernel call timed by CUDA events, each cycle's host seconds
+     split; every recorded ``migrate_plan`` call replayed through the
+     kernel and the plain version (all six outputs identical); then the
+     "server" path's bench again, with its admission block, gated the
+     same way;
    - "spread": the JAX package's ``bench.py end_to_end`` node recipe
      (10,000 nodes over 25 racks, ssd on every 4th, every 3rd at
      8,000 MHz / 16,384 MiB) and 30 jobs through the Harness: its 20
@@ -184,7 +204,8 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
 12. a ``[server]`` line with the summaries of "incremental", "batch"
    (its kernel ms beside the same evals' 10 calls one by one, and host
    seconds beside the incremental path's first off arm), "plan", "calib",
-   "restore" and "server"; the total seconds, one JSON line of per-kernel results,
+   "leader" (the drain, each defrag cycle's row, the bench with its
+   admission block), "restore" and "server"; the total seconds, one JSON line of per-kernel results,
    the card's name and power limit, then the device line last.
 
 Times, kernels and plain versions alike, are device times per launch
@@ -938,9 +959,29 @@ class Recorder:
             setattr(self.real, name, value)
 
 
+class TimedRecorder(Recorder):
+    """A ``Recorder`` that also times each call on the card: between two
+    CUDA events on the current stream around the wrapper ("event_ms",
+    the wrapper's launches and any host work between them), and on the
+    host clock ("host_s", the wait for the card included)."""
+
+    def __call__(self, *args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = super().__call__(*args, **kwargs)
+        end.record()
+        end.synchronize()
+        self.calls[-1].update(
+            event_ms=start.elapsed_time(end), host_s=time.perf_counter() - t0
+        )
+        return out
+
+
 @contextlib.contextmanager
-def recording(module, name):
-    rec = Recorder(getattr(module, name))
+def recording(module, name, cls=Recorder):
+    rec = cls(getattr(module, name))
     setattr(module, name, rec)
     try:
         yield rec.calls
@@ -3282,12 +3323,12 @@ def check_migrate(inputs, budget, steps, timed, label):
     return out
 
 
-def replay_migrate(calls):
-    """Every recorded call of the defrag path through the kernel and the
-    plain version, each kernel timed ("path_ms" is their sum); the last
-    full-size cycle timed in full."""
+def replay_migrate(calls, timed_label="full cycle"):
+    """Every recorded call of a path through the kernel and the plain
+    version, each kernel timed ("path_ms" is their sum); the last call
+    whose label starts with ``timed_label`` timed in full."""
     t0 = time.perf_counter()
-    last_full = max(i for i, (label, _) in enumerate(calls) if label.startswith("full cycle"))
+    last_full = max(i for i, (label, _) in enumerate(calls) if label.startswith(timed_label))
     per_call, rounds, main = [], [], None
     for i, (label, c) in enumerate(calls):
         inputs = [c[k] for k in MIGRATE_INPUTS]
@@ -3297,7 +3338,7 @@ def replay_migrate(calls):
         if i == last_full:
             main = out
     log(
-        f"[migrate_plan] {len(calls)} recorded defrag calls replayed, all identical "
+        f"[migrate_plan] {len(calls)} recorded {timed_label} calls replayed, all identical "
         f"to plain; kernel time over the calls path_ms={sum(per_call)!r}; rounds "
         f"per call {rounds}; replay {time.perf_counter() - t0:.3f} s"
     )
@@ -4029,6 +4070,338 @@ def restore_path(dev, h):
     }
 
 
+LEADER_NODES = 10_000
+LEADER_THIN_JOBS = 40
+LEADER_THIN_COUNT = 250
+LEADER_FILLER_ASK = (3000, 1024)  # MHz, MiB: one a node, two never fit
+LEADER_THIN_ASK = (800, 512)  # one beside each filler
+LEADER_DRAIN_NODES = 100
+LEADER_DRAIN_DEADLINE_S = 600.0
+LEADER_CYCLES = 4
+LEADER_BUDGET = 512
+LEADER_MIN_CANDIDATES = 5_000
+CLIENT_BATCH = 2_000  # allocs a client update carries
+CLIENT_POLL_S = 0.1
+
+
+def client_flip(server) -> int:
+    """The fake client: every alloc placed to run and still pending comes
+    up running, reported through ``update_allocs_from_client`` in batches
+    of ``CLIENT_BATCH``. Returns how many it flipped."""
+    ups = []
+    for a in server.store.allocs():
+        if a.desired_status == "run" and a.client_status == "pending":
+            u = copy.copy(a)
+            u.client_status = "running"
+            ups.append(u)
+    for i in range(0, len(ups), CLIENT_BATCH):
+        server.update_allocs_from_client(ups[i:i + CLIENT_BATCH])
+    return len(ups)
+
+
+@contextlib.contextmanager
+def fake_client(server):
+    """``client_flip`` every ``CLIENT_POLL_S`` on a thread of its own while
+    the block runs (the reference fixture's client loop)."""
+    stop = threading.Event()
+
+    def loop():
+        while not stop.wait(CLIENT_POLL_S):
+            client_flip(server)
+
+    t = threading.Thread(target=loop, name="fake-client", daemon=True)
+    t.start()
+    try:
+        yield
+    finally:
+        stop.set()
+        t.join(timeout=30)
+
+
+def settle(server, timeout=600.0):
+    """No eval ready or in flight and no alloc left pending."""
+    while True:
+        assert server.wait_for_evals(timeout=timeout), "the server did not drain"
+        if client_flip(server) == 0:
+            return
+
+
+def fleet_efficiency(store) -> float:
+    """Packing efficiency of the ready nodes, computed as the defrag
+    controller computes it at the top of a cycle."""
+    from nomad_tpu_torch.device.migrate import packing_efficiency
+    from nomad_tpu_torch.structs.resources import node_comparable_capacity
+
+    nodes = [n for n in store.nodes() if n.ready()]
+    capacity = np.stack([node_comparable_capacity(n).to_vector() for n in nodes])
+    used = np.zeros_like(capacity)
+    for i, n in enumerate(nodes):
+        for a in store.allocs_by_node(n.id):
+            if not a.terminal_status():
+                used[i] += a.comparable_resources().to_vector()
+    return packing_efficiency(capacity, used, np.ones(len(nodes), dtype=bool))
+
+
+def defrag_pairs(store) -> set:
+    """Ids of the live defrag replacements. Each must be the pair that law
+    16 names: its source stopped with the phase-B description."""
+    from nomad_tpu_torch.server.defrag import DEFRAG_DESC, DEFRAG_STOP_DESC
+
+    out = set()
+    for a in store.allocs():
+        if a.terminal_status() or a.desired_description != DEFRAG_DESC:
+            continue
+        old = store.alloc_by_id(a.previous_allocation)
+        assert old is not None and old.desired_status == "stop", (a.id, old)
+        assert old.desired_description == DEFRAG_STOP_DESC, old.desired_description
+        out.add(a.id)
+    return out
+
+
+def live_by_job(store, prefix) -> dict:
+    out = collections.Counter()
+    for a in store.allocs():
+        if a.job_id.startswith(prefix) and not a.terminal_status():
+            out[a.job_id] += 1
+    return dict(out)
+
+
+def leader_jobs():
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import Resources
+
+    def job(job_id, count, ask):
+        j = mock.job(id=job_id, name=job_id)
+        j.task_groups[0].count = count
+        j.task_groups[0].tasks[0].resources = Resources(cpu=ask[0], memory_mb=ask[1])
+        return j
+
+    filler = job("filler", LEADER_NODES, LEADER_FILLER_ASK)
+    thin = [job(f"thin-{i:02d}", LEADER_THIN_COUNT, LEADER_THIN_ASK)
+            for i in range(LEADER_THIN_JOBS)]
+    return filler, thin
+
+
+def leader_drain(server):
+    """Drain ``LEADER_DRAIN_NODES`` nodes through ``update_node_drain``
+    with a deadline, the fake client running. Returns the seconds from the
+    first drain call until every drained node is done and empty."""
+    from nomad_tpu_torch.structs import DrainStrategy
+
+    victims = sorted(n.id for n in server.store.nodes())[:LEADER_DRAIN_NODES]
+    per_job = collections.Counter(
+        a.job_id for v in victims for a in server.store.allocs_by_node(v)
+        if not a.terminal_status()
+    )
+    on_victims = sum(per_job.values())
+    with fake_client(server):
+        t0 = time.perf_counter()
+        for v in victims:
+            server.update_node_drain(v, DrainStrategy(deadline_s=LEADER_DRAIN_DEADLINE_S))
+        while True:
+            nodes = [server.store.node_by_id(v) for v in victims]
+            left = sum(
+                1 for v in victims for a in server.store.allocs_by_node(v)
+                if not a.terminal_status()
+            )
+            if left == 0 and all(n.drain is None for n in nodes):
+                break
+            assert time.perf_counter() - t0 < LEADER_DRAIN_DEADLINE_S, (left, "drain stuck")
+            time.sleep(0.05)
+        seconds = time.perf_counter() - t0
+        settle(server)
+    nodes = [server.store.node_by_id(v) for v in victims]
+    assert all(n.scheduling_eligibility == "ineligible" for n in nodes)
+    # with max_parallel 1 a job's allocs leave one wave at a time: the
+    # drain takes at least as many waves as the most any job had there
+    return seconds, on_victims, victims, max(per_job.values())
+
+
+def leader_cycles(server, calls, dev):
+    """``LEADER_CYCLES`` direct ``run_cycle`` calls, each followed by the
+    fake client and the gates. ``calls`` is the recorder's list of the
+    controller's ``migrate_plan`` calls. Returns a row a cycle."""
+    from nomad_tpu_torch.scheduler import migrate as SM
+    from nomad_tpu_torch.server import defrag as D
+    from nomad_tpu_torch.utils.metrics import global_metrics
+
+    host = {}
+    rows = []
+    seen = defrag_pairs(server.store)
+    thin_before = live_by_job(server.store, "thin-")
+    with timing(SM, "build_defrag_batch", host), timing(SM, "_on", host), \
+            timing(D.DefragController, "_execute_move", host):
+        for cycle in range(LEADER_CYCLES):
+            eff_before = fleet_efficiency(server.store)
+            host.clear()
+            n_calls = len(calls)
+            t0 = time.perf_counter()
+            completed = server.defrag.run_cycle()
+            cycle_s = time.perf_counter() - t0
+            split = dict(host)
+            settle(server)
+            assert len(calls) == n_calls + 1, "the cycle did not plan through migrate_plan"
+            c = calls[-1]
+            a, n = c["scores"].shape
+            pairs = defrag_pairs(server.store)
+            new_pairs = pairs - seen
+            seen = pairs
+            eff_after = fleet_efficiency(server.store)
+            metric_counts = global_metrics.snapshot()["counters"]
+            row = {
+                "cycle": cycle + 1, "A": a, "N": n, "completed_moves": completed,
+                "new_pairs": len(new_pairs),
+                "efficiency_before": eff_before, "efficiency_after": eff_after,
+                "kernel_event_ms": c.get("event_ms"), "plan_host_s": c.get("host_s"),
+                "cycle_host_s": cycle_s,
+                "build_defrag_batch_s": split.get("build_defrag_batch", 0.0),
+                "upload_s": split.get("_on", 0.0),
+                "moves_commit_s": split.get("_execute_move", 0.0),
+                "capacity_violations": int(
+                    metric_counts.get("nomad.migrate.capacity_violations", 0)),
+                "over_committed_nodes": committed_overcommit(server.store),
+            }
+            row["snapshot_and_candidates_s"] = cycle_s - sum(
+                row[k] or 0.0 for k in ("build_defrag_batch_s", "upload_s", "moves_commit_s",
+                                        "plan_host_s")
+            )
+            log(f"[leader] defrag cycle {json.dumps(row, sort_keys=True)}")
+            assert server.defrag.last_efficiency == eff_before
+            assert a >= LEADER_MIN_CANDIDATES, f"defrag: only {a} candidates"
+            assert 0 < completed <= LEADER_BUDGET
+            assert len(new_pairs) == completed, (len(new_pairs), completed)
+            assert row["capacity_violations"] == 0 and row["over_committed_nodes"] == 0
+            assert live_by_job(server.store, "thin-") == thin_before, "a thin job lost an alloc"
+            assert eff_after > eff_before, (eff_before, eff_after)
+            rows.append(row)
+    return rows
+
+
+def leader_path(dev, n_nodes=LEADER_NODES):
+    """The "leader" path: a server with every leader service running at
+    ``n_nodes`` on the fragmentation recipe, a drain, ``LEADER_CYCLES``
+    defrag cycles planned on the card, then ``bench_torch``'s end-to-end
+    bench with admission on. The counters are zeroed just before and read
+    just after; every ``migrate_plan`` call is recorded (and timed by CUDA
+    events) for the replay, the closed-form calls into ``SHARED_CALLS``,
+    the coupled calls for their own replay. Returns the launch counts, the
+    labelled ``migrate_plan`` calls, the coupled calls and a summary."""
+    import bench_torch
+    from nomad_tpu_torch.device import score as S
+    from nomad_tpu_torch.server import Server, ServerConfig
+    from nomad_tpu_torch.utils.metrics import global_metrics
+
+    M = migrate_module()
+    filler, thin = leader_jobs()
+    zero_counters()
+    t_path = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(shared_recording("leader", score_matrix=False))
+        coupled = {name: stack.enter_context(recording(S, name)) for name in COUPLED}
+        calls = stack.enter_context(recording(
+            M, "migrate_plan", cls=TimedRecorder if dev.type == "cuda" else Recorder))
+        global_metrics.reset()
+        server = Server(ServerConfig(
+            num_workers=1, num_batch_workers=1, defrag_budget=LEADER_BUDGET, device=dev,
+        ))
+        server.establish_leadership()
+        try:
+            from nomad_tpu_torch import mock
+
+            t0 = time.perf_counter()
+            for i in range(n_nodes):
+                server.register_node(mock.node(id=f"leader-{i:05d}", name=f"leader-{i:05d}"))
+            server.register_job(filler)
+            settle(server)
+            for j in thin:
+                server.register_job(j)
+            settle(server)
+            server.deregister_job("default", "filler")
+            settle(server)
+            setup_s = time.perf_counter() - t0
+            thin_live = live_by_job(server.store, "thin-")
+            thin_nodes = {a.node_id for a in server.store.allocs()
+                          if a.job_id.startswith("thin-") and not a.terminal_status()}
+            log(
+                f"[leader] set-up {setup_s:.3f} s: {n_nodes} nodes, filler of {n_nodes} "
+                f"deregistered, {sum(thin_live.values())} thin allocs on {len(thin_nodes)} "
+                f"nodes; efficiency {fleet_efficiency(server.store)!r}"
+            )
+            assert thin_live == {j.id: LEADER_THIN_COUNT for j in thin}
+            assert len(thin_nodes) == min(n_nodes, LEADER_THIN_JOBS * LEADER_THIN_COUNT)
+            drain_s, drained, victims, waves = leader_drain(server)
+            after_drain = live_by_job(server.store, "thin-")
+            log(
+                f"[leader] drain of {len(victims)} nodes ({drained} allocs on them, at "
+                f"most {waves} of one job: as many waves) {drain_s:.3f} s; counters "
+                + json.dumps({k: v for k, v in global_metrics.snapshot()["counters"].items()
+                              if k.startswith("nomad.drain.")}, sort_keys=True)
+            )
+            assert after_drain == thin_live, "an alloc of a drained node is unaccounted for"
+            assert not any(
+                not a.terminal_status() for v in victims for a in server.store.allocs_by_node(v)
+            )
+            cycles = leader_cycles(server, calls, dev)
+            metric_counts = global_metrics.snapshot()["counters"]
+            swallowed = {k: int(v) for k, v in metric_counts.items()
+                         if k.endswith(".swallowed_errors")}
+            migrate_counters = {k: int(v) for k, v in sorted(metric_counts.items())
+                                if k.startswith("nomad.migrate.")}
+            adm = server.admission.snapshot()
+            services = {
+                name: getattr(server, name)._thread is not None
+                and getattr(server, name)._thread.is_alive()
+                for name in ("heartbeater", "deployment_watcher", "drainer", "defrag",
+                             "periodic", "core_gc", "volume_watcher")
+            }
+        finally:
+            server.shutdown()
+        assert all(services.values()), services
+        assert not swallowed, swallowed
+        log(f"[leader] migrate counters {json.dumps(migrate_counters, sort_keys=True)}; "
+            f"admission level {adm['level']}, services running {services}")
+        del server
+        t0 = time.perf_counter()
+        bench = bench_torch.bench_end_to_end(**SERVER_BENCH, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        bench_s = time.perf_counter() - t0
+    launches = counters()
+    seconds = time.perf_counter() - t_path
+    log(
+        f"[leader] bench_torch with every service on {bench['card']}: allocs_per_sec="
+        f"{bench['allocs_per_sec']!r} evals_per_sec={bench['evals_per_sec']!r} eval p50_ms="
+        f"{bench['eval_latency_ms']['p50']!r} p99_ms={bench['eval_latency_ms']['p99']!r}; "
+        f"elapsed {bench['elapsed_s']!r} s of {bench_s:.1f} s; placed {bench['placed']}/"
+        f"{bench['total']}, unaccounted {bench['unaccounted_allocs']}, failed evals "
+        f"{bench['failed_evals']}, over-committed {bench['committed_overcommit']}, swallowed "
+        f"{bench['swallowed']}; admission {json.dumps(bench['admission'], sort_keys=True)}"
+    )
+    log(f"[leader] path {seconds:.1f} s; launches {launches}")
+    assert bench["drained"]
+    assert bench["placed"] == bench["total"] == SERVER_BENCH["n_jobs"] * SERVER_BENCH["per_job"]
+    assert bench["unaccounted_allocs"] == 0 and bench["failed_evals"] == 0
+    assert bench["committed_overcommit"] == 0
+    assert not any(bench["swallowed"].values()), bench["swallowed"]
+    assert bench["admission"]["conserved"] and bench["admission"]["shed"] == 0
+    assert launches["migrate_plan"] == len(calls) == LEADER_CYCLES
+    assert launches["place_closed_form"] > 0 and launches["place_spread_opv"] > 0
+    for name, rec in coupled.items():
+        assert len(rec) == launches[name], (name, len(rec), launches[name])
+    summary = {
+        "nodes": n_nodes, "drain_s": drain_s, "drained_allocs": drained, "drain_waves": waves,
+        "drained_nodes": len(victims), "cycles": cycles, "migrate_counters": migrate_counters,
+        "bench": {k: bench[k] for k in (
+            "config", "card", "allocs_per_sec", "evals_per_sec", "eval_latency_ms",
+            "elapsed_s", "placed", "total", "unaccounted_allocs", "failed_evals",
+            "committed_overcommit", "swallowed", "admission", "phase_breakdown_ms",
+        )},
+        "path_seconds": seconds,
+    }
+    labelled = [(f"leader cycle {i + 1}", c) for i, c in enumerate(calls)]
+    return launches, labelled, coupled, summary
+
+
 def find_launches(by_path) -> dict:
     """The find pass's launches on each path: its own launches plus the
     passes carried in the choice's launch (each a launch of its device
@@ -4141,6 +4514,18 @@ def main() -> int:
         name: replay_coupled(name, calls) for name, calls in server_calls.items() if calls
     }
     del server_calls
+    # the leader services under the same bench, and the defrag controller
+    # planning with the migration kernel on the server's card
+    by_path["leader"], leader_calls, leader_coupled_calls, leader = leader_path(dev)
+    leader_migrate = replay_migrate(leader_calls, timed_label="leader cycle")
+    leader["coupled_replayed"] = {}
+    for name, calls in leader_coupled_calls.items():
+        if calls:
+            r = replay_coupled(name, calls)
+            leader["coupled_replayed"][name] = {
+                k: r[k] for k in ("path_ms", "max_abs_err", "choice_mismatches")
+            }
+    del leader_calls, leader_coupled_calls
     h, by_path["spread"], spread_calls, _ = spread_path(dev)
     coupled = {name: replay_coupled(name, spread_calls[name]) for name in COUPLED}
     del spread_calls
@@ -4209,7 +4594,7 @@ def main() -> int:
     )
     del one_by_one
     log("[server] " + json.dumps({
-        "incremental": incr, "batch": batch, "plan": plan, "calib": calib,
+        "incremental": incr, "batch": batch, "plan": plan, "calib": calib, "leader": leader,
         "restore": restore, "server": {
             k: server[k] for k in (
                 "config", "card", "allocs_per_sec", "evals_per_sec", "eval_latency_ms",
@@ -4366,6 +4751,16 @@ def main() -> int:
                     "path_ms", "rounds_per_launch", "rounds", "rounds_run", "moves",
                     "reference_dense_ms",
                 )},
+                "path_ms_by_path": {"defrag": migrate_main["path_ms"],
+                                    "leader": leader_migrate["path_ms"]},
+                "leader": {
+                    **{k: leader_migrate[k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by", "shape", "path_ms",
+                        "rounds_per_launch", "rounds", "rounds_run", "moves",
+                        "reference_dense_ms", "max_abs_err",
+                    )},
+                    "event_ms_by_cycle": [r["kernel_event_ms"] for r in leader["cycles"]],
+                },
                 "kernel_phase": migrate_phase,
             },
         )

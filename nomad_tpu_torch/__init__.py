@@ -16,8 +16,12 @@ Layer map of this slice:
 - ``nomad_tpu_torch.scheduler`` — reconciler + generic scheduler + Harness.
 - ``nomad_tpu_torch.broker``    — the eval broker, blocked evals, the
   event stream, the plan queue and the plan applier.
-- ``nomad_tpu_torch.server``    — the server that schedules: workers,
-  lanes, the optimistic overlay, the FSM (leader services: ROADMAP A9b).
+- ``nomad_tpu_torch.server``    — the server: workers, lanes, the
+  optimistic overlay, the FSM, and the leader services (admission,
+  heartbeats, drainer, deployments, periodic dispatch, core GC, volumes,
+  ACL, the defrag controller on the migration kernel).
+- ``nomad_tpu_torch.acl``       — ACL policies (HCL, ``utils/hcl.py``),
+  tokens and their compiled capabilities.
 - ``nomad_tpu_torch.raft`` / ``native`` — the single-server raft seam on
   the C++ WAL.
 - ``nomad_tpu_torch.obs``       — tracing, explanations, the flight

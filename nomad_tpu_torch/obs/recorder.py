@@ -26,14 +26,6 @@ DEFAULT_CAPACITY = 256
 DEFAULT_ERROR_CAPACITY = 100
 
 
-def _is_high_tier(priority: int) -> bool:
-    """The admission plane's high tier (``server/admission.py``
-    ``tier_of``: priority >= 70). The admission module is a leader
-    service (ROADMAP A9b); until it lands the recorder keeps its own copy of
-    the one cut it reads."""
-    return priority >= 70
-
-
 class FlightRecorder:
     def __init__(
         self,
@@ -105,8 +97,11 @@ class FlightRecorder:
         # lower tiers are deferred/shed, so it must be observable
         # lifetime (live_report) not just per-collector
         priority = (trace.get("tags") or {}).get("priority")
-        if priority is not None and _is_high_tier(int(priority)):
-            global_metrics.measure("nomad.slo.eval_latency_high", eval_s)
+        if priority is not None:
+            from ..server.admission import TIER_HIGH, tier_of
+
+            if tier_of(int(priority)) == TIER_HIGH:
+                global_metrics.measure("nomad.slo.eval_latency_high", eval_s)
         if placement_s > 0.0:
             global_metrics.measure("nomad.slo.placement_latency", placement_s)
         for fn in listeners:

@@ -1,5 +1,6 @@
-"""Server: state, queues, applier, workers (a server that only
-schedules; the leader services are ROADMAP A9b)."""
+"""Server: state, queues, applier, workers, and the leader services
+(admission, heartbeats, drainer, deployment watcher, periodic dispatch,
+core GC, volume watcher, ACL, defrag)."""
 
 from .server import Server, ServerConfig
 from .worker import Worker

@@ -1,0 +1,385 @@
+"""Deployment watcher — drives rollouts to completion.
+
+Reference: nomad/deploymentwatcher/ (deployments_watcher.go spawns one
+watcher per active deployment; deployment_watcher.go watches alloc health,
+auto-promotes, auto-reverts, enforces progress deadlines, and creates
+follow-up evals so the scheduler places the next max_parallel batch).
+
+Health determination: without Consul checks, an alloc is healthy once it
+has been continuously ``running`` for its group's min_healthy_time
+(update.health_check="task_states" semantics in the reference); a failed
+alloc inside a deployment is unhealthy immediately.
+"""
+
+from __future__ import annotations
+
+import copy
+import threading
+
+from .fsm import MsgType
+import time
+from typing import Optional
+
+from ..structs import Evaluation
+from ..structs.deployment import (
+    DEPLOYMENT_STATUS_FAILED,
+    DEPLOYMENT_STATUS_PAUSED,
+    DEPLOYMENT_STATUS_RUNNING,
+    DEPLOYMENT_STATUS_SUCCESSFUL,
+    DESC_AUTO_REVERT,
+    DESC_PROGRESS_DEADLINE,
+    DESC_SUCCESSFUL,
+    DESC_UNHEALTHY_ALLOCS,
+)
+from ..structs.evaluation import EVAL_STATUS_PENDING, TRIGGER_DEPLOYMENT_WATCHER
+
+
+class DeploymentWatcher:
+    def __init__(self, server, interval: float = 0.25):
+        self.server = server
+        self.interval = interval
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        # alloc id → first time observed running (health clock)
+        self._running_since: dict[str, float] = {}
+
+    def start(self) -> None:
+        self._stop.clear()
+        self._thread = threading.Thread(
+            target=self._run, name="deployment-watcher", daemon=True
+        )
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread:
+            self._thread.join(timeout=2)
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval):
+            try:
+                self.tick()
+            except Exception:  # noqa: BLE001 — watcher must survive
+                import logging
+
+                logging.getLogger("nomad_tpu_torch.deploy").exception("tick failed")
+
+    # -- one scan over active deployments ----------------------------------
+    def tick(self) -> None:
+        store = self.server.store
+        for d in list(store.deployments()):
+            if not d.active():
+                continue
+            if d.status == DEPLOYMENT_STATUS_PAUSED:
+                # paused (deployment_endpoint.go Pause): health verdicts,
+                # auto-promotion, and the progress clock all freeze until
+                # the operator resumes
+                continue
+            job = store.job_by_id(d.namespace, d.job_id)
+            allocs = [
+                a
+                for a in store.allocs_by_job(d.namespace, d.job_id)
+                if a.deployment_id == d.id
+            ]
+            now = time.time()
+            healthy_ids, unhealthy_ids = [], []
+            for a in allocs:
+                if a.deployment_status is not None and (
+                    a.deployment_status.healthy is not None
+                ):
+                    continue
+                if a.client_status == "failed" or a.client_status == "lost":
+                    unhealthy_ids.append(a.id)
+                elif self._has_checks(job, a.task_group):
+                    # checked groups: health is the CLIENT's verdict
+                    # (allochealth tracker via alloc sync) — the
+                    # continuous-running fallback would let a
+                    # crash-looping-but-restarting task pass canary
+                    # gates. Only the healthy_deadline backstop applies
+                    # server-side (a disconnected client must not park
+                    # the deployment forever).
+                    since = self._running_since.setdefault(a.id, now)
+                    if now - since >= self._healthy_deadline(
+                        job, a.task_group
+                    ):
+                        unhealthy_ids.append(a.id)
+                elif a.client_status == "running" and not a.terminal_status():
+                    mht = self._min_healthy_time(job, a.task_group)
+                    since = self._running_since.setdefault(a.id, now)
+                    if now - since >= mht:
+                        healthy_ids.append(a.id)
+                else:
+                    self._running_since.pop(a.id, None)
+            if healthy_ids or unhealthy_ids:
+                self.server.raft_apply(
+                    MsgType.ALLOC_HEALTH,
+                    {"healthy_ids": healthy_ids,
+                     "unhealthy_ids": unhealthy_ids},
+                )
+                for aid in healthy_ids + unhealthy_ids:
+                    self._running_since.pop(aid, None)  # verdict settled
+                allocs = [
+                    a
+                    for a in store.allocs_by_job(d.namespace, d.job_id)
+                    if a.deployment_id == d.id
+                ]
+
+            self._refresh_counts(d, allocs, progressed=bool(healthy_ids))
+
+            if any(
+                s.unhealthy_allocs > 0 for s in d.task_groups.values()
+            ):
+                self._fail(d, job, DESC_UNHEALTHY_ALLOCS)
+                continue
+
+            # auto-promote once every desired canary is healthy
+            if d.requires_promotion():
+                ready = all(
+                    len(
+                        [
+                            a
+                            for a in allocs
+                            if a.task_group == name
+                            and a.canary
+                            and a.deployment_status is not None
+                            and a.deployment_status.is_healthy()
+                        ]
+                    )
+                    >= s.desired_canaries
+                    for name, s in d.task_groups.items()
+                    if s.desired_canaries > 0
+                )
+                if ready and all(
+                    s.auto_promote
+                    for s in d.task_groups.values()
+                    if s.desired_canaries > 0
+                ):
+                    self.promote(d.id)
+                continue  # promotion (manual or auto) gates further rollout
+
+            # progress deadline
+            if any(
+                s.require_progress_by_unix
+                and now > s.require_progress_by_unix
+                and s.healthy_allocs < s.desired_total
+                for s in d.task_groups.values()
+            ):
+                self._fail(d, job, DESC_PROGRESS_DEADLINE)
+                continue
+
+            # success: every group fully healthy; the job version becomes
+            # the new *stable* rollback target (Job.Stable in the reference)
+            if all(
+                s.healthy_allocs >= s.desired_total
+                for s in d.task_groups.values()
+            ):
+                self.server.raft_apply(
+                    MsgType.DEPLOYMENT_STATUS,
+                    {"deployment_id": d.id,
+                     "status": DEPLOYMENT_STATUS_SUCCESSFUL,
+                     "description": DESC_SUCCESSFUL},
+                )
+                if job is not None and job.version == d.job_version:
+                    stable = copy.copy(job)
+                    stable.stable = True
+                    self.server.raft_apply(
+                        MsgType.JOB_STABLE, {"job": stable}
+                    )
+                continue
+
+            # progress: newly healthy allocs free max_parallel budget —
+            # roll an eval so the scheduler places the next batch
+            if healthy_ids and job is not None:
+                self._create_eval(job)
+
+    @staticmethod
+    def _min_healthy_time(job, tg_name: str) -> float:
+        if job is None:
+            return 0.0
+        tg = job.lookup_task_group(tg_name)
+        if tg is None or tg.update is None:
+            return 0.0
+        return tg.update.min_healthy_time_s
+
+    @staticmethod
+    def _healthy_deadline(job, tg_name: str) -> float:
+        if job is None:
+            return 300.0
+        tg = job.lookup_task_group(tg_name)
+        if tg is None or tg.update is None:
+            return 300.0
+        return tg.update.healthy_deadline_s
+
+    @staticmethod
+    def _has_checks(job, tg_name: str) -> bool:
+        """Does this group carry service health checks? (allochealth
+        gating: client-reported verdicts replace the running-time
+        fallback.)"""
+        if job is None:
+            return False
+        tg = job.lookup_task_group(tg_name)
+        if tg is None:
+            return False
+        return any(
+            (svc.checks or [])
+            for task in tg.tasks
+            for svc in (getattr(task, "services", None) or [])
+        )
+
+    # -- actions -----------------------------------------------------------
+    def promote(self, deployment_id: str) -> bool:
+        """DeploymentPromoteRequest: mark groups promoted; an eval follows
+        so the reconciler starts replacing the old version."""
+        store = self.server.store
+        d = store.deployment_by_id(deployment_id)
+        if d is None or not d.active():
+            return False
+        d2 = copy.deepcopy(d)
+        for s in d2.task_groups.values():
+            s.promoted = True
+        self.server.raft_apply(MsgType.DEPLOYMENT_UPSERT, {"deployment": d2})
+        job = store.job_by_id(d.namespace, d.job_id)
+        if job is not None:
+            self._create_eval(job)
+        return True
+
+    def pause(self, deployment_id: str, pause: bool = True) -> bool:
+        """DeploymentPauseRequest: freeze/resume the rollout. Pausing
+        also pushes out each group's progress deadline by the paused
+        interval's worth on resume (the clock must not have been running
+        while frozen)."""
+        d = self.server.store.deployment_by_id(deployment_id)
+        if d is None or not d.active():
+            return False
+        target = (
+            DEPLOYMENT_STATUS_PAUSED if pause else DEPLOYMENT_STATUS_RUNNING
+        )
+        if d.status == target:
+            return True
+        if not pause:
+            # resume: restart each group's progress window from now
+            d2 = copy.deepcopy(d)
+            d2.status = target
+            d2.status_description = "Deployment is running"
+            now = time.time()
+            for s in d2.task_groups.values():
+                if s.progress_deadline_s:
+                    s.require_progress_by_unix = now + s.progress_deadline_s
+            self.server.raft_apply(
+                MsgType.DEPLOYMENT_UPSERT, {"deployment": d2}
+            )
+            # the per-alloc health clocks must not have run while frozen:
+            # clearing them re-seeds min_healthy_time AND the checked-
+            # group healthy_deadline backstop from the resume instant
+            # (otherwise a pause longer than the deadline fails every
+            # checked alloc on the first post-resume tick)
+            for a in self.server.store.allocs_by_job(
+                d.namespace, d.job_id
+            ):
+                if a.deployment_id == d.id:
+                    self._running_since.pop(a.id, None)
+        else:
+            self.server.raft_apply(
+                MsgType.DEPLOYMENT_STATUS,
+                {
+                    "deployment_id": d.id,
+                    "status": target,
+                    "description": "Deployment is paused",
+                },
+            )
+        return True
+
+    def fail(self, deployment_id: str) -> bool:
+        d = self.server.store.deployment_by_id(deployment_id)
+        if d is None or not d.active():
+            return False
+        self._fail(d, self.server.store.job_by_id(d.namespace, d.job_id), "Deployment marked as failed")
+        return True
+
+    def _fail(self, d, job, desc: str) -> None:
+        auto_revert = any(s.auto_revert for s in d.task_groups.values())
+        if auto_revert:
+            desc = desc + "; " + DESC_AUTO_REVERT
+        self.server.raft_apply(
+            MsgType.DEPLOYMENT_STATUS,
+            {"deployment_id": d.id, "status": DEPLOYMENT_STATUS_FAILED,
+             "description": desc},
+        )
+        if auto_revert and job is not None and d.job_version > 0:
+            # revert to the latest *stable* version (not merely version-1,
+            # which may itself be broken — Job.Stable tracking)
+            old = None
+            for candidate in self.server.store.job_versions_list(
+                d.namespace, d.job_id
+            ):
+                if candidate.version < d.job_version and candidate.stable:
+                    if old is None or candidate.version > old.version:
+                        old = candidate
+            if old is None:
+                old = self.server.store.job_version(
+                    d.namespace, d.job_id, d.job_version - 1
+                )
+            if old is not None:
+                revert = copy.deepcopy(old)
+                # re-registering bumps the version — the rollback is itself
+                # a new version, like the reference's revert
+                self.server.register_job(revert)
+                return
+        if job is not None:
+            self._create_eval(job)
+
+    def _refresh_counts(self, d, allocs, progressed: bool = False) -> None:
+        d2 = copy.deepcopy(d)
+        changed = False
+        now = time.time()
+        for name, s in d2.task_groups.items():
+            group = [a for a in allocs if a.task_group == name]
+            placed = len([a for a in group if not a.terminal_status() or a.client_status == "failed"])
+            healthy = len(
+                [
+                    a
+                    for a in group
+                    if a.deployment_status is not None
+                    and a.deployment_status.is_healthy()
+                ]
+            )
+            unhealthy = len(
+                [
+                    a
+                    for a in group
+                    if a.deployment_status is not None
+                    and a.deployment_status.is_unhealthy()
+                ]
+            )
+            canary_ids = [a.id for a in group if a.canary]
+            if (
+                placed != s.placed_allocs
+                or healthy != s.healthy_allocs
+                or unhealthy != s.unhealthy_allocs
+                or canary_ids != s.placed_canaries
+            ):
+                # each newly healthy alloc extends the progress deadline
+                # (the reference resets requireProgressBy per health event)
+                if progressed and healthy > s.healthy_allocs:
+                    s.require_progress_by_unix = now + s.progress_deadline_s
+                s.placed_allocs = placed
+                s.healthy_allocs = healthy
+                s.unhealthy_allocs = unhealthy
+                s.placed_canaries = canary_ids
+                changed = True
+        if changed:
+            self.server.raft_apply(
+                MsgType.DEPLOYMENT_UPSERT, {"deployment": d2}
+            )
+            d.task_groups = d2.task_groups
+
+    def _create_eval(self, job) -> None:
+        ev = Evaluation(
+            namespace=job.namespace,
+            priority=job.priority,
+            type=job.type,
+            triggered_by=TRIGGER_DEPLOYMENT_WATCHER,
+            job_id=job.id,
+            status=EVAL_STATUS_PENDING,
+        )
+        self.server.apply_eval_create([ev])

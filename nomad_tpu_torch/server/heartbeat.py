@@ -1,0 +1,83 @@
+"""Server-side node heartbeat tracking.
+
+Reference: nomad/heartbeat.go (:34-50 nodeHeartbeater): a TTL timer per
+node, reset on every heartbeat; expiry marks the node down, which fans
+out node-update evals so allocations are rescheduled (→ SURVEY.md §3.4).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Optional
+
+from ..chaos.plane import chaos_site
+from ..structs import NODE_STATUS_DOWN
+
+DEFAULT_HEARTBEAT_TTL = 5.0
+
+
+class NodeHeartbeater:
+    def __init__(self, server, ttl: float = DEFAULT_HEARTBEAT_TTL, clock=None):
+        self.server = server
+        self.ttl = ttl
+        # injectable monotonic clock (the GenericScheduler clock=
+        # pattern, NTA008): TTL deadlines read it, so chaos clock-skew
+        # faults can expire or extend heartbeats deterministically
+        self._clock = clock if clock is not None else time.monotonic
+        self._deadlines: dict[str, float] = {}
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> None:
+        self._stop.clear()
+        self._thread = threading.Thread(
+            target=self._run, name="heartbeater", daemon=True
+        )
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread:
+            self._thread.join(timeout=2)
+
+    def heartbeat(self, node_id: str) -> float:
+        """Reset the node's TTL timer; returns the TTL the client should
+        beat within (Node.UpdateStatus heartbeat path)."""
+        with self._lock:
+            self._deadlines[node_id] = self._clock() + self.ttl
+        return self.ttl
+
+    def initialize_from_store(self) -> None:
+        """Seed a TTL timer for every live node — a freshly-elected leader
+        must detect clients that died during the failover window
+        (leader.go:318 initializeHeartbeatTimers)."""
+        for node in self.server.store.nodes():
+            if not node.terminal_status():
+                self.heartbeat(node.id)
+
+    def untrack(self, node_id: str) -> None:
+        with self._lock:
+            self._deadlines.pop(node_id, None)
+
+    def _run(self) -> None:
+        while not self._stop.wait(min(self.ttl / 4.0, 0.5)):
+            now = self._clock()
+            expired = []
+            with self._lock:
+                for node_id, deadline in list(self._deadlines.items()):
+                    if deadline < now:
+                        expired.append(node_id)
+                        del self._deadlines[node_id]
+            for node_id in expired:
+                node = self.server.store.node_by_id(node_id)
+                if node is None or node.terminal_status():
+                    continue
+                if chaos_site("heartbeat.expiry") == "drop":
+                    # missed sweep: the expiry is deferred, not lost —
+                    # re-arm the timer so the next sweep fires it
+                    self.heartbeat(node_id)
+                    continue
+                # missed TTL ⇒ node down ⇒ reschedule evals fan out
+                self.server.update_node_status(node_id, NODE_STATUS_DOWN)

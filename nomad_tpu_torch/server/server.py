@@ -10,14 +10,15 @@ through ``raft_apply`` — backed by InlineRaft (single server, optional WAL
 durability + replay-on-boot). Mirrors nomad/server.go: endpoints build
 requests, the FSM is the only state-store writer.
 
-The port's server only schedules: broker → worker → plan queue → applier,
-over the one ``DeviceStateCache`` on ``ServerConfig.device`` that every
-worker shares (default ``"cuda"``, which raises without CUDA; tests pass
-``"cpu"``). The leader services — admission, drainer, heartbeats,
-deployment watcher, periodic dispatch, core GC, volume watcher, ACL and
-the defrag controller — are not built (ROADMAP A9b): the broker runs with
-no admission controller and every job is admitted, and each endpoint
-whose body needs one of them raises ``NotImplementedError``.
+The port's server schedules through broker → worker → plan queue →
+applier, over the one ``DeviceStateCache`` on ``ServerConfig.device`` that
+every worker shares (default ``"cuda"``, which raises without CUDA; tests
+pass ``"cpu"``), and runs the reference's leader services: admission,
+heartbeats, the deployment watcher, the drainer, periodic dispatch, core
+GC, the volume watcher, ACL and the defrag controller, which plans each
+cycle with the migration kernel on the same device. A consensus
+``RaftNode`` (the reference's ``attach_raft``) is not ported yet
+(ROADMAP A18).
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from ..structs import (
     Node,
     TRIGGER_JOB_REGISTER,
     TRIGGER_NODE_UPDATE,
+    new_id,
 )
 from ..structs.job import validate_job
 from ..structs.evaluation import (
@@ -51,18 +53,14 @@ from .worker import Worker
 log = logging.getLogger("nomad_tpu_torch.server")
 
 
-def _a9b(what: str, service: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"nomad_tpu_torch: {what} needs the {service}, a leader service "
-        "that is not ported yet (ROADMAP A9b)"
-    )
-
-
 class ServerConfig:
     def __init__(
         self,
         num_workers: int = 2,
         region: str = "global",
+        heartbeat_ttl: float = 5.0,
+        deployment_watch_interval: float = 0.25,
+        acl_enabled: bool = False,
         data_dir: Optional[str] = None,
         num_batch_workers: int = 1,
         num_lanes: int = 16,
@@ -70,7 +68,10 @@ class ServerConfig:
         clock=None,
         eval_deadline: Optional[float] = None,
         eval_attempt_limit: Optional[int] = None,
+        admission_overrides: Optional[dict] = None,
         calibration_artifact: Optional[str] = None,
+        defrag_interval: float = 0.0,
+        defrag_budget: int = 4,
         device="cuda",
     ):
         import os
@@ -81,6 +82,9 @@ class ServerConfig:
         self.device = resolve_device(device)
         self.num_workers = num_workers
         self.region = region
+        self.heartbeat_ttl = heartbeat_ttl
+        self.deployment_watch_interval = deployment_watch_interval
+        self.acl_enabled = acl_enabled
         self.data_dir = data_dir
         # per-eval processing deadline in the worker (resilience layer):
         # an eval whose pass outlives this is nacked with escalating
@@ -98,8 +102,9 @@ class ServerConfig:
         self.eval_attempt_limit = eval_attempt_limit
         # injectable cluster clock: an object with time() and
         # monotonic(). Threaded into the eval broker's delay/unack
-        # deadlines and the worker's eval deadlines; None means the real
-        # clock.
+        # deadlines, the worker's eval deadlines, the admission
+        # controller and the heartbeater's TTL timers; None means the
+        # real clock.
         self.clock = clock
         # workers 0..n-1 run batched device passes, each on its own
         # job-hash partition of the eval stream (the rest drain solo
@@ -120,10 +125,22 @@ class ServerConfig:
         self.lane_mode = (
             self.num_batch_workers > 1 if lane_mode is None else bool(lane_mode)
         )
+        # threshold/dwell overrides for the admission controller
+        # (server/admission.py); None keeps the production defaults,
+        # under which NORMAL behavior is identical to pre-admission.
+        self.admission_overrides = admission_overrides
         # path to a persisted saturation-probe artifact (obs/calibrate.py
         # CALIB_r01.json): loaded into the server's calibration table at
-        # startup. None = shipped defaults.
+        # startup, deriving the admission backlog thresholds from the
+        # measured sustainable rate (source: probe). None = shipped
+        # defaults.
         self.calibration_artifact = calibration_artifact
+        # continuous defragmentation (server/defrag.py): periodic live
+        # migration of allocs onto fewer nodes, bounded moves per cycle.
+        # <= 0 keeps the periodic scan off (explicit operator triggers
+        # still work); budget caps moves per cycle.
+        self.defrag_interval = defrag_interval
+        self.defrag_budget = defrag_budget
 
 
 class Server:
@@ -149,15 +166,19 @@ class Server:
             clock=clock.time if clock is not None else None,
         )
         self.blocked_evals = BlockedEvals(broker=self.eval_broker)
-        # overload protection (server/admission.py) is a leader service
-        # not ported yet (ROADMAP A9b): the broker's and the worker's
-        # admission hooks read None and every eval is admitted.
-        self.admission = None
-        # calibration plane (obs/calibrate.py): a per-server table; a
-        # configured probe artifact loads into it. The throughput
-        # estimator is the PROCESS-global one (the learned-mode kernels
-        # read it), refcount-attached to the flight recorder for the
-        # server's lifetime.
+        # overload protection (server/admission.py): one controller per
+        # server, fed by the broker's own depth/ack counters and the
+        # always-on eval-latency histogram; handed to the broker so its
+        # enqueue gate can defer over-watermark external evals.
+        from .admission import AdmissionController, HistWindow
+
+        # calibration plane (obs/calibrate.py): a per-server table
+        # derives the admission defaults; a configured probe artifact
+        # rewrites the backlog thresholds with source: probe before the
+        # controller is built. The throughput estimator is the
+        # PROCESS-global one (the learned-mode kernels read it),
+        # refcount-attached to the flight recorder for the server's
+        # lifetime.
         from ..obs.calibrate import CalibrationTable, global_estimator
 
         self.calibration = CalibrationTable()
@@ -165,6 +186,18 @@ class Server:
             self.calibration.load_probe_artifact(self.config.calibration_artifact)
         self.throughput_estimator = global_estimator
         self.throughput_estimator.attach()
+        admission_cfg = self.calibration.admission_overrides()
+        admission_cfg.update(self.config.admission_overrides or {})
+        self.admission = AdmissionController(
+            clock=clock.monotonic if clock is not None else None,
+            depth_fn=self.eval_broker.queue_depths,
+            p99_window=HistWindow(
+                clock=clock.monotonic if clock is not None else None
+            ),
+            completions_fn=lambda: self.eval_broker.counters["acks"],
+            **admission_cfg,
+        )
+        self.eval_broker.admission = self.admission
         self.plan_queue = PlanQueue()
         self.plan_apply_loop = PlanApplyLoop(
             self.store, self.plan_queue,
@@ -197,13 +230,45 @@ class Server:
         self._raft_lock = threading.Lock()
         self._leader = False
         from ..broker.event_broker import EventBroker as StreamBroker
+        from .core_gc import CoreScheduler
+        from .deployment_watcher import DeploymentWatcher
+        from .drainer import NodeDrainer
+        from .heartbeat import NodeHeartbeater
+        from .periodic import PeriodicDispatch
 
+        self.drainer = NodeDrainer(self)
+        from .defrag import DefragController
+
+        # plans on self.config.device: the migration kernel on a CUDA
+        # server, its plain version on a CPU one
+        self.defrag = DefragController(
+            self,
+            interval=self.config.defrag_interval,
+            budget=self.config.defrag_budget,
+        )
+        self.heartbeater = NodeHeartbeater(
+            self,
+            ttl=self.config.heartbeat_ttl,
+            clock=clock.monotonic if clock is not None else None,
+        )
+        self.deployment_watcher = DeploymentWatcher(
+            self, interval=self.config.deployment_watch_interval
+        )
+        self.periodic = PeriodicDispatch(self)
+        self.core_gc = CoreScheduler(self)
+        from .volume_watcher import VolumeWatcher
+
+        self.volume_watcher = VolumeWatcher(self)
         self.events = StreamBroker()
+        from .acl import ACLService
+
+        self.acl = ACLService(self)
         # capacity changes unblock blocked evals (blocked_evals.go:55)
         self.store.add_listener(self._on_state_change)
         # the raft seam: FSM messages through InlineRaft (single server;
-        # WAL-durable when data_dir is set). A consensus RaftNode is not
-        # ported yet (ROADMAP A18).
+        # WAL-durable when data_dir is set). The reference's attach_raft,
+        # which swaps in a consensus RaftNode, waits for raft/node.py
+        # (ROADMAP A18).
         from ..raft import InlineRaft
         from ..state.snapshot import restore_snapshot, save_snapshot
         from .fsm import FSM, MsgType
@@ -239,12 +304,70 @@ class Server:
         server._install_store(restore_snapshot(path))
         return server
 
-    # -- API: scaling (nomad/job_endpoint.go Scale) ------------------------
+    # -- API: namespaces (nomad/namespace_endpoint.go) ---------------------
+    def upsert_namespace(self, ns) -> None:
+        if not ns.name or not ns.name.replace("-", "").replace("_", "").isalnum():
+            raise ValueError(f"invalid namespace name {ns.name!r}")
+        self.raft_apply_checked(
+            self._msg.NAMESPACE_UPSERT, {"namespace": ns}
+        )
+
+    def delete_namespace(self, name: str) -> None:
+        self.raft_apply_checked(self._msg.NAMESPACE_DELETE, {"name": name})
+
+    # -- API: scaling (nomad/job_endpoint.go Scale + scaling_endpoint.go) --
     def scale_job(self, namespace: str, job_id: str, group: str,
                   count: int, message: str = "", error: bool = False):
-        """Job.Scale: its intake gate prices the job through admission's
-        cost model."""
-        raise _a9b("Job.Scale", "admission controller")
+        """Job.Scale: adjust one group's count (a new job version) and
+        record a scaling event; autoscalers drive this endpoint."""
+        import copy as _copy
+
+        job = self.store.job_by_id(namespace, job_id)
+        if job is None:
+            raise KeyError(f"job not found: {job_id}")
+        tg = job.lookup_task_group(group)
+        if tg is None:
+            raise KeyError(f"group not found: {group}")
+        from ..structs.evaluation import TRIGGER_JOB_SCALING
+        from .admission import job_cost_demand
+
+        self.admission.check_intake(
+            job.priority, TRIGGER_JOB_SCALING,
+            cost_demand=job_cost_demand(job),
+        )
+        if tg.scaling is not None and tg.scaling.enabled:
+            if count < tg.scaling.min or (
+                tg.scaling.max and count > tg.scaling.max
+            ):
+                raise ValueError(
+                    f"count {count} outside scaling bounds "
+                    f"[{tg.scaling.min}, {tg.scaling.max}]"
+                )
+        scaled = _copy.deepcopy(job)
+        scaled.lookup_task_group(group).count = count
+        ev = Evaluation(
+            namespace=namespace,
+            priority=job.priority,
+            type=job.type,
+            triggered_by=TRIGGER_JOB_REGISTER,
+            job_id=job_id,
+            status=EVAL_STATUS_PENDING,
+        )
+        event = {
+            "group": group, "count": count, "previous_count": tg.count,
+            "message": message, "error": error,
+        }
+        self.raft_apply(
+            self._msg.JOB_SCALE,
+            {"job": scaled, "evals": [ev], "event": event},
+        )
+        (ev,) = self._fresh_evals([ev])
+        self.eval_broker.enqueue(ev)
+        self._publish(
+            "Job", "JobScaled", job_id, namespace,
+            {"group": group, "count": count},
+        )
+        return ev
 
     def _plan_token_current(self, eval_id: str, token: str) -> bool:
         """Is ``token`` still the eval's outstanding broker token? Used
@@ -297,12 +420,21 @@ class Server:
 
     # -- leadership --------------------------------------------------------
     def establish_leadership(self) -> None:
-        """leader.go:230-347, less the A9b services."""
+        """leader.go:230-347."""
         self._leader = True
         self.plan_queue.set_enabled(True)
         self.plan_apply_loop.start()
         self.eval_broker.set_enabled(True)
         self.blocked_evals.set_enabled(True)
+        self.heartbeater.initialize_from_store()
+        self.heartbeater.start()
+        self.deployment_watcher.start()
+        self.drainer.start()
+        self.defrag.start()
+        self.periodic.restore()
+        self.periodic.start()
+        self.core_gc.start()
+        self.volume_watcher.start()
         self._restore_evals()
         for i in range(self.config.num_workers):
             w = Worker(self, worker_id=i)
@@ -313,6 +445,13 @@ class Server:
         for w in self.workers:
             w.stop()
         self.workers.clear()
+        self.heartbeater.stop()
+        self.deployment_watcher.stop()
+        self.drainer.stop()
+        self.defrag.stop()
+        self.periodic.stop()
+        self.core_gc.stop()
+        self.volume_watcher.stop()
         self.plan_apply_loop.stop()
         self.plan_queue.set_enabled(False)
         self.eval_broker.set_enabled(False)
@@ -346,13 +485,20 @@ class Server:
     # -- API: jobs ---------------------------------------------------------
     def register_job(self, job: Job) -> Evaluation:
         """Job.Register (nomad/job_endpoint.go): upsert job + create eval
-        in one commit, then enqueue. Every job is admitted (no admission
-        controller until A9b); periodic and parameterized jobs are
-        templates the periodic dispatcher derives children from, so they
-        are refused until it lands."""
+        in one commit, then enqueue."""
         validate_job(job)
-        if job.is_periodic() or job.is_parameterized():
-            raise _a9b("a periodic or parameterized job", "periodic dispatcher")
+        # overload gate BEFORE any state commit: a shed register raises
+        # AdmissionRejected (HTTP: 429 + Retry-After) with nothing
+        # written, so job/eval conservation laws never see it
+        from .admission import job_cost_demand
+
+        self.admission.check_intake(
+            job.priority, TRIGGER_JOB_REGISTER,
+            cost_demand=job_cost_demand(job),
+        )
+        # periodic/parameterized jobs are templates: no eval until a child
+        # is derived (job_endpoint.go Register skips eval creation for them)
+        needs_eval = not job.is_periodic() and not job.is_parameterized()
         ev = Evaluation(
             namespace=job.namespace,
             priority=job.priority,
@@ -362,20 +508,57 @@ class Server:
             status=EVAL_STATUS_PENDING,
         )
 
-        self.raft_apply(self._msg.JOB_UPSERT, {"job": job, "evals": [ev]})
+        self.raft_apply(
+            self._msg.JOB_UPSERT,
+            {"job": job, "evals": [ev] if needs_eval else []},
+        )
         self.blocked_evals.untrack(job.namespace, job.id)
         self._publish(
             "Job", "JobRegistered", job.id, job.namespace, {"job_id": job.id}
         )
-        (ev,) = self._fresh_evals([ev])
-        self.eval_broker.enqueue(ev)
+        if job.is_periodic():
+            self.periodic.add(job)
+        if needs_eval:
+            (ev,) = self._fresh_evals([ev])
+            self.eval_broker.enqueue(ev)
         return ev
 
     def dispatch_job(
         self, namespace: str, job_id: str, payload: bytes = b"", meta=None
     ):
-        """Job.Dispatch derives a child of a parameterized job."""
-        raise _a9b("Job.Dispatch", "periodic dispatcher")
+        """Dispatch a parameterized job: derive a one-shot child
+        (nomad/job_endpoint.go Job.Dispatch)."""
+        import copy as _copy
+        import time as _t
+
+        parent = self.store.job_by_id(namespace, job_id)
+        if parent is None or not parent.is_parameterized():
+            raise ValueError(f"job {job_id} is not parameterized")
+        cfg = parent.parameterized
+        meta = dict(meta or {})
+        missing = [k for k in cfg.meta_required if k not in meta]
+        if missing:
+            raise ValueError(f"missing required dispatch meta: {missing}")
+        unknown = [
+            k
+            for k in meta
+            if k not in cfg.meta_required and k not in cfg.meta_optional
+        ]
+        if unknown:
+            raise ValueError(f"dispatch meta not allowed: {unknown}")
+        if cfg.payload == "required" and not payload:
+            raise ValueError("dispatch payload is required")
+        if cfg.payload == "forbidden" and payload:
+            raise ValueError("dispatch payload is forbidden")
+        child = _copy.deepcopy(parent)
+        child.id = f"{parent.id}/dispatch-{int(_t.time())}-{new_id()[:8]}"
+        child.name = child.id
+        child.parameterized = None
+        child.parent_id = parent.id
+        child.payload = payload
+        child.meta = {**parent.meta, **meta}
+        ev = self.register_job(child)
+        return child, ev
 
     def deregister_job(self, namespace: str, job_id: str) -> Optional[Evaluation]:
         job = self.store.job_by_id(namespace, job_id)
@@ -396,6 +579,7 @@ class Server:
 
         self.raft_apply(self._msg.JOB_UPSERT, {"job": stopped, "evals": [ev]})
         self.blocked_evals.untrack(namespace, job_id)
+        self.periodic.remove(namespace, job_id)
         self._publish(
             "Job", "JobDeregistered", job_id, namespace, {"job_id": job_id}
         )
@@ -422,8 +606,28 @@ class Server:
         return self._create_node_evals(node_id)
 
     def update_node_drain(self, node_id: str, drain) -> list[Evaluation]:
-        """Node.UpdateDrain: the NodeDrainer carries the drain out."""
-        raise _a9b("Node.UpdateDrain", "node drainer")
+        """Node.UpdateDrain: stamp the force deadline and commit; the
+        NodeDrainer picks the node up on its next scan. Cancelling a
+        drain clears any pending migrate marks so wave accounting and
+        future drains start clean (drainer.go Remove)."""
+        import time as _t
+
+        if drain is not None and drain.deadline_s > 0 and not drain.force_deadline_unix:
+            drain.force_deadline_unix = _t.time() + drain.deadline_s
+
+        resets = {}
+        if drain is None:
+            from ..structs.alloc import DesiredTransition as _DT
+
+            for a in self.store.allocs_by_node(node_id):
+                if not a.terminal_status() and a.desired_transition.migrate:
+                    resets[a.id] = _DT(migrate=False)
+
+        self.raft_apply(
+            self._msg.NODE_DRAIN,
+            {"node_id": node_id, "drain": drain, "transitions": resets},
+        )
+        return self._create_node_evals(node_id)
 
     def stop_alloc(self, alloc_id: str) -> Optional[Evaluation]:
         """Alloc.Stop (nomad/alloc_endpoint.go): mark the allocation for
@@ -500,17 +704,32 @@ class Server:
             self.eval_broker.enqueue_all(evals)
         return evals
 
+    # -- API: client alloc updates ----------------------------------------
     # -- CSI volumes (csi_endpoint.go Register/Deregister/Claim) -----------
     def register_csi_volume(self, vol) -> None:
-        raise _a9b("CSIVolume.Register", "volume watcher")
+        self.raft_apply_checked(self._msg.CSI_VOLUME_UPSERT, {"volume": vol})
 
     def deregister_csi_volume(self, volume_id: str, force: bool = False) -> None:
-        raise _a9b("CSIVolume.Deregister", "volume watcher")
+        self.raft_apply_checked(
+            self._msg.CSI_VOLUME_DEREGISTER,
+            {"volume_id": volume_id, "force": force},
+        )
 
     def claim_csi_volume(
         self, volume_id: str, alloc_id: str, node_id: str, read_only: bool
     ) -> bool:
-        raise _a9b("CSIVolume.Claim", "volume watcher")
+        """Client-initiated claim (CSIVolume.Claim RPC) — plan apply claims
+        eagerly, so this is for external/API claimants. Claims whose id is
+        not a live alloc are marked external so the volume watcher never
+        reaps them as "alloc gone"."""
+        _i, ok = self.raft_apply(
+            self._msg.CSI_CLAIM,
+            {
+                "volume_id": volume_id, "claim_id": alloc_id,
+                "node_id": node_id, "read_only": read_only,
+            },
+        )
+        return bool(ok)
 
     def update_allocs_from_client(self, updates: Iterable[Allocation]) -> None:
         updates = list(updates)
@@ -588,7 +807,10 @@ class Server:
             self.store.latest_index,
         )
 
-    # -- client side -------------------------------------------------------
+    # -- client RPC seam ---------------------------------------------------
+    def client_rpc(self) -> "InProcessClientRPC":
+        return InProcessClientRPC(self)
+
     def pull_allocs(
         self, node_id: str, min_index: int, timeout: float = 1.0
     ) -> tuple[list[Allocation], int]:
@@ -616,3 +838,43 @@ class Server:
                 return True
             time.sleep(0.01)
         return False
+
+
+class InProcessClientRPC:
+    """The client↔server transport seam, in-process flavor (the reference's
+    msgpack-RPC client/rpc.go collapses to method calls for the dev agent)."""
+
+    def __init__(self, server: Server):
+        self.server = server
+
+    def register_node(self, node) -> None:
+        self.server.register_node(node)
+        self.server.heartbeater.heartbeat(node.id)
+
+    def heartbeat(self, node_id: str) -> float:
+        node = self.server.store.node_by_id(node_id)
+        if node is not None and node.status == "down":
+            # node recovered after missed TTLs (heartbeat.go resurrection)
+            self.server.update_node_status(node_id, "ready")
+        return self.server.heartbeater.heartbeat(node_id)
+
+    def pull_allocs(self, node_id: str, min_index: int, timeout: float):
+        return self.server.pull_allocs(node_id, min_index, timeout)
+
+    def update_allocs(self, updates) -> None:
+        self.server.update_allocs_from_client(updates)
+
+    def csi_volume_info(self, volume_id: str):
+        """(resolved_volume_id, plugin_id) or None — the client's volume
+        resolver for CSI publish routing (CSIVolume.Get's role). The
+        caller may pass a per-alloc id (``source[idx]``); resolution
+        falls back to the base source exactly like the scheduler and the
+        plan applier do."""
+        store = self.server.store
+        vol = store.csi_volume_by_id(volume_id)
+        if vol is None and "[" in volume_id:
+            base = volume_id.split("[", 1)[0]
+            vol = store.csi_volume_by_id(base)
+        if vol is None:
+            return None
+        return vol.id, vol.plugin_id

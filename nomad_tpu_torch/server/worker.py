@@ -43,8 +43,7 @@ from ..utils.metrics import global_metrics as metrics
 
 log = logging.getLogger("nomad_tpu_torch.worker")
 
-# the core GC scheduler ("_core") comes with core_gc.py (ROADMAP A9b)
-SCHEDULER_TYPES = ["service", "batch", "system", "sysbatch"]
+SCHEDULER_TYPES = ["service", "batch", "system", "sysbatch", "_core"]
 
 # evals packed into one batched device pass (SURVEY.md §7 step 5): the
 # batch dimension of the placement kernel replaces the reference's

@@ -59,6 +59,21 @@ def test_imports_with_jax_blocked():
         "nomad_tpu_torch.server.lanes",
         "nomad_tpu_torch.server.worker",
         "nomad_tpu_torch.server.server",
+        "nomad_tpu_torch.utils.cron",
+        "nomad_tpu_torch.server.heartbeat",
+        "nomad_tpu_torch.server.admission",
+        "nomad_tpu_torch.server.drainer",
+        "nomad_tpu_torch.server.deployment_watcher",
+        "nomad_tpu_torch.server.periodic",
+        "nomad_tpu_torch.server.core_gc",
+        "nomad_tpu_torch.server.volume_watcher",
+        "nomad_tpu_torch.server.defrag",
+        "nomad_tpu_torch.utils.hcl",
+        "nomad_tpu_torch.acl.tokens",
+        "nomad_tpu_torch.acl.policy",
+        "nomad_tpu_torch.acl.acl",
+        "nomad_tpu_torch.acl",
+        "nomad_tpu_torch.server.acl",
     ):
         assert m in mods
     code = (

@@ -17,7 +17,7 @@ jobs in one merged, decorrelated pass; (d) ``_decorrelate_lanes`` and
 ``place(decorrelate=True)``; (e) ``LaneMap`` on 1,000 job ids and two
 lane-mode workers against one; (f) the broker, blocked evals and the plan
 queue on scripted sequences; (g) ``InlineRaft`` with a data dir. Also the
-endpoints that need an A9b service, which raise.
+seven endpoints that need a leader service, on both servers.
 
 Tolerance: placements, orders and counters exactly; scores of
 ``place(decorrelate=True)`` within ``rtol=1e-5`` (``exp`` differs by an
@@ -543,30 +543,118 @@ def test_server_reboots_from_its_raft_log(tmp_path):
         rebooted.shutdown()
 
 
-# -- what needs an A9b leader service -----------------------------------------
+# -- the endpoints that once waited for a leader service ----------------------
 
 
-def test_a9b_endpoints_raise_not_implemented():
-    s = Server(ServerConfig(num_workers=0, device="cpu"))
-    try:
-        assert s.admission is None and s.eval_broker.admission is None
-        periodic = port_of(ref_mock.job(id="cron"), Job)
-        from nomad_tpu_torch.structs.job import PeriodicConfig
+def _scale(p):
+    p.job(ref_mock.job(id="web", name="web"))
+    p.drain()
+    evs = p.call("scale_job", "default", "web", "web", 3)
+    assert [e.job_id for e in evs] == ["web", "web"]
+    p.drain()
+    assert len(p.same_placements("web")) == 3
+    assert [s.store.job_by_id("default", "web").task_groups[0].count
+            for s in p.servers] == [3, 3]
 
-        periodic.periodic = PeriodicConfig(spec="*/5 * * * *")
-        for call in (
-            lambda: s.scale_job("default", "web", "web", 3),
-            lambda: s.dispatch_job("default", "web"),
-            lambda: s.update_node_drain("node-000", None),
-            lambda: s.register_csi_volume(None),
-            lambda: s.deregister_csi_volume("v"),
-            lambda: s.claim_csi_volume("v", "a", "n", False),
-            lambda: s.register_job(periodic),
-        ):
-            with pytest.raises(NotImplementedError, match="A9b"):
-                call()
-    finally:
-        s.shutdown()
+
+def _dispatch(p):
+    from nomad_tpu.structs.job import ParameterizedJobConfig
+
+    job = ref_mock.batch_job(id="param")
+    job.task_groups[0].count = 2
+    job.parameterized = ParameterizedJobConfig(meta_required=["who"])
+    p.job(job)
+    p.drain()
+    out = p.call("dispatch_job", "default", "param", b"", {"who": "me"})
+    assert [(c.parent_id, c.meta["who"], e.job_id == c.id) for c, e in out] == [
+        ("param", "me", True)] * 2
+    p.drain()
+    got = [sorted((a.name.split(".", 1)[1], a.node_id) for a in s.store.allocs()
+                  if a.job_id.startswith("param/dispatch-")) for s in p.servers]
+    assert got[0] == got[1] and len(got[0]) == 2
+
+
+def _drain(p):
+    from nomad_tpu.structs import DrainStrategy as RefDrain
+    from nomad_tpu_torch.structs import DrainStrategy
+
+    p.job(ref_mock.job(id="web", name="web"))
+    p.drain()
+    assert [len(e) for e in p.call("update_node_drain", "node-000", None)] == [1, 1]
+    p.drain()
+    for s, cls in zip(p.servers, (RefDrain, DrainStrategy)):
+        s.drainer.stop()
+        s.update_node_drain("node-000", cls(deadline_s=-1))
+    p.drain()
+    for s in p.servers:
+        s.drainer.scan()  # the deadline has passed: everything is marked
+    p.drain()
+    placed = p.same_nodes("web")
+    assert len(placed) == 10 and all(n != "node-000" for _j, _a, n in placed)
+    assert [s.store.node_by_id("node-000").scheduling_eligibility
+            for s in p.servers] == ["ineligible"] * 2
+
+
+def _volume(p):
+    from nomad_tpu.structs import CSIVolume as RefVolume
+    from nomad_tpu_torch.structs import CSIVolume
+
+    for s, cls in zip(p.servers, (RefVolume, CSIVolume)):
+        s.register_csi_volume(cls(id="vol1", plugin_id="ebs"))
+
+
+def _register_volume(p):
+    _volume(p)
+    got = [(v.id, v.plugin_id, v.access_mode, v.schedulable)
+           for v in (s.store.csi_volume_by_id("vol1") for s in p.servers)]
+    assert got[0] == got[1] == ("vol1", "ebs", got[0][2], True)
+
+
+def _deregister_volume(p):
+    _volume(p)
+    p.call("deregister_csi_volume", "vol1")
+    assert [s.store.csi_volume_by_id("vol1") for s in p.servers] == [None, None]
+
+
+def _claim_volume(p):
+    _volume(p)
+    assert p.call("claim_csi_volume", "vol1", "a", "node-000", False) == [True, True]
+    assert [sorted(s.store.csi_volume_by_id("vol1").write_claims)
+            for s in p.servers] == [["a"], ["a"]]
+
+
+def _register_periodic(p):
+    from nomad_tpu.structs.job import PeriodicConfig
+
+    job = ref_mock.job(id="cron")
+    job.periodic = PeriodicConfig(spec="*/5 * * * *")
+    evs = p.job(job)
+    assert [e.job_id for e in evs] == ["cron", "cron"]
+    # a template: tracked by the dispatcher, no eval of its own
+    assert [s.periodic.tracked_count() for s in p.servers] == [1, 1]
+    assert [s.store.evals_by_job("default", "cron") for s in p.servers] == [[], []]
+
+
+LEADER_ENDPOINTS = {
+    "scale_job": _scale,
+    "dispatch_job": _dispatch,
+    "update_node_drain": _drain,
+    "register_csi_volume": _register_volume,
+    "deregister_csi_volume": _deregister_volume,
+    "claim_csi_volume": _claim_volume,
+    "register_job_periodic": _register_periodic,
+}
+
+
+@pytest.mark.parametrize("endpoint", sorted(LEADER_ENDPOINTS))
+def test_leader_endpoints_match_reference(monkeypatch, endpoint):
+    """The seven calls that raised until the leader services were ported
+    now do on the port's server what they do on the reference's."""
+    with server_pair(monkeypatch, num_workers=1) as p:
+        for i in range(3):
+            p.node(rack_node(i))
+        assert p.port.admission is not None and p.port.eval_broker.admission is p.port.admission
+        LEADER_ENDPOINTS[endpoint](p)
 
 
 def test_commit_ledger_and_made_faults_reach_an_installed_plane():
