@@ -87,6 +87,26 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
      kernel and the plain version (all six outputs identical); then the
      "server" path's bench again, with its admission block, gated the
      same way;
+   - "resilience": the kernel guard (``backend.guarded_call``: breaker,
+     chaos sites, watchdog deadline) in front of every launch, driven
+     under faults on the port's server on the card: ``run_chaos`` under
+     the default fault mix at 1,000 nodes x 200 steps for seeds 1, 2 and
+     1 (every run ``ok``, every law checked or skipped for want of its
+     state, seed 1's canonical reports identical and equal to the same
+     run's on the CPU), the reference's migration-in-the-default-mix run,
+     a kernel fault fired on a real launch, the closed-form and migration
+     kernels launched, no call finished on a fallback; the degraded slice
+     (hangs at 10 %: ``ok``, a trip, every refused eval accounted for);
+     ``run_soak`` at bench.py soak's defaults on 10,000 nodes for 30 s
+     (invariants clean, the SLO schema pinned, completions at least 0.8
+     of arrivals, no trip, nothing swallowed); ``saturation_search`` at
+     bench.py soak --saturation's defaults; and 1,000 synchronized
+     ``place_closed_form`` calls at the schedule shape through the guard
+     beside 1,000 straight (µs a call); each run's seconds, faults by
+     kind, trips, refused calls, abandoned skips, nacks, unack timeouts,
+     planned moves and launches logged. Every timing helper here launches
+     straight through the guard (``backend.direct_launches``), so the
+     kernels' times hold no guard;
    - "spread": the JAX package's ``bench.py end_to_end`` node recipe
      (10,000 nodes over 25 racks, ssd on every 4th, every 3rd at
      8,000 MHz / 16,384 MiB) and 30 jobs through the Harness: its 20
@@ -205,7 +225,7 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
    (its kernel ms beside the same evals' 10 calls one by one, and host
    seconds beside the incremental path's first off arm), "plan", "calib",
    "leader" (the drain, each defrag cycle's row, the bench with its
-   admission block), "restore" and "server"; the total seconds, one JSON line of per-kernel results,
+   admission block), "resilience", "restore" and "server"; the total seconds, one JSON line of per-kernel results,
    the card's name and power limit, then the device line last.
 
 Times, kernels and plain versions alike, are device times per launch
@@ -321,19 +341,30 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def direct_launches():
+    """Kernel wrappers launch straight through the kernel guard inside
+    the block (``backend.direct_launches``): every timing helper below
+    measures a kernel alone, without the guard's watchdog hand-off and
+    synchronize (the "resilience" path measures those apart)."""
+    from nomad_tpu_torch.backend import direct_launches as direct
+
+    return direct()
+
+
 def cuda_ms(fn, iters: int = TIMED_LAUNCHES, warmup: int = 3) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back launches,
     after a warm-up, measured with CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    with direct_launches():
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
 
 
@@ -344,25 +375,26 @@ def graph_ms(fn, iters: int = TIMED_LAUNCHES) -> float:
     timed at the host's launch rate). The warm-up call runs on the
     capture stream, so whatever a wrapper keeps per stream exists before
     the capture."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=side):
-        for _ in range(iters):
+    with direct_launches():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
             fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(iters):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
 
 
 def queued_ms(reset, launch, iters: int = TIMED_LAUNCHES, warmup: int = 3) -> float:
@@ -371,21 +403,22 @@ def queued_ms(reset, launch, iters: int = TIMED_LAUNCHES, warmup: int = 3) -> fl
     before the first event, and all of them queued behind a sleep kernel
     that holds the device until the host has enqueued them, so neither the
     resets nor the host's launch rate fall inside a window."""
-    for _ in range(warmup):
-        reset()
-        launch()
-    torch.cuda.synchronize()
-    pairs = [
-        (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-        for _ in range(iters)
-    ]
-    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
-    for start, end in pairs:
-        reset()
-        start.record()
-        launch()
-        end.record()
-    torch.cuda.synchronize()
+    with direct_launches():
+        for _ in range(warmup):
+            reset()
+            launch()
+        torch.cuda.synchronize()
+        pairs = [
+            (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            for _ in range(iters)
+        ]
+        torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+        for start, end in pairs:
+            reset()
+            start.record()
+            launch()
+            end.record()
+        torch.cuda.synchronize()
     return sum(start.elapsed_time(end) for start, end in pairs) / iters
 
 
@@ -2387,7 +2420,14 @@ def choice_protocol(dev):
     on its stream, replayed between eager calls with other inputs there
     and no sync, each identical to plain; one graph node a choice launch,
     and one a V 8 ``choose_preemption_node`` call (two at V 64: the find
-    pass and the choice)."""
+    pass and the choice). The calls launch straight through the kernel
+    guard, whose synchronize after each call would put a host sync
+    between them."""
+    with direct_launches():
+        return _choice_protocol(dev)
+
+
+def _choice_protocol(dev):
     from nomad_tpu_torch.device import preempt as P
 
     cases = [preempt_inputs(dev, v, n=n, seed=seed) for v, n, seed in (
@@ -4402,6 +4442,227 @@ def leader_path(dev, n_nodes=LEADER_NODES):
     return launches, labelled, coupled, summary
 
 
+# -- phase 5, the "resilience" path --------------------------------------------
+
+RESILIENCE_NODES = 1_000  # a mid-sized production fleet
+RESILIENCE_STEPS = 200  # the reference's acceptance length (tests/test_chaos.py)
+RESILIENCE_SEEDS = (1, 2, 1)  # seed 1 twice: its canonical reports must match
+# the reference's test_migration_exercised_in_default_mix (its 6 nodes)
+MIGRATION_MIX = {"seed": 11, "steps": 60}
+# one explicit hang, run when the default mix fired no kernel fault
+HANG_EXPLICIT = {"seed": 23, "steps": 40}
+# the reference's test_hang_rate_run_places_everything, on the card
+HANG_SLICE = {"seed": 31, "steps": 60, "faults": ("hang",), "rate": 0.10}
+# bench.py soak's defaults (update, stop, drain and flap fractions too)
+SOAK = {"seed": 7, "seconds": 30.0, "rate": 25.0, "nodes": 10_000, "batch_workers": 1}
+# bench.py soak --saturation's defaults
+SATURATION = {"seed": 7, "nodes": 200, "probe_seconds": 2.0, "lo": 4.0, "hi": 128.0,
+              "iterations": 5}
+GUARD_CALLS = 1_000  # calls timed through the guard, and as many straight
+# laws the checker skips, on the CPU as on the card, while the state they
+# judge does not exist: a score view (incremental rescoring off), a CP
+# pass in this process, a planned move in this process
+LAWS_SKIPPED_WITHOUT_STATE = {
+    "shard_consistency", "cp_assignment_conservation", "migration_conservation",
+}
+RESILIENCE_METRICS = {
+    "breaker_trips": "nomad.resilience.trips_total",
+    "refused_calls": "nomad.resilience.refused_calls",
+    "abandoned_skips": "nomad.resilience.abandoned_skips",
+    "fallback_calls": "nomad.resilience.fallback_calls",
+    "fallback_passes": "nomad.resilience.fallback_passes",
+    "migrate_planned": "nomad.migrate.planned",
+    # where a refused or timed-out call lands when no eval is nacked for
+    # it: a batched pass that retries its evals solo, a defrag cycle
+    "batch_kernel_errors": "nomad.worker.batch_kernel_errors",
+    "defrag_cycle_errors": "defrag.swallowed_errors",
+}
+
+
+def metric_deltas(before: dict) -> dict:
+    from nomad_tpu_torch.utils.metrics import global_metrics
+
+    now = global_metrics.snapshot()["counters"]
+    return {k: int(now.get(m, 0) - before.get(m, 0)) for k, m in RESILIENCE_METRICS.items()}
+
+
+def chaos_on(dev, label, **kw):
+    """One ``run_chaos`` on ``dev`` with the launch counts zeroed just
+    before it and read just after; its line of figures."""
+    from nomad_tpu_torch.chaos import run_chaos
+    from nomad_tpu_torch.chaos.invariants import INVARIANTS
+    from nomad_tpu_torch.utils.metrics import global_metrics
+
+    before = global_metrics.snapshot()["counters"]
+    zero_counters()
+    t0 = time.perf_counter()
+    run = run_chaos(device=dev, **kw)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counters()
+    broker = run.report.info["broker"]
+    summary = {
+        "label": label, "seed": run.seed, "steps": run.steps, "ok": run.ok,
+        "seconds": seconds,
+        "faults_fired": dict(collections.Counter(a for _s, _n, a in run.triggered)),
+        "kernel_faults": [list(t) for t in run.triggered if t[0].startswith("kernel.")],
+        **metric_deltas(before),
+        "nacks": broker["nacks"], "unack_timeouts": broker["unack_timeouts"],
+        "kernel_refusals": run.report.info["kernel_refusals"],
+        "checked": sorted(run.report.checked),
+        "launches": {k: v for k, v in launches.items() if v},
+    }
+    log(f"[resilience] {label} on {dev.type}: " + json.dumps(summary, sort_keys=True))
+    assert run.ok, run.render()
+    skipped = set(INVARIANTS) - set(run.report.checked)
+    assert skipped <= LAWS_SKIPPED_WITHOUT_STATE, skipped
+    assert summary["fallback_calls"] == 0 and summary["fallback_passes"] == 0, summary
+    refusals = summary["kernel_refusals"]
+    assert refusals["ended_placed"] + refusals["parked_failed"] == refusals["evals"], refusals
+    return run, summary, launches
+
+
+def guard_cost(dev) -> dict:
+    """µs a synchronized ``place_closed_form`` call at the schedule path's
+    shape through the kernel guard and straight, ``GUARD_CALLS`` each, in
+    alternating blocks of 100 (host clock, one synchronize after each
+    call in both arms)."""
+    from nomad_tpu_torch.backend import direct_launches as straight
+    from nomad_tpu_torch.device import score as S
+
+    args, max_j, k = schedule_inputs(dev)
+    call = lambda: S.place_closed_form(*args, False, max_j, k)  # noqa: E731
+    want = S.place_closed_form_plain(*args, False, max_j, k)
+    for _ in range(10):
+        got = call()
+    with straight():
+        for _ in range(10):
+            call()
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want)), "guarded call differs"
+    seconds = {"guarded": 0.0, "straight": 0.0}
+    for _ in range(GUARD_CALLS // 100):
+        for arm in ("guarded", "straight"):
+            with straight() if arm == "straight" else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                for _ in range(100):
+                    call()
+                    torch.cuda.synchronize()
+                seconds[arm] += time.perf_counter() - t0
+    out = {f"{arm}_us_per_call": s / GUARD_CALLS * 1e6 for arm, s in seconds.items()}
+    out["calls"] = GUARD_CALLS
+    log(f"[resilience] guard cost at the schedule shape (G 1, N 16,384): " + json.dumps(out))
+    return out
+
+
+def resilience_path(dev):
+    """The "resilience" path: the kernel guard in front of every launch,
+    driven under faults on the port's server on the card.
+
+    1. ``run_chaos`` at ``RESILIENCE_NODES`` × ``RESILIENCE_STEPS`` under
+       the default fault mix for ``RESILIENCE_SEEDS`` (seed 1 twice): every
+       run ``ok``, seed 1's two canonical reports identical and equal to
+       the same run's on the CPU; every law checked, or skipped for
+       want of the state it judges (``LAWS_SKIPPED_WITHOUT_STATE``);
+       then ``MIGRATION_MIX``, which moves allocs live; a kernel fault
+       fired on a real launch (else one explicit hang run); no call
+       finished on a fallback; closed-form and migration launches.
+    2. The degraded slice (``HANG_SLICE``): ``ok``, a trip, every refused
+       eval accounted for.
+    3. ``run_soak`` at ``SOAK``: invariants clean, the SLO schema pinned,
+       completions ≥ 0.8 × arrivals, no trip, nothing swallowed.
+    4. ``saturation_search`` at ``SATURATION``.
+    5. The guard's cost (``guard_cost``).
+    Returns a summary of every figure."""
+    from nomad_tpu_torch.chaos import FaultSpec
+    from nomad_tpu_torch.obs import loadgen
+    from nomad_tpu_torch.obs.slo import SLO_SCHEMA, slo_schema_of
+    from nomad_tpu_torch.resilience import breaker
+
+    t_path = time.perf_counter()
+    out = {"chaos": [], "card": card_line()}
+    launches = collections.Counter()
+    canonical = {}
+    for seed in RESILIENCE_SEEDS:
+        run, summary, counts = chaos_on(
+            dev, f"chaos seed {seed}", seed=seed, steps=RESILIENCE_STEPS,
+            nodes=RESILIENCE_NODES,
+        )
+        out["chaos"].append(summary)
+        launches.update(counts)
+        canonical.setdefault(seed, []).append(run.canonical_json())
+    assert canonical[1][0] == canonical[1][1], "seed 1's canonical reports differ"
+    cpu_run, cpu_summary, _ = chaos_on(
+        torch.device("cpu"), "chaos seed 1", seed=1, steps=RESILIENCE_STEPS,
+        nodes=RESILIENCE_NODES,
+    )
+    assert cpu_run.canonical_json() == canonical[1][0], "seed 1 on the card differs from the CPU"
+    out["cpu_seed1_seconds"] = cpu_summary["seconds"]
+    # the reference's migration-in-the-default-mix run: live moves, so the
+    # defrag controller's migration kernel launches under faults too (at
+    # RESILIENCE_NODES the allocs come up after the last client flip)
+    _, summary, counts = chaos_on(dev, "migration mix", **MIGRATION_MIX)
+    out["chaos"].append(summary)
+    launches.update(counts)
+    if not any(s["kernel_faults"] for s in out["chaos"]):
+        _, summary, counts = chaos_on(
+            dev, "explicit hang", **HANG_EXPLICIT,
+            schedule=[FaultSpec("kernel.hang", 0, "hang", 0.3)],
+        )
+        out["chaos"].append(summary)
+        launches.update(counts)
+    assert any(s["kernel_faults"] for s in out["chaos"]), "no kernel fault fired"
+    assert launches["place_closed_form"] > 0 and launches["migrate_plan"] > 0, launches
+    out["chaos_launches"] = dict(launches)
+
+    _, hang, _ = chaos_on(dev, "hang slice", **HANG_SLICE)
+    assert hang["breaker_trips"] >= 1, hang
+    out["hang_slice"] = hang
+
+    zero_counters()
+    t0 = time.perf_counter()
+    soak = loadgen.run_soak(**SOAK, device=dev)
+    torch.cuda.synchronize()
+    soak_launches = {k: v for k, v in counters().items() if v}
+    slo = soak.slo
+    ev, t = slo["eval_latency_ms"], slo["throughput"]
+    out["soak"] = {
+        "config": SOAK, "seconds": time.perf_counter() - t0, "ok": soak.ok,
+        "eval_latency_ms": {k: ev[k] for k in ("count", "p50_ms", "p95_ms", "p99_ms", "max_ms")},
+        "placement_p99_ms": slo["placement_latency_ms"]["p99_ms"],
+        "arrivals": t["arrivals"], "completions": t["completions"],
+        "arrival_rate_per_s": t["arrival_rate_per_s"],
+        "completion_rate_per_s": t["completion_rate_per_s"],
+        "queue_depth": slo["queue_depth"], "verdict": slo["verdict"],
+        "counters": {k: v for k, v in slo["counters"].items() if v},
+        "workload": soak.workload, "launches": soak_launches,
+    }
+    log("[resilience] soak " + json.dumps(out["soak"], sort_keys=True))
+    assert soak.ok, soak.render(verbose=True)
+    assert slo_schema_of(slo) == SLO_SCHEMA
+    assert t["completions"] >= 0.8 * t["arrivals"], t
+    assert slo["counters"]["breaker_trips"] == 0, slo["counters"]
+    assert slo["counters"]["swallowed_errors"] == 0, slo["counters"]
+    assert slo["counters"]["fallback_activations"] == 0, slo["counters"]
+    assert soak_launches.get("place_closed_form", 0) > 0, soak_launches
+
+    probes = []
+    t0 = time.perf_counter()
+    rate = loadgen.saturation_search(**SATURATION, device=dev, log=probes.append)
+    for line in probes:
+        log(f"[resilience] {line}")
+    out["saturation"] = {"config": SATURATION, "saturation_rate": rate,
+                         "probes": probes, "seconds": time.perf_counter() - t0}
+    log(f"[resilience] saturation_rate {rate!r}/s over {len(probes)} probes")
+
+    out["guard"] = guard_cost(dev)
+    breaker.reset_all()
+    out["seconds"] = time.perf_counter() - t_path
+    log(f"[resilience] path {out['seconds']:.1f} s")
+    return out
+
+
 def find_launches(by_path) -> dict:
     """The find pass's launches on each path: its own launches plus the
     passes carried in the choice's launch (each a launch of its device
@@ -4526,6 +4787,9 @@ def main() -> int:
                 k: r[k] for k in ("path_ms", "max_abs_err", "choice_mismatches")
             }
     del leader_calls, leader_coupled_calls
+    # the kernel guard under faults: chaos runs, the degraded slice, the
+    # soak and the saturation search on the server's card
+    resilience = resilience_path(dev)
     h, by_path["spread"], spread_calls, _ = spread_path(dev)
     coupled = {name: replay_coupled(name, spread_calls[name]) for name in COUPLED}
     del spread_calls
@@ -4595,6 +4859,7 @@ def main() -> int:
     del one_by_one
     log("[server] " + json.dumps({
         "incremental": incr, "batch": batch, "plan": plan, "calib": calib, "leader": leader,
+        "resilience": resilience,
         "restore": restore, "server": {
             k: server[k] for k in (
                 "config", "card", "allocs_per_sec", "evals_per_sec", "eval_latency_ms",

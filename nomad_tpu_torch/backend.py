@@ -18,6 +18,13 @@ needs: where the tensors live, and how the device programs are built.
   wrapper adds one through ``count_launch`` where it launches its kernel
   and nowhere else. The server's worker and its commit thread launch on
   one card at once, so the add holds a lock and the counts stay exact.
+- **The kernel guard** (``guarded`` / ``guarded_call``): every kernel
+  wrapper launches through it, on the CPU as on the card. It checks the
+  kernel's circuit breaker, runs the ``kernel.execute`` and
+  ``kernel.hang`` chaos sites, and runs the launch on a watchdog thread
+  under the breaker's deadline (``resilience/``). A refused or
+  timed-out call raises; nothing computes the plain version in its
+  place on a CUDA tensor.
 - **Incremental rescoring** (``incremental_enabled``) resolves the same
   ``NOMAD_TPU_INCREMENTAL`` variable as the JAX package, so one setting
   drives both.
@@ -25,7 +32,9 @@ needs: where the tensors live, and how the device programs are built.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -131,6 +140,7 @@ def cuda_library(name: str) -> ctypes.CDLL:
     lib = _libraries.get(name)
     if lib is not None:
         return lib
+    note_compile()
     path = build_all([name])[name]
     with _build_lock:
         lib = _libraries.get(name)
@@ -173,6 +183,156 @@ def same_device(tensors, device: torch.device, what: str) -> None:
             raise ValueError(
                 f"{what}: tensor on {t.device}, expected {device}"
             )
+
+
+# -- the kernel guard ----------------------------------------------------------
+#
+# The port of the JAX package's ``traced_jit`` wrapper body (its
+# ``_profiled``), minus the CPU fallback: a refused call raises
+# ``KernelUnavailable``, a missed deadline ``KernelDeadlineExceeded``, and
+# the server's worker nacks the eval so the broker redelivers it.
+
+# builds started in this process: a library's first load (nvcc when not
+# built yet) and a Triton specialization's first call. The watchdog
+# extends a call's deadline to the compile deadline when this moved
+# during the call (the JAX package's trace count plays this role).
+_compile_lock = threading.Lock()
+_compiles = 0
+
+# set on a thread while it runs a guarded launch (a nested wrapper call
+# is covered by the outer guard) or times kernels (``direct_launches``)
+_guard_tls = threading.local()
+
+_WATCHDOG_ENV = "NOMAD_TPU_KERNEL_WATCHDOG"
+
+
+def note_compile() -> None:
+    global _compiles
+    with _compile_lock:
+        _compiles += 1
+
+
+@contextlib.contextmanager
+def direct_launches():
+    """Kernel wrappers called on this thread inside the block launch
+    straight through the guard: no breaker, no chaos site, no watchdog
+    hand-off or synchronize. For timing a kernel alone, where the guard's
+    host work and its wait would sit inside the measured window."""
+    prev = getattr(_guard_tls, "inside", False)
+    _guard_tls.inside = True
+    try:
+        yield
+    finally:
+        _guard_tls.inside = prev
+
+
+def guarded_call(name: str, device: torch.device, launch):
+    """Run ``launch()`` (a kernel wrapper's body: the launch on a CUDA
+    tensor, the plain version on a CPU tensor) behind the breaker
+    ``name``, in the JAX package's order:
+
+    1. the breaker: refused → ``KernelUnavailable``, nothing launched,
+       ``nomad.resilience.refused_calls`` counted;
+    2. the ``kernel.execute`` site (a raise counts as a failure);
+    3. on a watchdog thread, under the breaker's execute deadline
+       (extended to its compile deadline when a build started during the
+       call): the ``kernel.hang`` site; if the caller has given up
+       meanwhile, return without launching
+       (``nomad.resilience.abandoned_skips``); else the launch on the
+       caller's device and stream, then a CUDA event synchronize on that
+       stream, so that the deadline covers the work itself;
+    4. ``record_success``, or ``record_failure`` and re-raise, or
+       ``record_timeout`` and raise ``KernelDeadlineExceeded``.
+
+    While a CUDA graph is being captured, or inside a guarded launch or
+    ``direct_launches``, the launch runs straight through (an event
+    synchronize and a thread hand-off are illegal in a capture, and an
+    outer guard already covers a nested call)."""
+    if getattr(_guard_tls, "inside", False) or (
+        device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+    ):
+        return launch()
+    from .chaos.plane import chaos_site
+    from .resilience.breaker import breaker_for, forced_open
+    from .resilience.errors import KernelDeadlineExceeded, KernelUnavailable
+    from .resilience.watchdog import abandoned, global_executor
+    from .utils.metrics import global_metrics
+
+    br = breaker_for(name)
+    if not br.allow():
+        global_metrics.incr("nomad.resilience.refused_calls")
+        snap = br.snapshot()
+        state = "forced_open" if forced_open() else snap["state"]
+        raise KernelUnavailable(name, state, snap["probe_in_s"])
+    # a raise here models a device-side failure (a lost context, an out
+    # of memory); the worker's batch path falls back to single-eval runs
+    try:
+        chaos_site("kernel.execute")
+    except Exception as e:
+        br.record_failure(e)
+        raise
+    before = _compiles
+    # PyTorch's current stream is per thread: read the caller's here
+    stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
+
+    def thunk():
+        # a hang here models a wedged launch or copy; only the watchdog
+        # deadline gets the caller's thread back
+        chaos_site("kernel.hang")
+        if abandoned():
+            # the caller already raised: a late launch could write the
+            # scratch (grid-barrier counters, sort words) of the next call
+            global_metrics.incr("nomad.resilience.abandoned_skips")
+            return None
+        _guard_tls.inside = True
+        try:
+            if stream is None:
+                return launch()
+            with torch.cuda.device(device), torch.cuda.stream(stream):
+                out = launch()
+                done = torch.cuda.Event()
+                done.record(stream)
+            done.synchronize()
+            return out
+        finally:
+            _guard_tls.inside = False
+
+    try:
+        if os.environ.get(_WATCHDOG_ENV, "1") != "0" and br.execute_deadline > 0:
+            out = global_executor.run(
+                thunk,
+                name=name,
+                deadline_s=br.execute_deadline,
+                extend_deadline_s=br.compile_deadline,
+                extend_probe=lambda: _compiles > before,
+            )
+        else:
+            out = thunk()
+    except KernelDeadlineExceeded as e:
+        br.record_timeout(e)
+        raise
+    except Exception as e:
+        br.record_failure(e)
+        raise
+    br.record_success()
+    return out
+
+
+def guarded(name: str):
+    """Decorator form of ``guarded_call`` for a kernel wrapper whose first
+    argument (or ``capacity``) is a tensor on the call's device. The
+    decorated function is the module's wrapper: its counters
+    (``launches``, ``forms``) are set on it."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            first = args[0] if args else kwargs["capacity"]
+            return guarded_call(name, first.device, lambda: fn(*args, **kwargs))
+
+        return call
+
+    return wrap
 
 
 # -- incremental score-state seam ---------------------------------------------

@@ -1,21 +1,26 @@
-"""nomad_tpu_torch.chaos — deterministic fault injection.
+"""nomad_tpu_torch.chaos — deterministic fault injection + cluster invariants.
 
-A :class:`FaultPlane` injects faults at named *sites* compiled into the
-production seams. The plane is off by default: every site is a single
-global load + ``is None`` branch when no plane is installed.
+A seeded :class:`FaultPlane` injects faults (raise, delay, duplicate
+delivery, drop, cooperative thread-kill, clock skew, kernel hang) at
+named *sites* compiled into the production seams (broker dequeue/ack,
+plan queue, plan apply verify/commit, raft apply, worker commit thread,
+heartbeat expiry, store snapshot, the kernel guard, lanes, admission,
+the CP dispatcher, the score-state cache, gang commits, defrag moves,
+the calibration estimator). The plane is off by default: every site is a
+single global load + ``is None`` branch when no plane is installed. Set
+``NOMAD_TPU_CHAOS`` to a spec (``seed=7,steps=200,faults=raise+delay``)
+to auto-install one.
 
-The port carries the part of the JAX package's plane that its seams
-need (``plane.py``): the calibration estimator's schedulable
-``calib.telemetry_drop``; ``ChaosFault`` / ``ChaosThreadKill``,
-``make_fault`` and the commit ledger (``note_committed``) for the
-server's sites, where nothing can be scheduled yet. The sites that
-the earlier copies left out, the other fault kinds, the invariant checks
-(``invariants.py``) and the seeded cluster runner (``runner.py``) are not
-ported yet (ROADMAP A14).
+:mod:`.invariants` checks the cluster's conservation laws after a run;
+:mod:`.runner` drives a seeded in-process cluster on ``device`` through a
+randomized workload and re-runs bit-identically from the same seed.
 """
 
 from .plane import (  # noqa: F401
+    ENV_VAR,
+    FAULT_KINDS,
     SITES,
+    ChaosClock,
     ChaosFault,
     ChaosThreadKill,
     FaultPlane,
@@ -27,3 +32,5 @@ from .plane import (  # noqa: F401
     note_committed,
     uninstall,
 )
+from .invariants import InvariantReport, Violation, check_cluster  # noqa: F401
+from .runner import ChaosRun, run_chaos, shrink_schedule  # noqa: F401

@@ -26,10 +26,10 @@ degenerate mesh, and counts one patch of its dirty rows;
 ``score_commit`` waits on a CUDA event recorded after that upload, never
 on the whole device.
 
-Left for later items: the mesh half (``verify_device_view``, the dirty
-regions and per-shard capacity, ROADMAP A13; ``device_counters`` reports
-their counters as 0) and the chaos site ``cache.score_refresh_drop``
-(A14).
+A dropped patch (chaos site ``cache.score_refresh_drop``) is recovered by
+a whole rebuild on the same access. Left for a later item: the mesh half
+(``verify_device_view``, the dirty regions and per-shard capacity,
+ROADMAP A13; ``device_counters`` reports their counters as 0).
 """
 
 from __future__ import annotations
@@ -219,6 +219,13 @@ class DeviceStateCache:
                     base.fence,
                 )
                 return base.used_dev
+            from ..chaos.plane import chaos_site
+
+            if chaos_site("cache.score_refresh_drop") == "drop":
+                # a dropped dirty-row refresh must never serve stale
+                # score inputs: recovery is a whole-tensor rebuild on
+                # this access (mesh.shard_refresh_drop discipline)
+                return self._score_rebuild_locked(used0, layout_gen)
             self.score_rows_rescored += int(dirty.size)
             self.score_rows_reused += n_rows - int(dirty.size)
             dev, host, fence = self._upload(used0)

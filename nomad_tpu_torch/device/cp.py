@@ -50,6 +50,7 @@ from ..backend import (
     count_launch,
     cuda_library,
     current_stream,
+    guarded,
     same_device,
 )
 from .score import _check_inputs, _first_argmax
@@ -497,6 +498,7 @@ def _auction_call(what, common, steps, max_c, gang_args=None):
     return _AuctionCall(what, common, steps, max_c, gang_args)
 
 
+@guarded("cp_place_kernel")
 def cp_place(
     capacity,  # f32[N, 4]
     used0,  # f32[N, 4]
@@ -527,6 +529,7 @@ def cp_place(
 cp_place.launches = 0
 
 
+@guarded("cp_gang_place_kernel")
 def cp_gang_place(
     capacity, used0, asks, counts, eligible, scores, prio, job_counts,
     distinct, jobgrp,
@@ -560,6 +563,7 @@ def cp_gang_place(
 cp_gang_place.launches = 0
 
 
+@guarded("cp_gang_place_kernel")
 def cp_gang_place_ids(
     capacity, used0, asks, counts, eligible, scores, prio, job_counts,
     distinct, jobgrp, gang, w_rack, w_pod, w_ici,

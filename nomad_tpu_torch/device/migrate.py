@@ -43,6 +43,7 @@ from ..backend import (
     count_launch,
     cuda_library,
     current_stream,
+    guarded,
     same_device,
 )
 from .cp import _NEG_INF, ETA, _cp_winners
@@ -266,6 +267,7 @@ def _launch_migrate(inputs, budget, steps):
     return call.outputs
 
 
+@guarded("migrate_plan_kernel")
 def migrate_plan(
     capacity,  # f32[N, D]
     used0,  # f32[N, D] committed usage (sources NOT pre-freed)

@@ -40,6 +40,7 @@ from ..backend import (
     count_launch,
     cuda_library,
     current_stream,
+    guarded,
     resolve_device,
     same_device,
 )
@@ -264,6 +265,7 @@ _CHOOSE_ARGTYPES = (
 )
 
 
+@guarded("find_preemption_kernel")
 def find_preemption(
     capacity,  # f32[N, 4]
     used,  # f32[N, 4] (incl. victims)
@@ -344,6 +346,7 @@ find_preemption.forms = {}
 find_preemption.carried = 0
 
 
+@guarded("choose_preemption_node_kernel")
 def choose_preemption_node(
     capacity, used, ask, eligible, victim_res, victim_prio, victim_mask
 ):

@@ -43,6 +43,7 @@ from ..backend import (
     count_launch,
     cuda_library,
     current_stream,
+    guarded,
     resolve_device,
     same_device,
 )
@@ -155,6 +156,7 @@ def component_scores(
     return torch.where(fits, final, -torch.inf), fits
 
 
+@guarded("score_matrix_kernel")
 def score_matrix(
     capacity,  # f32[N, D]
     used,  # f32[N, D]
@@ -395,6 +397,7 @@ def _check_inputs(what: str, want) -> None:
             raise ValueError(f"{what}: {name} must be contiguous")
 
 
+@guarded("place_closed_form_kernel")
 def place_closed_form(
     capacity,  # f32[N, 4] shared
     used0,  # f32[N, 4] shared snapshot usage
@@ -883,6 +886,7 @@ def _launch_coupled(what, symbol, lane, blocks, counts, algorithm_spread,
     return choices, scores
 
 
+@guarded("place_value_scan_kernel")
 def place_value_scan(
     capacity, used0, asks, eligible, job_counts, desired_totals,
     penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
@@ -914,6 +918,7 @@ def place_value_scan(
 place_value_scan.launches = 0
 
 
+@guarded("place_spread_chunked_kernel")
 def place_spread_chunked(
     capacity, used0, asks, eligible, job_counts, desired_totals,
     penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
@@ -947,6 +952,7 @@ def place_spread_chunked(
 place_spread_chunked.launches = 0
 
 
+@guarded("place_spread_opv_kernel")
 def place_spread_opv(
     capacity, used0, asks, eligible, job_counts, desired_totals,
     penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
@@ -1156,9 +1162,22 @@ class PlacementKernel:
         (worker id, or the first eval's job lane) permutes the stripes
         and seeds the tie-break jitter, one f32[N] every kernel of the
         pass takes, so concurrent workers' batches collide at ~1/stripes
-        instead of stripe-for-stripe."""
+        instead of stripe-for-stripe.
+
+        While the breakers are degraded the reference counts a fallback
+        pass and finishes refused calls on the CPU. The port has no such
+        path: with every breaker forced open the pass raises
+        ``KernelUnavailable`` before any work; with one breaker open, the
+        kernel guard refuses that kernel's launch alone, so a pass can
+        still reach the breaker's half-open probe."""
         if not asks:
             return []
+        from ..resilience.breaker import forced_open
+
+        if forced_open():
+            from ..resilience.errors import KernelUnavailable
+
+            raise KernelUnavailable("placement pass", "forced_open")
         used0 = np.asarray(
             cluster.used if used_override is None else used_override
         )

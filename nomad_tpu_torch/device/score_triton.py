@@ -41,7 +41,7 @@ import threading
 
 import torch
 
-from ..backend import BUILD_DIR, count_launch, same_device
+from ..backend import BUILD_DIR, count_launch, note_compile, same_device
 
 # ln(10) and BINPACK_MAX_SCORE appear as literals in the kernel body:
 # Triton kernels may read only constexpr globals
@@ -50,6 +50,8 @@ NUM_WARPS = 4
 
 _build_lock = threading.Lock()
 _kernel = None
+# specializations launched so far: a new one compiles at its first call
+_specializations: set = set()
 # bound by _build(): the Triton language module and its libdevice
 tl = None
 libdevice = None
@@ -184,6 +186,14 @@ def score_matrix_triton(
     if g == 0 or n == 0:
         return final, fits
     kernel = _build()
+    # Triton compiles one binary per constexpr set and per integer
+    # argument's divisibility by 16 (n == 1 specializes too): tell the
+    # kernel guard's watchdog that this call may be compiling
+    spec = (bool(algorithm_spread), throughputs is not None, n % 16 == 0, n == 1)
+    with _build_lock:
+        if spec not in _specializations:
+            _specializations.add(spec)
+            note_compile()
     grid = (-(-n // BLOCK_N), g)
     kernel[grid](
         capacity, used, asks,

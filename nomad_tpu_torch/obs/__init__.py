@@ -1,16 +1,79 @@
-"""Span tracing, placement explanations, the flight recorder and the
-calibration plane for the port."""
+"""nomad_tpu_torch.obs — zero-dependency tracing, profiling and SLOs.
 
-from .recorder import FlightRecorder, flight_recorder, phase_breakdown, trace_latencies
+Four parts (see trace.py / recorder.py / slo.py / loadgen.py and
+backend.py):
+
+- **Spans**: ``global_tracer`` keys one trace tree per eval id and
+  carries it across the worker → plan-queue → applier thread handoff.
+- **Flight recorder**: ``flight_recorder`` rings the last N completed
+  traces + error events.
+- **SLO plane**: ``SloCollector`` windows eval/placement latency from
+  the recorder's trace feed into bounded histograms; ``run_soak``
+  replays a seeded Poisson traffic schedule against a live cluster on
+  ``device`` and reports against declared ``SloTargets``;
+  ``saturation_search`` finds the highest arrival rate that holds them.
+- **Calibration plane**: ``CalibrationTable`` gives every operational
+  constant a provenance (``default``/``probe``/``learned``);
+  ``ThroughputEstimator`` learns per-(device class × job profile)
+  throughputs from the recorder's trace feed.
+"""
+
+# calibrate imports before loadgen: loadgen pulls in the server stack,
+# which lazily re-enters obs — calibrate must already be importable
+from .calibrate import (
+    CalibrationTable,
+    ThroughputEstimator,
+    calibration_overview,
+    derive_admission_thresholds,
+    global_estimator,
+    global_table,
+    run_calib_ab,
+    write_probe_artifact,
+)
+from .loadgen import SoakRun, build_schedule, run_soak, saturation_search
+from .recorder import (
+    FlightRecorder,
+    flight_recorder,
+    phase_breakdown,
+    render_trace,
+    trace_latencies,
+)
+from .slo import (
+    SLO_SCHEMA,
+    SloCollector,
+    SloTargets,
+    build_report,
+    live_report,
+    slo_schema_of,
+)
 from .trace import Span, SpanContext, Tracer, global_tracer
 
 __all__ = [
+    "CalibrationTable",
     "FlightRecorder",
+    "SLO_SCHEMA",
+    "SloCollector",
+    "SloTargets",
+    "SoakRun",
     "Span",
     "SpanContext",
+    "ThroughputEstimator",
     "Tracer",
+    "build_report",
+    "build_schedule",
+    "calibration_overview",
+    "derive_admission_thresholds",
     "flight_recorder",
+    "global_estimator",
+    "global_table",
     "global_tracer",
+    "live_report",
     "phase_breakdown",
+    "render_trace",
+    "run_calib_ab",
+    "run_soak",
+    "saturation_search",
+    "slo_schema_of",
     "trace_latencies",
+    "write_probe_artifact",
 ]

@@ -1,0 +1,623 @@
+"""Steady-state load generator — sustained churn instead of
+drain-to-empty.
+
+``build_schedule`` turns (seed, seconds, rate, …) into a deterministic
+event timeline: Poisson job arrivals at the target rate, rolling job
+updates and stops against already-arrived jobs, and node drains/flaps
+with paired restore events. The schedule is a pure function of its
+arguments — per-stream seeded rngs exactly like the chaos plane's
+``build_schedule`` — so two soaks with the same seed plan byte-identical
+traffic no matter what the cluster does with it.
+
+``run_soak`` boots a cluster (multi-worker lanes on when
+``batch_workers > 1``), seeds the node fleet, attaches an
+:class:`~nomad_tpu_torch.obs.slo.SloCollector`, replays the schedule on the
+wall clock, quiesces, checks every cluster invariant, and returns a
+:class:`SoakRun` whose ``canonical()`` follows the chaos-report
+discipline: config + schedule + targets + report schema are
+bit-reproducible; measured latencies are timing-dependent diagnostics.
+
+``saturation_search`` binary-searches the arrival rate for the highest
+rate at which the p99 eval-latency SLO still holds and the queue keeps
+up — the ``saturation_rate`` headline.
+
+Both take ``device`` (default ``"cuda"``, as every entry point), the
+server's: every worker's kernels run there.
+"""
+
+from __future__ import annotations
+
+import json
+import random
+import time
+from typing import Optional
+
+from ..chaos.invariants import InvariantReport, check_cluster, metrics_baseline
+from ..chaos.runner import _quiesce
+from .slo import SLO_SCHEMA, SloCollector, SloTargets, build_report
+
+DEFAULT_NODES = 200
+# broker redelivery scaled for a soak run (production default is 60 s —
+# longer than the whole soak, so recovery paths would never run)
+RUN_UNACK_TIMEOUT = 5.0
+RUN_NACK_DELAY = 0.1
+RUN_INITIAL_NACK_DELAY = 0.05
+
+
+class SoakEvent:
+    """One planned traffic event. ``row()`` is the canonical rendering
+    used in reports and determinism tests."""
+
+    __slots__ = ("t", "kind", "target", "count", "priority")
+
+    def __init__(
+        self, t: float, kind: str, target: int,
+        count: int = 0, priority: int = 0,
+    ):
+        self.t = t
+        self.kind = kind          # arrive|update|stop|drain|undrain|down|up
+        self.target = target      # job seq or node index
+        self.count = count
+        self.priority = priority
+
+    def row(self) -> str:
+        extra = ""
+        if self.kind in ("arrive", "update"):
+            extra = f" count={self.count} prio={self.priority}"
+        return f"{self.t:8.3f}s {self.kind} #{self.target}{extra}"
+
+
+def build_schedule(
+    seed: int,
+    seconds: float,
+    rate: float,
+    nodes: int,
+    update_frac: float = 0.3,
+    stop_frac: float = 0.1,
+    drain_rate: float = 0.05,
+    flap_rate: float = 0.05,
+    spike_rate: float = 0.0,
+    spike_start: float = 0.0,
+    spike_seconds: float = 0.0,
+    priority_mix: Optional[dict] = None,
+) -> list[SoakEvent]:
+    """Deterministic soak timeline. Independent seeded streams per
+    event family (the chaos plane's per-site rng pattern) keep each
+    family's draws stable when another family's knob changes.
+
+    ``spike_rate > 0`` layers a burst arrival stream (its own
+    ``{seed}:spike`` rng) on the Poisson base during
+    ``[spike_start, spike_start + spike_seconds)`` — the reproducible
+    overload scenario. ``priority_mix`` maps priority → weight for
+    arrival priorities (both streams); ``None`` keeps the classic
+    uniform 30/50/70 draw byte-identical to earlier releases."""
+    events: list[SoakEvent] = []
+
+    if priority_mix:
+        # keys may arrive as strings (JSON / --priority-mix on the CLI)
+        _by_prio = {int(p): float(w) for p, w in priority_mix.items()}
+        _prios = tuple(sorted(_by_prio))
+        _weights = [_by_prio[p] for p in _prios]
+
+        def _prio(rng: random.Random) -> int:
+            return rng.choices(_prios, weights=_weights)[0]
+
+    else:
+
+        def _prio(rng: random.Random) -> int:
+            return rng.choice((30, 50, 70))
+
+    arr = random.Random(f"{seed}:arrivals")
+    t = 0.0
+    seq = 0
+    while True:
+        t += arr.expovariate(rate) if rate > 0 else seconds
+        if t >= seconds:
+            break
+        events.append(
+            SoakEvent(
+                t, "arrive", seq,
+                count=arr.randint(1, 3),
+                priority=_prio(arr),
+            )
+        )
+        seq += 1
+    arrivals = seq
+
+    churn = random.Random(f"{seed}:churn")
+    if arrivals:
+        for kind, frac in (("update", update_frac), ("stop", stop_frac)):
+            n = int(round(arrivals * frac))
+            for _ in range(n):
+                ct = churn.uniform(1.0, seconds) if seconds > 1.0 else 0.0
+                # target a job that has (deterministically) arrived by
+                # ct: idempotent registers make a miss harmless anyway
+                arrived_by = max(
+                    1, sum(1 for e in events
+                           if e.kind == "arrive" and e.t < ct)
+                )
+                events.append(
+                    SoakEvent(
+                        ct, kind, churn.randrange(arrived_by),
+                        count=churn.randint(1, 4), priority=50,
+                    )
+                )
+
+    nodestream = random.Random(f"{seed}:nodes")
+    for kind, restore, nrate in (
+        ("drain", "undrain", drain_rate),
+        ("down", "up", flap_rate),
+    ):
+        t = 0.0
+        while nrate > 0:
+            t += nodestream.expovariate(nrate)
+            if t >= seconds:
+                break
+            idx = nodestream.randrange(nodes)
+            dur = nodestream.uniform(1.0, 3.0)
+            events.append(SoakEvent(t, kind, idx))
+            events.append(SoakEvent(t + dur, restore, idx))
+
+    # burst stream LAST so the base arrivals, churn targeting, and node
+    # streams above draw identically whether or not a spike is layered
+    # on (same per-family isolation the chaos plane guarantees)
+    if spike_rate > 0 and spike_seconds > 0:
+        spike = random.Random(f"{seed}:spike")
+        spike_end = min(seconds, spike_start + spike_seconds)
+        t = spike_start
+        while True:
+            t += spike.expovariate(spike_rate)
+            if t >= spike_end:
+                break
+            events.append(
+                SoakEvent(
+                    t, "arrive", seq,
+                    count=spike.randint(1, 3),
+                    priority=_prio(spike),
+                )
+            )
+            seq += 1
+
+    events.sort(key=lambda e: (e.t, e.kind, e.target))
+    return events
+
+
+class SoakRun:
+    """Result of one soak: canonical config/schedule + measured SLOs."""
+
+    def __init__(
+        self,
+        seed: int,
+        seconds: float,
+        rate: float,
+        nodes: int,
+        batch_workers: int,
+        schedule_rows: list[str],
+        targets: SloTargets,
+        slo: dict,
+        report: InvariantReport,
+        workload: dict,
+        duration_s: float,
+        saturation_rate: Optional[float] = None,
+        admission: Optional[dict] = None,
+        incremental: bool = False,
+    ):
+        self.seed = seed
+        self.seconds = seconds
+        self.rate = rate
+        self.nodes = nodes
+        self.batch_workers = batch_workers
+        self.schedule_rows = schedule_rows
+        self.targets = targets
+        self.slo = slo
+        self.report = report
+        self.workload = workload
+        self.duration_s = duration_s
+        self.saturation_rate = saturation_rate
+        # measured controller snapshot + recovered/conserved flags
+        # (diagnostics — never part of canonical())
+        self.admission = admission
+        # whether the incremental score cache was on for the run — a
+        # config axis, so it belongs in canonical(): on/off arms of an
+        # A/B differ byte-for-byte exactly here
+        self.incremental = incremental
+
+    @property
+    def ok(self) -> bool:
+        """Invariants clean — the hard gate. The SLO verdict is its own
+        signal under ``slo["verdict"]``."""
+        return self.report.ok
+
+    def canonical(self) -> dict:
+        """The bit-reproducible part: pure function of the soak
+        arguments plus the pinned report schema. Measured latencies,
+        queue depths and counters depend on wall-clock interleaving and
+        are reported separately as diagnostics."""
+        return {
+            "seed": self.seed,
+            "seconds": self.seconds,
+            "rate": self.rate,
+            "nodes": self.nodes,
+            "batch_workers": self.batch_workers,
+            "incremental": self.incremental,
+            "schedule": list(self.schedule_rows),
+            "targets": self.targets.to_dict(),
+            "slo_schema": list(SLO_SCHEMA),
+        }
+
+    def canonical_json(self) -> str:
+        return json.dumps(self.canonical(), sort_keys=True, indent=2)
+
+    def to_dict(self) -> dict:
+        d = self.canonical()
+        d["slo"] = self.slo
+        d["saturation_rate"] = self.saturation_rate
+        d["invariants"] = self.report.to_dict()
+        d["admission"] = self.admission
+        d["workload"] = dict(self.workload)
+        d["duration_s"] = round(self.duration_s, 3)
+        d["ok"] = self.ok
+        return d
+
+    def render(self, verbose: bool = False) -> str:
+        v = self.slo.get("verdict", {})
+        lines = [
+            f"soak: seed={self.seed} {self.seconds:g}s rate={self.rate:g}/s "
+            f"nodes={self.nodes} batch_workers={self.batch_workers} "
+            f"events={len(self.schedule_rows)}",
+            "workload: "
+            + " ".join(f"{k}={v2}" for k, v2 in sorted(self.workload.items())),
+        ]
+        ev = self.slo["eval_latency_ms"]
+        pl = self.slo["placement_latency_ms"]
+        q = self.slo["queue_depth"]
+        t = self.slo["throughput"]
+        lines.append(
+            f"eval latency   p50={ev['p50_ms']:.2f}ms "
+            f"p95={ev['p95_ms']:.2f}ms p99={ev['p99_ms']:.2f}ms "
+            f"max={ev['max_ms']:.2f}ms (n={ev['count']})"
+        )
+        lines.append(
+            f"placement      p50={pl['p50_ms']:.2f}ms "
+            f"p95={pl['p95_ms']:.2f}ms p99={pl['p99_ms']:.2f}ms "
+            f"max={pl['max_ms']:.2f}ms (n={pl['count']})"
+        )
+        lines.append(
+            f"queue depth    mean={q['mean']:.1f} max={q['max']:.0f} "
+            f"over {q['seconds']}s"
+        )
+        lines.append(
+            f"throughput     arrivals={t['arrivals']} "
+            f"({t['arrival_rate_per_s']}/s) completions={t['completions']} "
+            f"({t['completion_rate_per_s']}/s)"
+        )
+        ctr = self.slo["counters"]
+        nonzero = " ".join(
+            f"{k}={int(ctr[k])}" for k in sorted(ctr) if ctr[k]
+        )
+        lines.append("counters       " + (nonzero or "(all zero)"))
+        if self.admission is not None:
+            tiers = self.admission.get("counters", {})
+            decided = " ".join(
+                f"{tier}={c['admitted']}/{c['deferred']}/{c['shed']}"
+                for tier, c in sorted(tiers.items())
+                if c["submitted"]
+            )
+            lines.append(
+                f"admission      level={self.admission.get('level')} "
+                f"recovered={self.admission.get('recovered')} "
+                f"conserved={self.admission.get('conserved')} "
+                + (f"adm/def/shed {decided}" if decided else "(no decisions)")
+            )
+        if self.saturation_rate is not None:
+            lines.append(f"saturation_rate {self.saturation_rate:g}/s")
+        lines.append("invariants:")
+        lines.append(self.report.render())
+        lines.append(
+            ("SLO PASS" if v.get("pass") else
+             "SLO FAIL: " + "; ".join(v.get("failures", ())))
+        )
+        lines.append("PASS" if self.ok else "FAIL")
+        if verbose:
+            lines.append(f"-- diagnostics ({self.duration_s:.2f}s) --")
+            for k, val in sorted(self.report.info.items()):
+                lines.append(f"  {k}: {val}")
+        return "\n".join(lines)
+
+
+def _build_node(i: int):
+    from .. import mock
+
+    return mock.node(id=f"soak-node-{i:05d}", name=f"soak-node-{i:05d}")
+
+
+def _build_job(seq: int, count: int, priority: int):
+    from .. import mock
+    from ..structs import Resources, Task, TaskGroup
+
+    j = mock.job(id=f"soak-job-{seq:05d}", name=f"soak-job-{seq:05d}")
+    j.priority = priority
+    j.task_groups = [
+        TaskGroup(
+            name="web",
+            count=count,
+            tasks=[
+                Task(
+                    name="web",
+                    driver="exec",
+                    resources=Resources(cpu=256, memory_mb=128),
+                )
+            ],
+        )
+    ]
+    return j
+
+
+def _apply_event(server, ev: SoakEvent, node_ids: list[str], counts: dict):
+    from ..server.admission import AdmissionRejected
+    from ..structs.node import DrainStrategy
+
+    try:
+        if ev.kind == "arrive":
+            server.register_job(_build_job(ev.target, ev.count, ev.priority))
+            counts["arrivals"] += 1
+            return True
+        if ev.kind == "update":
+            server.register_job(_build_job(ev.target, ev.count, ev.priority))
+            counts["updates"] += 1
+            return True
+        if ev.kind == "stop":
+            server.deregister_job("default", f"soak-job-{ev.target:05d}")
+            counts["stops"] += 1
+            return False
+        node_id = node_ids[ev.target]
+        if ev.kind == "drain":
+            server.update_node_drain(node_id, DrainStrategy(deadline_s=30.0))
+            counts["drains"] += 1
+        elif ev.kind == "undrain":
+            server.update_node_drain(node_id, None)
+        elif ev.kind == "down":
+            server.update_node_status(node_id, "down")
+            counts["flaps"] += 1
+        elif ev.kind == "up":
+            server.update_node_status(node_id, "ready")
+        return False
+    except AdmissionRejected:
+        # overload pushback (429-equivalent): the submission never
+        # entered the cluster — counted separately from plain rejects
+        # so the overload soak can assert the throttle actually fired
+        counts["throttled"] += 1
+        return False
+    except Exception:
+        # a stop against a never-registered job or a drain racing a
+        # deregister: real clients see the same errors and move on
+        counts["rejected"] += 1
+        return False
+
+
+def run_soak(
+    seed: int = 7,
+    seconds: float = 5.0,
+    rate: float = 20.0,
+    nodes: int = DEFAULT_NODES,
+    batch_workers: int = 1,
+    targets: Optional[SloTargets] = None,
+    update_frac: float = 0.3,
+    stop_frac: float = 0.1,
+    drain_rate: float = 0.05,
+    flap_rate: float = 0.05,
+    quiesce_timeout: float = 60.0,
+    saturation: bool = False,
+    saturation_kwargs: Optional[dict] = None,
+    spike_rate: float = 0.0,
+    spike_start: float = 0.0,
+    spike_seconds: float = 0.0,
+    priority_mix: Optional[dict] = None,
+    admission_overrides: Optional[dict] = None,
+    calibration_artifact: Optional[str] = None,
+    device="cuda",
+) -> SoakRun:
+    """One full soak cycle: boot, seed fleet, replay the schedule on
+    the wall clock, quiesce, check invariants, build the SLO report."""
+    from ..backend import incremental_enabled
+    from ..server.server import Server, ServerConfig
+
+    targets = targets or SloTargets()
+    schedule = build_schedule(
+        seed, seconds, rate, nodes,
+        update_frac=update_frac, stop_frac=stop_frac,
+        drain_rate=drain_rate, flap_rate=flap_rate,
+        spike_rate=spike_rate, spike_start=spike_start,
+        spike_seconds=spike_seconds, priority_mix=priority_mix,
+    )
+    baseline = metrics_baseline()
+    t_start = time.perf_counter()
+    server = Server(
+        ServerConfig(
+            num_workers=batch_workers,
+            num_batch_workers=batch_workers,
+            # no clients heartbeat in-process; node liveness is driven
+            # by the schedule's down/up events instead
+            heartbeat_ttl=3600.0,
+            admission_overrides=admission_overrides,
+            # probe-derived thresholds (bench.py soak --saturation
+            # writes the artifact; this run admits under them)
+            calibration_artifact=calibration_artifact,
+            device=device,
+        )
+    )
+    broker = server.eval_broker
+    broker.unack_timeout = RUN_UNACK_TIMEOUT
+    broker.nack_delay = RUN_NACK_DELAY
+    broker.initial_nack_delay = RUN_INITIAL_NACK_DELAY
+    counts = {
+        "arrivals": 0, "updates": 0, "stops": 0,
+        "drains": 0, "flaps": 0, "rejected": 0, "throttled": 0,
+    }
+    collector = SloCollector()
+    report: InvariantReport
+    try:
+        server.establish_leadership()
+        node_ids = []
+        for i in range(nodes):
+            node = _build_node(i)
+            # setup, not the measured path: seed the fleet directly
+            # into state exactly like bench.build_cluster
+            server.store.upsert_node(i + 1, node)
+            node_ids.append(node.id)
+        collector.start(server)
+        try:
+            t0 = time.perf_counter()
+            restores: list[SoakEvent] = []
+            for ev in schedule:
+                lag = ev.t - (time.perf_counter() - t0)
+                if lag > 0:
+                    time.sleep(lag)
+                if _apply_event(server, ev, node_ids, counts):
+                    collector.note_arrival()
+                if ev.kind in ("undrain", "up"):
+                    restores = [
+                        r for r in restores
+                        if not (r.kind == ev.kind and r.target == ev.target)
+                    ]
+                elif ev.kind in ("drain", "down"):
+                    restores.append(
+                        SoakEvent(
+                            0.0,
+                            "undrain" if ev.kind == "drain" else "up",
+                            ev.target,
+                        )
+                    )
+            # end of soak: restore any node still drained/down so the
+            # cluster quiesces to a fully-ready fleet (the paired
+            # restore events past the horizon never fired)
+            seen = set()
+            for r in restores:
+                if (r.kind, r.target) in seen:
+                    continue
+                seen.add((r.kind, r.target))
+                _apply_event(server, r, node_ids, counts)
+            quiesced = _quiesce(server, quiesce_timeout)
+            # bounded-recovery check: after the traffic (and any spike)
+            # ends and the queue drains, the controller must step back
+            # to NORMAL within the p99 window's retention (spike-era
+            # samples keep voting for up to 2x window_s after drain)
+            # plus one dwell per level and slack
+            adm = server.admission
+            win = getattr(adm._p99_window, "window_s", 0.0) or 0.0
+            recovery_deadline = time.perf_counter() + (
+                2.0 * win + 3.0 * adm.dwell_s + 2.0
+            )
+            recovered = adm.level(force=True) == "normal"
+            while not recovered and time.perf_counter() < recovery_deadline:
+                time.sleep(0.05)
+                recovered = adm.level(force=True) == "normal"
+            admission = adm.snapshot()
+            admission["recovered"] = recovered
+            admission["conserved"] = adm.conserved()
+        finally:
+            collector.stop()
+        report = check_cluster(server, plane=None, baseline=baseline)
+        report.info["quiesced"] = quiesced
+        report.info["batch_workers"] = batch_workers
+        report.info["admission_recovered"] = recovered
+        if not quiesced:
+            report._fail(
+                "eval_terminal",
+                "quiesce",
+                f"cluster failed to quiesce within {quiesce_timeout}s",
+            )
+        slo = build_report(collector, targets)
+    finally:
+        try:
+            server.shutdown()
+        except Exception:
+            from ..utils.metrics import count_swallowed
+
+            count_swallowed("soak", None)
+    sat = None
+    if saturation:
+        sat = saturation_search(
+            seed=seed, batch_workers=batch_workers, device=device,
+            **(saturation_kwargs or {}),
+        )
+    return SoakRun(
+        seed=seed,
+        seconds=seconds,
+        rate=rate,
+        nodes=nodes,
+        batch_workers=batch_workers,
+        schedule_rows=[e.row() for e in schedule],
+        targets=targets,
+        slo=slo,
+        report=report,
+        workload=counts,
+        duration_s=time.perf_counter() - t_start,
+        saturation_rate=sat,
+        admission=admission,
+        incremental=incremental_enabled(),
+    )
+
+
+def saturation_search(
+    seed: int = 7,
+    nodes: int = 200,
+    batch_workers: int = 1,
+    probe_seconds: float = 2.0,
+    lo: float = 4.0,
+    hi: float = 128.0,
+    iterations: int = 5,
+    targets: Optional[SloTargets] = None,
+    log=None,
+    device="cuda",
+) -> float:
+    """Binary search for the highest sustainable arrival rate: p99 eval
+    latency under target AND the queue keeps up (completions ≥ 80% of
+    arrivals by quiesce — a saturated broker leaves a growing backlog).
+    Probes are short steady-state soaks with node churn disabled, so
+    the knob under test is the arrival rate alone. Returns the highest
+    rate that passed (``lo`` if even that saturates)."""
+    targets = targets or SloTargets()
+
+    def sustainable(rate: float) -> bool:
+        run = run_soak(
+            seed=seed, seconds=probe_seconds, rate=rate, nodes=nodes,
+            batch_workers=batch_workers, targets=targets,
+            update_frac=0.0, stop_frac=0.0,
+            drain_rate=0.0, flap_rate=0.0,
+            quiesce_timeout=max(10.0, probe_seconds * 5),
+            device=device,
+        )
+        ev = run.slo["eval_latency_ms"]
+        t = run.slo["throughput"]
+        latency_ok = (
+            ev["count"] == 0
+            or targets.eval_p99_ms is None
+            or ev["p99_ms"] <= targets.eval_p99_ms
+        )
+        keeping_up = (
+            t["arrivals"] == 0
+            or t["completions"] >= 0.8 * t["arrivals"]
+        )
+        ok = latency_ok and keeping_up and run.report.ok
+        if log:
+            log(
+                f"saturation probe rate={rate:g}/s p99={ev['p99_ms']:.1f}ms "
+                f"completions={t['completions']}/{t['arrivals']} "
+                f"-> {'ok' if ok else 'saturated'}"
+            )
+        return ok
+
+    best = lo
+    if not sustainable(lo):
+        return lo
+    if sustainable(hi):
+        return hi
+    for _ in range(iterations):
+        mid = (lo + hi) / 2.0
+        if sustainable(mid):
+            best = mid
+            lo = mid
+        else:
+            hi = mid
+    return round(best, 3)

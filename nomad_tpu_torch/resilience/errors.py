@@ -23,6 +23,23 @@ class KernelDeadlineExceeded(RuntimeError):
         )
 
 
+class KernelUnavailable(RuntimeError):
+    """A kernel's circuit breaker refused the call (open, half-open with
+    its probe already out, or every breaker forced open). Nothing was
+    launched, and no plain version computed the call in its place: the
+    caller's eval is nacked and redelivered, and a half-open probe gives
+    the kernel its next launch."""
+
+    def __init__(self, name: str, state: str, retry_in_s: float = 0.0):
+        self.kernel = name
+        self.state = state
+        self.retry_in_s = retry_in_s
+        super().__init__(
+            f"kernel {name} unavailable: breaker {state}, probe in "
+            f"{retry_in_s:.3f}s"
+        )
+
+
 class EvalDeadlineExceeded(RuntimeError):
     """An evaluation's per-processing-pass deadline expired in the
     worker. The eval is nacked with escalating delay (attempt count

@@ -23,9 +23,18 @@ binpack kernel (the port's closed-form kernel), and cp-gang fails such
 a batch's gang asks outright rather than stripe a gang through it. These
 are the reference's semantics, not a fallback to a plain version.
 
-Left out of the port: the reference's circuit-breaker fallback and its
-``cp.round_perturb`` chaos site (ROADMAP A14); ``perturb_prices`` and the
-``lam0`` argument stay, for it to wire.
+While ``cp_place_kernel``'s circuit breaker is not closed, or every
+breaker is forced open, a pass goes to the base closed-form kernel on the
+same device (``nomad.cp.fallback_passes``): another hand-written kernel,
+as in the reference, never a plain version. The dispatcher reads the
+breaker by the name the kernel guard keys it with; the reference reads a
+short name its guard never uses, so its breaker cannot open there
+(ROADMAP C-R4). Conservation accounting for chaos invariant law 13
+(``cp_assignment_conservation``): every group in a CP pass ends exactly
+one of placed / deferred / failed, and committed usage never exceeds
+capacity (``nomad.cp.*`` counters). Chaos site ``cp.round_perturb``
+perturbs the auction's initial prices (``lam0``) for one pass — the
+solution may legitimately shift, but law 13 must still hold.
 
 ``run_cp_ab`` and ``run_gang_ab`` are the ``bench.py cp`` / ``bench.py
 gang`` acceptance harnesses on ``device``. Where the reference holds
@@ -244,15 +253,31 @@ class CpPlacementKernel:
             a.blocks is not None or a.slot_caps is not None for a in asks
         )
 
+    def _fallback_open(self) -> bool:
+        from ..resilience.breaker import CLOSED, breaker_for, forced_open
+
+        if forced_open():
+            return True
+        return breaker_for("cp_place_kernel").state != CLOSED
+
     def _batch(self, cluster, asks, kwargs) -> CpBatch:
+        from ..chaos.plane import chaos_site
+
+        lam0 = None
+        if chaos_site("cp.round_perturb") == "perturb":
+            lam0 = perturb_prices(cluster.padded_n)
+            global_metrics.incr("nomad.cp.chaos_perturbs")
         return build_cp_batch(
             cluster, asks, used_override=kwargs.get("used_override"),
-            device=self.device,
+            lam0=lam0, device=self.device,
         )
 
     def place(self, cluster, asks: list, **kwargs):
         if not asks:
             return []
+        if self._fallback_open():
+            global_metrics.incr("nomad.cp.fallback_passes")
+            return self._base.place(cluster, asks, **kwargs)
         if not self._cp_eligible(asks):
             return self._base.place(cluster, asks, **kwargs)
         batch = self._batch(cluster, asks, kwargs)
@@ -399,7 +424,7 @@ class CpGangPlacementKernel(CpPlacementKernel):
         ]
         if not gang_idx:
             return super().place(cluster, asks, **kwargs)
-        if not self._cp_eligible(asks):
+        if self._fallback_open() or not self._cp_eligible(asks):
             return self._fallback_failing_gangs(
                 cluster, asks, gang_idx, **kwargs
             )

@@ -102,6 +102,25 @@ def tainted_nodes(snapshot, allocs) -> dict:
     return out
 
 
+def _without_mid_move_replacements(allocs: list) -> list:
+    """The job's allocs less the defrag replacements whose source is
+    still live: a mid-move pair (``server/defrag.py``) holds one group
+    slot, and the job sees it as the source alone. Counted twice, the
+    reconciler stops another member as an excess and the job ends short;
+    what the job does to the source (a stop, an update, a reschedule)
+    the defrag controller then applies to the replacement (ROADMAP
+    C-R6)."""
+    from ..server.defrag import DEFRAG_DESC
+
+    live = {a.id for a in allocs if not a.terminal_status()}
+    mid_move = {
+        a.id for a in allocs
+        if a.id in live and a.desired_description == DEFRAG_DESC
+        and a.previous_allocation in live
+    }
+    return [a for a in allocs if a.id not in mid_move] if mid_move else allocs
+
+
 @register_scheduler("service")
 @register_scheduler("batch")
 class GenericScheduler:
@@ -347,6 +366,8 @@ class GenericScheduler:
         self.plan.snapshot_index = getattr(self.snapshot, "index", 0)
 
         existing = self.snapshot.allocs_by_job(ev.namespace, ev.job_id)
+        if self.job is not None and not self.job.stopped():
+            existing = _without_mid_move_replacements(existing)
         tainted = tainted_nodes(self.snapshot, existing)
         deployment = self.snapshot.latest_deployment_by_job(
             ev.namespace, ev.job_id
@@ -653,6 +674,7 @@ class GenericScheduler:
     def _enforce_gang_atomicity(self, ct) -> None:
         """All-or-nothing commit for the job's gang stanza (invariant
         law 15): if any member group failed placement this pass — or the
+        ``gang.commit_drop`` chaos site drops the commit mid-gang — the
         whole gang releases: this plan's member placements come back
         out, surviving member allocs from prior evals are stopped, and
         EVERY member lands in ``failed_tg_allocs`` with per-group
@@ -667,10 +689,18 @@ class GenericScheduler:
         members = set((gang or {}).get("groups") or ())
         if not members or job.stopped():
             return
+        from ..chaos.plane import chaos_site
+
         failed = members & set(self.failed_tg_allocs)
         reason = "gang-infeasible"
         if not failed:
-            return
+            # a kill here is the mid-gang-commit thread death the
+            # worker's recovery contract must absorb (plan unsubmitted
+            # → nothing committed → trivially atomic)
+            if chaos_site("gang.commit_drop") == "drop":
+                reason = "gang-commit-drop"
+            else:
+                return
         from ..utils.metrics import global_metrics
 
         released = 0

@@ -60,6 +60,7 @@ from ..backend import (
     count_launch,
     cuda_library,
     current_stream,
+    guarded,
     resolve_device,
     same_device,
 )
@@ -250,6 +251,7 @@ def _hetero_library():
     return fn
 
 
+@guarded("hetero_place_kernel")
 def hetero_place(
     capacity,  # f32[N, 4]
     used0,  # f32[N, 4]

@@ -76,6 +76,19 @@ DEFRAG_DESC = "alloc migrated by defrag"
 #: desired_description on the old alloc's phase-B stop.
 DEFRAG_STOP_DESC = "alloc stopped after defrag migration"
 
+#: desired_description on a replacement whose source the job stopped
+#: (scaled away, updated) between the cycle's snapshot and phase A.
+DEFRAG_ORPHAN_DESC = "alloc stopped: its source left the job mid-move"
+
+
+def orphaned(old) -> bool:
+    """True when a move's source was stopped by its job (scaled away,
+    updated, rescheduled), not by the move's phase B: the job no longer
+    wants that slot there, so the replacement goes too (ROADMAP C-R6). A
+    failed or evicted source leaves its slot to the replacement."""
+    return old.desired_status == "stop" and old.desired_description != DEFRAG_STOP_DESC
+
+
 #: the controller's synthetic worker id on MergedPlans: it owns no
 #: lanes, so every destination node rides a confirmed cross-lane claim.
 DEFRAG_CLAIMANT = -1
@@ -390,6 +403,14 @@ class DefragController:
         # pins the counter at zero
         self._audit_capacity(dest_node_id)
 
+        # the job may have stopped the source since the cycle's snapshot
+        snap = self.server.store.snapshot()
+        cur = snap.alloc_by_id(old.id)
+        if cur is not None and orphaned(cur):
+            self._stop_old(snap.alloc_by_id(replacement.id), DEFRAG_ORPHAN_DESC)
+            metrics.incr("nomad.migrate.aborted")
+            return False
+
         # the seam chaos rehearses: a kill here leaves the committed
         # pair for the recovery scan; a drop loses phase B the same way
         if chaos_site("migrate.kill_mid_move") == "drop":
@@ -419,11 +440,11 @@ class DefragController:
         a.modify_index = 0
         return a
 
-    def _stop_old(self, old) -> None:
+    def _stop_old(self, old, desc: str = DEFRAG_STOP_DESC) -> None:
         """Phase B: a stop-only plan through the same serialized commit
         path (stops always commit — they only free capacity)."""
         plan_b = Plan(eval_id=new_id())
-        plan_b.append_stopped_alloc(old, DEFRAG_STOP_DESC)
+        plan_b.append_stopped_alloc(old, desc)
         futures = self.server.plan_queue.enqueue_merged(
             MergedPlan(plans=[plan_b], owner_worker=DEFRAG_CLAIMANT)
         )
@@ -448,8 +469,9 @@ class DefragController:
         replacement whose source alloc is still live means phase A
         committed but phase B never ran — complete it (stop the old
         half). The pair is exactly what law 16 tolerates mid-move; this
-        scan is what bounds 'mid-move' to one cycle. Returns the number
-        of half-moves completed."""
+        scan is what bounds 'mid-move' to one cycle. A live replacement
+        whose source its job stopped meanwhile is stopped instead (C-R6).
+        Returns the number of half-moves completed."""
         recovered = 0
         for a in snap.allocs():
             if a.desired_description != DEFRAG_DESC or a.terminal_status():
@@ -457,6 +479,13 @@ class DefragController:
             if not a.previous_allocation:
                 continue
             old = snap.alloc_by_id(a.previous_allocation)
+            if old is not None and orphaned(old):
+                try:
+                    self._stop_old(a, DEFRAG_ORPHAN_DESC)
+                    metrics.incr("nomad.migrate.aborted")
+                except Exception:  # noqa: BLE001
+                    log.exception("defrag recovery failed for %s", a.id)
+                continue
             if old is None or old.terminal_status():
                 continue
             try:

@@ -379,6 +379,15 @@ class Worker:
                     # take the SAME code path (same salt, same overlay,
                     # same merged-commit route) regardless of load
                     self._run_batch(batch)
+            except ChaosThreadKill as e:
+                # an injected crash on this thread (a solo pass reaches
+                # gang.commit_drop here, not on the commit thread): the
+                # pass dies as a killed commit thread's does — its evals
+                # stay unacked for the broker's redelivery deadline — and
+                # the loop goes on as a restarted worker would. The JAX
+                # package lets the kill end the worker (ROADMAP C-R5).
+                metrics.incr("nomad.chaos.thread_kills")
+                count_swallowed("chaos", e)
             except Exception as e:
                 # a worker thread must never die silently: dequeued evals
                 # would stay unacked forever and per-job serialization

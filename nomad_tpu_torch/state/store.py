@@ -346,6 +346,11 @@ class StateStore(StateSnapshot):
 
     def snapshot(self) -> StateSnapshot:
         """Freeze current tables; writers copy-on-first-write after this."""
+        from ..chaos.plane import chaos_site
+
+        # a raise here models a failed state read at the top of a
+        # scheduling pass; the worker nacks its batch for redelivery
+        chaos_site("store.snapshot")
         with self._lock:
             self._frozen = set(_Tables.TABLE_NAMES)
             return StateSnapshot(

@@ -10,8 +10,11 @@ cycles run by hand on both, cycle by cycle: the same moves, the same
 The port's controller plans with ``migrate_plan`` on the server's device
 (the plain version on the CPU); every call it makes is held against the
 reference's NumPy ``oracle_migrate_plan`` on the same arrays, all six
-outputs bit for bit. Also: a half-move (phase B lost) finished by
-``recover()``, a mid-move source never replanned, the candidates filter,
+outputs bit for bit. Also, under a fault plane installed in each
+package (``migrate.kill_mid_move`` and ``migrate.move_drop`` scheduled): a
+half-move (phase B lost) finished by ``recover()`` with invariant law 16
+violated before and held after by both packages' checkers, a mid-move
+source never replanned; and the candidates filter,
 and an exception in the controller's loop counted as swallowed. A
 ``cuda``-marked test runs one cycle on the card and skips here.
 
@@ -20,6 +23,7 @@ the planner's outputs as uint32 views of the f32 ones and equality of the
 i32 ones.
 """
 
+import contextlib
 import copy
 
 import numpy as np
@@ -27,9 +31,13 @@ import pytest
 import torch
 
 from nomad_tpu import mock as ref_mock
+from nomad_tpu.chaos import plane as ref_plane
+from nomad_tpu.chaos.invariants import check_cluster as ref_check_cluster
 from nomad_tpu.device.migrate import oracle_migrate_plan
 from nomad_tpu.server import defrag as ref_defrag
 from nomad_tpu.structs import Resources
+from nomad_tpu_torch.chaos import plane as port_plane
+from nomad_tpu_torch.chaos.invariants import check_cluster as port_check_cluster
 from nomad_tpu_torch.device import migrate as port_mig
 from nomad_tpu_torch.server import defrag as port_defrag
 from nomad_tpu_torch.structs.alloc import DesiredTransition
@@ -152,30 +160,45 @@ def _half_moves(server):
     return out
 
 
-def _lose_first_phase_b(monkeypatch):
-    """Phase B of the next move is lost between the phases, on both
-    servers (what the ``migrate.kill_mid_move`` site's "drop" does)."""
-    for mod in (ref_defrag, port_defrag):
-        real = mod.chaos_site
-        fired = []
+@contextlib.contextmanager
+def _lose_first_phase_b():
+    """On both servers, one fault plane installed in each package: the
+    first move loses its phase B between the phases (the
+    ``migrate.kill_mid_move`` site's "drop"), and the second move is
+    dropped before anything commits (``migrate.move_drop``)."""
+    planes = []
+    for mod in (ref_plane, port_plane):
+        planes.append(mod.install(mod.FaultPlane(schedule=[
+            mod.FaultSpec("migrate.kill_mid_move", 0, "drop"),
+            mod.FaultSpec("migrate.move_drop", 1, "drop"),
+        ])))
+    try:
+        yield planes
+    finally:
+        for mod in (ref_plane, port_plane):
+            mod.uninstall()
+    for plane in planes:
+        assert plane.triggered == [("migrate.kill_mid_move", 0, "drop"),
+                                   ("migrate.move_drop", 1, "drop")]
 
-        def site(name, real=real, fired=fired):
-            if name == "migrate.kill_mid_move" and not fired:
-                fired.append(name)
-                return "drop"
-            return real(name)
 
-        monkeypatch.setattr(mod, "chaos_site", site)
+def _law_16(p):
+    """Invariant law 16 (``migration_conservation``) on both servers, by
+    each package's own checker."""
+    return [
+        check(s).to_dict()["invariants"]["migration_conservation"]
+        for check, s in zip((ref_check_cluster, port_check_cluster), p.servers)
+    ]
 
 
 def test_recover_finishes_a_half_move(monkeypatch):
     with leaders(monkeypatch, nodes=N_NODES, defrag_budget=BUDGET) as p:
         _fragment(p)
         before = counters_now(("nomad.migrate.interrupted", "nomad.migrate.recovered"))
-        with monkeypatch.context() as mp:
-            _lose_first_phase_b(mp)
+        with _lose_first_phase_b():
             moved = [s.defrag.run_cycle() for s in p.servers]
         assert moved[0] == moved[1]
+        assert _law_16(p) == ["violated", "violated"]  # the half-move is live
         pairs = p.each(_half_moves)
         assert [len(x) for x in pairs] == [1, 1]
         assert [(r.name, r.node_id, o.name, o.node_id) for r, o in pairs[0]] == [
@@ -193,13 +216,13 @@ def test_recover_finishes_a_half_move(monkeypatch):
             "nomad.migrate.interrupted": 1, "nomad.migrate.recovered": 1}
         p.settle()
         p.same_placements("thin")
+        assert _law_16(p) == ["ok", "ok"]
 
 
 def test_mid_move_source_never_replanned(monkeypatch):
     with leaders(monkeypatch, nodes=N_NODES, defrag_budget=BUDGET) as p:
         _fragment(p)
-        with monkeypatch.context() as mp:
-            _lose_first_phase_b(mp)
+        with _lose_first_phase_b():
             for s in p.servers:
                 s.defrag.run_cycle()
         p.settle()  # the replacement comes up: both halves look healthy

@@ -74,6 +74,15 @@ def test_imports_with_jax_blocked():
         "nomad_tpu_torch.acl.acl",
         "nomad_tpu_torch.acl",
         "nomad_tpu_torch.server.acl",
+        "nomad_tpu_torch.chaos.invariants",
+        "nomad_tpu_torch.chaos.runner",
+        "nomad_tpu_torch.chaos",
+        "nomad_tpu_torch.resilience.breaker",
+        "nomad_tpu_torch.resilience.watchdog",
+        "nomad_tpu_torch.resilience",
+        "nomad_tpu_torch.obs.slo",
+        "nomad_tpu_torch.obs.loadgen",
+        "nomad_tpu_torch.obs",
     ):
         assert m in mods
     code = (

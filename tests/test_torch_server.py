@@ -663,7 +663,7 @@ def test_commit_ledger_and_made_faults_reach_an_installed_plane():
     fault made at a site is registered for swallow accounting."""
     from nomad_tpu_torch import chaos
 
-    plane = chaos.install(chaos.FaultPlane([]))
+    plane = chaos.install(chaos.FaultPlane(schedule=[]))
     s = Server(ServerConfig(num_workers=1, device="cpu"))
     s.establish_leadership()
     try:
