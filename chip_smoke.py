@@ -6,7 +6,8 @@ Builds the port's kernels from the sources in this checkout, holds each
 against its plain PyTorch version on the card at the shapes the main
 paths give it, then schedules service, spread, distinct_property,
 preempting, system, heterogeneity-aware, CP and gang jobs end to end through the port's
-``Harness(device="cuda")`` and checks what lands in the state store,
+``Harness(device="cuda")``, the port's server and its dev agent (the
+CLI, the HTTP API and the SDK) and checks what lands in the state store,
 and repacks a fragmented fleet through the port's migration plane. It
 imports nothing of JAX and nothing of the JAX package.
 
@@ -107,6 +108,26 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
      planned moves and launches logged. Every timing helper here launches
      straight through the guard (``backend.direct_launches``), so the
      kernels' times hold no guard;
+   - "agent": the dev agent's front door, in two parts. (a) ``python -m
+     nomad_tpu_torch.cli agent -dev --bind 127.0.0.1:0`` as a subprocess
+     (its server's kernels on the card, the default): ``job run`` of an
+     HCL batch job (3 x ``mock_driver``, 0.05 s) written by the script,
+     ``job status`` until every alloc is ``complete``, then ``alloc
+     status``, ``eval status`` and ``node status`` of the dev node, each a
+     CLI process that must exit 0; the agent's own ``/v1/agent/trace``
+     shows ``place_closed_form_kernel`` called, its node's ``gpu.type`` is
+     the card's name and its device class follows from it, no call
+     finished on a fallback, and it exits within 15 s of SIGINT. (b)
+     ``DevAgent(device="cuda")`` and ``HTTPAgent(port=0)`` in process,
+     the "server" path's 10,000 nodes seeded into the store and its
+     warmup run, the dev node made ineligible through the API, its 100
+     jobs x 250 registered through the SDK (one HTTP request a job), the
+     evals drained and every job's allocations read back through the API:
+     all 25,000 placed, no over-committed node, the API's allocations the
+     store's, no fallback; allocs/s, eval p50 / p99, the register
+     request's p50 / p99 at the client and the read-back's seconds logged
+     beside the "server" path's allocs/s and p50; every closed-form and
+     coupled call recorded and replayed;
    - "spread": the JAX package's ``bench.py end_to_end`` node recipe
      (10,000 nodes over 25 racks, ssd on every 4th, every 3rd at
      8,000 MHz / 16,384 MiB) and 30 jobs through the Harness: its 20
@@ -225,7 +246,8 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
    (its kernel ms beside the same evals' 10 calls one by one, and host
    seconds beside the incremental path's first off arm), "plan", "calib",
    "leader" (the drain, each defrag cycle's row, the bench with its
-   admission block), "resilience", "restore" and "server"; the total seconds, one JSON line of per-kernel results,
+   admission block), "resilience", "agent", "restore" and "server"; the
+   total seconds, one JSON line of per-kernel results,
    the card's name and power limit, then the device line last.
 
 Times, kernels and plain versions alike, are device times per launch
@@ -691,6 +713,15 @@ def closed_form_edges(dev):
     args, j, k = schedule_inputs(dev, 8)
     args[9] = torch.ones_like(args[9])  # distinct_hosts on every lane
     out.append(("G 8 distinct_hosts", args, False, j, k, None))
+    # the "agent" path's subprocess pass: its one dev node padded to
+    # node_bucket(1), empty, AGENT_JOB_HCL's ask (count 3), J 32, k 16,
+    # so most of the lane's blocks get no rows
+    args, _, _ = schedule_inputs(dev, 1, n_nodes=1)
+    args[1] = torch.zeros_like(args[1])
+    args[2] = torch.tensor([[100.0, 64.0, 300.0, 0.0]], device=dev)
+    args[5] = torch.full_like(args[5], 3.0)
+    out.append(("the dev agent's pass (one node padded to 8, J 32, k 16)",
+                args, False, 32, 16, None))
     return out
 
 
@@ -4663,6 +4694,335 @@ def resilience_path(dev):
     return out
 
 
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+AGENT_READY_S = 180.0  # the subprocess imports torch and opens a CUDA context
+AGENT_STOP_S = 15.0  # SIGINT to exit
+AGENT_CLI_TIMEOUT_S = 120.0
+AGENT_JOB_HCL = """
+job "web" {
+  type = "batch"
+  group "web" {
+    count = 3
+    task "web" {
+      driver = "mock_driver"
+      config {
+        run_for = 0.05
+      }
+      resources {
+        cpu    = 100
+        memory = 64
+      }
+    }
+  }
+}
+"""
+FALLBACK_CALLS = "nomad.resilience.fallback_calls"
+
+
+def agent_cli(*argv, addr=None):
+    """One ``python -m nomad_tpu_torch.cli`` command against ``addr``:
+    its standard output and seconds. Any exit code but 0 fails."""
+    cmd = [sys.executable, "-m", "nomad_tpu_torch.cli"]
+    if addr is not None:
+        cmd += ["--address", addr]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [*cmd, *argv], cwd=REPO_DIR, capture_output=True, text=True,
+        timeout=AGENT_CLI_TIMEOUT_S,
+    )
+    seconds = time.perf_counter() - t0
+    assert proc.returncode == 0, (argv, proc.returncode, proc.stdout[-2000:], proc.stderr[-2000:])
+    return proc.stdout, seconds
+
+
+def agent_cli_path(dev):
+    """Part (a) of the "agent" path: the port as a user starts it.
+    ``python -m nomad_tpu_torch.cli agent -dev --bind 127.0.0.1:0`` (the
+    server's kernels on the card, its default) in a subprocess; ``job
+    run`` of an HCL batch job (3 x ``mock_driver``, 0.05 s); ``job
+    status`` until every alloc is ``complete``; ``alloc status``, ``eval
+    status`` and ``node status`` of the dev node. The agent's own
+    ``/v1/agent/trace`` shows ``place_closed_form_kernel`` called, its
+    node carries the card's name as ``gpu.type`` and the device class
+    that follows from it, no kernel call finished on a fallback, and the
+    agent exits within ``AGENT_STOP_S`` of SIGINT. Returns the times."""
+    import re
+    import shutil
+    import signal
+    import tempfile
+
+    from nomad_tpu_torch.api.client import NomadClient
+    from nomad_tpu_torch.backend import BUILD_DIR
+    from nomad_tpu_torch.client.fingerprint import normalize_device_class
+
+    tmp = tempfile.mkdtemp(prefix="agent-cli-", dir=BUILD_DIR)  # inside the checkout
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "nomad_tpu_torch.cli", "agent", "-dev",
+         "--bind", "127.0.0.1:0", "--data-dir", os.path.join(tmp, "data")],
+        cwd=REPO_DIR, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    lines, found, ready = [], {}, threading.Event()
+
+    def pump():  # keeps the agent's pipe drained for its whole life
+        for line in proc.stdout:
+            lines.append(line)
+            for key, pattern in (("addr", r"==> .* running at (\S+)"),
+                                 ("node", r"node id: (\S+)")):
+                m = re.search(pattern, line)
+                if m:
+                    found[key] = m.group(1)
+            if len(found) == 2:
+                ready.set()
+        ready.set()
+
+    reader = threading.Thread(target=pump, daemon=True)
+    reader.start()
+    out = {}
+    try:
+        ready.wait(AGENT_READY_S)
+        assert len(found) == 2, "agent never came up:\n" + "".join(lines[-40:])
+        out["ready_s"] = time.perf_counter() - t0
+        addr, node_id = found["addr"], found["node"]
+        job_file = os.path.join(tmp, "web.hcl")
+        with open(job_file, "w") as f:
+            f.write(AGENT_JOB_HCL)
+        t_run = time.perf_counter()
+        run_out, out["job_run_s"] = agent_cli("job", "run", job_file, addr=addr)
+        assert "finished: complete" in run_out, run_out
+        deadline, statuses = time.perf_counter() + 60.0, []
+        while True:
+            status, _ = agent_cli("job", "status", "web", addr=addr)
+            rows = status.split("\nAllocations\n", 1)[1].strip().splitlines()[1:]
+            statuses = [r.split()[-1] for r in rows]
+            if statuses == ["complete"] * 3 or time.perf_counter() > deadline:
+                break
+            time.sleep(0.2)
+        assert statuses == ["complete"] * 3, status
+        out["job_run_to_complete_s"] = time.perf_counter() - t_run
+        c = NomadClient(addr)
+        alloc_id = c.jobs.allocations("web")[0]["id"]
+        eval_id = c.jobs.evaluations("web")[0]["id"]
+        out["cli_s"] = {}
+        for cmd in (("alloc", "status", alloc_id), ("eval", "status", eval_id),
+                    ("node", "status", node_id)):
+            _, out["cli_s"][" ".join(cmd[:2])] = agent_cli(*cmd, addr=addr)
+        kernels = c.get("/v1/agent/trace")["kernels"]
+        out["agent_kernels"] = kernels
+        assert kernels.get("place_closed_form_kernel", {}).get("calls", 0) >= 1, kernels
+        node = c.nodes.info(node_id)
+        card_name = torch.cuda.get_device_name(0)
+        out["gpu_type"], out["device_class"] = node["attributes"].get("gpu.type"), node[
+            "device_class"]
+        assert out["gpu_type"] == card_name, (out["gpu_type"], card_name)
+        assert node["device_class"] == normalize_device_class(card_name), node["device_class"]
+        fallbacks = c.agent.metrics()["counters"].get(FALLBACK_CALLS, 0)
+        assert fallbacks == 0, fallbacks
+        t_stop = time.perf_counter()
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=AGENT_STOP_S)
+        out["stop_s"] = time.perf_counter() - t_stop
+        assert rc == 0, (rc, "".join(lines[-40:]))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=5)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    log("[agent] cli " + json.dumps(out, sort_keys=True))
+    return out
+
+
+def agent_node(mock, i, racks):
+    """``bench_torch.bench_end_to_end``'s node recipe (its closure)."""
+    node = mock.node()
+    node.datacenter = "dc1"
+    node.attributes["platform.rack"] = f"r{i % racks}"
+    node.attributes["storage.type"] = "ssd" if i % 4 == 0 else "hdd"
+    if i % 3 == 1:
+        node.node_resources.cpu = 8000
+        node.node_resources.memory_mb = 16384
+    node.compute_class()
+    return node
+
+
+def agent_job(mock, j, per_job):
+    """``bench_torch.bench_end_to_end``'s job recipe (its closure)."""
+    from nomad_tpu_torch.structs import Affinity, Spread
+
+    job = mock.batch_job() if j % 3 == 2 else mock.job()
+    job.id = f"bench-{j}"
+    tg = job.task_groups[0]
+    tg.count = per_job
+    tg.tasks[0].resources.cpu = int(np.random.default_rng(j).choice([250, 500]))
+    job.spreads = [Spread(attribute="${attr.platform.rack}", weight=50)]
+    job.affinities = [
+        Affinity(l_target="${attr.storage.type}", r_target="ssd", operand="=", weight=50)
+    ]
+    return job
+
+
+def agent_http_path(dev, server_out, n_nodes=SERVER_BENCH["n_nodes"],
+                    n_jobs=SERVER_BENCH["n_jobs"], per_job=SERVER_BENCH["per_job"], racks=25):
+    """Part (b) of the "agent" path: the same front door at the "server"
+    path's size, in process. ``DevAgent(device=dev)`` (one batching
+    worker, as the bench's server) and ``HTTPAgent(port=0)``; the bench's
+    10,000 nodes seeded straight into the store (setup, not timed); the
+    dev node made ineligible through ``POST /v1/node/<id>/eligibility``
+    so the recipe's ``exec`` tasks cannot land on this host's client; the
+    bench's warmup; then its 100 jobs x 250 registered through the SDK
+    (``NomadClient.jobs.register(encode(job))``, one HTTP request a job),
+    the evals drained, and every job's allocations read back through
+    ``GET /v1/job/<id>/allocations``. Every closed-form and coupled call
+    is recorded. Gates: every alloc placed, no over-committed node, the
+    API's allocations equal the store's (id → node), no fallback.
+    Returns the launch counts, the coupled calls and the summary, with
+    the "server" path's allocs/s and eval p50 beside this path's."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.agent import DevAgent
+    from nomad_tpu_torch.api.client import NomadClient
+    from nomad_tpu_torch.api.codec import encode
+    from nomad_tpu_torch.api.http import HTTPAgent
+    from nomad_tpu_torch.device import score as S
+    from nomad_tpu_torch.obs import flight_recorder, phase_breakdown
+    from nomad_tpu_torch.obs.recorder import trace_latencies
+    from nomad_tpu_torch.server.worker import EVAL_BATCH_SIZE
+    from nomad_tpu_torch.utils.metrics import global_metrics
+
+    import shutil
+    import tempfile
+
+    import bench_torch
+    from nomad_tpu_torch.backend import BUILD_DIR
+
+    t_path = time.perf_counter()
+    bench_torch.build_kernels(dev)
+    data_dir = tempfile.mkdtemp(prefix="agent-http-", dir=BUILD_DIR)  # inside the checkout
+    agent = DevAgent(num_workers=1, device=dev, data_dir=data_dir)
+    http = None
+    try:
+        agent.start()
+        http = HTTPAgent(agent.server, agent.client, port=0)
+        http.start()
+        c = NomadClient(http.address)
+        store, server = agent.server.store, agent.server
+        t0 = time.perf_counter()
+        for i in range(n_nodes):  # straight into the store, as the bench does
+            store.upsert_node(store.latest_index + 1, agent_node(mock, i, racks))
+        dev_node = agent.client.node.id
+        c.nodes.eligibility(dev_node, False)
+        assert store.node_by_id(dev_node).scheduling_eligibility == "ineligible"
+        warm_ids = []
+        for w in range(EVAL_BATCH_SIZE + 1):
+            warm = agent_job(mock, 10_000_000 + w, per_job)
+            warm.id = f"warmup-{w}"
+            warm_ids.append(warm.id)
+            server.register_job(warm)
+        assert server.wait_for_evals(timeout=600)
+        for wid in warm_ids:
+            server.deregister_job("default", wid)
+        assert server.wait_for_evals(timeout=600)
+        setup_s = time.perf_counter() - t0
+        payloads = [encode(agent_job(mock, j, per_job)) for j in range(n_jobs)]
+        global_metrics.reset()
+        flight_recorder.clear()
+
+        zero_counters()
+        register_s = []
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(shared_recording("agent", score_matrix=False))
+            coupled = {name: stack.enter_context(recording(S, name)) for name in COUPLED}
+            t0 = time.perf_counter()
+            for payload in payloads:
+                t_req = time.perf_counter()
+                c.jobs.register(payload)
+                register_s.append(time.perf_counter() - t_req)
+            drained = server.wait_for_evals(timeout=600)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+        launches = counters()
+
+        t0 = time.perf_counter()
+        api = {}
+        for j in range(n_jobs):
+            for a in c.jobs.allocations(f"bench-{j}"):
+                api[a["id"]] = a["node_id"]
+        readback_s = time.perf_counter() - t0
+        want = {
+            a.id: a.node_id for a in store.allocs() if a.job_id.startswith("bench-")
+        }
+        placed = sum(
+            1 for a in store.allocs() if a.job_id.startswith("bench-") and not a.terminal_status()
+        )
+        overcommit = committed_overcommit(store)
+        traces = flight_recorder.traces()
+        eval_s = [trace_latencies(t)[0] for t in traces]
+        counters_now = global_metrics.snapshot()["counters"]
+        summary = {
+            "config": f"{n_nodes} nodes, {n_jobs} jobs x {per_job} allocs through the SDK, "
+            f"spread+affinity, mixed service/batch",
+            "setup_s": setup_s,
+            "drained": drained,
+            "placed": placed,
+            "total": n_jobs * per_job,
+            "committed_overcommit": overcommit,
+            "api_equals_store": api == want,
+            "elapsed_s": elapsed,
+            "allocs_per_sec": placed / elapsed,
+            "eval_latency_ms": {
+                "evals": len(eval_s),
+                "p50": bench_torch.percentile_ms(eval_s, 50),
+                "p99": bench_torch.percentile_ms(eval_s, 99),
+            },
+            "register_ms": {
+                "requests": len(register_s),
+                "p50": bench_torch.percentile_ms(register_s, 50),
+                "p99": bench_torch.percentile_ms(register_s, 99),
+            },
+            "readback_s": readback_s,
+            "readback_allocs": len(api),
+            "fallback_calls": int(counters_now.get(FALLBACK_CALLS, 0)),
+            "phase_breakdown_ms": phase_breakdown(traces),
+            "server_path": {
+                "allocs_per_sec": server_out["allocs_per_sec"],
+                "eval_p50_ms": server_out["eval_latency_ms"]["p50"],
+                "eval_p99_ms": server_out["eval_latency_ms"]["p99"],
+            },
+        }
+    finally:
+        try:
+            if http is not None:
+                http.stop()
+        finally:
+            agent.shutdown()
+            shutil.rmtree(data_dir, ignore_errors=True)
+    summary["path_seconds"] = time.perf_counter() - t_path
+    log(
+        f"[agent] http {summary['config']}: allocs_per_sec={summary['allocs_per_sec']!r} "
+        f"(server path {server_out['allocs_per_sec']!r}) eval p50_ms="
+        f"{summary['eval_latency_ms']['p50']!r} p99_ms={summary['eval_latency_ms']['p99']!r} "
+        f"(server path p50_ms {server_out['eval_latency_ms']['p50']!r}); register request "
+        f"p50_ms={summary['register_ms']['p50']!r} p99_ms={summary['register_ms']['p99']!r}; "
+        f"read-back of {len(api)} allocs {readback_s!r} s; placed {placed}/"
+        f"{summary['total']}, over-committed nodes {overcommit}; launches {launches}"
+    )
+    log("[agent] phase_breakdown_ms " + json.dumps(summary["phase_breakdown_ms"],
+                                                   sort_keys=True))
+    assert drained, "the agent's server did not drain"
+    assert placed == n_jobs * per_job, (placed, n_jobs * per_job)
+    assert overcommit == 0, "a node is over-committed in the store"
+    assert api == want, "the API's allocations differ from the store's"
+    assert summary["fallback_calls"] == 0, summary["fallback_calls"]
+    for name, calls in coupled.items():
+        assert len(calls) == launches[name], (name, len(calls), launches[name])
+    assert launches["place_spread_opv"] > 0
+    off = (*PREEMPT_COUNTS, *PLUGIN, "migrate_plan", "score_matrix")
+    assert all(launches[n] == 0 for n in off), launches
+    return launches, coupled, summary
+
+
 def find_launches(by_path) -> dict:
     """The find pass's launches on each path: its own launches plus the
     passes carried in the choice's launch (each a launch of its device
@@ -4790,6 +5150,15 @@ def main() -> int:
     # the kernel guard under faults: chaos runs, the degraded slice, the
     # soak and the saturation search on the server's card
     resilience = resilience_path(dev)
+    # the dev agent's front door: ``agent -dev`` and the CLI as a user
+    # runs them, then the HTTP API and the SDK at the server path's size
+    agent_cli_out = agent_cli_path(dev)
+    by_path["agent"], agent_calls, agent = agent_http_path(dev, server)
+    agent["cli"] = agent_cli_out
+    agent_coupled = {
+        name: replay_coupled(name, calls) for name, calls in agent_calls.items() if calls
+    }
+    del agent_calls
     h, by_path["spread"], spread_calls, _ = spread_path(dev)
     coupled = {name: replay_coupled(name, spread_calls[name]) for name in COUPLED}
     del spread_calls
@@ -4859,7 +5228,7 @@ def main() -> int:
     del one_by_one
     log("[server] " + json.dumps({
         "incremental": incr, "batch": batch, "plan": plan, "calib": calib, "leader": leader,
-        "resilience": resilience,
+        "resilience": resilience, "agent": agent,
         "restore": restore, "server": {
             k: server[k] for k in (
                 "config", "card", "allocs_per_sec", "evals_per_sec", "eval_latency_ms",
@@ -4958,6 +5327,9 @@ def main() -> int:
                 **({"server": {k: server_coupled[name][k] for k in (
                     "path_ms", "max_abs_err", "choice_mismatches", "ms", "shape",
                 )} | {"calls": by_path["server"][name]}} if name in server_coupled else {}),
+                **({"agent": {k: agent_coupled[name][k] for k in (
+                    "path_ms", "max_abs_err", "choice_mismatches", "ms", "shape",
+                )} | {"calls": by_path["agent"][name]}} if name in agent_coupled else {}),
             },
         )
         for name, replaces in (

@@ -27,7 +27,14 @@ Layer map of this slice:
 - ``nomad_tpu_torch.obs``       — tracing, explanations, the flight
   recorder and the calibration plane.
 - ``nomad_tpu_torch.chaos``     — the seeded fault plane.
-- ``nomad_tpu_torch.rpc``       — the restricted unpickler (snapshots).
+- ``nomad_tpu_torch.rpc``       — framed RPC (the client endpoints) and
+  the restricted unpickler (frames, snapshots).
+- ``nomad_tpu_torch.api`` / ``jobspec`` / ``cli`` / ``agent`` — the dev
+  agent's front door: the HTTP API and its JSON codec, the SDK, HCL job
+  files, the CLI (``python -m nomad_tpu_torch.cli agent -dev``).
+- ``nomad_tpu_torch.client``    — the node agent ``agent -dev`` embeds:
+  fingerprinting (the ``torch.cuda`` table), drivers, task and alloc
+  runners, local state, health checks, the fs/logs endpoints.
 - ``nomad_tpu_torch.backend``   — device resolution, kernel builds.
 - ``nomad_tpu_torch.interop``   — build port objects from plain records.
 

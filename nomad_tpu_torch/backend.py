@@ -24,7 +24,9 @@ needs: where the tensors live, and how the device programs are built.
   ``kernel.hang`` chaos sites, and runs the launch on a watchdog thread
   under the breaker's deadline (``resilience/``). A refused or
   timed-out call raises; nothing computes the plain version in its
-  place on a CUDA tensor.
+  place on a CUDA tensor. It also keeps the per-kernel profile
+  (``kernel_profile``: calls, builds, wall time) that the HTTP API's
+  ``/v1/agent/trace`` serves as ``kernels``.
 - **Incremental rescoring** (``incremental_enabled``) resolves the same
   ``NOMAD_TPU_INCREMENTAL`` variable as the JAX package, so one setting
   drives both.
@@ -40,6 +42,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -210,6 +213,9 @@ def note_compile() -> None:
     global _compiles
     with _compile_lock:
         _compiles += 1
+    # the guard reads this thread's flag, so that a build started by
+    # another lane's call is not filed under this call
+    _guard_tls.built = True
 
 
 @contextlib.contextmanager
@@ -226,7 +232,86 @@ def direct_launches():
         _guard_tls.inside = prev
 
 
-def guarded_call(name: str, device: torch.device, launch):
+# -- the per-kernel profile ----------------------------------------------------
+#
+# What the JAX package's ``kernel_profile`` keeps for its traced_jit
+# kernels, kept here by the guard for each kernel wrapper, keyed by the
+# JAX package's kernel names (the guard's names): the calls, how many of
+# them started a build (``note_compile`` called on the launching thread:
+# a library's first load, a new Triton specialization), the wall time,
+# and the recent builds with the shapes that caused them. The wall time
+# runs from the guard's entry to the end of the event synchronize, so it
+# covers the device work; a call that started a build includes the
+# build. Launches straight through the guard (a capture, a nested
+# wrapper, ``direct_launches``) are not counted.
+
+_KERNEL_TRACE_EVENTS = 32  # recent builds kept per kernel
+
+_profile_lock = threading.Lock()
+_kernel_stats: dict[str, dict] = {}
+_kernel_traces: dict[str, list[dict]] = {}
+_last_trace_shape: dict[str, str] = {}
+
+
+def _shape_sig(args, kwargs) -> str:
+    """The call's shapes and scalars, as the JAX package writes a trace's
+    abstract signature (``dtype[d0,d1]``)."""
+    parts = []
+    for a in list(args) + [v for _, v in sorted(kwargs.items())]:
+        if isinstance(a, torch.Tensor):
+            dt = str(a.dtype).replace("torch.", "")
+            parts.append(f"{dt}[{','.join(str(d) for d in a.shape)}]")
+        elif isinstance(a, (bool, int, float, str)):
+            parts.append(repr(a))
+    return " ".join(parts)[:256]
+
+
+def _record_kernel_call(name: str, seconds: float, built: bool, sig) -> str | None:
+    """Count the call in the profile; the shape of a call that started a
+    build (else None)."""
+    shape = None
+    if built:
+        shape = sig() if sig is not None else ""
+    with _profile_lock:
+        st = _kernel_stats.get(name)
+        if st is None:
+            st = _kernel_stats[name] = {"calls": 0, "traces": 0, "total_s": 0.0}
+        st["calls"] += 1
+        st["total_s"] += seconds
+        if built:
+            _last_trace_shape[name] = shape
+            st["traces"] += 1
+            events = _kernel_traces.setdefault(name, [])
+            events.append({"shape": shape, "wall_s": round(seconds, 6)})
+            del events[:-_KERNEL_TRACE_EVENTS]
+    return shape
+
+
+def kernel_profile() -> dict:
+    """Per-kernel profile snapshot, with the JAX package's keys: call and
+    build counts, cumulative wall time, the last shape that started a
+    build and the recent builds (``/v1/agent/trace``'s ``kernels``)."""
+    with _profile_lock:
+        return {
+            name: {
+                "calls": st["calls"],
+                "traces": st["traces"],
+                "total_ms": round(st["total_s"] * 1000.0, 3),
+                "last_trace_shape": _last_trace_shape.get(name, ""),
+                "recent_traces": list(_kernel_traces.get(name, ())),
+            }
+            for name, st in _kernel_stats.items()
+        }
+
+
+def reset_kernel_profile() -> None:
+    with _profile_lock:
+        _kernel_stats.clear()
+        _kernel_traces.clear()
+        _last_trace_shape.clear()
+
+
+def guarded_call(name: str, device: torch.device, launch, sig=None):
     """Run ``launch()`` (a kernel wrapper's body: the launch on a CUDA
     tensor, the plain version on a CPU tensor) behind the breaker
     ``name``, in the JAX package's order:
@@ -242,7 +327,10 @@ def guarded_call(name: str, device: torch.device, launch):
        caller's device and stream, then a CUDA event synchronize on that
        stream, so that the deadline covers the work itself;
     4. ``record_success``, or ``record_failure`` and re-raise, or
-       ``record_timeout`` and raise ``KernelDeadlineExceeded``.
+       ``record_timeout`` and raise ``KernelDeadlineExceeded``;
+    5. the call in the per-kernel profile (``kernel_profile``), with
+       ``sig()`` (the call's shapes) when it started a build, and a
+       ``kernel:<name>`` span when the caller is inside a span.
 
     While a CUDA graph is being captured, or inside a guarded launch or
     ``direct_launches``, the launch runs straight through (an event
@@ -253,11 +341,13 @@ def guarded_call(name: str, device: torch.device, launch):
     ):
         return launch()
     from .chaos.plane import chaos_site
+    from .obs.trace import global_tracer
     from .resilience.breaker import breaker_for, forced_open
     from .resilience.errors import KernelDeadlineExceeded, KernelUnavailable
     from .resilience.watchdog import abandoned, global_executor
     from .utils.metrics import global_metrics
 
+    t0 = time.perf_counter()
     br = breaker_for(name)
     if not br.allow():
         global_metrics.incr("nomad.resilience.refused_calls")
@@ -274,6 +364,7 @@ def guarded_call(name: str, device: torch.device, launch):
     before = _compiles
     # PyTorch's current stream is per thread: read the caller's here
     stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
+    built = [False]
 
     def thunk():
         # a hang here models a wedged launch or copy; only the watchdog
@@ -285,6 +376,7 @@ def guarded_call(name: str, device: torch.device, launch):
             global_metrics.incr("nomad.resilience.abandoned_skips")
             return None
         _guard_tls.inside = True
+        _guard_tls.built = False
         try:
             if stream is None:
                 return launch()
@@ -296,6 +388,7 @@ def guarded_call(name: str, device: torch.device, launch):
             return out
         finally:
             _guard_tls.inside = False
+            built[0] = _guard_tls.built
 
     try:
         if os.environ.get(_WATCHDOG_ENV, "1") != "0" and br.execute_deadline > 0:
@@ -315,6 +408,10 @@ def guarded_call(name: str, device: torch.device, launch):
         br.record_failure(e)
         raise
     br.record_success()
+    seconds = time.perf_counter() - t0
+    shape = _record_kernel_call(name, seconds, built[0], sig)
+    # a ``kernel:<name>`` span under the caller's span, when it has one
+    global_tracer.record_kernel(name, seconds, traced=built[0], shape=shape)
     return out
 
 
@@ -328,7 +425,10 @@ def guarded(name: str):
         @functools.wraps(fn)
         def call(*args, **kwargs):
             first = args[0] if args else kwargs["capacity"]
-            return guarded_call(name, first.device, lambda: fn(*args, **kwargs))
+            return guarded_call(
+                name, first.device, lambda: fn(*args, **kwargs),
+                sig=lambda: _shape_sig(args, kwargs),
+            )
 
         return call
 

@@ -1,0 +1,4 @@
+from .main import main
+import sys
+
+sys.exit(main())

@@ -1,28 +1,82 @@
-"""Restricted deserialization for bytes from a producer that is not
-fully trusted: snapshot files, and later RPC frames and replicated log
-entries.
+"""Wire framing: u32 big-endian length prefix + serialized message dict.
 
-The unpickler resolves globals through an allowlist (the port's struct
-dataclasses and enums, a few stdlib containers, numpy array
-reconstruction), so a crafted payload cannot reach arbitrary callables —
-the classic pickle-deserialization RCE. A pickle that names a class of
-another package (the JAX package's ``nomad_tpu.*`` included) is refused:
-each package restores its own files.
+Messages:
+  request   {"seq": int, "method": str, "args": Any}
+  response  {"seq": int, "result": Any}           (unary)
+  error     {"seq": int, "error": str}
+  chunk     {"seq": int, "chunk": Any, "more": bool}   (streaming)
 
-This is the deserialization half of the JAX package's ``rpc/framing.py``
-(``FramingError``, ``_SAFE_GLOBALS``, ``_RestrictedUnpickler``,
-``restricted_loads``), with the allowed modules rewritten to the port's.
-The wire framing, transport auth and the rest of ``rpc/`` are not ported
-yet (ROADMAP A18); neither is ``acl/``, so a snapshot that holds ACL
-policies or tokens is refused too.
+Serialization is pickle restricted on the *receive* side: ``recv_frame``
+(and ``restricted_loads``, which snapshot files go through) resolves
+globals through an allowlist (the port's struct dataclasses and enums, a
+few stdlib containers, numpy array reconstruction) so a crafted frame
+from an untrusted peer cannot reach arbitrary callables — the classic
+pickle-deserialization RCE. A pickle that names a class of another
+package (the JAX package's ``nomad_tpu.*`` included) is refused: each
+package reads its own frames and files. The reference's wire format is
+msgpack over TLS/mTLS (nomad/rpc.go); here the codec restriction plus
+optional HMAC transport auth (below) covers the same trust boundary.
+
+Transport auth: when a cluster secret is configured (``set_rpc_secret`` or
+the NOMAD_TPU_RPC_SECRET env var), every frame carries an HMAC-SHA256 tag
+over direction byte + payload, and unauthenticated frames are rejected
+before deserialization. Scope of the guarantee: the MAC authenticates
+*cluster membership* (only secret holders can produce acceptable frames)
+and direction (a server frame cannot be reflected back as a request); it
+does NOT provide per-frame freshness — a captured frame can be replayed
+verbatim by an on-path attacker until the secret rotates. Deployments
+needing replay protection should run the RPC ports over a trusted network
+or a TLS tunnel, as the reference does (nomad/rpc.go TLS wrap).
+
+The 64 MB frame cap matches the WAL's record cap; anything larger is a
+protocol violation, not data.
+
+The JAX package's ``rpc/framing.py`` with the allowed modules rewritten
+to the port's. Its users here: snapshot restore, ``rpc/server.py`` and
+``rpc/client.py`` (the client endpoints and the HTTP proxy of
+``alloc logs`` / ``alloc fs``); raft's peer transport waits for A18b.
 """
 
 from __future__ import annotations
 
+import hashlib
+import hmac
 import importlib
 import io
+import os
 import pickle
-from typing import Any
+import socket
+import struct
+from typing import Any, Optional
+
+MAX_FRAME = 64 << 20
+_LEN = struct.Struct(">I")
+_TAG_LEN = hashlib.sha256().digest_size
+
+_FLAG_PLAIN = 0
+_FLAG_HMAC = 1  # bit 0: authenticated
+_FLAG_DIR_S = 2  # bit 1: direction server→client (0 = client→server)
+
+_secret: Optional[bytes] = None
+_secret_loaded = False
+
+
+def set_rpc_secret(secret: Optional[bytes | str]) -> None:
+    """Configure the cluster transport secret (all peers must agree)."""
+    global _secret, _secret_loaded
+    if isinstance(secret, str):
+        secret = secret.encode()
+    _secret = secret or None
+    _secret_loaded = True
+
+
+def _get_secret() -> Optional[bytes]:
+    global _secret, _secret_loaded
+    if not _secret_loaded:
+        env = os.environ.get("NOMAD_TPU_RPC_SECRET")
+        _secret = env.encode() if env else None
+        _secret_loaded = True
+    return _secret
 
 
 class FramingError(Exception):
@@ -32,8 +86,8 @@ class FramingError(Exception):
 # -- restricted deserialization ----------------------------------------------
 
 # Modules whose classes may cross the wire. A fixed set — find_class must
-# not import attacker-named modules (side-effectful imports can hang or
-# latch process state).
+# not import attacker-named modules (side-effectful imports can hang or latch
+# process state).
 _SAFE_MODULES = frozenset(
     {
         "nomad_tpu_torch.structs",
@@ -47,6 +101,8 @@ _SAFE_MODULES = frozenset(
         "nomad_tpu_torch.structs.volumes",
         "nomad_tpu_torch.structs.deployment",
         "nomad_tpu_torch.state.store",
+        "nomad_tpu_torch.acl.tokens",
+        "nomad_tpu_torch.acl.policy",
     }
 )
 
@@ -108,3 +164,66 @@ def restricted_loads(payload: bytes) -> Any:
         raise
     except Exception as e:  # torn/corrupt pickle must not crash callers
         raise FramingError(f"malformed frame payload: {e}") from e
+
+
+# -- framing -----------------------------------------------------------------
+
+
+def send_frame(sock: socket.socket, msg: dict, *, server_side: bool = False) -> None:
+    """``server_side`` marks the frame's direction (server→client); the
+    direction byte is covered by the MAC so a captured server frame cannot
+    be reflected back at the server as a request."""
+    payload = pickle.dumps(msg, protocol=pickle.HIGHEST_PROTOCOL)
+    if len(payload) > MAX_FRAME:
+        raise FramingError(f"frame too large: {len(payload)}")
+    flag = _FLAG_DIR_S if server_side else 0
+    secret = _get_secret()
+    if secret is not None:
+        flag |= _FLAG_HMAC
+        tag = hmac.new(secret, bytes([flag]) + payload, hashlib.sha256).digest()
+        header = _LEN.pack(len(payload) + 1 + _TAG_LEN) + bytes([flag])
+        sock.sendall(header + tag + payload)
+    else:
+        sock.sendall(_LEN.pack(len(payload) + 1) + bytes([flag]) + payload)
+
+
+def _recv_exact(sock: socket.socket, n: int) -> bytes:
+    buf = bytearray()
+    while len(buf) < n:
+        chunk = sock.recv(n - len(buf))
+        if not chunk:
+            raise ConnectionError("connection closed")
+        buf.extend(chunk)
+    return bytes(buf)
+
+
+def recv_frame(sock: socket.socket, *, expect_server: bool | None = None) -> Any:
+    """``expect_server`` asserts the authenticated frame's direction:
+    True = must come from a server, False = must come from a client,
+    None = either (direction unchecked)."""
+    (n,) = _LEN.unpack(_recv_exact(sock, 4))
+    if n > MAX_FRAME + 1 + _TAG_LEN or n < 1:
+        raise FramingError(f"bad frame length: {n}")
+    body = _recv_exact(sock, n)
+    flag, body = body[0], body[1:]
+    if flag & ~(_FLAG_HMAC | _FLAG_DIR_S):
+        raise FramingError(f"unknown frame flag: {flag}")
+    secret = _get_secret()
+    if secret is not None:
+        if not flag & _FLAG_HMAC or len(body) < _TAG_LEN:
+            raise FramingError("unauthenticated frame rejected")
+        tag, payload = body[:_TAG_LEN], body[_TAG_LEN:]
+        if not hmac.compare_digest(
+            tag, hmac.new(secret, bytes([flag]) + payload, hashlib.sha256).digest()
+        ):
+            raise FramingError("frame HMAC mismatch")
+        if expect_server is not None and bool(flag & _FLAG_DIR_S) != expect_server:
+            raise FramingError("frame direction mismatch (reflected frame?)")
+    else:
+        if flag & _FLAG_HMAC:
+            if len(body) < _TAG_LEN:
+                raise FramingError("truncated authenticated frame")
+            payload = body[_TAG_LEN:]  # peer signs, we don't require it
+        else:
+            payload = body
+    return restricted_loads(payload)

@@ -18,7 +18,7 @@ heartbeats, the deployment watcher, the drainer, periodic dispatch, core
 GC, the volume watcher, ACL and the defrag controller, which plans each
 cycle with the migration kernel on the same device. A consensus
 ``RaftNode`` (the reference's ``attach_raft``) is not ported yet
-(ROADMAP A18).
+(ROADMAP A18b).
 """
 
 from __future__ import annotations
@@ -267,8 +267,8 @@ class Server:
         self.store.add_listener(self._on_state_change)
         # the raft seam: FSM messages through InlineRaft (single server;
         # WAL-durable when data_dir is set). The reference's attach_raft,
-        # which swaps in a consensus RaftNode, waits for raft/node.py
-        # (ROADMAP A18).
+        # which swaps in a consensus RaftNode, waits for raft/node.py's
+        # RaftNode (ROADMAP A18b).
         from ..raft import InlineRaft
         from ..state.snapshot import restore_snapshot, save_snapshot
         from .fsm import FSM, MsgType

@@ -21,9 +21,12 @@ REPO = PKG_DIR.parent
 
 
 def _submodules():
+    # ``cli/__main__.py`` is the ``python -m`` entry point: importing it
+    # runs the CLI
     return sorted(
         m.name
         for m in pkgutil.walk_packages([str(PKG_DIR)], prefix="nomad_tpu_torch.")
+        if not m.name.endswith(".__main__")
     )
 
 
@@ -83,6 +86,32 @@ def test_imports_with_jax_blocked():
         "nomad_tpu_torch.obs.slo",
         "nomad_tpu_torch.obs.loadgen",
         "nomad_tpu_torch.obs",
+        "nomad_tpu_torch.rpc.server",
+        "nomad_tpu_torch.rpc.client",
+        "nomad_tpu_torch.rpc",
+        "nomad_tpu_torch.raft.node",
+        "nomad_tpu_torch.api.codec",
+        "nomad_tpu_torch.api.http",
+        "nomad_tpu_torch.api.client",
+        "nomad_tpu_torch.api",
+        "nomad_tpu_torch.jobspec.parse",
+        "nomad_tpu_torch.jobspec",
+        "nomad_tpu_torch.utils.profile",
+        "nomad_tpu_torch.client.drivers",
+        "nomad_tpu_torch.client.container",
+        "nomad_tpu_torch.client.task_runner",
+        "nomad_tpu_torch.client.alloc_runner",
+        "nomad_tpu_torch.client.state",
+        "nomad_tpu_torch.client.allochealth",
+        "nomad_tpu_torch.client.logmon",
+        "nomad_tpu_torch.client.endpoints",
+        "nomad_tpu_torch.client.fingerprint",
+        "nomad_tpu_torch.client.client",
+        "nomad_tpu_torch.client",
+        "nomad_tpu_torch.agent_config",
+        "nomad_tpu_torch.agent",
+        "nomad_tpu_torch.cli.main",
+        "nomad_tpu_torch.cli",
     ):
         assert m in mods
     code = (
@@ -162,6 +191,25 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()
+
+
+def test_dev_agent_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    """``DevAgent()`` asks for CUDA; without it the agent raises before it
+    makes its data dir, its server or its client."""
+    import tempfile
+
+    from nomad_tpu_torch.agent import DevAgent
+
+    _no_cuda(monkeypatch)
+
+    def no_dir(*a, **kw):
+        raise AssertionError("data dir made before the device was resolved")
+
+    monkeypatch.setattr(tempfile, "mkdtemp", no_dir)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DevAgent()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DevAgent(device="cuda", num_workers=1)
 
 
 def test_score_group_raises_without_cuda(monkeypatch):

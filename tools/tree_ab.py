@@ -8,10 +8,12 @@ commit). The arms run in the order A, B, B, A, A, B, B, A, ... (``--pairs``
 pairs), each in a process of its own started in its tree: it builds that
 tree's kernels, runs ``chip_smoke.main_path`` (10 service evals of 1,000
 allocs on 10,000 mock nodes through the Harness, then the score_group
-path) and ``bench_torch.bench_end_to_end`` at ``chip_smoke.SERVER_BENCH``.
-Prints the card's name and power limit first, one JSON line an arm (the
-schedule path's eval p50 / p99 in ms, the bench's allocs/s and eval p50 /
-p99 in ms), and the medians by tree last. No jax.
+path), ``bench_torch.bench_end_to_end`` at ``chip_smoke.SERVER_BENCH``
+and ``chip_smoke.guard_cost`` (µs a synchronized closed-form call through
+the kernel guard and straight). Prints the card's name and power limit
+first, one JSON line an arm (the schedule path's eval p50 / p99 in ms,
+the bench's allocs/s and eval p50 / p99 in ms, the guard's µs a call
+both ways), and the medians by tree last. No jax.
 """
 
 import argparse
@@ -44,11 +46,15 @@ def run_arm() -> None:
                 if l.startswith("[main]") and " evals in " in l)
     p50, p99 = re.search(r"eval p50_ms=([\d.]+) p99_ms=([\d.]+)", line).groups()
     b = bench_torch.bench_end_to_end(**C.SERVER_BENCH, device=dev)
+    with contextlib.redirect_stdout(io.StringIO()):
+        guard = C.guard_cost(dev)
     print(ARM + json.dumps({
         "schedule_p50_ms": float(p50), "schedule_p99_ms": float(p99),
         "server_allocs_per_sec": b["allocs_per_sec"],
         "server_p50_ms": b["eval_latency_ms"]["p50"],
         "server_p99_ms": b["eval_latency_ms"]["p99"],
+        "guarded_us_per_call": guard["guarded_us_per_call"],
+        "straight_us_per_call": guard["straight_us_per_call"],
     }), flush=True)
 
 
