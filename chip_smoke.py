@@ -91,7 +91,8 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
    - "resilience": the kernel guard (``backend.guarded_call``: breaker,
      chaos sites, watchdog deadline) in front of every launch, driven
      under faults on the port's server on the card: ``run_chaos`` under
-     the default fault mix at 1,000 nodes x 200 steps for seeds 1, 2 and
+     the default fault mix at 1,000 nodes x 100 steps (the reference's 200
+     cut for time) for seeds 1, 2 and
      1 (every run ``ok``, every law checked or skipped for want of its
      state, seed 1's canonical reports identical and equal to the same
      run's on the CPU), the reference's migration-in-the-default-mix run,
@@ -128,6 +129,27 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
      request's p50 / p99 at the client and the read-back's seconds logged
      beside the "server" path's allocs/s and p50; every closed-form and
      coupled call recorded and replayed;
+   - "cluster": three server processes of one raft group on the card
+     (``cluster_member``: this script run with ``--cluster-member``, an
+     ``RPCServer`` and a ``ClusterServer(device="cuda", num_workers=1)``
+     each, its kernel wrappers recorded for the process's life). The
+     "server" path's 10,000 nodes registered over RPC through the three
+     (one raft entry a node), its 100 jobs x 250 through a follower
+     (each forwarded to the leader), placed by the leader on the card
+     and replicated; the leader's recorded calls replayed in its own
+     process; the leader killed (SIGKILL), a survivor elected, two more
+     jobs (the recipe's, and one without its spread, for the closed
+     form) registered through the remaining follower and placed by the
+     new leader from a cold cache on the replicated store, its calls
+     replayed; the killed member restarted on its data dir and caught
+     up. Every member that led holds a kernel call or more, identical to
+     plain; every alloc placed; no node over-committed in any store; the
+     three stores' placements and latest index equal; no follower
+     launched a kernel or built its cache; no fallback call; every
+     member stopped. Each phase's seconds (election, nodes/s, allocs/s
+     and eval p50 / p99 beside the "server" path's allocs/s, failover,
+     the first placement after it, catch-up) and each process's launches
+     logged;
    - "spread": the JAX package's ``bench.py end_to_end`` node recipe
      (10,000 nodes over 25 racks, ssd on every 4th, every 3rd at
      8,000 MHz / 16,384 MiB) and 30 jobs through the Harness: its 20
@@ -246,7 +268,8 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
    (its kernel ms beside the same evals' 10 calls one by one, and host
    seconds beside the incremental path's first off arm), "plan", "calib",
    "leader" (the drain, each defrag cycle's row, the bench with its
-   admission block), "resilience", "agent", "restore" and "server"; the
+   admission block), "resilience", "agent", "cluster", "restore" and
+   "server"; the
    total seconds, one JSON line of per-kernel results,
    the card's name and power limit, then the device line last.
 
@@ -4476,7 +4499,10 @@ def leader_path(dev, n_nodes=LEADER_NODES):
 # -- phase 5, the "resilience" path --------------------------------------------
 
 RESILIENCE_NODES = 1_000  # a mid-sized production fleet
-RESILIENCE_STEPS = 200  # the reference's acceptance length (tests/test_chaos.py)
+# cut from the reference's acceptance length, 200 (tests/test_chaos.py),
+# for time: the runner drains every op before the next (C-P4), one
+# scheduling pass an op
+RESILIENCE_STEPS = 100
 RESILIENCE_SEEDS = (1, 2, 1)  # seed 1 twice: its canonical reports must match
 # the reference's test_migration_exercised_in_default_mix (its 6 nodes)
 MIGRATION_MIX = {"seed": 11, "steps": 60}
@@ -4690,7 +4716,10 @@ def resilience_path(dev):
     out["guard"] = guard_cost(dev)
     breaker.reset_all()
     out["seconds"] = time.perf_counter() - t_path
-    log(f"[resilience] path {out['seconds']:.1f} s")
+    log(
+        f"[resilience] path {out['seconds']:.1f} s (chaos runs at {RESILIENCE_STEPS} steps: "
+        f"cut from the reference's 200 for time)"
+    )
     return out
 
 
@@ -5023,6 +5052,496 @@ def agent_http_path(dev, server_out, n_nodes=SERVER_BENCH["n_nodes"],
     return launches, coupled, summary
 
 
+# the "cluster" path: three server processes of one raft group on the card
+CLUSTER_IDS = ("s1", "s2", "s3")
+CLUSTER_RACKS = 25
+# a member's raft: hashicorp/raft's own defaults (1 s heartbeat and
+# election timeouts), so that a leader's pass of host Python cannot
+# stall its heartbeats past a follower's timeout
+CLUSTER_RAFT = {
+    "election_timeout_min": 1.0, "election_timeout_max": 2.0,
+    "heartbeat_interval": 0.1, "rpc_timeout": 10.0,
+}
+# no client heartbeats a node here: a TTL that outlives the run, so that
+# a new leader's heartbeat timers (seeded from its store) mark none down
+CLUSTER_HEARTBEAT_TTL = 3600.0
+CLUSTER_REGISTER_THREADS = 8  # concurrent node registrations
+CLUSTER_READY_S = 180.0  # a member imports torch and opens a CUDA context
+CLUSTER_ELECT_S = 60.0
+CLUSTER_PLACE_S = 600.0
+CLUSTER_STOP_S = 30.0
+CLUSTER_CALL_S = 600.0  # an RPC to a member (a replay runs inside it)
+
+
+def cluster_member(argv) -> int:
+    """One member of the "cluster" path, in a process of its own:
+    ``python3 chip_smoke.py --cluster-member <id> --peers <json>
+    --data-dir <dir> [--device cuda]``. An ``RPCServer`` on its peer
+    address and a ``ClusterServer(server_config=ServerConfig(device,
+    num_workers=1))`` on it, its kernel wrappers under the script's
+    recording for the process's life; beside the cluster's RPC surface
+    it serves ``Smoke.status`` (raft state, leader services, launches,
+    the device cache's counters, fallback calls, eval latency),
+    ``Smoke.view`` (its store: placements by (job, node), latest index,
+    over-committed nodes, queues), ``Smoke.drain`` (the server's
+    ``wait_for_evals``), ``Smoke.zero``, ``Smoke.replay``
+    (ends the recording and holds every recorded call against its plain
+    version, as the in-process paths do) and ``Smoke.stop``. No fallback:
+    a member that finds no CUDA raises."""
+    import argparse
+    import hashlib
+
+    from nomad_tpu_torch.device import score as S
+    from nomad_tpu_torch.obs import flight_recorder
+    from nomad_tpu_torch.obs.recorder import trace_latencies
+    from nomad_tpu_torch.rpc import RPCServer
+    from nomad_tpu_torch.server.cluster import ClusterServer
+    from nomad_tpu_torch.server.server import ServerConfig
+    from nomad_tpu_torch.utils.metrics import global_metrics
+
+    import bench_torch
+
+    p = argparse.ArgumentParser(prog="chip_smoke.py --cluster-member")
+    p.add_argument("--cluster-member", required=True)
+    p.add_argument("--peers", required=True)
+    p.add_argument("--data-dir", required=True)
+    p.add_argument("--device", default="cuda")
+    a = p.parse_args(argv)
+    me, peers = a.cluster_member, json.loads(a.peers)
+    rpc = RPCServer(port=int(peers[me].rsplit(":", 1)[1]))
+    deadline = time.monotonic() + 30  # a restart may find the port in TIME_WAIT
+    while True:
+        try:
+            rpc.start()
+            break
+        except OSError:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.2)
+    path = f"cluster-{me}"
+    recordings = contextlib.ExitStack()
+    recordings.enter_context(shared_recording(path, score_matrix=False))
+    coupled = {name: recordings.enter_context(recording(S, name)) for name in COUPLED}
+    member = ClusterServer(
+        me, peers, rpc, data_dir=a.data_dir,
+        server_config=ServerConfig(
+            device=a.device, num_workers=1, heartbeat_ttl=CLUSTER_HEARTBEAT_TTL,
+        ),
+        **CLUSTER_RAFT,
+    )
+    stop = threading.Event()
+
+    def status(_args):
+        eval_s = [trace_latencies(t)[0] for t in flight_recorder.traces()]
+        return {
+            "id": me, "pid": os.getpid(), "raft": member.raft.stats(),
+            "services": bool(member.server._leader),
+            "launches": counters(),
+            "device_cache": cache_counters(member.server.device_cache),
+            "fallback_calls": int(
+                global_metrics.snapshot()["counters"].get(FALLBACK_CALLS, 0)
+            ),
+            "evals": len(eval_s),
+            "eval_p50_ms": bench_torch.percentile_ms(eval_s, 50) if eval_s else None,
+            "eval_p99_ms": bench_torch.percentile_ms(eval_s, 99) if eval_s else None,
+        }
+
+    def view(_args):
+        # a frozen view: the applier writes the live store meanwhile
+        store = member.server.store.snapshot()
+        live = collections.Counter(
+            (al.job_id, al.node_id) for al in store.allocs() if not al.terminal_status()
+        )
+        names = sorted(al.name for al in store.allocs() if not al.terminal_status())
+        rows = sorted(f"{j} {n} {c}" for (j, n), c in live.items())
+        depths = member.server.eval_broker.queue_depths()
+        return {
+            "latest_index": store.index,
+            "nodes": sum(1 for _ in store.nodes()),
+            "placed": sum(live.values()),
+            "placed_by_job": dict(collections.Counter(j for j, _n in live.elements())),
+            "digest": hashlib.sha256("\n".join(rows + names).encode()).hexdigest(),
+            "overcommitted": committed_overcommit(store),
+            "queued": depths["ready"] + depths["unacked"] + depths["delayed"]
+            + depths.get("deferred", 0),
+            "failed_evals": sum(1 for e in store.evals() if e.status == "failed"),
+        }
+
+    def drain(args):
+        return member.server.wait_for_evals(timeout=args["timeout"])
+
+    def zero(_args):
+        zero_counters()
+        return counters()
+
+    def replay(_args):
+        # the recording ends here: what the process launched is what
+        # it recorded, and the replays below are not counted as its own
+        launches = counters()
+        recordings.close()
+        recorded = {
+            "place_closed_form": SHARED_CALLS.get(path, {}).get("place_closed_form", []),
+            **coupled,
+        }
+        out = {"launches": launches, "recorded": {k: len(v) for k, v in recorded.items()}}
+        # a kernel that launched nothing (a follower's, or the CPU's plain
+        # versions) has nothing to hold against plain
+        cf = recorded["place_closed_form"]
+        if launches["place_closed_form"]:
+            r = replay_shared("place_closed_form", cf, path)
+            out["place_closed_form"] = {
+                k: r[k] for k in ("calls", "path_ms", "max_abs_err", "choice_mismatches",
+                                  "blocks_per_lane", "shapes")
+            }
+        for name, calls in coupled.items():
+            if launches[name]:
+                r = replay_coupled(name, calls)
+                out[name] = {
+                    "calls": len(calls),
+                    **{k: r[k] for k in ("path_ms", "max_abs_err", "choice_mismatches",
+                                         "ms", "shape")},
+                }
+        return out
+
+    def stop_(_args):
+        stop.set()
+        return True
+
+    for name, fn in (("status", status), ("view", view), ("drain", drain), ("zero", zero),
+                     ("replay", replay), ("stop", stop_)):
+        rpc.register(f"Smoke.{name}", fn)
+    member.start()
+    log(f"[cluster {me}] pid {os.getpid()} serving at {rpc.address} on {a.device}")
+    stop.wait()
+    member.shutdown()
+    rpc.stop()
+    log(f"[cluster {me}] stopped")
+    return 0
+
+
+def cache_counters(cache) -> dict:
+    """What a member's ``DeviceStateCache`` built and uploaded: full
+    flattens (a cold build), journal refreshes, hits, whether capacity is
+    resident on the card, and the score state's uploads."""
+    counts = cache.device_counters()
+    return {
+        "full_flattens": cache.full_flattens,
+        "incremental_refreshes": cache.incremental_refreshes,
+        "hits": cache.hits,
+        "capacity_resident": cache._dev_capacity is not None,
+        "score_full_rebuilds": counts["score_full_rebuilds"],
+        "score_patch_uploads": counts["score_patch_uploads"],
+    }
+
+
+class ClusterRun:
+    """The member processes of the "cluster" path and the script's RPC
+    clients to them."""
+
+    def __init__(self, dev, base):
+        import socket
+
+        from nomad_tpu_torch.rpc import RPCClient
+
+        self.dev, self.base, self.RPCClient = dev, base, RPCClient
+        ports = []
+        socks = []
+        for _ in CLUSTER_IDS:  # three free ports, held until all are picked
+            s = socket.socket()
+            s.bind(("127.0.0.1", 0))
+            socks.append(s)
+            ports.append(s.getsockname()[1])
+        for s in socks:
+            s.close()
+        self.peers = {m: f"127.0.0.1:{p}" for m, p in zip(CLUSTER_IDS, ports)}
+        self.procs, self.clients, self.logs = {}, {}, {}
+
+    def spawn(self, mid):
+        self.logs[mid] = open(os.path.join(self.base, f"{mid}.log"), "ab")
+        self.procs[mid] = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cluster-member", mid,
+             "--peers", json.dumps(self.peers),
+             "--data-dir", os.path.join(self.base, mid), "--device", self.dev.type],
+            cwd=REPO_DIR, stdout=self.logs[mid], stderr=subprocess.STDOUT,
+        )
+
+    def call(self, mid, method, args=None, timeout=CLUSTER_CALL_S):
+        c = self.clients.get(mid)
+        if c is None:
+            c = self.clients[mid] = self.RPCClient(
+                self.peers[mid], timeout=timeout, max_attempts=1
+            )
+        return c.call(method, args, timeout=timeout)
+
+    def drop_client(self, mid):
+        c = self.clients.pop(mid, None)
+        if c is not None:
+            c.close()
+
+    def wait_ready(self, mid, deadline_s=CLUSTER_READY_S):
+        deadline = time.monotonic() + deadline_s
+        while True:
+            assert self.procs[mid].poll() is None, (mid, "exited", self.tail(mid))
+            try:
+                return self.call(mid, "Smoke.status", timeout=5.0)
+            except Exception:  # noqa: BLE001 — not serving yet
+                self.drop_client(mid)
+                assert time.monotonic() < deadline, (mid, "not ready", self.tail(mid))
+                time.sleep(0.25)
+
+    def statuses(self, mids):
+        return {m: self.call(m, "Smoke.status") for m in mids}
+
+    def leader(self, mids, deadline_s=CLUSTER_ELECT_S):
+        """The one member of ``mids`` that leads with its services up."""
+        deadline = time.monotonic() + deadline_s
+        while True:
+            st = self.statuses(mids)
+            leaders = [m for m, s in st.items() if s["raft"]["state"] == "Leader"]
+            if len(leaders) == 1 and st[leaders[0]]["services"]:
+                return leaders[0], st
+            assert time.monotonic() < deadline, ("no leader", st)
+            time.sleep(0.05)
+
+    def tail(self, mid, n=4000):
+        try:
+            with open(os.path.join(self.base, f"{mid}.log"), "rb") as f:
+                return f.read()[-n:].decode(errors="replace")
+        except OSError:
+            return ""
+
+    def stop_all(self):
+        """Every member still running stopped by ``Smoke.stop``, killed
+        past ``CLUSTER_STOP_S``; returns their exit codes."""
+        for mid, proc in self.procs.items():
+            if proc.poll() is None:
+                try:
+                    self.call(mid, "Smoke.stop", timeout=5.0)
+                except Exception:  # noqa: BLE001 — killed below
+                    pass
+        codes = {}
+        for mid, proc in self.procs.items():
+            try:
+                codes[mid] = proc.wait(timeout=CLUSTER_STOP_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                codes[mid] = ("killed", proc.wait())
+        for mid in list(self.clients):
+            self.drop_client(mid)
+        for f in self.logs.values():
+            f.close()
+        return codes
+
+
+def cluster_path(dev, server_out, n_nodes=SERVER_BENCH["n_nodes"],
+                 n_jobs=SERVER_BENCH["n_jobs"], per_job=SERVER_BENCH["per_job"],
+                 racks=CLUSTER_RACKS):
+    """The "cluster" path: three server processes (``cluster_member``), a
+    raft group on one card. The "server" path's fleet and jobs
+    (``agent_node`` / ``agent_job``): its 10,000 nodes registered over RPC
+    through the three members (a follower forwards to the leader; one
+    raft entry a node, a WAL sync at the leader), its 100 jobs x 250
+    registered through a follower (each forwarded), placed by the leader
+    on the card and replicated; the leader's recorded calls replayed in
+    its process; the leader killed (SIGKILL); a survivor elected, its
+    services up; two further jobs (the recipe's, and the same without its
+    spread, which the closed form places) registered through the
+    remaining follower and placed by the new leader on the card from a
+    cold cache on the replicated store; its calls replayed; the killed
+    member restarted on its data dir and caught up. Gates: every member
+    that led holds one kernel call or more, all identical to plain;
+    every alloc placed; no node over-committed in any store (the dead
+    leader's allocs counted); the three stores' placements by (job,
+    node) and alloc names, and their latest index, equal after the
+    catch-up; no member launched a kernel while it followed; no fallback
+    call in any process; every member stopped. Returns the launch counts
+    (the two leaders' replays' counts, summed), the replays and the
+    summary."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.backend import BUILD_DIR
+
+    t_path = time.perf_counter()
+    base = tempfile.mkdtemp(prefix="cluster-", dir=BUILD_DIR)  # inside the checkout
+    run = ClusterRun(dev, base)
+    phases, status_log = {}, {}
+    try:
+        t0 = time.perf_counter()
+        for mid in CLUSTER_IDS:
+            run.spawn(mid)
+        for mid in CLUSTER_IDS:
+            run.wait_ready(mid)
+        phases["start_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        first, _ = run.leader(CLUSTER_IDS)
+        phases["election_s"] = time.perf_counter() - t0
+        followers = [m for m in CLUSTER_IDS if m != first]
+
+        # the nodes over RPC through every member, a raft entry each
+        nodes = [agent_node(mock, i, racks) for i in range(n_nodes)]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(CLUSTER_REGISTER_THREADS) as pool:
+            list(pool.map(
+                lambda i: run.call(CLUSTER_IDS[i % 3], "Nomad.register_node",
+                                   {"node": nodes[i]}),
+                range(n_nodes),
+            ))
+        phases["register_nodes_s"] = time.perf_counter() - t0
+        phases["nodes_per_s"] = n_nodes / phases["register_nodes_s"]
+        assert run.call(first, "Smoke.view")["nodes"] == n_nodes
+        del nodes
+
+        # the jobs through a follower, placed by the leader on the card
+        via = followers[0]
+        for mid in CLUSTER_IDS:
+            assert not any(run.call(mid, "Smoke.zero").values())
+        t0 = time.perf_counter()
+        for j in range(n_jobs):
+            run.call(via, "Nomad.register_job", {"job": agent_job(mock, j, per_job)})
+        phases["register_jobs_s"] = time.perf_counter() - t0
+        total = n_jobs * per_job
+        assert run.call(first, "Smoke.drain", {"timeout": CLUSTER_PLACE_S}), "no drain"
+        phases["placement_s"] = time.perf_counter() - t0
+        v = run.call(first, "Smoke.view")
+        phases["allocs_per_s"] = v["placed"] / phases["placement_s"]
+        assert v["placed"] == total, (v["placed"], total)
+        t0 = time.perf_counter()
+        want = run.call(first, "Smoke.view")
+        deadline = time.monotonic() + CLUSTER_PLACE_S
+        while not all(
+            run.call(m, "Smoke.view")["digest"] == want["digest"] for m in followers
+        ):
+            assert time.monotonic() < deadline, "followers did not converge"
+            time.sleep(0.25)
+        phases["replication_lag_s"] = time.perf_counter() - t0
+        status_log["before_failover"] = st = run.statuses(CLUSTER_IDS)
+        for m in followers:  # no follower launched a kernel or built its cache
+            assert not any(st[m]["launches"].values()), (m, st[m]["launches"])
+            assert st[m]["device_cache"]["full_flattens"] == 0, (m, st[m]["device_cache"])
+        replays = {first: run.call(first, "Smoke.replay")}
+
+        # failover: the leader killed once its replay has returned
+        t_kill = time.perf_counter()
+        run.procs[first].kill()
+        run.procs[first].wait()
+        run.drop_client(first)
+        second, st2 = run.leader(followers)
+        phases["failover_s"] = time.perf_counter() - t_kill
+        other = next(m for m in followers if m != second)
+        assert not any(st2[other]["launches"].values()), st2[other]
+        after = [agent_job(mock, n_jobs, per_job), agent_job(mock, n_jobs + 1, per_job)]
+        after[1].spreads = []  # the closed form's: no coupled group
+        t0 = time.perf_counter()
+        for job in after:
+            run.call(other, "Nomad.register_job", {"job": job})
+        total += len(after) * per_job
+        assert run.call(second, "Smoke.drain", {"timeout": CLUSTER_PLACE_S}), "no drain"
+        phases["post_failover_placement_s"] = time.perf_counter() - t0
+        v = run.call(second, "Smoke.view")
+        assert v["placed"] == total, (v["placed"], total)
+        status_log["after_failover"] = run.statuses(followers)
+        replays[second] = run.call(second, "Smoke.replay")
+
+        # the killed member back on its data dir, caught up
+        t0 = time.perf_counter()
+        run.spawn(first)
+        run.wait_ready(first)
+        want = run.call(second, "Smoke.view")
+        deadline = time.monotonic() + CLUSTER_PLACE_S
+        while True:
+            views = {m: run.call(m, "Smoke.view") for m in CLUSTER_IDS}
+            if all(
+                views[m]["digest"] == want["digest"]
+                and views[m]["latest_index"] == want["latest_index"] for m in CLUSTER_IDS
+            ):
+                break
+            assert time.monotonic() < deadline, ("catch-up", views)
+            time.sleep(0.25)
+            want = run.call(second, "Smoke.view")
+        phases["catch_up_s"] = time.perf_counter() - t0
+        status_log["final"] = final = run.statuses(CLUSTER_IDS)
+    except BaseException:
+        for mid in run.procs:
+            log(f"[cluster {mid}] log tail:\n{run.tail(mid)}")
+        raise
+    finally:
+        codes = run.stop_all()
+        shutil.rmtree(base, ignore_errors=True)
+    phases["path_s"] = time.perf_counter() - t_path
+    leaders = (first, second)
+    launches = {
+        name: sum(replays[m]["launches"][name] for m in leaders) for name in counters()
+    }
+    summary = {
+        "config": f"3 server processes, {n_nodes} nodes over RPC, {n_jobs} jobs x {per_job} "
+        f"through a follower, then 2 x {per_job} after failover",
+        "raft": CLUSTER_RAFT,
+        "leaders": list(leaders),
+        "phases": phases,
+        "server_path_allocs_per_s": server_out["allocs_per_sec"],
+        "eval_ms": {m: {k: status_log["before_failover" if m == first else "final"][m][k]
+                        for k in ("evals", "eval_p50_ms", "eval_p99_ms")} for m in leaders},
+        "views": {m: {k: views[m][k] for k in ("latest_index", "placed", "overcommitted",
+                                               "failed_evals", "nodes")}
+                  for m in CLUSTER_IDS},
+        "launches_by_member": {
+            "before_failover": {m: s["launches"] for m, s in status_log["before_failover"].items()},
+            "after_failover": {m: s["launches"] for m, s in status_log["after_failover"].items()},
+            "restarted": final[first]["launches"],
+        },
+        "device_cache": {
+            phase: {m: s["device_cache"] for m, s in st_.items()}
+            for phase, st_ in status_log.items()
+        },
+        "fallback_calls": {
+            **{f"{m} (first run)": s["fallback_calls"]
+               for m, s in status_log["before_failover"].items()},
+            **{m: s["fallback_calls"] for m, s in final.items()},
+        },
+        "replays": replays,
+        "exit_codes": {m: c if isinstance(c, int) else str(c) for m, c in codes.items()},
+    }
+    log(
+        f"[cluster] {summary['config']}: start {phases['start_s']!r} s, election "
+        f"{phases['election_s']!r} s, nodes {phases['register_nodes_s']!r} s "
+        f"({phases['nodes_per_s']!r} nodes/s), jobs registered {phases['register_jobs_s']!r} s, "
+        f"placement {phases['placement_s']!r} s ({phases['allocs_per_s']!r} allocs/s; the "
+        f"server path's {server_out['allocs_per_sec']!r}, context only), eval p50/p99 "
+        f"{summary['eval_ms'][first]['eval_p50_ms']!r} / {summary['eval_ms'][first]['eval_p99_ms']!r}"
+        f" ms, replication lag {phases['replication_lag_s']!r} s, failover (kill to the new "
+        f"leader's services) {phases['failover_s']!r} s, first placement after failover "
+        f"{phases['post_failover_placement_s']!r} s, catch-up {phases['catch_up_s']!r} s; "
+        f"leaders {first} then {second}"
+    )
+    log("[cluster] " + json.dumps(summary, sort_keys=True))
+    cluster_gates(summary, leaders, total)
+    return launches, replays, summary
+
+
+def cluster_gates(summary, leaders, total):
+    """The "cluster" path's gates on what its members reported."""
+    for m in leaders:
+        r = summary["replays"][m]
+        # every launch recorded, every recorded call replayed
+        assert r["recorded"] == {k: r["launches"][k] for k in r["recorded"]}, (m, r)
+        kernels = [k for k in r if k not in ("launches", "recorded")]
+        assert kernels and all(r[k]["calls"] >= 1 for k in kernels), (m, r)
+        assert all(r[k]["choice_mismatches"] == 0 for k in kernels), (m, r)
+    views = summary["views"]
+    assert all(v["placed"] == total for v in views.values()), views
+    assert all(v["overcommitted"] == 0 for v in views.values()), views
+    assert len({v["latest_index"] for v in views.values()}) == 1, views
+    restarted = summary["launches_by_member"]["restarted"]
+    assert not any(restarted.values()), restarted
+    assert not any(summary["fallback_calls"].values()), summary["fallback_calls"]
+    # the killed leader's process was replaced by its restart: every
+    # member that ran to the end stopped on its own
+    assert all(c == 0 for c in summary["exit_codes"].values()), summary["exit_codes"]
+
+
 def find_launches(by_path) -> dict:
     """The find pass's launches on each path: its own launches plus the
     passes carried in the choice's launch (each a launch of its device
@@ -5159,6 +5678,9 @@ def main() -> int:
         name: replay_coupled(name, calls) for name, calls in agent_calls.items() if calls
     }
     del agent_calls
+    # the server cluster: three member processes on the card, a failover
+    # and a restart; each leader's calls replayed in its own process
+    cluster_launches, cluster_replays, cluster = cluster_path(dev, server)
     h, by_path["spread"], spread_calls, _ = spread_path(dev)
     coupled = {name: replay_coupled(name, spread_calls[name]) for name in COUPLED}
     del spread_calls
@@ -5220,6 +5742,8 @@ def main() -> int:
             assert (counts[name] > 0) == (path in by), (name, path)
     SHARED_CALLS.clear()
     del cf_calls, sm_calls, system_calls
+    # the cluster's calls were recorded and replayed in its member processes
+    by_path["cluster"] = cluster_launches
     batch.update(
         kernel_ms=shared["place_closed_form"]["batch"]["path_ms"],
         one_by_one_kernel_ms=calls_ms([shared_launch("place_closed_form", c) for c in one_by_one]),
@@ -5229,6 +5753,7 @@ def main() -> int:
     log("[server] " + json.dumps({
         "incremental": incr, "batch": batch, "plan": plan, "calib": calib, "leader": leader,
         "resilience": resilience, "agent": agent,
+        "cluster": {k: cluster[k] for k in ("config", "leaders", "phases", "views", "eval_ms")},
         "restore": restore, "server": {
             k: server[k] for k in (
                 "config", "card", "allocs_per_sec", "evals_per_sec", "eval_latency_ms",
@@ -5294,6 +5819,10 @@ def main() -> int:
                     "blocks_per_lane": cf["blocks_per_lane"],
                 },
                 "phase2_sweep": cf_sweep,
+                "cluster": {
+                    m: r["place_closed_form"] for m, r in cluster_replays.items()
+                    if "place_closed_form" in r
+                },
             },
         ),
         kernel_entry(
@@ -5330,6 +5859,7 @@ def main() -> int:
                 **({"agent": {k: agent_coupled[name][k] for k in (
                     "path_ms", "max_abs_err", "choice_mismatches", "ms", "shape",
                 )} | {"calls": by_path["agent"][name]}} if name in agent_coupled else {}),
+                "cluster": {m: r[name] for m, r in cluster_replays.items() if name in r},
             },
         )
         for name, replaces in (
@@ -5423,4 +5953,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cluster-member"]:
+        sys.exit(cluster_member(sys.argv[1:]))
     sys.exit(main())

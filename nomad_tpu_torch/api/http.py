@@ -1230,7 +1230,10 @@ class HTTPAgent:
         if method != "DELETE":
             raise APIError(405, f"method {method} not allowed")
         self._enforce(query, "operator_write")
-        pid = (query.get("id") or [""])[0]
+        # the query's values are strings (one per key): the JAX
+        # package indexes this one, and so reads its first character
+        # (ROADMAP C-R10)
+        pid = query.get("id") or ""
         if not pid:
             raise APIError(400, "missing ?id=<node_id>")
         from ..raft import NotLeaderError

@@ -9,9 +9,13 @@ deregister), quiesces, and checks every cluster invariant.
 
 Determinism contract: the *canonical* output — seed, fault schedule,
 invariant verdicts — is a pure function of the arguments, so two runs
-with the same seed emit byte-identical reports. Runtime detail that
-depends on thread interleaving (which faults actually fired, queue
-depths, retry counts) is reported separately as diagnostics.
+with the same seed emit byte-identical reports. Runtime detail (which
+faults fired, retry counts, the kernel refusals, the defrag moves) is
+reported separately as diagnostics. The port's runner also makes the
+fault order a function of the seed: each op is drained before the next,
+the defrag cycles are stepped between ops (``_drive_workload``) and
+admission reads op time (``_RunClock``), so two runs of one seed fire
+the same faults on the same calls and make the same moves.
 
 On the card no kernel call is finished on the CPU: a breaker that
 refuses, or a deadline that fires, raises out of the kernel guard and the
@@ -40,6 +44,38 @@ DEFAULT_NODES = 6
 RUN_UNACK_TIMEOUT = 1.5
 RUN_NACK_DELAY = 0.1
 RUN_INITIAL_NACK_DELAY = 0.05
+# workload ops between two settle points (``_drive_workload``)
+SETTLE_EVERY = 8
+# the drain check's poll: it runs after every op (three calm polls in a
+# row make a drained cluster), within SETTLE_TIMEOUT_S
+QUIESCE_POLL_S = 0.005
+SETTLE_TIMEOUT_S = 10.0
+# op time: how far the run's monotonic clock moves per workload op
+# (``_RunClock``); one admission re-evaluation interval
+RUN_OP_SECONDS = 0.25
+
+
+class _RunClock:
+    """The run's server clock. ``time()`` is the chaos clock, real time
+    plus the injected skew, which broker and worker deadlines read.
+    ``monotonic()`` is op time, ``RUN_OP_SECONDS`` a workload op plus
+    the same skew, which admission and the heartbeat TTLs read: so that
+    admission's re-evaluations, the ``admission.flap`` hits and the
+    windows they force fall on the same ops in every run, however fast
+    the host runs them."""
+
+    def __init__(self, chaos_clock):
+        self._chaos = chaos_clock
+        self.ops = 0
+
+    def time(self) -> float:
+        return self._chaos.time()
+
+    def monotonic(self) -> float:
+        return self.ops * RUN_OP_SECONDS + self._chaos.offset
+
+    def tick(self) -> None:
+        self.ops += 1
 
 
 class ChaosRun:
@@ -190,12 +226,32 @@ def _flip_pending(server) -> None:
             pass  # injected raft drop: a real client retries next poll
 
 
-def _drive_workload(server, seed: int, steps: int) -> dict:
+def _settle(server, defrag: bool) -> None:
+    """One of the run's settle points: placed allocs come up, the
+    cluster drains, and, with ``defrag``, one defrag cycle runs on the
+    drained cluster and is drained in turn."""
+    _flip_pending(server)
+    _quiesce(server, SETTLE_TIMEOUT_S)
+    if defrag:
+        server.defrag.supervised_cycle()
+        _quiesce(server, SETTLE_TIMEOUT_S)
+
+
+def _drive_workload(server, seed: int, steps: int, defrag: bool) -> dict:
     """Seeded register/scale/deregister stream. The generator's state
     depends ONLY on its rng — a register the cluster rejected (injected
     raft drop) is still remembered as attempted, so the op sequence and
     draw count per step are identical across runs no matter which
-    faults fired."""
+    faults fired.
+
+    Each op is drained before the next is submitted, and every
+    ``SETTLE_EVERY`` ops a settle point flips placed allocs to running
+    and steps one defrag cycle on the drained cluster (``_settle``). So
+    the worker's batches, its kernel calls, the defrag controller's and
+    the fault sites they hit come in an order that the seed alone
+    decides: ops streamed into a busy worker are batched as they happen
+    to arrive, and a free defrag thread beside the worker made the
+    order follow the threads' timing."""
     rng = random.Random(f"{seed}:workload")
     attempted: list[str] = []
     seq = 0
@@ -218,6 +274,7 @@ def _drive_workload(server, seed: int, steps: int) -> dict:
             return False
 
     for _step in range(steps):
+        server.config.clock.tick()  # a _RunClock: admission's op time
         r = rng.random()
         if r < 0.55 or len(attempted) < 3:
             count = rng.randint(1, 3)
@@ -245,13 +302,9 @@ def _drive_workload(server, seed: int, steps: int) -> dict:
                 lambda: server.deregister_job("default", target)
             )
             counts["deregisters"] += 1
-        if _step % 16 == 15:
-            # let the pipeline interleave with the op stream so faults
-            # land mid-flight, not only against a drained cluster —
-            # and bring placed allocs up so migration has live targets
-            _flip_pending(server)
-            time.sleep(0.01)
-    _flip_pending(server)
+        _quiesce(server, SETTLE_TIMEOUT_S)
+        if _step % SETTLE_EVERY == SETTLE_EVERY - 1 or _step == steps - 1:
+            _settle(server, defrag)
     return counts
 
 
@@ -271,17 +324,43 @@ class _RefusalLog:
             self.eval_ids.add(trace.get("eval_id", ""))
 
     def outcome(self, server) -> dict:
+        """The counts, and ``jobs``: each refused eval's job and how it
+        ended, sorted (eval ids are random; job ids come from the seed)."""
         failed = set(server.eval_broker.failed_eval_ids())
         snap = server.store.snapshot()
         placed = parked = 0
+        jobs = []
         for eval_id in self.eval_ids:
             ev = snap.eval_by_id(eval_id)
             if eval_id in failed or (ev is not None and ev.status == "failed"):
                 parked += 1
+                end = "parked_failed"
             elif ev is not None and ev.status == "complete":
                 placed += 1
+                end = "ended_placed"
+            else:
+                end = ev.status if ev is not None else "unknown"
+            jobs.append(f"{ev.job_id if ev is not None else '?'} {end}")
         return {"evals": len(self.eval_ids), "ended_placed": placed,
-                "parked_failed": parked}
+                "parked_failed": parked, "jobs": sorted(jobs)}
+
+
+def defrag_moves(server) -> list[str]:
+    """Every live-migration move the run committed, as ``job name
+    from-node -> to-node`` rows, sorted: the replacement allocs the
+    controller placed (server/defrag.py ``DEFRAG_DESC``) against the
+    allocs they replace."""
+    from ..server.defrag import DEFRAG_DESC
+
+    snap = server.store.snapshot()
+    rows = []
+    for a in snap.allocs():
+        if a.desired_description != DEFRAG_DESC or not a.previous_allocation:
+            continue
+        old = snap.alloc_by_id(a.previous_allocation)
+        src = old.node_id if old is not None else "?"
+        rows.append(f"{a.job_id} {a.name} {src} -> {a.node_id}")
+    return sorted(rows)
 
 
 def _quiesce(server, timeout: float) -> bool:
@@ -309,7 +388,7 @@ def _quiesce(server, timeout: float) -> bool:
                 return True
         else:
             calm = 0
-        time.sleep(0.02)
+        time.sleep(QUIESCE_POLL_S)
     return False
 
 
@@ -333,10 +412,13 @@ def run_chaos(
     resolution. Chaos runs with it on exercise cache.score_refresh_drop
     and the score half of invariant law 12.
 
-    ``defrag_interval`` enables continuous defragmentation for the run
-    (server/defrag.py) so live migration churns concurrently with the
-    workload and the ``migrate.*`` fault sites land on real two-phase
-    moves; ``<= 0`` turns the controller's periodic scan off.
+    ``defrag_interval > 0`` enables defragmentation for the run
+    (server/defrag.py): the runner steps one cycle at each settle point
+    of the workload (every ``SETTLE_EVERY`` ops), so live migration
+    churns between the op groups and the ``migrate.*`` fault sites land
+    on real two-phase moves; ``<= 0`` runs no cycle. The controller's
+    thread gets no period either way (it waits for an operator trigger
+    that never comes), so that no cycle races the worker.
 
     ``device`` is the server's (``ServerConfig(device=...)``): every
     worker's kernels and the defrag controller's run there."""
@@ -383,11 +465,19 @@ def run_chaos(
             # every node down mid-run (heartbeat expiry has its own
             # deterministic unit test — see tests/test_chaos.py)
             heartbeat_ttl=3600.0,
-            clock=plane.clock,
-            # continuous defrag runs hot so bounded live migration —
-            # and the migrate.* fault sites — interleave with the
-            # op stream (law 16, migration_conservation)
-            defrag_interval=defrag_interval,
+            clock=_RunClock(plane.clock),
+            # admission's latency votes read eval latency, which follows
+            # the host's load, not the seed: out of reach for the run
+            # (its flap site and backlog votes stay)
+            admission_overrides={
+                "brownout_p99_ms": float("inf"),
+                "shed_p99_ms": float("inf"),
+            },
+            # bounded live migration — and the migrate.* fault sites —
+            # between the op groups (law 16, migration_conservation):
+            # the runner steps the cycles, the controller's thread
+            # stays idle
+            defrag_interval=0.0,
             defrag_budget=2,
             device=device,
         )
@@ -406,7 +496,9 @@ def run_chaos(
         flight_recorder.add_listener(refusals)
         install(plane)
         try:
-            workload = _drive_workload(server, seed, steps)
+            workload = _drive_workload(
+                server, seed, steps, defrag=defrag_interval > 0
+            )
             quiesced = _quiesce(server, quiesce_timeout)
         finally:
             uninstall()
@@ -424,6 +516,7 @@ def run_chaos(
         report.info["quiesced"] = quiesced
         report.info["batch_workers"] = num_batch_workers
         report.info["kernel_refusals"] = refusals.outcome(server)
+        report.info["defrag_moves"] = defrag_moves(server)
         if not quiesced:
             report._fail(
                 "eval_terminal",

@@ -1,13 +1,18 @@
-"""Raft — the replicated-log backbone of the control plane.
+"""Raft consensus — the replicated-log backbone of the control plane.
 
-``InlineRaft`` is the single-server path: serialized append → apply with
-optional WAL durability (``nomad_tpu_torch.native``) and replay on boot;
-the FSM is ``nomad_tpu_torch.server.fsm``. ``NotLeaderError`` is the
-error a consensus node raises on a follower. Full consensus (``RaftNode``:
-election, replication, snapshot install) is not ported yet (ROADMAP A18b).
+Reference: hashicorp/raft wired in nomad/server.go:105-109 with the
+raft-boltdb log store and the FSM in nomad/fsm.go. Here the log rides the
+native C++ WAL (nomad_tpu_torch.native), RPCs ride nomad_tpu_torch.rpc,
+and the FSM is nomad_tpu_torch.server.fsm.
+
+Two implementations share the contract:
+- ``InlineRaft`` — the single-server fast path (dev agent): serialized
+  append→apply with optional WAL durability and replay-on-boot.
+- ``RaftNode`` — full consensus: leader election, log replication,
+  commitment, snapshot install, membership-static peer set.
 """
 
 from .inline import InlineRaft
-from .node import NotLeaderError
+from .node import NotLeaderError, RaftNode
 
-__all__ = ["InlineRaft", "NotLeaderError"]
+__all__ = ["InlineRaft", "RaftNode", "NotLeaderError"]

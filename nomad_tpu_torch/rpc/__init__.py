@@ -8,9 +8,10 @@ connection — the yamux role), thread-per-request dispatch, and streaming
 responses for logs/exec/event feeds.
 
 Payloads are pickled Python structs, restricted on receipt to the port's
-own struct classes (``framing.py``). The dev agent's client endpoints and
-the HTTP proxy of ``alloc logs`` / ``alloc fs`` ride it (ROADMAP A18a);
-raft's peer transport waits for ``RaftNode`` (A18b).
+own struct classes (``framing.py``). The dev agent's client endpoints,
+the HTTP proxy of ``alloc logs`` / ``alloc fs``, and a server cluster's
+raft, gossip and forwarded writes (``raft/node.py``,
+``server/gossip.py``, ``server/cluster.py``) ride it.
 """
 
 from .client import RPCClient, RPCError

@@ -33,8 +33,10 @@ protocol violation, not data.
 
 The JAX package's ``rpc/framing.py`` with the allowed modules rewritten
 to the port's. Its users here: snapshot restore, ``rpc/server.py`` and
-``rpc/client.py`` (the client endpoints and the HTTP proxy of
-``alloc logs`` / ``alloc fs``); raft's peer transport waits for A18b.
+``rpc/client.py`` (the client endpoints, the HTTP proxy of
+``alloc logs`` / ``alloc fs``, and a cluster's raft, gossip and
+forwarded writes), and ``raft/node.py``'s replicated log entries and
+durable removed-peer set.
 """
 
 from __future__ import annotations

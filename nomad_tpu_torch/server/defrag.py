@@ -186,23 +186,28 @@ class DefragController:
                 return
             if fired:
                 self._wake.clear()
-            try:
-                self.run_cycle()
-            except ChaosThreadKill as e:
-                # injected crash mid-move: the cycle dies exactly like a
-                # killed controller thread — phase A either committed
-                # whole or not at all, the lane claim released via its
-                # finally — and the loop supervises a fresh cycle, whose
-                # recovery scan finishes any half-move left behind.
-                metrics.incr("nomad.chaos.thread_kills")
-                count_swallowed("chaos", e)
-                with self._lock:
-                    self._busy = False
-            except Exception as e:  # noqa: BLE001
-                # counted like the worker's own swallows: a kernel that
-                # fails to build or launch shows in the swallowed count
-                count_swallowed("defrag", e)
-                log.exception("defrag cycle failed")
+            self.supervised_cycle()
+
+    def supervised_cycle(self) -> None:
+        """One ``run_cycle`` as the loop runs it: a failure is counted,
+        never raised. The chaos runner steps cycles through this."""
+        try:
+            self.run_cycle()
+        except ChaosThreadKill as e:
+            # injected crash mid-move: the cycle dies exactly like a
+            # killed controller thread — phase A either committed
+            # whole or not at all, the lane claim released via its
+            # finally — and the loop supervises a fresh cycle, whose
+            # recovery scan finishes any half-move left behind.
+            metrics.incr("nomad.chaos.thread_kills")
+            count_swallowed("chaos", e)
+            with self._lock:
+                self._busy = False
+        except Exception as e:  # noqa: BLE001
+            # counted like the worker's own swallows: a kernel that
+            # fails to build or launch shows in the swallowed count
+            count_swallowed("defrag", e)
+            log.exception("defrag cycle failed")
 
     # -- one cycle ---------------------------------------------------------
     def run_cycle(self) -> int:

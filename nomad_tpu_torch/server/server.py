@@ -7,8 +7,10 @@ state, pause half the workers).
 
 Every cluster write is a typed FSM message (server/fsm.py) submitted
 through ``raft_apply`` — backed by InlineRaft (single server, optional WAL
-durability + replay-on-boot). Mirrors nomad/server.go: endpoints build
-requests, the FSM is the only state-store writer.
+durability + replay-on-boot) or a full RaftNode consensus group
+(nomad_tpu_torch.raft, swapped in by ``attach_raft`` when a
+``ClusterServer`` owns the server). Mirrors nomad/server.go: endpoints
+build requests, the FSM is the only state-store writer.
 
 The port's server schedules through broker → worker → plan queue →
 applier, over the one ``DeviceStateCache`` on ``ServerConfig.device`` that
@@ -16,9 +18,10 @@ every worker shares (default ``"cuda"``, which raises without CUDA; tests
 pass ``"cpu"``), and runs the reference's leader services: admission,
 heartbeats, the deployment watcher, the drainer, periodic dispatch, core
 GC, the volume watcher, ACL and the defrag controller, which plans each
-cycle with the migration kernel on the same device. A consensus
-``RaftNode`` (the reference's ``attach_raft``) is not ported yet
-(ROADMAP A18b).
+cycle with the migration kernel on the same device. In a cluster
+(``server/cluster.py``) each member builds its own server on its own
+device; only the leader runs these services, so only the leader's
+process launches kernels.
 """
 
 from __future__ import annotations
@@ -266,9 +269,8 @@ class Server:
         # capacity changes unblock blocked evals (blocked_evals.go:55)
         self.store.add_listener(self._on_state_change)
         # the raft seam: FSM messages through InlineRaft (single server;
-        # WAL-durable when data_dir is set). The reference's attach_raft,
-        # which swaps in a consensus RaftNode, waits for raft/node.py's
-        # RaftNode (ROADMAP A18b).
+        # WAL-durable when data_dir is set). A consensus RaftNode swaps in
+        # via attach_raft() for clustered servers.
         from ..raft import InlineRaft
         from ..state.snapshot import restore_snapshot, save_snapshot
         from .fsm import FSM, MsgType
@@ -293,6 +295,10 @@ class Server:
         # deleted across the swap — resident tensors must rebuild
         self.device_cache.invalidate()
         return store.latest_index
+
+    def attach_raft(self, raft) -> None:
+        """Replace the inline seam with a consensus RaftNode (cluster)."""
+        self.raft = raft
 
     @classmethod
     def from_snapshot(cls, path: str, config: Optional[ServerConfig] = None):
