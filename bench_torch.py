@@ -71,6 +71,63 @@ def percentile_ms(values_s, q: float) -> float:
     return float(np.percentile(np.asarray(values_s) * 1e3, q)) if values_s else 0.0
 
 
+def bench_node(i: int, racks: int = 25):
+    """Node ``i`` of the bench's recipe: 4,000 MHz / 8 GiB mock nodes in
+    dc1, rack ``r<i % racks>``, ssd on every 4th, every 3rd (i % 3 == 1)
+    at 8,000 MHz / 16 GiB."""
+    from nomad_tpu_torch import mock
+
+    node = mock.node()
+    node.datacenter = "dc1"
+    node.attributes["platform.rack"] = f"r{i % racks}"
+    node.attributes["storage.type"] = "ssd" if i % 4 == 0 else "hdd"
+    if i % 3 == 1:
+        node.node_resources.cpu = 8000
+        node.node_resources.memory_mb = 16384
+    node.compute_class()
+    return node
+
+
+def bench_job(j: int, per_job: int):
+    """Job ``j`` of the bench (``bench-<j>``): a batch job for every 3rd
+    (j % 3 == 2), else a service job, of ``per_job`` allocs at 250 or 500
+    MHz (seeded by ``j``), with an even rack spread and an ssd affinity."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import Affinity, Spread
+
+    job = mock.batch_job() if j % 3 == 2 else mock.job()
+    job.id = f"bench-{j}"
+    tg = job.task_groups[0]
+    tg.count = per_job
+    tg.tasks[0].resources.cpu = int(np.random.default_rng(j).choice([250, 500]))
+    job.spreads = [Spread(attribute="${attr.platform.rack}", weight=50)]
+    job.affinities = [
+        Affinity(l_target="${attr.storage.type}", r_target="ssd", operand="=", weight=50)
+    ]
+    return job
+
+
+def warm_up(server, per_job: int) -> bool:
+    """The bench's warmup: run the batch depths the measured run will hit
+    (1 for stragglers and the full EVAL_BATCH_SIZE-deep pass) on the
+    server's cluster before the clock starts, then stop and drain the warm
+    jobs so the measured run starts on an empty cluster. True when both
+    drains finished."""
+    from nomad_tpu_torch.server.worker import EVAL_BATCH_SIZE
+
+    warm_ids = []
+    for w in range(EVAL_BATCH_SIZE + 1):
+        warm = bench_job(10_000_000 + w, per_job)
+        warm.id = f"warmup-{w}"
+        warm_ids.append(warm.id)
+        server.register_job(warm)
+    placed = server.wait_for_evals(timeout=600)
+    for wid in warm_ids:
+        server.deregister_job("default", wid)
+    stopped = server.wait_for_evals(timeout=600)
+    return placed and stopped
+
+
 def bench_end_to_end(
     n_nodes: int = 10_000, n_jobs: int = 100, per_job: int = 250, racks: int = 25,
     device="cuda", admission_overrides=None,
@@ -80,12 +137,9 @@ def bench_end_to_end(
     worker (the reference bench's default). ``admission_overrides`` go to
     ``ServerConfig`` as they are (``tools/admission_ab.py`` compares the
     shipped thresholds with thresholds the run never reaches)."""
-    from nomad_tpu_torch import mock
     from nomad_tpu_torch.obs import flight_recorder, phase_breakdown
     from nomad_tpu_torch.obs.recorder import trace_latencies
     from nomad_tpu_torch.server import Server, ServerConfig
-    from nomad_tpu_torch.server.worker import EVAL_BATCH_SIZE
-    from nomad_tpu_torch.structs import Affinity, Spread
     from nomad_tpu_torch.utils.metrics import global_metrics
 
     build_kernels(device)
@@ -97,45 +151,8 @@ def bench_end_to_end(
     try:
         # seed nodes directly into state (setup, not the measured path)
         for i in range(n_nodes):
-            node = mock.node()
-            node.datacenter = "dc1"
-            node.attributes["platform.rack"] = f"r{i % racks}"
-            node.attributes["storage.type"] = "ssd" if i % 4 == 0 else "hdd"
-            if i % 3 == 1:
-                node.node_resources.cpu = 8000
-                node.node_resources.memory_mb = 16384
-            node.compute_class()
-            server.store.upsert_node(i + 1, node)
-
-        def make_job(j: int):
-            job = mock.batch_job() if j % 3 == 2 else mock.job()
-            job.id = f"bench-{j}"
-            tg = job.task_groups[0]
-            tg.count = per_job
-            tg.tasks[0].resources.cpu = int(np.random.default_rng(j).choice([250, 500]))
-            job.spreads = [Spread(attribute="${attr.platform.rack}", weight=50)]
-            job.affinities = [
-                Affinity(
-                    l_target="${attr.storage.type}", r_target="ssd", operand="=",
-                    weight=50,
-                )
-            ]
-            return job
-
-        # warmup: run the batch depths the measured run will hit (1 for
-        # stragglers and the full EVAL_BATCH_SIZE-deep pass) on this
-        # cluster before the clock starts, then stop and drain the warm
-        # jobs so the measured run starts on an empty cluster
-        warm_ids = []
-        for w in range(EVAL_BATCH_SIZE + 1):
-            warm = make_job(10_000_000 + w)
-            warm.id = f"warmup-{w}"
-            warm_ids.append(warm.id)
-            server.register_job(warm)
-        server.wait_for_evals(timeout=600)
-        for wid in warm_ids:
-            server.deregister_job("default", wid)
-        server.wait_for_evals(timeout=600)
+            server.store.upsert_node(i + 1, bench_node(i, racks))
+        warm_up(server, per_job)
         warm_live = sum(
             1 for a in server.store.allocs()
             if a.job_id.startswith("warmup-") and not a.terminal_status()
@@ -145,7 +162,7 @@ def bench_end_to_end(
 
         t0 = time.perf_counter()
         for j in range(n_jobs):
-            server.register_job(make_job(j))
+            server.register_job(bench_job(j, per_job))
         ok = server.wait_for_evals(timeout=600)
         if server.device_cache.device.type == "cuda":
             torch.cuda.synchronize()

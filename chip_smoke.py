@@ -7,7 +7,8 @@ against its plain PyTorch version on the card at the shapes the main
 paths give it, then schedules service, spread, distinct_property,
 preempting, system, heterogeneity-aware, CP and gang jobs end to end through the port's
 ``Harness(device="cuda")``, the port's server and its dev agent (the
-CLI, the HTTP API and the SDK) and checks what lands in the state store,
+CLI, the HTTP API and the SDK, the client's driver, device and CSI
+plugins) and checks what lands in the state store,
 and repacks a fragmented fleet through the port's migration plane. It
 imports nothing of JAX and nothing of the JAX package.
 
@@ -150,6 +151,27 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
      and eval p50 / p99 beside the "server" path's allocs/s, failover,
      the first placement after it, catch-up) and each process's launches
      logged;
+   - "plugins": the client's out-of-process plugins (NDJSON over stdio)
+     in one ``DevAgent(device="cuda", driver_mode="plugin",
+     device_plugins=["torch"], csi_plugins=["hostpath"])``; each plugin's
+     handshake and first answer timed as the agent starts it, with the
+     card memory the ``torch`` device plugin's process takes. The dev node advertises
+     the card as one ``nvidia/gpu/<name>`` group of
+     ``torch.cuda.device_count()`` instances; a batch job asking that
+     group runs a ``python -c`` task through the plugin driver, which sees
+     ``CUDA_VISIBLE_DEVICES`` equal to its alloc's ``cuda-<k>`` and the
+     card's name; a ``sleep 5`` task survives its driver plugin's SIGKILL
+     and ends with exit code 0 through the respawned plugin; two batch
+     allocs in turn share a hostpath CSI volume (the second reads what the
+     first wrote; both unpublished when the client's GC tears them down);
+     then the dev node ineligible, ``bench_torch``'s 10,000 nodes with an
+     ``nvidia/gpu/a100-sxm4-80gb`` group of 8 on every 4th, and 16 service
+     jobs x 100 allocs of one instance (half with a device affinity) and 4
+     batch jobs x 50 of 8 placed through the device accounting into the
+     closed form's ``slot_caps``: every alloc placed, no instance twice,
+     every alloc's ids its node's group's, no node over-committed; its
+     allocs/s, eval p50 / p99 and the device-cap pass's host ms an eval
+     logged; every closed-form call recorded and replayed;
    - "spread": the JAX package's ``bench.py end_to_end`` node recipe
      (10,000 nodes over 25 racks, ssd on every 4th, every 3rd at
      8,000 MHz / 16,384 MiB) and 30 jobs through the Harness: its 20
@@ -268,8 +290,8 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
    (its kernel ms beside the same evals' 10 calls one by one, and host
    seconds beside the incremental path's first off arm), "plan", "calib",
    "leader" (the drain, each defrag cycle's row, the bench with its
-   admission block), "resilience", "agent", "cluster", "restore" and
-   "server"; the
+   admission block), "resilience", "agent", "cluster", "plugins",
+   "restore" and "server"; the
    total seconds, one JSON line of per-kernel results,
    the card's name and power limit, then the device line last.
 
@@ -4864,35 +4886,6 @@ def agent_cli_path(dev):
     return out
 
 
-def agent_node(mock, i, racks):
-    """``bench_torch.bench_end_to_end``'s node recipe (its closure)."""
-    node = mock.node()
-    node.datacenter = "dc1"
-    node.attributes["platform.rack"] = f"r{i % racks}"
-    node.attributes["storage.type"] = "ssd" if i % 4 == 0 else "hdd"
-    if i % 3 == 1:
-        node.node_resources.cpu = 8000
-        node.node_resources.memory_mb = 16384
-    node.compute_class()
-    return node
-
-
-def agent_job(mock, j, per_job):
-    """``bench_torch.bench_end_to_end``'s job recipe (its closure)."""
-    from nomad_tpu_torch.structs import Affinity, Spread
-
-    job = mock.batch_job() if j % 3 == 2 else mock.job()
-    job.id = f"bench-{j}"
-    tg = job.task_groups[0]
-    tg.count = per_job
-    tg.tasks[0].resources.cpu = int(np.random.default_rng(j).choice([250, 500]))
-    job.spreads = [Spread(attribute="${attr.platform.rack}", weight=50)]
-    job.affinities = [
-        Affinity(l_target="${attr.storage.type}", r_target="ssd", operand="=", weight=50)
-    ]
-    return job
-
-
 def agent_http_path(dev, server_out, n_nodes=SERVER_BENCH["n_nodes"],
                     n_jobs=SERVER_BENCH["n_jobs"], per_job=SERVER_BENCH["per_job"], racks=25):
     """Part (b) of the "agent" path: the same front door at the "server"
@@ -4909,7 +4902,6 @@ def agent_http_path(dev, server_out, n_nodes=SERVER_BENCH["n_nodes"],
     API's allocations equal the store's (id → node), no fallback.
     Returns the launch counts, the coupled calls and the summary, with
     the "server" path's allocs/s and eval p50 beside this path's."""
-    from nomad_tpu_torch import mock
     from nomad_tpu_torch.agent import DevAgent
     from nomad_tpu_torch.api.client import NomadClient
     from nomad_tpu_torch.api.codec import encode
@@ -4917,7 +4909,6 @@ def agent_http_path(dev, server_out, n_nodes=SERVER_BENCH["n_nodes"],
     from nomad_tpu_torch.device import score as S
     from nomad_tpu_torch.obs import flight_recorder, phase_breakdown
     from nomad_tpu_torch.obs.recorder import trace_latencies
-    from nomad_tpu_torch.server.worker import EVAL_BATCH_SIZE
     from nomad_tpu_torch.utils.metrics import global_metrics
 
     import shutil
@@ -4939,22 +4930,13 @@ def agent_http_path(dev, server_out, n_nodes=SERVER_BENCH["n_nodes"],
         store, server = agent.server.store, agent.server
         t0 = time.perf_counter()
         for i in range(n_nodes):  # straight into the store, as the bench does
-            store.upsert_node(store.latest_index + 1, agent_node(mock, i, racks))
+            store.upsert_node(store.latest_index + 1, bench_torch.bench_node(i, racks))
         dev_node = agent.client.node.id
         c.nodes.eligibility(dev_node, False)
         assert store.node_by_id(dev_node).scheduling_eligibility == "ineligible"
-        warm_ids = []
-        for w in range(EVAL_BATCH_SIZE + 1):
-            warm = agent_job(mock, 10_000_000 + w, per_job)
-            warm.id = f"warmup-{w}"
-            warm_ids.append(warm.id)
-            server.register_job(warm)
-        assert server.wait_for_evals(timeout=600)
-        for wid in warm_ids:
-            server.deregister_job("default", wid)
-        assert server.wait_for_evals(timeout=600)
+        assert bench_torch.warm_up(server, per_job)
         setup_s = time.perf_counter() - t0
-        payloads = [encode(agent_job(mock, j, per_job)) for j in range(n_jobs)]
+        payloads = [encode(bench_torch.bench_job(j, per_job)) for j in range(n_jobs)]
         global_metrics.reset()
         flight_recorder.clear()
 
@@ -5338,7 +5320,7 @@ def cluster_path(dev, server_out, n_nodes=SERVER_BENCH["n_nodes"],
                  racks=CLUSTER_RACKS):
     """The "cluster" path: three server processes (``cluster_member``), a
     raft group on one card. The "server" path's fleet and jobs
-    (``agent_node`` / ``agent_job``): its 10,000 nodes registered over RPC
+    (``bench_torch.bench_node`` / ``bench_job``): its 10,000 nodes registered over RPC
     through the three members (a follower forwards to the leader; one
     raft entry a node, a WAL sync at the leader), its 100 jobs x 250
     registered through a follower (each forwarded), placed by the leader
@@ -5361,7 +5343,7 @@ def cluster_path(dev, server_out, n_nodes=SERVER_BENCH["n_nodes"],
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
-    from nomad_tpu_torch import mock
+    import bench_torch
     from nomad_tpu_torch.backend import BUILD_DIR
 
     t_path = time.perf_counter()
@@ -5381,7 +5363,7 @@ def cluster_path(dev, server_out, n_nodes=SERVER_BENCH["n_nodes"],
         followers = [m for m in CLUSTER_IDS if m != first]
 
         # the nodes over RPC through every member, a raft entry each
-        nodes = [agent_node(mock, i, racks) for i in range(n_nodes)]
+        nodes = [bench_torch.bench_node(i, racks) for i in range(n_nodes)]
         t0 = time.perf_counter()
         with ThreadPoolExecutor(CLUSTER_REGISTER_THREADS) as pool:
             list(pool.map(
@@ -5400,7 +5382,7 @@ def cluster_path(dev, server_out, n_nodes=SERVER_BENCH["n_nodes"],
             assert not any(run.call(mid, "Smoke.zero").values())
         t0 = time.perf_counter()
         for j in range(n_jobs):
-            run.call(via, "Nomad.register_job", {"job": agent_job(mock, j, per_job)})
+            run.call(via, "Nomad.register_job", {"job": bench_torch.bench_job(j, per_job)})
         phases["register_jobs_s"] = time.perf_counter() - t0
         total = n_jobs * per_job
         assert run.call(first, "Smoke.drain", {"timeout": CLUSTER_PLACE_S}), "no drain"
@@ -5432,7 +5414,7 @@ def cluster_path(dev, server_out, n_nodes=SERVER_BENCH["n_nodes"],
         phases["failover_s"] = time.perf_counter() - t_kill
         other = next(m for m in followers if m != second)
         assert not any(st2[other]["launches"].values()), st2[other]
-        after = [agent_job(mock, n_jobs, per_job), agent_job(mock, n_jobs + 1, per_job)]
+        after = [bench_torch.bench_job(n_jobs, per_job), bench_torch.bench_job(n_jobs + 1, per_job)]
         after[1].spreads = []  # the closed form's: no coupled group
         t0 = time.perf_counter()
         for job in after:
@@ -5540,6 +5522,466 @@ def cluster_gates(summary, leaders, total):
     # the killed leader's process was replaced by its restart: every
     # member that ran to the end stopped on its own
     assert all(c == 0 for c in summary["exit_codes"].values()), summary["exit_codes"]
+
+
+# the "plugins" path: the client's out-of-process plugins on the card
+PLUGINS_GPU_EVERY = 4  # every 4th fleet node carries a DGX-class group
+PLUGINS_GPU_NAME = "a100-sxm4-80gb"
+PLUGINS_GPU_INSTANCES = 8
+PLUGINS_GPU_MEMORY_MB = 81920
+PLUGINS_SERVICE = (16, 100, 1)  # jobs, allocs a job, instances an alloc
+PLUGINS_BATCH = (4, 50, 8)  # a whole host an alloc
+PLUGINS_WAIT_S = 120.0
+PLUGINS_SLEEP_S = 5  # the reattach task's run
+
+
+def compute_apps() -> dict:
+    """pid → used MiB of every process ``nvidia-smi`` lists on the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout
+    apps = {}
+    for line in out.strip().splitlines():
+        pid, _, mem = line.partition(",")
+        if pid.strip().isdigit():
+            apps[int(pid)] = mem.strip()
+    return apps
+
+
+@contextlib.contextmanager
+def plugin_timings():
+    """While the block starts an agent's client, times each plugin it
+    starts (a fresh process through the package's launcher): seconds to
+    its handshake line and to its first answer (a driver's fingerprint,
+    the device table, a CSI probe), by "<kind> <name>". Around the
+    device table's read also the card's free memory
+    (``torch.cuda.mem_get_info``, device-wide: nothing else touches the
+    card meanwhile), so that a context the plugin's process opens shows
+    as ``card_mib``."""
+    from nomad_tpu_torch.client import csi_plugin, device_plugin, plugin, stdio_plugin
+
+    out = {}
+    kinds = {device_plugin.DevicePluginClient: "device", csi_plugin.CSIPluginClient: "csi"}
+
+    def timed(cls, name, key, card=False):
+        real = getattr(cls, name)
+
+        def call(self, *args, **kwargs):
+            what = f"{kinds.get(type(self), 'driver')} {self.name}"
+            if card:
+                torch.cuda.synchronize()
+                free0 = torch.cuda.mem_get_info()[0]
+            t0 = time.perf_counter()
+            try:
+                return real(self, *args, **kwargs)
+            finally:
+                entry = out.setdefault(what, {})
+                entry.setdefault(key, time.perf_counter() - t0)
+                if card:
+                    entry.setdefault("card_mib", (free0 - torch.cuda.mem_get_info()[0]) / 2**20)
+
+        return cls, name, real, call
+
+    patches = [
+        timed(stdio_plugin.StdioPluginClient, "_ensure", "handshake_s"),
+        timed(plugin.PluginDriverClient, "_ensure_plugin", "handshake_s"),
+        timed(plugin.PluginDriverClient, "fingerprint", "fingerprint_s"),
+        timed(device_plugin.DevicePluginClient, "fingerprint", "fingerprint_s", card=True),
+        timed(csi_plugin.CSIPluginClient, "probe", "probe_s"),
+    ]
+    for cls, name, _, call in patches:
+        setattr(cls, name, call)
+    try:
+        yield out
+    finally:
+        for cls, name, real, _ in patches:
+            setattr(cls, name, real)
+
+
+@contextlib.contextmanager
+def reaping_orphans(pids):
+    """While the block runs, this process adopts the orphans of its
+    descendants (``PR_SET_CHILD_SUBREAPER`` on itself) and reaps each pid
+    of ``pids`` (a list the block appends to) as it exits, so that a task
+    whose driver plugin was killed does not linger as a zombie, alive to
+    ``kill(pid, 0)``, wherever this process runs. Yields the exit codes
+    it reaped, by pid."""
+    libc = ctypes.CDLL(None, use_errno=True)
+    pr_set_child_subreaper = 36
+    assert libc.prctl(pr_set_child_subreaper, 1, 0, 0, 0) == 0, ctypes.get_errno()
+    codes, stop = {}, threading.Event()
+
+    def reap():
+        while not stop.wait(0.05):
+            for pid in list(pids):
+                if pid in codes:
+                    continue
+                try:
+                    got, status = os.waitpid(pid, os.WNOHANG)
+                except ChildProcessError:  # not ours (yet): still its parent's
+                    continue
+                if got == pid:
+                    codes[pid] = os.waitstatus_to_exitcode(status)
+
+    thread = threading.Thread(target=reap, daemon=True)
+    thread.start()
+    try:
+        yield codes
+    finally:
+        stop.set()
+        thread.join(timeout=5)
+        libc.prctl(pr_set_child_subreaper, 0, 0, 0, 0)
+
+
+def gpu_fleet_node(i):
+    """``bench_torch.bench_node(i)``; every ``PLUGINS_GPU_EVERY``-th also
+    carries an ``nvidia/gpu/a100-sxm4-80gb`` group of 8 healthy instances,
+    as a DGX-class host does."""
+    import bench_torch
+    from nomad_tpu_torch.structs.resources import NodeDeviceInstance, NodeDeviceResource
+
+    node = bench_torch.bench_node(i)
+    if i % PLUGINS_GPU_EVERY == 0:
+        node.node_resources.devices = [NodeDeviceResource(
+            vendor="nvidia", type="gpu", name=PLUGINS_GPU_NAME,
+            instances=[NodeDeviceInstance(id=f"{node.id[:8]}-gpu-{k}")
+                       for k in range(PLUGINS_GPU_INSTANCES)],
+            attributes={"memory_mb": PLUGINS_GPU_MEMORY_MB},
+        )]
+        node.compute_class()
+    return node
+
+
+def gpu_jobs():
+    """16 service jobs x 100 allocs of one ``nvidia/gpu`` instance (the odd
+    ones with a device affinity on the group's ``memory_mb``), then 4
+    batch jobs x 50 allocs of 8 (a whole host each)."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import Affinity
+    from nomad_tpu_torch.structs.resources import RequestedDevice
+
+    jobs = []
+    for kind, (n_jobs, count, per_alloc) in (("svc", PLUGINS_SERVICE), ("batch", PLUGINS_BATCH)):
+        for j in range(n_jobs):
+            job = mock.job() if kind == "svc" else mock.batch_job()
+            job.id = f"gpu-{kind}-{j}"
+            tg = job.task_groups[0]
+            tg.count = count
+            ask = RequestedDevice(name="nvidia/gpu", count=per_alloc)
+            if kind == "svc" and j % 2:
+                ask.affinities = [Affinity(l_target="${device.attr.memory_mb}",
+                                           r_target="40000", operand=">=", weight=50)]
+            tg.tasks[0].resources.devices = [ask]
+            jobs.append(job)
+    return jobs
+
+
+def wait_alloc(store, job_id, status="complete", timeout=PLUGINS_WAIT_S):
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        allocs = store.allocs_by_job("default", job_id)
+        if allocs and all(a.client_status == status for a in allocs):
+            return allocs
+        time.sleep(0.05)
+    raise AssertionError(
+        f"{job_id}: {[(a.client_status, a.node_id) for a in store.allocs_by_job('default', job_id)]}"
+    )
+
+
+def task_output(agent, alloc, task):
+    runner = agent.client.runners[alloc.id]
+    with open(os.path.join(runner.alloc_dir, task, f"{task}.stdout")) as f:
+        return f.read()
+
+
+PROBE_SCRIPT = (
+    "import os, torch; print('CUDA_VISIBLE_DEVICES=' + os.environ['CUDA_VISIBLE_DEVICES']); "
+    "print('name=' + torch.cuda.get_device_name(0))"
+)
+
+
+def plugins_path(dev):
+    """The "plugins" path: the client's out-of-process plugins on the
+    card, in one ``DevAgent(device=dev, driver_mode="plugin",
+    device_plugins=["torch"], csi_plugins=["hostpath"])`` (the hostpath
+    volumes under the checkout's ``build/``). Each plugin's handshake and
+    first answer timed as the agent starts it, with the card memory the
+    ``torch`` plugin's process takes (``plugin_timings``). Then, in order: (1) the dev node advertises one
+    ``nvidia/gpu/<card name>`` group of ``torch.cuda.device_count()``
+    instances and ``device.torch``; (2) a batch job of one ``raw_exec``
+    task asking ``device "nvidia/gpu/<card name>"`` runs through the
+    plugin driver: its alloc holds ``cuda-<k>``, and the task (``python
+    -c``) sees ``CUDA_VISIBLE_DEVICES=<k>`` and the card's name; (3) a
+    ``sleep 5`` task whose driver plugin is SIGKILLed while it runs: it
+    survives, the plugin respawns and recovers it, and it ends with exit
+    code 0; (4) two batch allocs in turn on one hostpath CSI volume, the
+    first writes a file and the second reads it back; the client's GC
+    tears both down and each volume is unpublished; (5) the dev node made
+    ineligible, ``bench_torch``'s 10,000 nodes seeded, every 4th with an
+    ``nvidia/gpu/a100-sxm4-80gb`` group of 8 instances, and 16 service
+    jobs x 100 allocs of one instance (half with a device affinity) and 4
+    batch jobs x 50 of 8 registered and drained: every alloc placed, no
+    instance twice, every alloc's ids its node's, no node over-committed,
+    none on a node without the group. Every closed-form call is recorded
+    (``SHARED_CALLS["plugins"]``), and no call finishes on a fallback.
+    Returns the launch counts and the summary."""
+    import shutil
+    import tempfile
+
+    import bench_torch
+    from nomad_tpu_torch.agent import DevAgent
+    from nomad_tpu_torch.backend import BUILD_DIR
+    from nomad_tpu_torch.device import flatten
+    from nomad_tpu_torch.obs import flight_recorder, phase_breakdown
+    from nomad_tpu_torch.obs.recorder import trace_latencies
+    from nomad_tpu_torch.server.fsm import MsgType
+    from nomad_tpu_torch.structs import Task
+    from nomad_tpu_torch.structs.resources import RequestedDevice
+    from nomad_tpu_torch.structs.volumes import (
+        ACCESS_MODE_MULTI_NODE_MULTI_WRITER,
+        CSIVolume,
+        VolumeRequest,
+    )
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.utils.metrics import global_metrics
+
+    t_path = time.perf_counter()
+    bench_torch.build_kernels(dev)
+    summary = {}
+    base = tempfile.mkdtemp(prefix="plugins-", dir=BUILD_DIR)  # inside the checkout
+    csi_root = os.path.join(base, "csi")
+    old_root = os.environ.get("NOMAD_CSI_HOSTPATH_ROOT")
+    os.environ["NOMAD_CSI_HOSTPATH_ROOT"] = csi_root
+    card = torch.cuda.get_device_name(0)
+    slug = card.replace(" ", "-").lower()
+    n_cards = torch.cuda.device_count()
+    global_metrics.reset()
+    zero_counters()
+    agent = None
+    cap_s = []
+    try:
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(shared_recording("plugins", score_matrix=False))
+            t0 = time.perf_counter()
+            with plugin_timings() as summary["plugins"]:
+                agent = DevAgent(num_workers=1, device=dev, data_dir=os.path.join(base, "agent"),
+                                 driver_mode="plugin", device_plugins=["torch"],
+                                 csi_plugins=["hostpath"])
+            agent.start()
+            summary["agent_start_s"] = time.perf_counter() - t0
+            server, store, client = agent.server, agent.server.store, agent.client
+
+            # (1) the dev node carries the card
+            node = store.node_by_id(client.node.id)
+            groups = [(d.vendor, d.type, d.name, [i.id for i in d.instances if i.healthy])
+                      for d in node.node_resources.devices]
+            assert groups == [("nvidia", "gpu", slug, [f"cuda-{k}" for k in range(n_cards)])], (
+                groups)
+            assert node.attributes.get("device.torch") == str(n_cards), node.attributes
+            assert client.device_group_owner == {("nvidia", "gpu", slug): "torch"}
+            torch_pid = client.device_plugins["torch"]._proc.pid
+            apps = compute_apps()
+            summary["dev_node"] = {"groups": groups, "torch_plugin_pid": torch_pid,
+                                   "torch_plugin_in_nvidia_smi": apps.get(torch_pid, "none"),
+                                   "compute_apps": apps}
+
+            # (2) the probe job through the plugin driver, on the card
+            job = mock.batch_job()
+            job.id = "gpu-probe"
+            tg = job.task_groups[0]
+            tg.count = 1
+            tg.tasks[0] = Task(name="probe", driver="raw_exec", config={
+                "command": sys.executable, "args": ["-c", PROBE_SCRIPT]})
+            tg.tasks[0].resources.devices = [RequestedDevice(name=f"nvidia/gpu/{slug}", count=1)]
+            t0 = time.perf_counter()
+            server.register_job(job)
+            (alloc,) = wait_alloc(store, job.id)
+            probe_s = time.perf_counter() - t0
+            (ad,) = alloc.allocated_devices
+            assert ad.id() == f"nvidia/gpu/{slug}" and len(ad.device_ids) == 1, ad
+            ordinal = ad.device_ids[0].rsplit("-", 1)[-1]
+            assert ad.device_ids == [f"cuda-{ordinal}"], ad
+            seen = task_output(agent, alloc, "probe").strip().splitlines()
+            assert seen == [f"CUDA_VISIBLE_DEVICES={ordinal}", f"name={card}"], seen
+            summary["probe"] = {"register_to_complete_s": probe_s, "device_ids": ad.device_ids,
+                                "task_saw": seen}
+
+            # (3) a task outlives its driver plugin's SIGKILL
+            job = mock.batch_job()
+            job.id = "reattach"
+            tg = job.task_groups[0]
+            tg.count = 1
+            tg.tasks[0] = Task(name="sleep", driver="raw_exec", config={
+                "command": "/bin/sleep", "args": [str(PLUGINS_SLEEP_S)]})
+            task_pids = []
+            with reaping_orphans(task_pids) as reaped:
+                t0 = time.perf_counter()
+                server.register_job(job)
+                deadline = time.perf_counter() + PLUGINS_WAIT_S
+                tr = None
+                while tr is None or tr.handle is None or tr.state.state != "running":
+                    assert time.perf_counter() < deadline, "the sleep task never ran"
+                    time.sleep(0.05)
+                    allocs = store.allocs_by_job("default", job.id)
+                    runner = client.runners.get(allocs[0].id) if allocs else None
+                    tr = runner.task_runners.get("sleep") if runner is not None else None
+                pid = tr.handle.pid
+                task_pids.append(pid)
+                plugin = client.drivers["raw_exec"]
+                old_plugin = plugin._proc
+                old_plugin.kill()
+                old_plugin.wait()
+                t_kill = time.perf_counter()
+                os.kill(pid, 0)  # the task outlived its plugin
+                (alloc,) = wait_alloc(store, job.id)
+                recovered_s = time.perf_counter() - t_kill
+            events = [(e.type, e.exit_code) for e in tr.state.events]
+            assert plugin._proc is not None and plugin._proc.pid != old_plugin.pid
+            assert events[-2:] == [("Driver Failure", None), ("Terminated", 0)], events
+            assert not tr.state.failed and reaped.get(pid) in (0, None), (tr.state, reaped)
+            summary["reattach"] = {"kill_to_complete_s": recovered_s, "events": events,
+                                   "reaped_exit_code": reaped.get(pid),
+                                   "path_s": time.perf_counter() - t0}
+
+            # (4) CSI: a volume's data across two allocs, unpublished at teardown
+            server.register_csi_volume(CSIVolume(
+                id="shared-vol", name="shared-vol", plugin_id="hostpath",
+                access_mode=ACCESS_MODE_MULTI_NODE_MULTI_WRITER,
+            ))
+            t0 = time.perf_counter()
+            runners = []
+            for jid, script in (("writer", 'echo persisted > "$NOMAD_VOLUME_DATA/x"'),
+                                ("reader", 'cat "$NOMAD_VOLUME_DATA/x" > "$NOMAD_ALLOC_DIR/copy"')):
+                job = mock.batch_job()
+                job.id = jid
+                tg = job.task_groups[0]
+                tg.count = 1
+                tg.volumes = {"data": VolumeRequest(name="data", type="csi", source="shared-vol")}
+                tg.tasks[0] = Task(name=jid, driver="raw_exec",
+                                   config={"command": "/bin/sh", "args": ["-c", script]})
+                server.register_job(job)
+                (alloc,) = wait_alloc(store, jid)
+                runners.append(client.runners[alloc.id])
+            with open(os.path.join(csi_root, "shared-vol", "x")) as f:
+                assert f.read().strip() == "persisted"
+            with open(os.path.join(runners[1].alloc_dir, "shared", "copy")) as f:
+                assert f.read().strip() == "persisted"
+            targets = [os.path.join(r.alloc_dir, "volumes", "data") for r in runners]
+            assert all(os.path.islink(t) for t in targets)
+            client.gc_max_terminal_allocs = 0  # the client's GC tears them down
+            deadline = time.perf_counter() + PLUGINS_WAIT_S
+            while not all(r._destroyed and not r._published_volumes for r in runners):
+                assert time.perf_counter() < deadline, "the CSI allocs were never torn down"
+                time.sleep(0.05)
+            assert not any(os.path.lexists(t) for t in targets)
+            client.gc_max_terminal_allocs = 50
+            summary["csi"] = {"seconds": time.perf_counter() - t0}
+
+            # (5) the GPU fleet at the "server" cell's size
+            t0 = time.perf_counter()
+            server.raft_apply(MsgType.NODE_ELIGIBILITY,
+                              {"node_id": client.node.id, "eligibility": "ineligible"})
+            n_nodes = SERVER_BENCH["n_nodes"]
+            for i in range(n_nodes):
+                store.upsert_node(store.latest_index + 1, gpu_fleet_node(i))
+            jobs = gpu_jobs()
+            seed_s = time.perf_counter() - t0
+            flight_recorder.clear()
+
+            def timed_caps(*args, **kwargs):
+                t = time.perf_counter()
+                try:
+                    return real_caps(*args, **kwargs)
+                finally:
+                    cap_s.append(time.perf_counter() - t)
+
+            real_caps = flatten._device_slot_caps
+            flatten._device_slot_caps = timed_caps
+            t0 = time.perf_counter()
+            for job in jobs:
+                server.register_job(job)
+            drained = server.wait_for_evals(timeout=600)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            flatten._device_slot_caps = real_caps
+        launches = counters()
+        assert drained, "the GPU fleet's evals did not drain"
+
+        by_node = {n.id: n for n in store.nodes()}
+        held = collections.Counter()
+        placed = wrong_node = 0
+        asked = {job.id: job.task_groups[0].tasks[0].resources.devices[0].count for job in jobs}
+        for a in store.allocs():
+            if a.job_id not in asked or a.terminal_status():
+                continue
+            placed += 1
+            (ad,) = a.allocated_devices
+            assert len(ad.device_ids) == asked[a.job_id], (a.job_id, ad.device_ids)
+            group = {(d.id(), i.id) for d in by_node[a.node_id].node_resources.devices
+                     for i in d.instances}
+            wrong_node += not group or not {(ad.id(), d) for d in ad.device_ids} <= group
+            held.update((a.node_id, ad.id(), d) for d in ad.device_ids)
+        twice = sum(1 for c in held.values() if c > 1)
+        total = sum(n * c for n, c, _ in (PLUGINS_SERVICE, PLUGINS_BATCH))
+        traces = flight_recorder.traces()
+        eval_s = [trace_latencies(t)[0] for t in traces]
+        fallbacks = int(global_metrics.snapshot()["counters"].get(FALLBACK_CALLS, 0))
+        overcommit = committed_overcommit(store)
+        summary["fleet"] = {
+            "config": f"{n_nodes} nodes ({n_nodes // PLUGINS_GPU_EVERY} with "
+            f"{PLUGINS_GPU_INSTANCES} x nvidia/gpu/{PLUGINS_GPU_NAME}), "
+            f"{PLUGINS_SERVICE[0]} service jobs x {PLUGINS_SERVICE[1]} of 1 instance, "
+            f"{PLUGINS_BATCH[0]} batch jobs x {PLUGINS_BATCH[1]} of 8",
+            "seed_s": seed_s, "elapsed_s": elapsed, "placed": placed, "total": total,
+            "allocs_per_sec": placed / elapsed,
+            "eval_latency_ms": {"evals": len(eval_s),
+                                "p50": bench_torch.percentile_ms(eval_s, 50),
+                                "p99": bench_torch.percentile_ms(eval_s, 99)},
+            "device_caps_ms": {"calls": len(cap_s), "total": sum(cap_s) * 1e3,
+                               "per_eval": sum(cap_s) * 1e3 / max(len(eval_s), 1),
+                               "p50": bench_torch.percentile_ms(cap_s, 50),
+                               "max": max(cap_s, default=0.0) * 1e3},
+            "instances_held": len(held), "instances_twice": twice,
+            "off_group": wrong_node, "committed_overcommit": overcommit,
+            "phase_breakdown_ms": phase_breakdown(traces),
+        }
+        summary["fallback_calls"] = fallbacks
+    finally:
+        try:
+            if agent is not None:
+                agent.shutdown()
+        finally:
+            if old_root is None:
+                os.environ.pop("NOMAD_CSI_HOSTPATH_ROOT", None)
+            else:
+                os.environ["NOMAD_CSI_HOSTPATH_ROOT"] = old_root
+            shutil.rmtree(base, ignore_errors=True)
+    summary["launches"] = launches
+    summary["path_seconds"] = time.perf_counter() - t_path
+    fleet = summary["fleet"]
+    log("[plugins] the agent's plugins " + json.dumps(summary["plugins"], sort_keys=True))
+    log("[plugins] dev node " + json.dumps(summary["dev_node"], sort_keys=True))
+    log(f"[plugins] probe {summary['probe']}; reattach {summary['reattach']}; "
+        f"csi {summary['csi']}; agent start {summary['agent_start_s']!r} s")
+    log(
+        f"[plugins] fleet {fleet['config']}: placed {placed}/{total} in {elapsed!r} s, "
+        f"allocs_per_sec={fleet['allocs_per_sec']!r}, eval p50_ms="
+        f"{fleet['eval_latency_ms']['p50']!r} p99_ms={fleet['eval_latency_ms']['p99']!r} "
+        f"({len(eval_s)} evals); device caps host ms {fleet['device_caps_ms']}; instances held "
+        f"{len(held)}, twice {twice}, off their node's group {wrong_node}, over-committed "
+        f"nodes {overcommit}; seeding {seed_s!r} s; fallback calls {fallbacks}; launches "
+        f"{launches}; path {summary['path_seconds']:.1f} s"
+    )
+    log("[plugins] phase_breakdown_ms " + json.dumps(fleet["phase_breakdown_ms"], sort_keys=True))
+    assert placed == total, (placed, total)
+    assert twice == 0, "a device instance is assigned twice"
+    assert wrong_node == 0, "an alloc holds ids outside its node's group"
+    assert overcommit == 0, "a node is over-committed in the store"
+    assert fallbacks == 0, fallbacks
+    assert launches["place_closed_form"] > 0
+    assert all(n == 0 for k, n in launches.items() if k != "place_closed_form"), launches
+    return launches, summary
 
 
 def find_launches(by_path) -> dict:
@@ -5681,6 +6123,10 @@ def main() -> int:
     # the server cluster: three member processes on the card, a failover
     # and a restart; each leader's calls replayed in its own process
     cluster_launches, cluster_replays, cluster = cluster_path(dev, server)
+    # the client's out-of-process plugins: the card as a device, a probe
+    # job on it, a task outliving its driver plugin, a CSI volume, and a
+    # GPU fleet placed through device accounting
+    by_path["plugins"], plugins = plugins_path(dev)
     h, by_path["spread"], spread_calls, _ = spread_path(dev)
     coupled = {name: replay_coupled(name, spread_calls[name]) for name in COUPLED}
     del spread_calls
@@ -5742,6 +6188,15 @@ def main() -> int:
             assert (counts[name] > 0) == (path in by), (name, path)
     SHARED_CALLS.clear()
     del cf_calls, sm_calls, system_calls
+    plugins["closed_form"] = {
+        k: shared["place_closed_form"]["plugins"][k] for k in ("calls", "path_ms", "shapes")}
+    log(
+        f"[plugins] device caps host ms per eval "
+        f"{plugins['fleet']['device_caps_ms']['per_eval']!r} (the fleet's "
+        f"{plugins['fleet']['eval_latency_ms']['evals']} evals) beside the closed form's "
+        f"path_ms {plugins['closed_form']['path_ms']!r} over the path's "
+        f"{plugins['closed_form']['calls']} calls"
+    )
     # the cluster's calls were recorded and replayed in its member processes
     by_path["cluster"] = cluster_launches
     batch.update(
@@ -5754,6 +6209,7 @@ def main() -> int:
         "incremental": incr, "batch": batch, "plan": plan, "calib": calib, "leader": leader,
         "resilience": resilience, "agent": agent,
         "cluster": {k: cluster[k] for k in ("config", "leaders", "phases", "views", "eval_ms")},
+        "plugins": {k: v for k, v in plugins.items() if k != "dev_node"},
         "restore": restore, "server": {
             k: server[k] for k in (
                 "config", "card", "allocs_per_sec", "evals_per_sec", "eval_latency_ms",
@@ -5823,6 +6279,8 @@ def main() -> int:
                     m: r["place_closed_form"] for m, r in cluster_replays.items()
                     if "place_closed_form" in r
                 },
+                "plugins": {**plugins["closed_form"],
+                            "launches": by_path["plugins"]["place_closed_form"]},
             },
         ),
         kernel_entry(

@@ -34,7 +34,10 @@ Layer map of this slice:
   files, the CLI (``python -m nomad_tpu_torch.cli agent -dev``).
 - ``nomad_tpu_torch.client``    — the node agent ``agent -dev`` embeds:
   fingerprinting (the ``torch.cuda`` table), drivers, task and alloc
-  runners, local state, health checks, the fs/logs endpoints.
+  runners, local state, health checks, the fs/logs endpoints, and the
+  out-of-process plugins over NDJSON stdio (``client/plugin.py`` task
+  drivers, ``client/device_plugin.py`` devices — the ``torch.cuda`` table
+  as an ``nvidia/gpu`` group — and ``client/csi_plugin.py`` volumes).
 - ``nomad_tpu_torch.backend``   — device resolution, kernel builds.
 - ``nomad_tpu_torch.interop``   — build port objects from plain records.
 

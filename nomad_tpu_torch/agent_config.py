@@ -29,7 +29,7 @@ class AgentClientConfig:
     enabled: bool = False
     servers: list[str] = field(default_factory=list)
     host_volumes: dict[str, str] = field(default_factory=dict)
-    driver_mode: str = "inprocess"  # or "plugin" (out-of-process drivers, ROADMAP A16)
+    driver_mode: str = "inprocess"  # or "plugin" (out-of-process drivers)
     gc_max_allocs: Optional[int] = None
 
 

@@ -64,32 +64,73 @@ class Client:
         device_plugins: Optional[list[str]] = None,
         csi_plugins: Optional[list[str]] = None,
     ):
-        # the out-of-process plugins (stdio driver plugins, device and
-        # CSI plugins: the JAX package's client/plugin.py,
-        # device_plugin.py, csi_plugin.py) are not ported yet
-        if driver_mode == "plugin":
-            raise NotImplementedError(
-                "out-of-process driver plugins are not ported yet (ROADMAP A16)"
-            )
-        if device_plugins:
-            raise NotImplementedError(
-                "device plugins are not ported yet (ROADMAP A16)"
-            )
-        if csi_plugins:
-            raise NotImplementedError(
-                "CSI plugins are not ported yet (ROADMAP A16)"
-            )
         self.rpc = rpc
         self.data_dir = data_dir
         self._serve_endpoints = serve_endpoints
         self.endpoints = None
         self.state_db = ClientStateDB(data_dir)
-        self.drivers = builtin_drivers()
+        if driver_mode == "plugin":
+            # out-of-process driver plugins (driver.proto contract over
+            # stdio NDJSON — client/plugin.py); tasks and their reattach
+            # handles survive plugin AND client restarts
+            from .plugin import plugin_drivers
+
+            self.drivers = plugin_drivers()
+        else:
+            self.drivers = builtin_drivers()
         self.node = fingerprint_node(node, data_dir=data_dir, drivers=self.drivers)
-        # what the plugins would fill; the alloc runner reads them
+        # out-of-process device plugins (device.proto analog — see
+        # client/device_plugin.py): fingerprinted groups surface on the
+        # node for the scheduler's DeviceChecker/allocator; reservations
+        # are resolved at task start into env/mount mutations
         self.device_plugins: dict[str, object] = {}
+        # (vendor, type, name) → plugin name: Reserve must route each
+        # allocated device group to the plugin that OWNS it (sending ids
+        # to every plugin would let e.g. the torch plugin misparse a fake
+        # device id into a CUDA ordinal pin)
         self.device_group_owner: dict[tuple, str] = {}
+        for dp_name in device_plugins or []:
+            from .device_plugin import DevicePluginClient
+
+            dp = DevicePluginClient(dp_name)
+            try:
+                groups = dp.fingerprint()
+            except Exception:
+                log.warning("device plugin %s failed", dp_name, exc_info=True)
+                continue
+            self.device_plugins[dp_name] = dp
+            if groups:
+                self.node.node_resources.devices.extend(groups)
+                for g in groups:
+                    self.device_group_owner[
+                        (g.vendor, g.type, g.name)
+                    ] = dp_name
+                self.node.attributes[f"device.{dp_name}"] = str(
+                    sum(len(g.instances) for g in groups)
+                )
+                self.node.compute_class()
+        # out-of-process CSI plugins (plugins/csi analog — see
+        # client/csi_plugin.py): the alloc runner drives NodeStage/
+        # NodePublish through them around task execution
         self.csi_plugins: dict[str, object] = {}
+        for cp_name in csi_plugins or []:
+            from .csi_plugin import CSIPluginClient
+
+            cp = CSIPluginClient(cp_name)
+            if cp.probe():
+                from ..structs.volumes import CSINodeInfo
+
+                self.csi_plugins[cp_name] = cp
+                # the structured node surface the scheduler's
+                # CSIVolumeChecker reads (Node.CSINodePlugins)
+                self.node.csi_node_plugins[cp_name] = CSINodeInfo(
+                    plugin_id=cp_name, healthy=True
+                )
+                self.node.attributes[f"csi.{cp_name}"] = "1"
+                self.node.compute_class()
+            else:
+                log.warning("csi plugin %s failed probe", cp_name)
+                cp.close()
         if host_volumes:
             # client config host_volume blocks surface on the node for the
             # HostVolumeChecker (structs.ClientHostVolumeConfig)

@@ -23,9 +23,10 @@ Key properties matched to the reference:
   task dir's ``<task>.stdout`` / ``.stderr`` so the fs/logs HTTP
   endpoints serve container logs exactly like exec-task logs.
 
-Out-of-process: the driver is registered in the builtin catalog; the
-NDJSON stdio plugin host that serves catalog drivers out of process
-(``client/plugin.py``) is not ported yet (ROADMAP A16).
+Out-of-process: the driver is registered in the builtin catalog, so
+``python -m nomad_tpu_torch.client.plugin container`` serves it over the
+NDJSON stdio plugin protocol (client/plugin.py) — the same lifecycle,
+reattach-through-plugin-death included, as every other plugin driver.
 
 Socket discovery order: $NOMAD_CONTAINER_SOCK, /var/run/docker.sock,
 /run/podman/podman.sock. Fingerprint is unhealthy when none answers

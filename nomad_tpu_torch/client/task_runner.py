@@ -126,7 +126,7 @@ class TaskRunner:
             self.state.record(TaskEvent(TASK_EVENT_STARTED))
             self._notify()
 
-            exit_code = self.driver.wait(self.handle)
+            exit_code = self._wait()
             self.state.record(
                 TaskEvent(TASK_EVENT_TERMINATED, exit_code=exit_code)
             )
@@ -150,6 +150,22 @@ class TaskRunner:
         ):
             self.state.failed = True
         self._notify()
+
+    def _wait(self) -> Optional[int]:
+        """``driver.wait``, surviving the death of a driver plugin under a
+        running task (task_runner.go re-attaches through the restarted
+        plugin): the task lives on in its own session, so the handle is
+        recovered through a fresh plugin and waited on again. A task the
+        driver cannot recover ends with no exit code (a driver failure,
+        then the restart policy). The JAX package lets the DriverError end
+        this thread, and the task stays "running" for good."""
+        while True:
+            try:
+                return self.driver.wait(self.handle)
+            except DriverError as e:
+                self.state.record(TaskEvent(TASK_EVENT_DRIVER_ERROR, message=str(e)))
+                if self._kill.is_set() or not self.driver.recover(self.handle):
+                    return None
 
     def _task_env(self) -> dict[str, str]:
         """Task env interpolation (client/taskenv)."""

@@ -31,8 +31,8 @@ from .structs import (
     TaskGroup,
 )
 from .structs.deployment import AllocDeploymentStatus
-from .structs.job import Service, ServiceCheck
-from .structs.resources import AllocatedDeviceResource
+from .structs.job import Affinity, Constraint, Service, ServiceCheck
+from .structs.resources import AllocatedDeviceResource, RequestedDevice
 
 # device-side handles of the other runtime: never carried across
 _DEVICE_FIELDS = frozenset({"device_capacity", "score_cache"})
@@ -46,6 +46,8 @@ _UNTYPED_FIELDS = {
     (Allocation, "allocated_networks"): AllocatedNetwork,
     (Allocation, "allocated_devices"): AllocatedDeviceResource,
     (Allocation, "deployment_status"): AllocDeploymentStatus,
+    (RequestedDevice, "constraints"): Constraint,
+    (RequestedDevice, "affinities"): Affinity,
 }
 
 

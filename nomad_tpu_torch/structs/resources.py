@@ -271,7 +271,19 @@ def _device_accounting_fits(node, allocs) -> tuple[bool, str]:
     Mirrors structs.DeviceAccounter (nomad/structs/devices.go): asks drain
     one common per-device-group pool, so overlapping partial ids (``gpu``
     and ``nvidia/gpu/k80``) cannot jointly overcommit. Most-specific asks
-    are resolved first so a full-id ask isn't starved by a wildcard one."""
+    are resolved first so a full-id ask isn't starved by a wildcard one.
+    An instance held by two allocs is a collision, as in
+    DeviceAccounter.AddAllocs: "device oversubscribed". The JAX package
+    counts only the pool, so two members of one merged commit that each
+    took a node's first free instance from the same snapshot both pass
+    its check."""
+    held: set = set()
+    for alloc in allocs:
+        for ad in getattr(alloc, "allocated_devices", None) or ():
+            for did in ad.device_ids:
+                if (ad.id(), did) in held:
+                    return False, "device oversubscribed"
+                held.add((ad.id(), did))
     cap: dict[str, int] = {}
     for dev in node.node_resources.devices:
         cap[dev.id()] = cap.get(dev.id(), 0) + sum(

@@ -7,6 +7,7 @@ import graphs, raised exceptions)."""
 
 import ast
 import pathlib
+import re
 import pkgutil
 import subprocess
 import sys
@@ -106,6 +107,10 @@ def test_imports_with_jax_blocked():
         "nomad_tpu_torch.client.logmon",
         "nomad_tpu_torch.client.endpoints",
         "nomad_tpu_torch.client.fingerprint",
+        "nomad_tpu_torch.client.stdio_plugin",
+        "nomad_tpu_torch.client.plugin",
+        "nomad_tpu_torch.client.device_plugin",
+        "nomad_tpu_torch.client.csi_plugin",
         "nomad_tpu_torch.client.client",
         "nomad_tpu_torch.client",
         "nomad_tpu_torch.agent_config",
@@ -159,6 +164,84 @@ def test_no_jax_or_reference_import(path):
 def test_chip_smoke_imports_nothing_of_jax():
     names = set(_imports(REPO / "chip_smoke.py"))
     assert not any(n.split(".")[0] in ("jax", "nomad_tpu") for n in names)
+
+
+PLUGIN_MODULES = (
+    "nomad_tpu_torch.client.stdio_plugin",
+    "nomad_tpu_torch.client.plugin",
+    "nomad_tpu_torch.client.device_plugin",
+    "nomad_tpu_torch.client.csi_plugin",
+)
+
+
+def _plugin_argvs():
+    from nomad_tpu_torch.client.csi_plugin import BUILTIN_CSI_PLUGINS, CSIPluginClient
+    from nomad_tpu_torch.client.device_plugin import (
+        BUILTIN_DEVICE_PLUGINS,
+        DevicePluginClient,
+    )
+    from nomad_tpu_torch.client.drivers import builtin_drivers
+    from nomad_tpu_torch.client.plugin import plugin_drivers
+
+    drivers = {**plugin_drivers(), **{n: None for n in builtin_drivers()}}
+    clients = [
+        *[(f"driver {n}", plugin_drivers((n,))[n], n) for n in sorted(drivers)],
+        *[(f"device {n}", DevicePluginClient(n), n) for n in sorted(BUILTIN_DEVICE_PLUGINS)],
+        *[(f"csi {n}", CSIPluginClient(n), n) for n in sorted(BUILTIN_CSI_PLUGINS)],
+    ]
+    return [(what, c.default_argv(n)) for what, c, n in clients]
+
+
+def test_plugin_launchers_name_the_port():
+    """Every builtin plugin's launcher starts this package's module: a
+    copy that kept the JAX package's ``-m nomad_tpu.client.<module>``
+    would start the reference as the plugin, and no import check would
+    see it. Constructing a client spawns nothing."""
+    argvs = _plugin_argvs()
+    assert {w.split()[0] for w, _ in argvs} == {"driver", "device", "csi"}
+    assert any(w == "device torch" for w, _ in argvs)
+    for what, argv in argvs:
+        assert argv[0] == sys.executable and argv[1] == "-m", (what, argv)
+        assert argv[2] in PLUGIN_MODULES[1:], (what, argv)
+        assert not any(a.startswith("nomad_tpu.") for a in argv), (what, argv)
+
+
+def _strings(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            yield node.value
+
+
+def test_no_string_names_a_module_of_the_jax_package():
+    """No string of the port (nor of ``chip_smoke.py`` or
+    ``bench_torch.py``) names a ``nomad_tpu.`` module: such a string
+    reaches the JAX package through ``python -m`` or ``importlib``
+    without an import statement."""
+    paths = [*sorted(PKG_DIR.rglob("*.py")), REPO / "chip_smoke.py", REPO / "bench_torch.py"]
+    bad = [
+        (str(p.relative_to(REPO)), s) for p in paths for s in _strings(p)
+        if re.search(r"\bnomad_tpu\.[A-Za-z_]", s)
+    ]
+    assert not bad, bad
+
+
+def test_plugin_modules_import_neither_torch_nor_jax():
+    """The plugin hosts start under the 10 s handshake: a fresh
+    interpreter that imports the four plugin modules loads neither
+    ``torch`` nor ``jax`` (the ``torch`` device plugin imports torch
+    inside its calls)."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {PLUGIN_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(sorted(k for k in ('torch', 'jax') if k in sys.modules))\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == "[]"
 
 
 def _no_cuda(monkeypatch):
