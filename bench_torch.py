@@ -1,6 +1,7 @@
 """End-to-end bench of the PyTorch/CUDA port's server.
 
     python3 bench_torch.py [--device cuda|cpu] [--nodes N] [--jobs J] [--per-job P]
+                           [--mesh dp,mp|auto|off]
 
 The JAX package's ``bench.py end_to_end`` block run through the port's
 server (``nomad_tpu_torch.server``): the same node recipe (25 racks, ssd on
@@ -15,6 +16,14 @@ controller's state at the end of the run (``admission``: level, level
 changes, deferred and shed decisions, broker deferrals) and, on the card,
 the card's name and power limit as ``nvidia-smi`` gives them. The server
 runs every leader service, as the reference's bench does.
+
+``--mesh`` sets the process mesh (``NOMAD_TPU_MESH``'s grammar) before
+anything resolves it: the server's device cache and kernels lay their
+passes out over it. A spec asking for more devices than there are
+raises before any output (the CPU counts as 8). The line's ``mesh``
+block says what ran: shape, axis names, devices, nodes per shard, and
+the measured time of one cross-shard top-k merge at this run's padded
+node bucket.
 
 Every kernel library is built and loaded before the server starts, so no
 eval's deadline meets a compiler. Prints one JSON line. Defaults: the
@@ -50,6 +59,79 @@ def build_kernels(device) -> None:
         return
     for name in backend.build_all():
         backend.cuda_library(name)
+
+
+def _pop_mesh_arg(argv: list):
+    """Strip ``--mesh SPEC`` / ``--mesh=SPEC`` from argv and activate the
+    mesh by seeding ``NOMAD_TPU_MESH`` before the first ``get_mesh()``
+    resolution. Returns the spec or None; junk fails fast."""
+    import os
+
+    from nomad_tpu_torch.backend import get_mesh, parse_mesh_spec, reset_mesh
+
+    spec = None
+    for i, arg in enumerate(argv):
+        if arg == "--mesh" and i + 1 < len(argv):
+            spec = argv[i + 1]
+            del argv[i:i + 2]
+            break
+        if arg.startswith("--mesh="):
+            spec = arg.split("=", 1)[1]
+            del argv[i]
+            break
+    if spec is not None:
+        parse_mesh_spec(spec)
+        os.environ["NOMAD_TPU_MESH"] = spec
+        reset_mesh()
+        get_mesh()  # raises here when the devices are too few
+    return spec
+
+
+MERGE_K = 16  # candidates a shard forwards in the measured merge
+MERGE_REPS = 10
+
+
+def mesh_block(n_nodes: int = 0) -> dict:
+    """The mesh's self-description for the JSON line: shape, axis names,
+    devices, per-shard node counts and the measured time of one
+    cross-shard top-k merge (``closed_form_topk_merge``: S shards' top
+    16 of a random plane at this run's padded node bucket, merged on the
+    lead; the kernel on the card, its plain version on the CPU), in µs
+    over ``MERGE_REPS`` calls after a warm-up."""
+    from nomad_tpu_torch.backend import direct_launches, get_mesh
+    from nomad_tpu_torch.device.flatten import node_bucket
+    from nomad_tpu_torch.device.score import closed_form_topk_merge
+
+    cfg = get_mesh()
+    out = dict(cfg.describe())
+    if not cfg.active or not n_nodes:
+        return out
+    pn = node_bucket(n_nodes)
+    mp = cfg.n_node_shards
+    out["padded_nodes"] = pn
+    out["nodes_per_shard"] = pn // mp if pn % mp == 0 else None
+    if pn % mp != 0:
+        return out
+    seg = pn // mp
+    flat = torch.from_numpy(np.random.default_rng(0).random(pn, dtype=np.float32))
+    rows, scores = [], []
+    for j in range(mp):
+        v, i = torch.sort(flat[j * seg:(j + 1) * seg], descending=True, stable=True)
+        rows.append(i[:MERGE_K].to(torch.int32)[None].contiguous().to(cfg.lead))
+        scores.append(v[:MERGE_K][None].contiguous().to(cfg.lead))
+    cuda = cfg.lead.type == "cuda"
+    with direct_launches():
+        closed_form_topk_merge(rows, scores, seg, MERGE_K)
+        if cuda:
+            torch.cuda.synchronize(cfg.lead)
+        t0 = time.perf_counter()
+        for _ in range(MERGE_REPS):
+            closed_form_topk_merge(rows, scores, seg, MERGE_K)
+        if cuda:
+            torch.cuda.synchronize(cfg.lead)
+    out["topk_merge_us"] = (time.perf_counter() - t0) / MERGE_REPS * 1e6
+    out["topk_merge_on"] = "kernel" if cuda else "plain version (CPU)"
+    return out
 
 
 def committed_overcommit(store) -> int:
@@ -303,6 +385,8 @@ def bench_end_to_end(
 
 
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    _pop_mesh_arg(argv)
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--nodes", type=int, default=10_000)
@@ -313,6 +397,7 @@ def main(argv=None) -> int:
         print("bench_torch: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     out = bench_end_to_end(args.nodes, args.jobs, args.per_job, device=args.device)
+    out["mesh"] = mesh_block(args.nodes)
     print(json.dumps(out, sort_keys=True), flush=True)
     return 0
 

@@ -172,6 +172,28 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
      every alloc's ids its node's group's, no node over-committed; its
      allocs/s, eval p50 / p99 and the device-cap pass's host ms an eval
      logged; every closed-form call recorded and replayed;
+   - "mesh" (after "plugins"; every other path runs with
+     ``NOMAD_TPU_MESH=off``): meshes built explicitly with ``cuda:0`` in
+     every cell. (a) The closed form at ``bench.py kernel 100000 100
+     10000 --mesh 2,4``'s size (131,072 padded nodes, 100 groups x 100)
+     under 1x4, 2x2 and 2x4 and without a mesh, identical (uint32 views)
+     to the one-device kernel and to plain; the shard launches', the
+     merges' and the whole call's ms by graph replay beside their
+     bounds, and each shard's form beside the unsharded call's. (b) The
+     score matrix at G 100 there, sharded 1x4, identical. (c) The
+     counterpart of ``__graft_entry__.dryrun_multichip`` at its sizes
+     (the value scan on 10,240 nodes x 75 racks, the closed form on that
+     batch, the 40,960-node region-major federation over 1x4),
+     identical. (d) The schedule recipe through ``Harness(mesh=1x4)``,
+     the score seam on, counted: the alloc -> node assignment of the run
+     without a mesh; one node update re-uploads one shard refresh and
+     no whole tensor, both device views copy back bitwise, a dropped
+     shard refresh recovers by a whole upload; every recorded
+     closed-form call identical to plain. (e) One ``run_chaos`` at the
+     "resilience" size with the process mesh 1x4 and
+     ``mesh.shard_refresh_drop`` scheduled: law 12's capacity half
+     checked and passing. (f) Distinct cards where there are several,
+     else one line saying they were not exercised;
    - "spread": the JAX package's ``bench.py end_to_end`` node recipe
      (10,000 nodes over 25 racks, ssd on every 4th, every 3rd at
      8,000 MHz / 16,384 MiB) and 30 jobs through the Harness: its 20
@@ -291,8 +313,9 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
    seconds beside the incremental path's first off arm), "plan", "calib",
    "leader" (the drain, each defrag cycle's row, the bench with its
    admission block), "resilience", "agent", "cluster", "plugins",
-   "restore" and "server"; the
-   total seconds, one JSON line of per-kernel results,
+   "restore" and "server", and a ``[mesh]`` line with the phase's; the
+   total seconds with each group of phases' (a ``[time]`` line is logged
+   as each group ends), one JSON line of per-kernel results,
    the card's name and power limit, then the device line last.
 
 Times, kernels and plain versions alike, are device times per launch
@@ -1142,6 +1165,7 @@ def counters() -> dict:
 
     return {
         "place_closed_form": S.place_closed_form.launches,
+        "closed_form_topk_merge": S.closed_form_topk_merge.launches,
         "score_matrix": ST.score_matrix_triton.launches,
         **{name: getattr(S, name).launches for name in COUPLED},
         **{name: getattr(P, name).launches for name in PREEMPT},
@@ -1158,6 +1182,7 @@ def zero_counters() -> None:
 
     S.place_closed_form.launches = 0
     S.place_closed_form.forms.clear()
+    S.closed_form_topk_merge.launches = 0
     ST.score_matrix_triton.launches = 0
     for name in COUPLED:
         getattr(S, name).launches = 0
@@ -1412,7 +1437,9 @@ def main_path(dev, n_nodes=10_000, n_jobs=10, count=1000):
     assert rejected == 0, "a plan had rejected nodes"
     assert over == 0, "a node is over-committed in the store"
     assert statuses == ["complete"]
-    idle = {name: 0 for name in (*COUPLED, *PREEMPT_COUNTS, *PLUGIN, "migrate_plan")}
+    idle = {name: 0 for name in (
+        *COUPLED, *PREEMPT_COUNTS, *PLUGIN, "migrate_plan", "closed_form_topk_merge",
+    )}
     assert schedule == {"place_closed_form": passes, "score_matrix": 0, **idle} and passes > 0
     assert annotate == {"place_closed_form": 0, "score_matrix": n_jobs, **idle}
     assert len(cf_calls) == passes and len(sm_calls) == n_jobs
@@ -3588,11 +3615,12 @@ def schedule_fleet(n_nodes=SERVER_NODES, n_jobs=SERVER_JOBS, count=SERVER_COUNT)
     return nodes, jobs
 
 
-def fleet_harness(dev, nodes, jobs):
-    """A Harness on ``dev`` holding copies of ``nodes`` and ``jobs``."""
+def fleet_harness(dev, nodes, jobs, mesh=None):
+    """A Harness on ``dev`` (its views and passes laid out over ``mesh``
+    when one is given) holding copies of ``nodes`` and ``jobs``."""
     from nomad_tpu_torch.scheduler import Harness
 
-    h = Harness(device=dev)
+    h = Harness(device=dev, mesh=mesh)
     for n in nodes:
         h.store.upsert_node(h.next_index(), copy.deepcopy(n))
     for j in jobs:
@@ -3648,7 +3676,7 @@ def timed_uploads():
     ]
     records = []
 
-    def timed(cluster, used0, device):
+    def timed(cluster, used0, device, cfg=None, **kw):
         cache = getattr(cluster, "score_cache", None)
         before = cache.device_counters() if cache is not None else None
         start = torch.cuda.Event(enable_timing=True)
@@ -3656,7 +3684,7 @@ def timed_uploads():
         torch.cuda.synchronize()
         start.record()
         t0 = time.perf_counter()
-        out = real(cluster, used0, device)
+        out = real(cluster, used0, device, cfg, **kw)
         end.record()
         torch.cuda.synchronize()
         rec = {
@@ -5984,6 +6012,545 @@ def plugins_path(dev):
     return launches, summary
 
 
+# -- the "mesh" phase: the node-axis mesh on the card ---------------------------
+#
+# Meshes built explicitly: every cell names the card (cuda:0 repeated),
+# so the sharded code runs for real on one H100 — a shard launch per
+# cell, the cross-shard merge per groups row — and where the host has
+# more than one card, again on distinct cards. Every other path of the
+# script runs with NOMAD_TPU_MESH=off.
+
+MESH_SHAPES = ((1, 4), (2, 2), (2, 4))
+# bench.py kernel 100000 100 10000 --mesh 2,4: the reference's scaling
+# configuration (100,000 nodes padded to 131,072, 100 groups x 100 allocs)
+MESH_FLEET = {"n_nodes": 100_000, "n_groups": 100, "count": 100}
+MESH_PLAIN_CHUNK = 16  # groups a plain closed-form call scores at once there
+# __graft_entry__.dryrun_multichip's sizes: the value scan on 10,240 nodes
+# x 75 racks (8 groups x 8), the closed form on that batch, and the
+# region-major federation (40,960 nodes, a region a device)
+MESH_DRYRUN = {"n_nodes": 10_240, "racks": 75, "groups": 8, "steps": 8,
+               "fed_nodes": 40_960, "regions": 4}
+MESH_SCHEDULE = (1, 4)  # the schedule recipe through Harness(mesh=...)
+
+
+def mesh_devices(dev):
+    """The devices a mesh's cells name: the one card, repeated."""
+    return [dev] * 8
+
+
+def mesh_of(dp, mp, devices):
+    from nomad_tpu_torch import backend
+
+    return backend.make_mesh(dp, mp, list(devices[: dp * mp]), source="chip_smoke")
+
+
+@contextlib.contextmanager
+def process_mesh(cfg):
+    """The process mesh set to ``cfg`` for a block (the chaos runner's
+    server resolves it), then restored."""
+    from nomad_tpu_torch import backend
+
+    with backend._mesh_lock:
+        prev = backend._mesh_config
+        backend._mesh_config = cfg
+    try:
+        yield cfg
+    finally:
+        with backend._mesh_lock:
+            backend._mesh_config = prev
+
+
+def shard_inputs(args, cfg, axes=None):
+    """``args`` (the closed form's eleven inputs, or the score matrix's
+    ten) laid out over ``cfg`` as the placement pass lays them out."""
+    from nomad_tpu_torch import backend
+    from nomad_tpu_torch.device import score as S
+
+    axes = axes or [ax for _name, ax in S._CLOSED_FORM_AXES]
+    return [backend.shard_put(x, ax, cfg) for x, ax in zip(args, axes)]
+
+
+def plain_closed_form_chunked(args, spread, max_j, k, jitter=None, chunk=MESH_PLAIN_CHUNK):
+    """``place_closed_form_plain`` a few groups at a time (each group is
+    scored alone): its [G, N, J] planes at 131,072 nodes would not fit."""
+    from nomad_tpu_torch.device import score as S
+
+    g = args[2].shape[0]
+    out_c, out_s = [], []
+    for g0 in range(0, g, chunk):
+        part = list(args[:2]) + [x[g0:g0 + chunk] for x in args[2:]]
+        c, s = S.place_closed_form_plain(*part, spread, max_j, k, jitter)
+        out_c.append(c)
+        out_s.append(s)
+    return torch.cat(out_c), torch.cat(out_s)
+
+
+def feasible_candidates(args, spread, max_j, chunk=MESH_PLAIN_CHUNK) -> int:
+    from nomad_tpu_torch.device import score as S
+
+    total = 0
+    for g0 in range(0, args[2].shape[0], chunk):
+        part = list(args[:2]) + [x[g0:g0 + chunk] for x in args[2:]]
+        _num, _den, fits = S._score_planes(*part, spread, max_j)
+        total += int(fits.sum())
+    return total
+
+
+def same_bits(a, b) -> bool:
+    return all(
+        torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(a, b)
+    )
+
+
+def mesh_cells(sharded, cfg, g, n, max_j, k):
+    """The parts each cell's shard launch reads (what
+    ``place_closed_form_sharded`` cuts), by groups row: (rows, seg, k')."""
+    from nomad_tpu_torch.device import score as S
+
+    rows_split = cfg.dp if g % cfg.dp == 0 else 1
+    gseg, seg = g // rows_split, n // cfg.mp
+    kl = min(k, seg * max_j) if cfg.mp > 1 else k
+    rows = []
+    for i in range(rows_split):
+        gs = slice(i * gseg, (i + 1) * gseg)
+        cells = []
+        for j in range(cfg.mp):
+            ns = slice(j * seg, (j + 1) * seg)
+            parts = []
+            for x, (_name, axes) in zip(sharded, S._CLOSED_FORM_AXES):
+                want = tuple(
+                    gs if ax == "groups" else ns if ax == "nodes" else slice(0, x.shape[d])
+                    for d, ax in enumerate(axes)
+                )
+                parts.append(S._cell_part(x, want, i, j, cfg.device(i, j)))
+            cells.append(parts)
+        rows.append(cells)
+    return rows, seg, kl
+
+
+def mesh_closed_form_case(label, args, spread, max_j, k, cfg, one, plain, feasible):
+    """One mesh shape of (a) or (c): the sharded call identical (uint32
+    views) to the one-device kernel and to plain; the shard launches',
+    the merges' and the whole call's ms by CUDA-graph replay, each
+    beside its bound; the form each shard launched."""
+    from nomad_tpu_torch import backend
+    from nomad_tpu_torch.device import score as S
+
+    g, n = args[3].shape
+    sharded = shard_inputs(args, cfg)
+    S.place_closed_form.forms.clear()
+    backend.reset_mesh_layouts()
+    got = S.place_closed_form(*sharded, spread, max_j, k)
+    torch.cuda.synchronize()
+    forms = dict(S.place_closed_form.forms)
+    layouts = backend.mesh_layouts()
+    rows, seg, kl = mesh_cells(sharded, cfg, g, n, max_j, k)
+    want_layouts = {"place_closed_form:shard": len(rows) * cfg.mp}
+    if cfg.mp > 1:
+        want_layouts["closed_form_topk_merge:merge"] = len(rows)
+    assert layouts == want_layouts, (label, layouts, want_layouts)
+    assert same_bits(got, one), f"mesh {label}: sharded differs from the one-device kernel"
+    assert same_bits(got, plain), f"mesh {label}: sharded differs from plain"
+
+    def shard_launches():
+        return [
+            [S._closed_form_one(*parts, spread, max_j, kl, None) for parts in cells]
+            for cells in rows
+        ]
+
+    cands = shard_launches()
+    merge_inputs = [
+        ([c for c, _ in row], [s for _, s in row]) for row in cands
+    ]
+    out = {
+        "mesh": [cfg.dp, cfg.mp], "rows": len(rows), "shards": len(rows) * cfg.mp,
+        "nodes_per_shard": seg, "k_local": kl, "k": k, "identical": True,
+        "shard_forms": {str(f): c for f, c in forms.items()},
+        "shards_ms": graph_ms(shard_launches),
+        "call_ms": graph_ms(lambda: S.place_closed_form(*sharded, spread, max_j, k)),
+    }
+    part_bytes = sum(nbytes(*parts) + parts[2].shape[0] * kl * 8
+                     for cells in rows for parts in cells)
+    t_bytes = part_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = feasible * CLOSED_FORM_OPS_PER_CANDIDATE / F32_OPS_PER_S * 1e3
+    out["shards_bound_ms"] = max(t_bytes, t_ops)
+    out["shards_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    if cfg.mp > 1:
+        merged = [S.closed_form_topk_merge(r, s, seg, k) for r, s in merge_inputs]
+        plains = [S.closed_form_topk_merge_plain(r, s, seg, k) for r, s in merge_inputs]
+        torch.cuda.synchronize()
+        out["merge_mismatches"] = sum(int((a != b).sum()) for a, b in zip(merged, plains))
+        assert out["merge_mismatches"] == 0, f"mesh {label}: merge differs from plain"
+        merge = lambda: [S.closed_form_topk_merge(r, s, seg, k) for r, s in merge_inputs]  # noqa: E731
+        plain_merge = lambda: [  # noqa: E731
+            S.closed_form_topk_merge_plain(r, s, seg, k) for r, s in merge_inputs
+        ]
+        out["merge_ms"] = graph_ms(merge)
+        out["merge_stream_ms"] = cuda_ms(merge)
+        out["plain_merge_ms"] = graph_ms(plain_merge)
+        out["plain_merge_stream_ms"] = cuda_ms(plain_merge)
+        gr = g // len(rows)
+        merge_bytes = len(rows) * (cfg.mp * gr * kl * 8 + gr * k * 8)
+        out["merge_bound_ms"] = merge_bytes / HBM_BYTES_PER_S * 1e3
+        out["merge_bound_by"] = "bytes"
+    log(f"[mesh] {label}: " + json.dumps(out, sort_keys=True))
+    return out
+
+
+def mesh_closed_form(dev, devices, shapes=MESH_SHAPES, fleet=None):
+    """(a) the closed form alone at the reference's scaling configuration,
+    under each mesh of ``shapes`` and without one; and (b) the score
+    matrix at G 100 on that fleet, sharded 1 x 4."""
+    from nomad_tpu_torch.device import score as S
+
+    fleet = fleet or MESH_FLEET
+    ct = build_cluster(fleet["n_nodes"], seed=42)
+    asks = build_asks(ct, fleet["n_groups"], fleet["count"], seed=7)
+    b, max_j, k = device_batch(ct, asks, dev)
+    args = closed_form_args(b)
+    g, n = args[3].shape
+    S.place_closed_form.forms.clear()
+    one = S.place_closed_form(*args, False, max_j, k)
+    torch.cuda.synchronize()
+    one_forms = dict(S.place_closed_form.forms)
+    plain = plain_closed_form_chunked(args, False, max_j, k)
+    assert same_bits(one, plain), "mesh: the one-device kernel differs from plain"
+    feasible = feasible_candidates(args, False, max_j)
+    t_bytes = (nbytes(*args) + g * k * 8) / HBM_BYTES_PER_S * 1e3
+    t_ops = feasible * CLOSED_FORM_OPS_PER_CANDIDATE / F32_OPS_PER_S * 1e3
+    out = {
+        "shape": f"G={g} ({fleet['n_groups']} real) N={n} J={max_j} k={k}",
+        "unsharded": {
+            "forms": {str(f): c for f, c in one_forms.items()},
+            "ms": graph_ms(lambda: S.place_closed_form(*args, False, max_j, k)),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        },
+        "meshes": {},
+    }
+    log(f"[mesh] closed form unsharded {out['shape']}: " + json.dumps(out["unsharded"]))
+    for dp, mp in shapes:
+        cfg = mesh_of(dp, mp, devices)
+        out["meshes"][f"{dp}x{mp}"] = mesh_closed_form_case(
+            f"closed form {dp}x{mp}", args, False, max_j, k, cfg, one, plain, feasible,
+        )
+    # (b) the score matrix at G 100 on the same fleet, sharded 1 x 4
+    sm_args = [b["capacity"], b["used0"]] + [
+        b[key][: fleet["n_groups"]].contiguous() for key in (
+            "asks", "eligible", "job_counts", "desired_totals", "penalty_nodes",
+            "affinity_scores", "has_affinities", "distinct_hosts",
+        )
+    ]
+    cfg = mesh_of(1, 4, devices)
+    sm_one = S.score_matrix(*sm_args, False, None)
+    sm_sharded = shard_inputs(sm_args, cfg, [ax for _n, ax in S._CLOSED_FORM_AXES[:10]])
+    sm_got = S.score_matrix(*sm_sharded, False, None)
+    torch.cuda.synchronize()
+    assert same_bits(sm_got, sm_one), "mesh: the sharded score matrix differs"
+    out["score_matrix_1x4"] = {
+        "shape": f"G={fleet['n_groups']} N={n}", "identical": True,
+        "ms": graph_ms(lambda: S.score_matrix(*sm_sharded, False, None)),
+        "unsharded_ms": graph_ms(lambda: S.score_matrix(*sm_args, False, None)),
+    }
+    log("[mesh] score matrix 1x4: " + json.dumps(out["score_matrix_1x4"]))
+    return out
+
+
+def example_batch(dev, n_nodes, n_groups, max_steps, v, b=2):
+    """``__graft_entry__._example_batch`` (the reference dryrun's inputs)
+    on ``dev``: capacities of 4,000 / 8,000 MHz and 8 / 16 GiB, 0-30 %
+    used, 500 MHz / 256 MiB asks, an even-spread block and a loose
+    distinct cap over ``v`` rack values."""
+    rng = np.random.default_rng(0)
+    pn, g = n_nodes, n_groups
+    capacity = np.zeros((pn, 4), dtype=np.float32)
+    capacity[:, 0] = rng.choice([4000, 8000], pn)
+    capacity[:, 1] = rng.choice([8192, 16384], pn)
+    capacity[:, 2] = 100 * 1024
+    capacity[:, 3] = 1000
+    used = (capacity * rng.uniform(0, 0.3, (pn, 1))).astype(np.float32)
+    value_ids = np.zeros((g, b, pn), dtype=np.int32)
+    value_ids[:, 0, :] = np.arange(pn) % v
+    value_ids[:, 1, :] = np.arange(pn) % v
+    kinds = np.zeros((g, b), dtype=np.int32)
+    kinds[:, 0] = 1  # BLOCK_EVEN_SPREAD
+    kinds[:, 1] = 2  # BLOCK_DISTINCT_CAP
+    caps = np.full((g, b, v), np.inf, dtype=np.float32)
+    caps[:, 1, :] = float(max_steps)
+    host = dict(
+        capacity=capacity, used0=used,
+        asks=np.tile(np.array([[500, 256, 300, 0]], dtype=np.float32), (g, 1)),
+        eligible=np.ones((g, pn), dtype=bool),
+        job_counts=np.zeros((g, pn), dtype=np.int32),
+        desired_totals=np.full(g, float(max_steps), dtype=np.float32),
+        penalty_nodes=np.zeros((g, pn), dtype=bool),
+        affinity_scores=np.zeros((g, pn), dtype=np.float32),
+        has_affinities=np.zeros(g, dtype=bool),
+        distinct_hosts=np.zeros(g, dtype=bool),
+        slot_caps=np.full((g, pn), np.inf, dtype=np.float32),
+        block_value_ids=value_ids,
+        block_counts0=np.zeros((g, b, v), dtype=np.float32),
+        block_desired=np.full((g, b, v), -1.0, dtype=np.float32),
+        block_caps=caps,
+        block_weights=np.full((g, b), 1.0, dtype=np.float32),
+        block_kinds=kinds,
+        counts=np.full(g, max_steps, dtype=np.int32),
+    )
+    return host, {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+
+
+def mesh_dryrun(dev, devices, sizes=None):
+    """(c) the counterpart of ``__graft_entry__.dryrun_multichip`` at its
+    own sizes on a mesh of 4 cells (2 x 2), the federation on 1 x 4:
+    every output identical to the unsharded call."""
+    from nomad_tpu_torch import backend
+    from nomad_tpu_torch.device import score as S
+
+    sz = sizes or MESH_DRYRUN
+    cfg = mesh_of(2, 2, devices)
+    host, t = example_batch(dev, sz["n_nodes"], sz["groups"], sz["steps"], sz["racks"])
+    specs = dict(S._BATCH_SPECS, capacity=("nodes",), used0=("nodes",))
+    sharded = {k: backend.shard_put(v, specs[k], cfg) for k, v in t.items()}
+    one = S.place_value_scan(**t, algorithm_spread=False, max_j=16, max_steps=sz["steps"])
+    backend.reset_mesh_layouts()
+    got = S.place_value_scan(**sharded, algorithm_spread=False, max_j=16, max_steps=sz["steps"])
+    plain = S.place_value_scan_plain(**t, algorithm_spread=False, max_j=16,
+                                     max_steps=sz["steps"])
+    torch.cuda.synchronize()
+    assert same_bits(got, one) and same_bits(got, plain), "mesh dryrun: value scan differs"
+    assert (got[0] >= 0).all(), "mesh dryrun: a value-scan placement failed"
+    gathered = backend.mesh_layouts()
+    out = {"value_scan": {"identical": True, "layouts": gathered,
+                          "ms": cuda_ms(lambda: S.place_value_scan(
+                              **sharded, algorithm_spread=False, max_j=16,
+                              max_steps=sz["steps"]))}}
+    cf_keys = [name for name, _ax in S._CLOSED_FORM_AXES]
+    args = [t[k] for k in cf_keys]
+    one_cf = S.place_closed_form(*args, False, 16, 16)
+    plain_cf = S.place_closed_form_plain(*args, False, 16, 16)
+    out["closed_form"] = mesh_closed_form_case(
+        "dryrun closed form 2x2", args, False, 16, 16, cfg, one_cf, plain_cf,
+        feasible_candidates(args, False, 16),
+    )
+    assert (one_cf[0][:, : sz["steps"]] >= 0).all()
+    # the region-major federation: a region a cell, each group eligible in
+    # its home region only
+    fed, per = sz["fed_nodes"], sz["fed_nodes"] // sz["regions"]
+    host, t = example_batch(dev, fed, sz["groups"], 4, sz["racks"])
+    rows = np.arange(fed)
+    for g in range(sz["groups"]):
+        host["eligible"][g] = (rows // per) == g % sz["regions"]
+    t["eligible"] = torch.from_numpy(host["eligible"]).to(dev)
+    args = [t[k] for k in cf_keys]
+    region = mesh_of(1, sz["regions"], devices)
+    one_r = S.place_closed_form(*args, False, 4, 4)
+    plain_r = S.place_closed_form_plain(*args, False, 4, 4)
+    out["federation"] = mesh_closed_form_case(
+        f"federation 1x{sz['regions']}", args, False, 4, 4, region, one_r, plain_r,
+        feasible_candidates(args, False, 4),
+    )
+    ch = one_r[0].cpu().numpy()
+    assert (ch >= 0).all(), "mesh federation: a placement failed"
+    for g in range(sz["groups"]):
+        assert ((ch[g] // per) == g % sz["regions"]).all(), "mesh federation: left its region"
+    return out
+
+
+class GatheredRecorder(Recorder):
+    """A ``Recorder`` for a wrapper whose inputs may lie over a mesh: keeps
+    each call's inputs gathered onto the lead, its outputs, and whether
+    any input was sharded (the recorded calls are replayed through the
+    plain version after the counts are read)."""
+
+    def __call__(self, *args, **kwargs):
+        from nomad_tpu_torch import backend
+
+        with self.lock:
+            out = self.real(*args, **kwargs)
+            self.calls.append({
+                "sharded": any(backend.is_sharded(a) for a in (*args, *kwargs.values())),
+                "args": [backend.gather(a) for a in args],
+                "kwargs": {k: backend.gather(v) for k, v in kwargs.items()},
+                "out": [x.clone() for x in out],
+            })
+        return out
+
+
+def assignment(h, jobs) -> dict:
+    return {
+        (j.id, a.name): a.node_id
+        for j in jobs for a in h.store.allocs_by_job(j.namespace, j.id)
+        if not a.terminal_status()
+    }
+
+
+def mesh_schedule(dev, devices, nodes=None, jobs=None, shape=MESH_SCHEDULE):
+    """(d) the schedule recipe through ``Harness(mesh=1 x 4)``, the score
+    seam on: the same alloc -> node assignment as without a mesh; one node
+    update re-uploads one shard refresh and no whole tensor, and both
+    device views copy back bitwise; a dropped shard refresh recovers by a
+    whole upload. Returns (launch counts of the mesh run, its recorded
+    closed-form calls, a summary)."""
+    from nomad_tpu_torch import backend
+    from nomad_tpu_torch.chaos.plane import FaultPlane, FaultSpec, install, uninstall
+    from nomad_tpu_torch.device import score as S
+
+    if nodes is None:
+        nodes, jobs = schedule_fleet()
+    cfg = mesh_of(*shape, devices)
+    out = {"mesh": list(shape), "devices": cfg.describe()["devices"]}
+    with incremental_seam(True):
+        h0 = fleet_harness(dev, nodes, jobs)
+        t0 = time.perf_counter()
+        for j in jobs:
+            h0.process(eval_of(h0, j, "plain"))
+        torch.cuda.synchronize()
+        out["unsharded_seconds"] = time.perf_counter() - t0
+        want = assignment(h0, jobs)
+        del h0
+        h = fleet_harness(dev, nodes, jobs, mesh=cfg)
+        zero_counters()
+        backend.reset_mesh_layouts()
+        with recording(S, "place_closed_form", GatheredRecorder) as calls:
+            t0 = time.perf_counter()
+            for j in jobs:
+                h.process(eval_of(h, j, "mesh"))
+            torch.cuda.synchronize()
+            out["seconds"] = time.perf_counter() - t0
+        launches = counters()
+        out["layouts"] = backend.mesh_layouts()
+        got = assignment(h, jobs)
+        assert got == want, "mesh: the alloc -> node assignment differs from the run without"
+        assert len(got) == sum(j.task_groups[0].count for j in jobs), "mesh: not every alloc placed"
+        cache = h.device_cache
+        before = cache.device_counters()
+        node = copy.deepcopy(h.store.node_by_id(nodes[len(nodes) // 2].id))
+        node.node_resources.cpu += 100
+        h.store.upsert_node(h.next_index(), node)
+        cache.tensors(h.store.snapshot())
+        after = cache.device_counters()
+        assert after["shard_uploads"] == before["shard_uploads"] + 1, (before, after)
+        assert after["full_uploads"] == before["full_uploads"], (before, after)
+        assert cache.verify_device_view() == [], "mesh: a capacity shard diverged"
+        assert cache.verify_score_view() == [], "mesh: a score shard diverged"
+        node = copy.deepcopy(h.store.node_by_id(nodes[1].id))
+        node.node_resources.cpu += 100
+        h.store.upsert_node(h.next_index(), node)
+        plane = FaultPlane(schedule=[FaultSpec("mesh.shard_refresh_drop", 0, "drop")])
+        install(plane)
+        try:
+            cache.tensors(h.store.snapshot())
+        finally:
+            uninstall()
+        dropped = cache.device_counters()
+        assert ("mesh.shard_refresh_drop", 0, "drop") in plane.triggered
+        assert dropped["full_uploads"] == after["full_uploads"] + 1, dropped
+        assert dropped["shard_uploads"] == after["shard_uploads"], dropped
+        assert cache.verify_device_view() == []
+        out.update(cache_before=before, cache_after_update=after, cache_after_drop=dropped)
+    assert calls and all(c["sharded"] for c in calls), "mesh: a closed-form call was not sharded"
+    out["calls"] = len(calls)
+    return launches, calls, out
+
+
+def replay_mesh_calls(calls, cfg) -> dict:
+    """Every recorded closed-form call of the mesh path through the plain
+    version on its gathered inputs: identical outputs (uint32 views).
+    Then each call's kernels timed by graph replay, laid out over ``cfg``
+    again (shard launches, merge, copies) and on one device, summed over
+    the path (``path_ms``, ``unsharded_path_ms``)."""
+    from nomad_tpu_torch import backend
+    from nomad_tpu_torch.device import score as S
+
+    mismatches = 0
+    path_ms = unsharded_ms = 0.0
+    for c in calls:
+        want = S.place_closed_form_plain(*c["args"], **c["kwargs"])
+        if not same_bits(c["out"], want):
+            mismatches += 1
+        bound = inspect.signature(S.place_closed_form).bind(*c["args"], **c["kwargs"])
+        bound.apply_defaults()
+        a = bound.arguments
+        args = [a[name] for name, _axes in S._CLOSED_FORM_AXES]
+        statics = (a["algorithm_spread"], a["max_j"], a["k"])
+        jitter = a["jitter"]
+        sharded = shard_inputs(args, cfg)
+        sj = None if jitter is None else backend.shard_put(jitter, ("nodes",), cfg)
+        path_ms += graph_ms(lambda: S.place_closed_form(*sharded, *statics, sj))
+        unsharded_ms += graph_ms(lambda: S.place_closed_form(*args, *statics, jitter))
+    assert mismatches == 0, f"mesh: {mismatches} recorded calls differ from plain"
+    return {"calls": len(calls), "identical": True, "path_ms": path_ms,
+            "unsharded_path_ms": unsharded_ms}
+
+
+def mesh_chaos(dev, devices):
+    """(e) one chaos run with the process mesh 1 x 4 on the card, on the
+    "resilience" workload at its size with a node re-registered at every
+    settle point (``run_chaos(node_touches=True)``: the cache's per-shard
+    capacity refresh runs during the run), ``mesh.shard_refresh_drop``
+    scheduled on its first refresh beside the seeded fault mix: the drop
+    fires and is recovered by a whole upload, later refreshes upload
+    shards, and law 12's capacity half is checked and passes."""
+    from nomad_tpu_torch.chaos import FaultPlane, FaultSpec
+    from nomad_tpu_torch.chaos.runner import FAULT_KINDS
+
+    seed = RESILIENCE_SEEDS[0]
+    planned = FaultPlane(seed=seed, steps=RESILIENCE_STEPS, faults=FAULT_KINDS, rate=0.04)
+    schedule = list(planned.schedule) + [FaultSpec("mesh.shard_refresh_drop", 0, "drop")]
+    with process_mesh(mesh_of(1, 4, devices)):
+        run, summary, launches = chaos_on(
+            dev, "mesh 1x4", seed=seed, steps=RESILIENCE_STEPS, nodes=RESILIENCE_NODES,
+            schedule=schedule, node_touches=True,
+        )
+    halves = run.report.info["shard_consistency"]
+    cache = run.report.info.get("device_cache")
+    assert halves["capacity"] == "checked", halves
+    assert run.report.checked.get("shard_consistency") is True, run.render()
+    assert ("mesh.shard_refresh_drop", 0, "drop") in run.triggered, run.triggered
+    # the first whole upload, the drop's recovery, and per-shard refreshes
+    assert cache["full_uploads"] >= 2 and cache["shard_uploads"] >= 1, cache
+    return {
+        "ok": run.ok, "halves": halves, "seconds": summary["seconds"],
+        "node_touches": run.workload["node_touches"],
+        "shard_refresh_drops": sum(
+            t[0] == "mesh.shard_refresh_drop" for t in run.triggered
+        ),
+        "fallback_calls": summary["fallback_calls"],
+        "device_cache": cache,
+        "launches": summary["launches"],
+    }
+
+
+def mesh_path(dev):
+    """The "mesh" phase, (a) to (f); returns (the mesh path's launch
+    counts, the phase's summary)."""
+    t0 = time.perf_counter()
+    devices = mesh_devices(dev)
+    out = {"card": card_line()}
+    out["closed_form"] = mesh_closed_form(dev, devices)
+    out["dryrun"] = mesh_dryrun(dev, devices)
+    launches, calls, out["schedule"] = mesh_schedule(dev, devices)
+    out["schedule"]["replayed"] = replay_mesh_calls(calls, mesh_of(*MESH_SCHEDULE, devices))
+    del calls
+    assert launches["closed_form_topk_merge"] > 0 and launches["place_closed_form"] > 0, launches
+    out["chaos"] = mesh_chaos(dev, devices)
+    count = torch.cuda.device_count()
+    if count > 1:
+        distinct = [torch.device("cuda", i) for i in range(count)]
+        n = 4 if count >= 4 else 2
+        out["distinct_cards"] = {
+            "cards": n,
+            "closed_form": mesh_closed_form(dev, distinct, shapes=((1, n),)),
+            "schedule": mesh_schedule(dev, distinct, shape=(1, n))[2],
+        }
+        log(f"[mesh] distinct cards: {n} of {count} exercised")
+    else:
+        out["distinct_cards"] = None
+        log("mesh: 1 card, shards share cuda:0; distinct-card half not exercised")
+    out["seconds"] = time.perf_counter() - t0
+    return launches, out
+
+
 def find_launches(by_path) -> dict:
     """The find pass's launches on each path: its own launches plus the
     passes carried in the choice's launch (each a launch of its device
@@ -6020,10 +6587,24 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
+    # every path but the "mesh" phase runs unsharded, on a multi-card host
+    # too (the phase builds its meshes explicitly); members and agents
+    # started below inherit it
+    os.environ["NOMAD_TPU_MESH"] = "off"
     from nomad_tpu_torch import backend
     from nomad_tpu_torch.device import score as S
 
     t_start = time.perf_counter()
+    seconds_by_phase = {}
+    t_mark = [t_start]
+
+    def mark(name):
+        """Log the seconds since the last mark, and the run's so far."""
+        now = time.perf_counter()
+        seconds_by_phase[name] = now - t_mark[0]
+        t_mark[0] = now
+        log(f"[time] {name} {seconds_by_phase[name]:.1f} s, {now - t_start:.1f} s in")
+
     dev = backend.resolve_device("cuda")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     card = card_line()
@@ -6036,6 +6617,7 @@ def main() -> int:
         f"[build] nvcc {sorted(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.3f} s"
     )
+    mark("build")
 
     # phase 2: closed-form kernel at the headline shape and with extras
     ct = build_cluster(10_000, seed=42)
@@ -6064,6 +6646,7 @@ def main() -> int:
 
     # phase 4: small run, card against CPU
     cross_device_check(dev)
+    mark("phases 2-4")
 
     # phase 5: the paths, counters zeroed just before each; then each
     # recorded kernel call against its plain version
@@ -6091,11 +6674,13 @@ def main() -> int:
     by_path["batch"], batch, batch_h = batch_path(dev, *fleet)
     by_path["plan"], plan = plan_path(dev, batch_h)
     del fleet, batch_h
+    mark("schedule, incremental, batch, plan")
     by_path["server"], server_calls, server = server_path(dev)
     server_coupled = {
         name: replay_coupled(name, calls) for name, calls in server_calls.items() if calls
     }
     del server_calls
+    mark("server")
     # the leader services under the same bench, and the defrag controller
     # planning with the migration kernel on the server's card
     by_path["leader"], leader_calls, leader_coupled_calls, leader = leader_path(dev)
@@ -6108,9 +6693,11 @@ def main() -> int:
                 k: r[k] for k in ("path_ms", "max_abs_err", "choice_mismatches")
             }
     del leader_calls, leader_coupled_calls
+    mark("leader")
     # the kernel guard under faults: chaos runs, the degraded slice, the
     # soak and the saturation search on the server's card
     resilience = resilience_path(dev)
+    mark("resilience")
     # the dev agent's front door: ``agent -dev`` and the CLI as a user
     # runs them, then the HTTP API and the SDK at the server path's size
     agent_cli_out = agent_cli_path(dev)
@@ -6120,13 +6707,16 @@ def main() -> int:
         name: replay_coupled(name, calls) for name, calls in agent_calls.items() if calls
     }
     del agent_calls
+    mark("agent")
     # the server cluster: three member processes on the card, a failover
     # and a restart; each leader's calls replayed in its own process
     cluster_launches, cluster_replays, cluster = cluster_path(dev, server)
+    mark("cluster")
     # the client's out-of-process plugins: the card as a device, a probe
     # job on it, a task outliving its driver plugin, a CSI volume, and a
     # GPU fleet placed through device accounting
     by_path["plugins"], plugins = plugins_path(dev)
+    mark("plugins")
     h, by_path["spread"], spread_calls, _ = spread_path(dev)
     coupled = {name: replay_coupled(name, spread_calls[name]) for name in COUPLED}
     del spread_calls
@@ -6169,6 +6759,7 @@ def main() -> int:
     by_path["defrag"], defrag_calls, _ = defrag_path(dev)
     migrate_main = replay_migrate(defrag_calls)
     del defrag_calls
+    mark("spread to defrag")
     # the closed-form and score-matrix kernels' time on every path that
     # launches them
     one_by_one = SHARED_CALLS["incremental"]["place_closed_form"][:SERVER_JOBS]
@@ -6199,6 +6790,14 @@ def main() -> int:
     )
     # the cluster's calls were recorded and replayed in its member processes
     by_path["cluster"] = cluster_launches
+    mark("shared replays")
+    # the "mesh" phase: the closed form at 100,000 nodes under meshes on
+    # the card, the score matrix, the dryrun's sizes, the schedule recipe
+    # through Harness(mesh=1x4) (the path whose launches are counted) and
+    # a chaos run with the process mesh; distinct cards where there are
+    by_path["mesh"], mesh = mesh_path(dev)
+    log("[mesh] " + json.dumps(mesh, sort_keys=True))
+    mark("mesh")
     batch.update(
         kernel_ms=shared["place_closed_form"]["batch"]["path_ms"],
         one_by_one_kernel_ms=calls_ms([shared_launch("place_closed_form", c) for c in one_by_one]),
@@ -6223,6 +6822,7 @@ def main() -> int:
 
     # phase 6: the coupled placements against the stepwise oracle
     full_parity(dev)
+    mark("phase 6")
 
     # phase 7: the preemption kernels alone, both forms and a tied case
     preempt_phase = preempt_kernel_phase(dev)
@@ -6239,6 +6839,7 @@ def main() -> int:
     # phase 11: the value scan and the chunked scan alone, cluster and
     # one-block forms
     cluster_phase = coupled_cluster_phase(dev)
+    mark("phases 7-11")
 
     def headline(r, shape):
         return {
@@ -6390,8 +6991,34 @@ def main() -> int:
             },
         )
     ]
-    assert len(kernels) == 11, len(kernels)
-    log(f"[total] {time.perf_counter() - t_start:.1f} s, builds included")
+    m14 = mesh["closed_form"]["meshes"]["1x4"]
+    kernels.append(kernel_entry(
+        "closed_form_topk_merge", "cuda", "nomad_tpu_torch/csrc/closed_form.cu",
+        "nomad_tpu/device/score.py:104", "mesh", by_path,
+        {
+            "max_abs_err": 0.0, "choice_mismatches": m14["merge_mismatches"],
+            "ms": m14["merge_ms"], "plain_ms": m14["plain_merge_ms"],
+            "bound_ms": m14["merge_bound_ms"], "bound_by": m14["merge_bound_by"],
+            "stream_ms": m14["merge_stream_ms"], "plain_stream_ms": m14["plain_merge_stream_ms"],
+            "shape": f"G=128 S=4 k'={m14['k_local']} k={m14['k']} "
+                     f"({m14['nodes_per_shard']} nodes a shard)",
+        },
+        {
+            "by_mesh": {
+                name: {k: r[k] for k in (
+                    "merge_ms", "merge_bound_ms", "shards_ms", "shards_bound_ms",
+                    "call_ms", "shard_forms",
+                ) if k in r}
+                for name, r in mesh["closed_form"]["meshes"].items()
+            },
+            "unsharded": mesh["closed_form"]["unsharded"],
+            "schedule": {k: mesh["schedule"][k] for k in ("seconds", "unsharded_seconds",
+                                                         "layouts", "calls")},
+        },
+    ))
+    assert len(kernels) == 12, len(kernels)
+    log(f"[total] {time.perf_counter() - t_start:.1f} s, builds included; by phase "
+        + json.dumps({k: round(v, 1) for k, v in seconds_by_phase.items()}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(

@@ -30,6 +30,15 @@ needs: where the tensors live, and how the device programs are built.
 - **Incremental rescoring** (``incremental_enabled``) resolves the same
   ``NOMAD_TPU_INCREMENTAL`` variable as the JAX package, so one setting
   drives both.
+- **The mesh seam** (``MeshConfig``, ``get_mesh``, ``make_mesh``,
+  ``shard_put``, ``ShardedTensor``): one process drives a ``dp x mp``
+  grid of devices, ``NOMAD_TPU_MESH`` read with the JAX package's
+  grammar (off on the CPU and on one card unless asked for; the CPU
+  counts as 8 devices). A mesh built by hand may name one card in every
+  cell. The closed form and the score matrix launch a kernel per cell;
+  every other kernel takes its sharded inputs gathered onto the lead
+  (cell (0, 0)). Collectives are copies onto the lead, never
+  ``torch.distributed``.
 """
 
 from __future__ import annotations
@@ -160,15 +169,39 @@ def current_stream(device: torch.device) -> int:
 _COUNT_LOCK = threading.Lock()
 
 
-def count_launch(wrapper, attr: str = "launches", form=None) -> None:
+def count_launch(wrapper, attr: str = "launches", form=None, layout=None) -> None:
     """Add one to ``wrapper.<attr>`` (and to ``wrapper.forms[form]`` when
     a form is given) under a lock: ``+=`` on an attribute is a read, an
     add and a write, and two host threads launching at once would lose
-    counts."""
+    counts. ``layout`` files a launch under a mesh layout as well
+    (``mesh_layouts``): "shard", "merge" or "gathered"; a launch made
+    inside ``_gathered`` on this thread is "gathered"."""
+    if layout is None and attr == "launches":
+        layout = getattr(_launch_layout, "name", None)
     with _COUNT_LOCK:
         setattr(wrapper, attr, getattr(wrapper, attr) + 1)
         if form is not None:
             wrapper.forms[form] = wrapper.forms.get(form, 0) + 1
+        if layout is not None:
+            key = (wrapper.__name__, layout)
+            _layouts[key] = _layouts.get(key, 0) + 1
+
+
+# launches under a mesh, by (wrapper name, layout)
+_layouts: dict[tuple[str, str], int] = {}
+# the layout of the launches this thread is making (set by ``_gathered``)
+_launch_layout = threading.local()
+
+
+def mesh_layouts() -> dict[str, int]:
+    """``{"<wrapper>:<layout>": launches}`` since the last reset."""
+    with _COUNT_LOCK:
+        return {f"{name}:{layout}": n for (name, layout), n in sorted(_layouts.items())}
+
+
+def reset_mesh_layouts() -> None:
+    with _COUNT_LOCK:
+        _layouts.clear()
 
 
 def check_launch(status: int, kernel: str) -> None:
@@ -186,6 +219,307 @@ def same_device(tensors, device: torch.device, what: str) -> None:
             raise ValueError(
                 f"{what}: tensor on {t.device}, expected {device}"
             )
+
+
+# -- the mesh seam --------------------------------------------------------------
+#
+# The port of the JAX package's ``utils/backend.py`` mesh seam, single
+# controller: one process drives a ``dp x mp`` grid of devices, "groups"
+# the data-parallel axis over the eval/group lanes and "nodes" the node
+# axis, sharded region-major. A node-sharded tensor is a small carrier
+# (``ShardedTensor``): one block a grid cell, each on its cell's device.
+# Collectives are explicit copies onto the lead device (cell (0, 0)):
+# nothing here uses ``torch.distributed``. The degenerate 1x1 mesh keeps
+# ``get_mesh()`` callable everywhere and every call on one device.
+
+_MESH_ENV = "NOMAD_TPU_MESH"
+
+# devices a CPU mesh may name: the JAX package's test rig forces 8
+# virtual host devices (--xla_force_host_platform_device_count=8)
+CPU_MESH_DEVICES = 8
+
+_mesh_lock = threading.Lock()
+_mesh_config = None  # cached MeshConfig | None (None = not resolved yet)
+
+
+class MeshConfig:
+    """Resolved mesh decision. ``devices`` is the row-major grid of
+    ``dp x mp`` devices when ``active`` (a device may repeat: a mesh
+    built explicitly can put every shard on one card), else None;
+    ``dp``/``mp`` are the groups/nodes axis sizes (1, 1 when
+    degenerate)."""
+
+    __slots__ = ("devices", "dp", "mp", "source")
+
+    def __init__(self, devices, dp: int, mp: int, source: str):
+        self.dp = int(dp)
+        self.mp = int(mp)
+        self.source = source
+        if devices is not None:
+            devices = [resolve_device(d) for d in devices]
+            if len(devices) != self.dp * self.mp:
+                raise ValueError(
+                    f"mesh {self.dp}x{self.mp} needs {self.dp * self.mp} "
+                    f"devices, got {len(devices)}"
+                )
+            if len({d.type for d in devices}) != 1:
+                raise ValueError(f"mesh mixes device types: {devices}")
+        self.devices = devices
+
+    @property
+    def active(self) -> bool:
+        return self.devices is not None
+
+    @property
+    def n_node_shards(self) -> int:
+        return self.mp if self.devices is not None else 1
+
+    def device(self, i: int, j: int) -> torch.device:
+        """The device of grid cell (groups row ``i``, nodes column ``j``)."""
+        return self.devices[i * self.mp + j]
+
+    @property
+    def lead(self) -> torch.device:
+        """Cell (0, 0): where gathered inputs and every result land."""
+        return self.devices[0]
+
+    def describe(self) -> dict:
+        """The self-describing ``mesh`` block ``bench_torch.py`` embeds in
+        its JSON line (per-shard node counts are filled in by the caller
+        that knows the padded bucket)."""
+        return {
+            "active": self.active,
+            "shape": [self.dp, self.mp],
+            "axis_names": ["groups", "nodes"],
+            "source": self.source,
+            "devices": [str(d) for d in self.devices or ()],
+        }
+
+
+def make_mesh(dp: int, mp: int, devices="cuda", source: str = "explicit") -> MeshConfig:
+    """A mesh built by hand: ``devices`` is one device for every cell
+    (the shards share it) or a list of ``dp * mp`` devices, row-major."""
+    if isinstance(devices, (str, torch.device)):
+        devices = [devices] * (dp * mp)
+    if dp * mp == 1:
+        return MeshConfig(None, 1, 1, source)
+    return MeshConfig(list(devices), dp, mp, source)
+
+
+def parse_mesh_spec(spec: str):
+    """``NOMAD_TPU_MESH`` grammar: ``off``/``0``/``none`` (degenerate),
+    ``auto`` (shape from every visible device), or ``dp,mp``. Returns
+    "off", "auto", or a (dp, mp) int tuple; raises ValueError on junk."""
+    s = (spec or "").strip().lower()
+    if s in ("off", "0", "none"):
+        return "off"
+    if s == "auto":
+        return "auto"
+    parts = s.split(",")
+    if len(parts) != 2:
+        raise ValueError(
+            f"bad {_MESH_ENV}={spec!r}: expected 'dp,mp', 'auto', or 'off'"
+        )
+    dp, mp = int(parts[0]), int(parts[1])
+    if dp < 1 or mp < 1:
+        raise ValueError(f"bad {_MESH_ENV}={spec!r}: axes must be >= 1")
+    if mp & (mp - 1):
+        raise ValueError(
+            f"bad {_MESH_ENV}={spec!r}: nodes axis must be a power of two "
+            "(it must divide the padded node bucket)"
+        )
+    return (dp, mp)
+
+
+def auto_mesh_shape(n_devices: int) -> tuple[int, int]:
+    """Shape rule for ``auto``: the largest power-of-two device count,
+    the node axis capped at 8 (the smallest node bucket), the rest on
+    the groups axis. 8 devices -> (2, 4)."""
+    total = 1
+    while total * 2 <= n_devices:
+        total *= 2
+    if total <= 1:
+        return (1, 1)
+    mp = min(8, total // 2) if total > 2 else total
+    return (total // mp, mp)
+
+
+def _resolve_mesh() -> MeshConfig:
+    spec = os.environ.get(_MESH_ENV)
+    cuda = torch.cuda.is_available()
+    n_devices = torch.cuda.device_count() if cuda else CPU_MESH_DEVICES
+    if spec is None:
+        # unset: on only with more than one card. The CPU and a single
+        # card stay degenerate unless the caller opts in.
+        if not cuda or n_devices <= 1:
+            return MeshConfig(None, 1, 1, "default-off")
+        parsed, source = "auto", "auto-detected"
+    else:
+        parsed, source = parse_mesh_spec(spec), f"env:{spec.strip()}"
+    if parsed == "off":
+        return MeshConfig(None, 1, 1, source)
+    dp, mp = auto_mesh_shape(n_devices) if parsed == "auto" else parsed
+    if dp * mp > n_devices:
+        raise ValueError(
+            f"{_MESH_ENV} asks for {dp}x{mp}={dp * mp} devices but only "
+            f"{n_devices} are visible"
+        )
+    if dp * mp == 1:
+        return MeshConfig(None, 1, 1, source)
+    if cuda:
+        devices = [torch.device("cuda", i) for i in range(dp * mp)]
+    else:
+        devices = [torch.device("cpu")] * (dp * mp)
+    return MeshConfig(devices, dp, mp, source)
+
+
+def get_mesh() -> MeshConfig:
+    """The process-wide mesh, resolved once from ``NOMAD_TPU_MESH``.
+    Call ``reset_mesh()`` after changing the variable."""
+    global _mesh_config
+    cfg = _mesh_config
+    if cfg is not None:
+        return cfg
+    with _mesh_lock:
+        if _mesh_config is None:
+            _mesh_config = _resolve_mesh()
+        return _mesh_config
+
+
+def reset_mesh() -> None:
+    global _mesh_config
+    with _mesh_lock:
+        _mesh_config = None
+
+
+class ShardedTensor:
+    """A tensor laid out over a mesh: ``axes`` names, per dimension, the
+    mesh axis it is split over ("groups", "nodes" or None), and
+    ``block(i, j)`` is the part grid cell (i, j) holds, contiguous, on
+    that cell's device. Cells that hold the same part on the same device
+    share one tensor. Never written after it is made."""
+
+    __slots__ = ("cfg", "axes", "shape", "dtype", "_blocks")
+
+    def __init__(self, cfg: MeshConfig, axes: tuple, shape: tuple, dtype, blocks: dict):
+        self.cfg = cfg
+        self.axes = axes
+        self.shape = torch.Size(shape)
+        self.dtype = dtype
+        self._blocks = blocks
+
+    @property
+    def device(self) -> torch.device:
+        return self.cfg.lead
+
+    def split(self, ax: str) -> int:
+        return {"groups": self.cfg.dp, "nodes": self.cfg.mp}[ax] if ax in self.axes else 1
+
+    def block(self, i: int, j: int) -> torch.Tensor:
+        return self._blocks[(i, j)]
+
+    def index(self, i: int, j: int) -> tuple:
+        """The slices of the whole tensor that cell (i, j) holds."""
+        out = []
+        for d, ax in enumerate(self.axes):
+            if ax is None:
+                out.append(slice(None))
+                continue
+            seg = self.shape[d] // self.split(ax)
+            k = i if ax == "groups" else j
+            out.append(slice(k * seg, (k + 1) * seg))
+        return tuple(out)
+
+    def pieces(self):
+        """(cell, slices, tensor) of each distinct block, row-major."""
+        seen = set()
+        for i in range(self.cfg.dp):
+            for j in range(self.cfg.mp):
+                t = self._blocks[(i, j)]
+                if id(t) not in seen:
+                    seen.add(id(t))
+                    yield (i, j), self.index(i, j), t
+
+    def gather(self, device=None) -> torch.Tensor:
+        """The whole tensor on ``device`` (default the lead): each part
+        copied once, from the first cell that holds it."""
+        dev = self.cfg.lead if device is None else device
+        out = torch.empty(self.shape, dtype=self.dtype, device=dev)
+        done = set()
+        for _cell, idx, t in self.pieces():
+            key = tuple((s.start, s.stop) for s in idx)
+            if key not in done:
+                done.add(key)
+                out[idx].copy_(t)
+        return out
+
+    def with_blocks(self, fresh: dict) -> "ShardedTensor":
+        """A new carrier whose parts at the node columns in ``fresh``
+        (column -> whole part, on any device) are replaced; every other
+        cell keeps its tensor."""
+        made: dict = {}
+        blocks = {}
+        for (i, j), t in self._blocks.items():
+            if j in fresh:
+                dev = self.cfg.device(i, j)
+                key = (dev, j)
+                if key not in made:
+                    made[key] = fresh[j].to(dev, copy=True)
+                blocks[(i, j)] = made[key]
+            else:
+                blocks[(i, j)] = t
+        return ShardedTensor(self.cfg, self.axes, self.shape, self.dtype, blocks)
+
+
+def is_sharded(x) -> bool:
+    return isinstance(x, ShardedTensor)
+
+
+def gather(x, device=None):
+    """A ``ShardedTensor`` as one tensor on ``device`` (default its
+    lead); anything else unchanged."""
+    return x.gather(device) if isinstance(x, ShardedTensor) else x
+
+
+def shard_put(x, axes, cfg: MeshConfig | None = None, device="cuda"):
+    """Place ``x`` (numpy or tensor) on the mesh, dimension ``d`` split
+    over the mesh axis ``axes[d]`` ("groups", "nodes" or None; trailing
+    Nones may be left out): the sanctioned upload seam. A degenerate
+    mesh gives a plain tensor on ``device``; an axis whose size does not
+    divide its dimension is not split, and a tensor split over no axis
+    is a plain tensor on the lead — one controller reads it there."""
+    import numpy as np
+
+    if cfg is None:
+        cfg = get_mesh()
+    if isinstance(x, torch.Tensor):
+        t = x
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(x))
+    if not cfg.active:
+        return t.to(resolve_device(device))
+    shape = tuple(t.shape)
+    sizes = {"groups": cfg.dp, "nodes": cfg.mp}
+    use = []
+    for d in range(len(shape)):
+        ax = axes[d] if d < len(axes) else None
+        use.append(ax if ax is not None and shape[d] % sizes[ax] == 0 else None)
+    use = tuple(use)
+    if all(ax is None for ax in use):
+        return t.to(cfg.lead)
+    carrier = ShardedTensor(cfg, use, shape, t.dtype, {})
+    made: dict = {}
+    for i in range(cfg.dp):
+        for j in range(cfg.mp):
+            dev = cfg.device(i, j)
+            idx = carrier.index(i, j)
+            key = (dev, tuple((s.start, s.stop) for s in idx))
+            if key not in made:
+                made[key] = t[idx].to(
+                    device=dev, memory_format=torch.contiguous_format, copy=True
+                )
+            carrier._blocks[(i, j)] = made[key]
+    return carrier
 
 
 # -- the kernel guard ----------------------------------------------------------
@@ -415,24 +749,47 @@ def guarded_call(name: str, device: torch.device, launch, sig=None):
     return out
 
 
-def guarded(name: str):
+def guarded(name: str, sharded=None):
     """Decorator form of ``guarded_call`` for a kernel wrapper whose first
     argument (or ``capacity``) is a tensor on the call's device. The
     decorated function is the module's wrapper: its counters
-    (``launches``, ``forms``) are set on it."""
+    (``launches``, ``forms``) are set on it.
+
+    Inputs laid out over a mesh (``ShardedTensor``) go to ``sharded``
+    (same arguments), behind the same guard on the mesh's lead device;
+    without one, the wrapper's kernel takes them gathered onto the lead
+    (each launch this makes is filed under the "gathered" layout)."""
 
     def wrap(fn):
         @functools.wraps(fn)
         def call(*args, **kwargs):
             first = args[0] if args else kwargs["capacity"]
+            launch = lambda: fn(*args, **kwargs)  # noqa: E731
+            if any(isinstance(a, ShardedTensor) for a in (*args, *kwargs.values())):
+                if sharded is not None:
+                    launch = lambda: sharded(*args, **kwargs)  # noqa: E731
+                else:
+                    launch = lambda: _gathered(fn, first.device, args, kwargs)  # noqa: E731
             return guarded_call(
-                name, first.device, lambda: fn(*args, **kwargs),
-                sig=lambda: _shape_sig(args, kwargs),
+                name, first.device, launch, sig=lambda: _shape_sig(args, kwargs),
             )
 
         return call
 
     return wrap
+
+
+def _gathered(fn, lead, args, kwargs):
+    """``fn`` on its sharded inputs gathered onto ``lead``; the launches it
+    makes on this thread are filed under the "gathered" layout."""
+    args = [gather(a, lead) for a in args]
+    kwargs = {k: gather(v, lead) for k, v in kwargs.items()}
+    prev = getattr(_launch_layout, "name", None)
+    _launch_layout.name = "gathered"
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        _launch_layout.name = prev
 
 
 # -- incremental score-state seam ---------------------------------------------

@@ -61,10 +61,12 @@ true no matter which faults fired:
     store-derived reference tensors *exactly* (bitwise) — per-shard
     incremental refresh (dirty-region tracking) and the
     ``mesh.shard_refresh_drop`` chaos recovery path never leave a stale
-    slice on any device (device/cache.py). The port runs on one card,
-    whose cache has no sharded capacity view, so this capacity half is
-    skipped as the reference skips it with no mesh; the score half
-    (``verify_score_view``) runs.
+    slice on any device (device/cache.py). The capacity half runs
+    whenever the cache holds a sharded capacity view (a node-axis mesh,
+    its shards on one card or several) and is skipped, as the
+    reference skips it, with a degenerate mesh; the score half
+    (``verify_score_view``) runs whenever a score view exists.
+    ``report.info["shard_consistency"]`` says which halves ran.
 ``cp_assignment_conservation``
     every group that entered a CP joint pass (scheduler/cp.py) ended
     exactly one of placed / deferred / failed — the ``nomad.cp.*``
@@ -515,15 +517,17 @@ def check_cluster(
     # Law 12: with a multi-chip mesh active, the device-resident capacity
     # shards (per-shard incremental refresh, device/cache.py) re-gathered
     # to host must equal the store-derived reference bitwise — including
-    # after mesh.shard_refresh_drop recovery. Skipped when no device view
-    # ever materialized (mesh off / single shard): the port's cache keeps
-    # one card's capacity as one tensor and has no sharded view to check.
+    # after mesh.shard_refresh_drop recovery. Skipped when no sharded
+    # device view ever materialized (a degenerate mesh: the cache keeps
+    # the capacity as one tensor).
     cache = getattr(server, "device_cache", None)
+    halves = {"capacity": "skipped", "score": "skipped"}
     verify_device_view = getattr(cache, "verify_device_view", None)
     if verify_device_view is not None:
         mismatches = verify_device_view()
         if mismatches is not None:
             report.checked["shard_consistency"] = True
+            halves["capacity"] = "checked"
             for detail in mismatches:
                 report._fail("shard_consistency", "device_cache", detail)
             report.info["device_cache"] = cache.device_counters()
@@ -537,9 +541,11 @@ def check_cluster(
         score_mismatches = cache.verify_score_view()
         if score_mismatches is not None:
             report.checked["shard_consistency"] = True
+            halves["score"] = "checked"
             for detail in score_mismatches:
                 report._fail("shard_consistency", "score_view", detail)
             report.info["device_cache"] = cache.device_counters()
+    report.info["shard_consistency"] = halves
 
     # -- calibration_sanity ------------------------------------------------
     # Law 14: estimation degrades to declared, never to garbage. Checked

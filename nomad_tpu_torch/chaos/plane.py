@@ -47,10 +47,10 @@ the identical faults.
 
 The port's table, kinds, horizons and schedules are the JAX package's,
 site for site in the same order, so one seed plans the same rows in both.
-``mesh.shard_refresh_drop`` and ``rpc.conn_drop`` stay in the table with
-no seam in the port yet (node-axis sharding and the RPC client come with
-later items): a single-card, single-server run never reaches them, just
-as the reference's never does with no mesh. ``kernel.execute`` and
+``mesh.shard_refresh_drop`` fires in the device cache's per-shard
+capacity refresh (device/cache.py), which runs only under a node-axis
+mesh: a run with a degenerate mesh never reaches it, just as the
+reference's never does. ``kernel.execute`` and
 ``kernel.hang`` sit in the kernel guard (``backend.guarded_call``) that
 every kernel wrapper launches through.
 """

@@ -237,7 +237,9 @@ def _settle(server, defrag: bool) -> None:
         _quiesce(server, SETTLE_TIMEOUT_S)
 
 
-def _drive_workload(server, seed: int, steps: int, defrag: bool) -> dict:
+def _drive_workload(
+    server, seed: int, steps: int, defrag: bool, touch_nodes: int = 0
+) -> dict:
     """Seeded register/scale/deregister stream. The generator's state
     depends ONLY on its rng — a register the cluster rejected (injected
     raft drop) is still remembered as attempted, so the op sequence and
@@ -251,7 +253,11 @@ def _drive_workload(server, seed: int, steps: int, defrag: bool) -> dict:
     the fault sites they hit come in an order that the seed alone
     decides: ops streamed into a busy worker are batched as they happen
     to arrive, and a free defrag thread beside the worker made the
-    order follow the threads' timing."""
+    order follow the threads' timing.
+
+    With ``touch_nodes`` (the fleet's size), each settle point first
+    re-registers one node of the fleet, in turn: no rng draw, so the op
+    stream is the same."""
     rng = random.Random(f"{seed}:workload")
     attempted: list[str] = []
     seq = 0
@@ -262,6 +268,8 @@ def _drive_workload(server, seed: int, steps: int, defrag: bool) -> dict:
         "deregisters": 0,
         "rejected": 0,
     }
+    if touch_nodes:
+        counts["node_touches"] = 0
 
     def _submit(fn):
         try:
@@ -304,6 +312,10 @@ def _drive_workload(server, seed: int, steps: int, defrag: bool) -> dict:
             counts["deregisters"] += 1
         _quiesce(server, SETTLE_TIMEOUT_S)
         if _step % SETTLE_EVERY == SETTLE_EVERY - 1 or _step == steps - 1:
+            if touch_nodes:
+                node = _build_node(counts["node_touches"] % touch_nodes)
+                _submit(lambda: server.register_node(node))
+                counts["node_touches"] += 1
             _settle(server, defrag)
     return counts
 
@@ -404,6 +416,7 @@ def run_chaos(
     incremental: Optional[bool] = None,
     defrag_interval: float = 0.05,
     device="cuda",
+    node_touches: bool = False,
 ) -> ChaosRun:
     """One full chaos cycle: boot, inject, quiesce, check, tear down.
 
@@ -421,7 +434,13 @@ def run_chaos(
     that never comes), so that no cycle races the worker.
 
     ``device`` is the server's (``ServerConfig(device=...)``): every
-    worker's kernels and the defrag controller's run there."""
+    worker's kernels and the defrag controller's run there.
+
+    ``node_touches`` re-registers one node at every settle point, so the
+    device cache refreshes node rows during the run: under a node-axis
+    mesh that is the per-shard capacity refresh and its
+    ``mesh.shard_refresh_drop`` site. Off by default: the workload has no
+    node op, and its canonical reports stay as they were."""
     import os
 
     from .. import backend as _backend
@@ -497,7 +516,8 @@ def run_chaos(
         install(plane)
         try:
             workload = _drive_workload(
-                server, seed, steps, defrag=defrag_interval > 0
+                server, seed, steps, defrag=defrag_interval > 0,
+                touch_nodes=nodes if node_touches else 0,
             )
             quiesced = _quiesce(server, quiesce_timeout)
         finally:

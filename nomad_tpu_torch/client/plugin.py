@@ -189,6 +189,11 @@ class PluginDriverClient(TaskDriver):
         self._next_id = 0
         self._fingerprint = False
         self._handshake_rest = b""
+        # plugins whose output has ended (the reader saw EOF): dying, even
+        # while the kernel does not report them exited yet
+        self._ended: set = set()
+        # task handle id -> the plugin process that started or recovered it
+        self._holders: dict = {}
 
     def default_argv(self, name: str) -> list[str]:
         """The plugin host's command line: this package's launcher."""
@@ -198,7 +203,14 @@ class PluginDriverClient(TaskDriver):
     def _ensure_plugin(self) -> None:
         with self._lock:
             if self._proc is not None and self._proc.poll() is None:
-                return
+                if self._proc not in self._ended:
+                    return
+                # its output ended before its exit is visible: reap it and
+                # spawn another, or a request written into its stdin (a
+                # task it started still holds that pipe open) goes unanswered
+                self._proc.kill()
+                self._proc.wait()
+            self._ended.discard(self._proc)
             self._proc = subprocess.Popen(
                 self.default_argv(self.name),
                 stdin=subprocess.PIPE,
@@ -288,6 +300,8 @@ class PluginDriverClient(TaskDriver):
         # this plugin died: fail only the requests issued to IT — a
         # respawned plugin's in-flight requests must survive
         with self._lock:
+            if proc is self._proc:
+                self._ended.add(proc)
             dead = [
                 (rid, evt)
                 for rid, (evt, p) in self._pending.items()
@@ -302,12 +316,27 @@ class PluginDriverClient(TaskDriver):
                 evt.set()
 
     def _call(self, method: str, params: dict, timeout: Optional[float] = None):
+        return self._send(method, params, timeout)[0]
+
+    def _send(self, method: str, params: dict, timeout: Optional[float] = None,
+              held: Optional[str] = None):
+        """(result, the plugin process it went to). With ``held`` (a task
+        handle's id) the request goes only to the plugin that started or
+        recovered that task: a respawned plugin does not hold it, so the
+        caller gets a DriverError and recovers the task through it first."""
         self._ensure_plugin()
         with self._lock:
             self._next_id += 1
             rid = self._next_id
+            if self._proc in self._ended:
+                # it died after _ensure_plugin looked: no reader is left
+                # to answer
+                raise DriverError("driver plugin exited")
+            if held is not None and self._holders.get(held, self._proc) is not self._proc:
+                raise DriverError("driver plugin exited")
+            proc = self._proc
             evt = threading.Event()
-            self._pending[rid] = (evt, self._proc)
+            self._pending[rid] = (evt, proc)
             try:
                 self._proc.stdin.write(
                     json.dumps({"id": rid, "method": method, "params": params})
@@ -320,12 +349,16 @@ class PluginDriverClient(TaskDriver):
         if not evt.wait(timeout):
             with self._lock:
                 self._pending.pop(rid, None)
-            return None  # caller-visible timeout (wait() contract)
+            return None, proc  # caller-visible timeout (wait() contract)
         with self._lock:
             msg = self._results.pop(rid)
         if "error" in msg:
             raise DriverError(msg["error"])
-        return msg["result"]
+        return msg["result"], proc
+
+    def _hold(self, handle_id: str, proc) -> None:
+        with self._lock:
+            self._holders[handle_id] = proc
 
     def close(self) -> None:
         with self._lock:
@@ -361,7 +394,7 @@ class PluginDriverClient(TaskDriver):
 
     def start(self, task, env, task_dir) -> TaskHandle:
         res = getattr(task, "resources", None)
-        result = self._call(
+        result, proc = self._send(
             "start",
             {
                 "task_name": task.name,
@@ -376,14 +409,17 @@ class PluginDriverClient(TaskDriver):
                 else {},
             },
         )
-        return _handle_from_wire(result)
+        handle = _handle_from_wire(result)
+        self._hold(handle.id, proc)
+        return handle
 
     def wait(self, handle, timeout=None):
         # no host-side deadline beyond the caller's: the plugin blocks
-        result = self._call(
+        result, _ = self._send(
             "wait",
             {"handle": _handle_to_wire(handle), "timeout": timeout},
             timeout=None if timeout is None else timeout + 5.0,
+            held=handle.id,
         )
         if result is None:
             return None
@@ -402,7 +438,7 @@ class PluginDriverClient(TaskDriver):
 
     def recover(self, handle: TaskHandle) -> bool:
         try:
-            result = self._call(
+            result, proc = self._send(
                 "recover", {"handle": _handle_to_wire(handle)}, timeout=10.0
             )
         except DriverError:
@@ -410,6 +446,7 @@ class PluginDriverClient(TaskDriver):
         if not result or not result.get("ok"):
             return False
         handle.meta.update(result["handle"].get("meta") or {})
+        self._hold(handle.id, proc)
         return True
 
 

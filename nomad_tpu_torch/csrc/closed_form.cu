@@ -1072,3 +1072,148 @@ extern "C" int nomad_place_closed_form(
                                                 out_scores);
   return static_cast<int>(cudaGetLastError());
 }
+
+// -- the cross-shard top-k merge ----------------------------------------------
+//
+// Under a node-axis mesh each of S shards runs the closed form above on
+// its contiguous slice of seg nodes and returns its own top k' (k' =
+// min(k, seg * J)): node rows local to the slice and unclamped scores, in
+// the order (clamped score desc, index asc). closed_form_topk_merge makes
+// the global top k from the S * k' candidates of a group, concatenated
+// shard-major, in lax.top_k's order (clamped score desc, then position
+// asc, which is the lowest global index: slices are contiguous and
+// node-major), exactly the reference's _topk_nodes merge.
+//
+// The clamped score of a candidate is not in a shard's output, but it is
+// the prefix minimum of the order keys of the unclamped scores along the
+// shard's list. Proof: the list is sorted by clamped key K, so K_i <=
+// K_{i-1}; the column j - 1 of a pick's node is ranked before it (key at
+// least as large, lower index) and K_i = min(raw_i, K of that entry). If
+// raw_i <= K_{i-1}, that entry's K >= K_{i-1} >= raw_i gives K_i = raw_i
+// (also when the pick is the node's column 0). Else K_i < raw_i, so the
+// pick is not column 0 and K_i is that entry's K >= K_{i-1}: K_i =
+// K_{i-1}. Either way K_i = min(raw_i, K_{i-1}). Entries at -inf (row -1)
+// end every list and keep key(-inf).
+//
+// One block a group: a block-wide min scan writes each shard's keys to
+// `keys`, then each candidate's place is its index in its own list plus,
+// by binary search, the entries of every other list ranked before it
+// (key at least its own in an earlier shard, strictly greater in a later
+// one): the lists are sorted and the (key, position) words unique, so the
+// places are a permutation. A place below k writes the candidate's global
+// row (slice offset added) and its score's bits into the fused [G, 2k]
+// output; places S * k' .. k - 1, where the lists hold fewer than k, are
+// row -1 / -inf.
+
+namespace {
+
+constexpr int kMergeThreads = 256;
+constexpr int kMergeWarps = kMergeThreads / 32;
+constexpr int kMaxShards = 64;
+
+struct MergeIn {
+  const int32_t* rows[kMaxShards];  // shard s: [G, kl] local node rows
+  const float* scores[kMaxShards];  // shard s: [G, kl] unclamped scores
+};
+
+// Entries of a non-increasing list of n keys that rank before a
+// candidate with key `key`: those >= key when `ties_before`, else > key.
+__device__ __forceinline__ int ranked_before(const uint32_t* list, int n, uint32_t key,
+                                             bool ties_before) {
+  int lo = 0, hi = n;  // the answer lies in [lo, hi]
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const bool before = ties_before ? list[mid] >= key : list[mid] > key;
+    if (before) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kMergeThreads)
+closed_form_topk_merge_kernel(MergeIn in, int S, int kl, int seg, int k, uint32_t* keys,
+                              int32_t* out) {
+  __shared__ uint32_t warp_min[kMergeWarps];
+  __shared__ uint32_t carry;
+  const int g = static_cast<int>(blockIdx.x);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  uint32_t* gkeys = keys + static_cast<size_t>(g) * S * kl;
+
+  // clamped keys: a min scan along each shard's list, a chunk of
+  // kMergeThreads entries at a time, carried across chunks
+  for (int s = 0; s < S; ++s) {
+    const float* sc = in.scores[s] + static_cast<size_t>(g) * kl;
+    if (tid == 0) carry = 0xffffffffu;
+    __syncthreads();
+    for (int base = 0; base < kl; base += kMergeThreads) {
+      const int i = base + tid;
+      uint32_t v = i < kl ? order_key(sc[i]) : 0xffffffffu;
+      for (int o = 1; o < 32; o <<= 1) {
+        const uint32_t u = __shfl_up_sync(kFull, v, o);
+        if (lane >= o) v = min(v, u);
+      }
+      if (lane == 31) warp_min[warp] = v;
+      __syncthreads();
+      uint32_t before = carry;
+      for (int w = 0; w < warp; ++w) before = min(before, warp_min[w]);
+      v = min(v, before);
+      if (i < kl) gkeys[static_cast<size_t>(s) * kl + i] = v;
+      __syncthreads();  // every thread has read carry and warp_min
+      if (tid == kMergeThreads - 1) carry = v;
+      __syncthreads();
+    }
+  }
+
+  int32_t* rows_out = out + static_cast<size_t>(g) * 2 * k;
+  int32_t* bits_out = rows_out + k;
+  const int total = S * kl;
+  for (int p = tid; p < total; p += kMergeThreads) {
+    const int s = p / kl;
+    const int i = p - s * kl;
+    const uint32_t key = gkeys[p];
+    int place = i;
+    for (int t = 0; t < S && place < k; ++t) {
+      if (t != s) place += ranked_before(gkeys + static_cast<size_t>(t) * kl, kl, key, t < s);
+    }
+    if (place < k) {
+      const size_t at = static_cast<size_t>(g) * kl + i;
+      const int32_t row = in.rows[s][at];
+      rows_out[place] = row < 0 ? -1 : row + s * seg;
+      bits_out[place] = __float_as_int(in.scores[s][at]);
+    }
+  }
+  for (int p = total + tid; p < k; p += kMergeThreads) {
+    rows_out[p] = -1;
+    bits_out[p] = __float_as_int(-INFINITY);
+  }
+}
+
+}  // namespace
+
+// C entry point of the merge, bound with ctypes (device/score.py):
+// `rows` and `scores` are host arrays of S device pointers, shard s's
+// [G, kl] candidates; `keys` a u32 scratch of G * S * kl words; `out` the
+// fused i32 [G, 2k] output (rows, then the scores' bits). Launches on
+// `stream`, allocates nothing, returns cudaGetLastError().
+extern "C" int nomad_closed_form_topk_merge(const int32_t* const* rows,
+                                            const float* const* scores, int s, int g, int kl,
+                                            int seg, int k, uint32_t* keys, int32_t* out,
+                                            void* stream) {
+  if (s < 1 || s > kMaxShards || g < 0 || kl < 1 || k < 1 || seg < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (g == 0) return 0;
+  MergeIn in{};
+  for (int i = 0; i < s; ++i) {
+    in.rows[i] = rows[i];
+    in.scores[i] = scores[i];
+  }
+  closed_form_topk_merge_kernel<<<g, kMergeThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      in, s, kl, seg, k, keys, out);
+  return static_cast<int>(cudaGetLastError());
+}

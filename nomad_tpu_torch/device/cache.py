@@ -15,21 +15,29 @@ Full rebuilds happen only when the journal can't cover the interval, a
 node disappears or changes class/datacenter (representative-node
 semantics would go stale), or the padded node bucket overflows.
 
-The port carries the journal-driven row refresh, with the capacity
-tensor moved to the card once per layout generation (and again only when
-a refresh rewrote capacity rows), and the incremental rescoring of the
-reference (``NOMAD_TPU_INCREMENTAL``): the pass's ``used`` stays on the
-device as immutable generations behind ``score_view``, which serves the
-resident tensor when no row's bytes changed. One card is one shard, so a
-dirty pass uploads the whole tensor, as the reference does on a
-degenerate mesh, and counts one patch of its dirty rows;
-``score_commit`` waits on a CUDA event recorded after that upload, never
-on the whole device.
+The port carries the journal-driven row refresh and the incremental
+rescoring of the reference (``NOMAD_TPU_INCREMENTAL``): the pass's
+``used`` stays on the device as immutable generations behind
+``score_view``, which serves the resident tensor when no row's bytes
+changed; ``score_commit`` waits on the CUDA events recorded after a
+generation's upload, never on the whole device.
 
-A dropped patch (chaos site ``cache.score_refresh_drop``) is recovered by
-a whole rebuild on the same access. Left for a later item: the mesh half
-(``verify_device_view``, the dirty regions and per-shard capacity,
-ROADMAP A13; ``device_counters`` reports their counters as 0).
+Without a mesh the capacity tensor moves to the card once per layout
+generation, and again only when a refresh rewrote capacity rows; a dirty
+``used`` pass uploads the whole tensor, as the reference does on a
+degenerate mesh, and counts one patch of its dirty rows. Under a
+node-axis mesh (``mesh=``, default the process mesh) both views are laid
+out over the mesh's node axis (``backend.ShardedTensor``): a node update
+marks its region dirty and re-uploads only the shards holding that
+region's rows (``shard_uploads``; ``full_uploads`` counts the whole
+uploads), a dirty ``used`` pass re-uploads only the shards holding dirty
+rows, and clean shards keep their tensors. ``verify_device_view`` and
+``verify_score_view`` copy every shard back and compare it bitwise
+(invariant law 12).
+
+A dropped refresh (chaos sites ``mesh.shard_refresh_drop`` and
+``cache.score_refresh_drop``) is recovered by a whole upload on the same
+access.
 """
 
 from __future__ import annotations
@@ -41,7 +49,7 @@ import numpy as np
 import torch
 
 from ..structs.resources import node_comparable_capacity
-from ..backend import incremental_enabled, resolve_device
+from ..backend import get_mesh, incremental_enabled, is_sharded, resolve_device, shard_put
 from .flatten import ClusterTensors, flatten_cluster
 
 
@@ -82,13 +90,14 @@ class ScoreState:
     ``score_commit`` swaps staged → committed at the merge point.
     ``used_host`` is the exact bytes on device — the dirty-row diff and
     ``verify_score_view`` both compare against it bitwise. ``fence`` is
-    the CUDA event recorded after the generation's upload (None on the
-    CPU)."""
+    the CUDA events recorded after the generation's upload, one a card
+    it went to (empty on the CPU); ``used_dev`` is a ``ShardedTensor``
+    under a node-axis mesh."""
 
     __slots__ = ("used_dev", "used_host", "layout_gen", "gen", "fence")
 
     def __init__(self, used_dev, used_host, layout_gen: int, gen: int,
-                 fence=None):
+                 fence=()):
         self.used_dev = used_dev
         self.used_host = used_host
         self.layout_gen = layout_gen
@@ -96,19 +105,46 @@ class ScoreState:
         self.fence = fence
 
 
+def _fences(t) -> list:
+    """CUDA events recorded after ``t``'s upload on the current stream of
+    each card it lies on (none on the CPU)."""
+    devs = {p[2].device for p in t.pieces()} if is_sharded(t) else {t.device}
+    out = []
+    for d in devs:
+        if d.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(d))
+            out.append(ev)
+    return out
+
+
+def _bitwise_problems(view, host: np.ndarray, what: str) -> list[str]:
+    """Each part of the device view (a tensor, or a ``ShardedTensor``'s
+    distinct blocks) copied back and compared bitwise with its rows of
+    ``host``; a line for each part that differs."""
+    parts = view.pieces() if is_sharded(view) else [(None, (slice(None),), view)]
+    out = []
+    for _cell, idx, t in parts:
+        got = t.detach().cpu().numpy()
+        want = host[idx]
+        if got.shape != want.shape or got.tobytes() != want.tobytes():
+            start = idx[0].start or 0
+            out.append(f"{what} rows[{start}:{start + got.shape[0]}] on {t.device}")
+    return out
+
+
 class DeviceStateCache:
     """One per harness; thread-safe. ``tensors(snap)`` returns a
     ClusterTensors at exactly ``snap.index`` whose ``used`` array is a
     private copy (schedulers overlay in-plan stops onto it) and whose
-    ``device_capacity`` is the resident capacity tensor on ``device``."""
+    ``device_capacity`` is the resident capacity: a tensor on ``device``,
+    or under a node-axis mesh (``mesh``, a ``backend.MeshConfig``; None
+    is the process mesh) a ``ShardedTensor`` refreshed per shard."""
 
-    # the mesh half's counters (per-shard capacity refreshes, dirty
-    # regions) stay 0 until node-axis sharding is ported (ROADMAP A13)
-    shard_uploads = 0
-    full_uploads = 0
-
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", mesh=None):
         self.device = resolve_device(device)
+        self._mesh = mesh
+        self.mesh  # noqa: B018  (a mesh led by another device raises here)
         self._lock = threading.Lock()
         self._ct: ClusterTensors | None = None
         # instrumentation: full flattens vs journal-driven refreshes
@@ -118,9 +154,15 @@ class DeviceStateCache:
         self.stale_builds = 0  # older-than-resident snapshots (transient)
         # resident capacity on the device: uploaded once per layout
         # generation, and again when a refresh rewrote capacity rows
-        self._dev_capacity: torch.Tensor | None = None
+        self._dev_capacity = None  # torch.Tensor, or a ShardedTensor
         self._dev_layout_gen = 0
         self._capacity_dirty = False
+        # mesh: dirty REGIONS (region ids are stable across incremental
+        # refreshes; only a full reflatten may re-sort rows) map journal
+        # changes to the node-axis shards that must re-upload
+        self._dirty_regions: set[int] = set()
+        self.shard_uploads = 0  # per-shard (partial) capacity refreshes
+        self.full_uploads = 0  # whole capacity uploads under a mesh
         # score-state persistence (NOMAD_TPU_INCREMENTAL): double-
         # buffered device-resident ``used`` generations. ``_score`` is
         # the committed generation; ``score_view`` stages the next one
@@ -138,12 +180,25 @@ class DeviceStateCache:
         self.score_swaps = 0  # staged → committed generation swaps
         self.pipeline_overlap_ms = 0.0  # commit time hidden behind passes
 
+    @property
+    def mesh(self):
+        """The mesh the device views are laid out over (the one given,
+        else the process mesh); an active mesh's lead must be
+        ``device``. The schedulers build their kernels with it."""
+        cfg = self._mesh if self._mesh is not None else get_mesh()
+        if cfg.active and cfg.lead != self.device:
+            raise ValueError(
+                f"DeviceStateCache on {self.device}: the mesh's lead device "
+                f"is {cfg.lead} ({cfg.source})"
+            )
+        return cfg
+
     # -- public -----------------------------------------------------------
     def tensors(self, snap) -> ClusterTensors:
         with self._lock:
             ct = self._refresh_locked(snap)
             out = replace(ct, used=ct.used.copy())
-            out.device_capacity = self._device_capacity_locked(ct)
+            out.device_capacity = self._device_capacity_locked(ct, self.mesh)
             if incremental_enabled():
                 # the incremental seam the kernels read (device/score.py
                 # used_device): present ⇒ the pass's ``used`` upload may
@@ -158,6 +213,7 @@ class DeviceStateCache:
             self._ct = None
             self._dev_capacity = None
             self._capacity_dirty = False
+            self._dirty_regions.clear()
             self._score = None
             self._score_staged = None
 
@@ -167,7 +223,7 @@ class DeviceStateCache:
             return {
                 "shard_uploads": self.shard_uploads,
                 "full_uploads": self.full_uploads,
-                "dirty_regions": 0,
+                "dirty_regions": len(self._dirty_regions),
                 "score_rows_rescored": self.score_rows_rescored,
                 "score_rows_reused": self.score_rows_reused,
                 "score_patch_uploads": self.score_patch_uploads,
@@ -183,22 +239,47 @@ class DeviceStateCache:
         with self._lock:
             self.pipeline_overlap_ms += max(0.0, float(ms))
 
+    def verify_device_view(self) -> list[str] | None:
+        """Invariant law 12 (shard_consistency) probe: copy every
+        device-resident capacity shard back to the host and compare it
+        *bitwise* with the resident generation's store-derived capacity.
+        Returns None when no sharded view is materialized (no mesh, or
+        never accessed); else a list of mismatch details (empty ==
+        consistent). Pending dirty regions are flushed first, so the
+        comparison sees what the next eval would read; a shard that
+        claims to be clean must match."""
+        with self._lock:
+            ct = self._ct
+            arr = self._dev_capacity
+            if ct is None or not is_sharded(arr):
+                return None
+            if self._dirty_regions:
+                arr = self._device_capacity_locked(ct, arr.cfg)
+            return [
+                f"{p} diverge from store-derived capacity"
+                for p in _bitwise_problems(arr, np.ascontiguousarray(ct.capacity), "capacity")
+            ]
+
     # -- score-state persistence (incremental rescoring) -------------------
-    def score_view(self, ct, used0: np.ndarray):
+    def score_view(self, ct, used0: np.ndarray, cfg=None):
         """Device-resident ``used`` for one scoring pass, bitwise equal
         to ``used0`` — or None when the incremental path is inactive
         (callers upload from scratch, exactly the off-mode path).
 
         Stages the next score-state generation: with no dirty row the
-        pass gets the resident tensor and no bytes travel; otherwise a
-        new generation is uploaded whole (one card is one shard: the
-        reference's degenerate-mesh patch) and counted as one patch of
-        the dirty rows. The staged generation becomes committed at
+        pass gets the resident view and no bytes travel. Otherwise, under
+        an active node-axis mesh ``cfg``, only the shards holding dirty
+        rows re-upload and the clean shards keep their tensors; without
+        one the new generation is uploaded whole (the reference's
+        degenerate-mesh patch) and counted as one patch of the dirty
+        rows. A change of layout (a mesh where there was none, another
+        mesh) rebuilds. The staged generation becomes committed at
         ``score_commit``."""
         if not incremental_enabled():
             return None
         used0 = np.ascontiguousarray(used0, dtype=np.float32)
         layout_gen = getattr(ct, "layout_gen", 0)
+        mesh = cfg if cfg is not None and cfg.active else None
         with self._lock:
             base = self._score_staged or self._score
             n_rows = int(used0.shape[0])
@@ -206,11 +287,13 @@ class DeviceStateCache:
                 base is None
                 or base.layout_gen != layout_gen
                 or base.used_host.shape != used0.shape
+                or (base.used_dev.cfg if is_sharded(base.used_dev) else None)
+                is not (mesh if mesh is not None and n_rows % mesh.mp == 0 else None)
             ):
                 # first access, layout change (full reflatten re-sorts
-                # rows: every cached row is misaligned), or a shape flip
-                # — rebuild the whole score state
-                return self._score_rebuild_locked(used0, layout_gen)
+                # rows: every cached row is misaligned), a shape flip or
+                # another mesh — rebuild the whole score state
+                return self._score_rebuild_locked(used0, layout_gen, mesh)
             dirty = _dirty_rows(base.used_host, used0)
             if dirty.size == 0:
                 self.score_rows_reused += n_rows
@@ -225,34 +308,38 @@ class DeviceStateCache:
                 # a dropped dirty-row refresh must never serve stale
                 # score inputs: recovery is a whole-tensor rebuild on
                 # this access (mesh.shard_refresh_drop discipline)
-                return self._score_rebuild_locked(used0, layout_gen)
+                return self._score_rebuild_locked(used0, layout_gen, mesh)
             self.score_rows_rescored += int(dirty.size)
             self.score_rows_reused += n_rows - int(dirty.size)
-            dev, host, fence = self._upload(used0)
+            dev, host, fence = self._score_patch_locked(base, used0, dirty, mesh)
             self._score_staged = ScoreState(
                 dev, host, layout_gen, base.gen + 1, fence
             )
             self.score_patch_uploads += 1
             return dev
 
-    def _upload(self, used0):
-        """(tensor, mirror, fence) of a new generation. The mirror is a
-        PRIVATE copy of the caller's live ``used``, and so is the tensor:
+    def _upload(self, used0, mesh=None):
+        """(view, mirror, fence) of a new generation. The mirror is a
+        PRIVATE copy of the caller's live ``used``, and so is the view:
         on the CPU ``torch.from_numpy(...).to("cpu")`` aliases its array,
         and a generation must hold the exact bytes it was built from,
-        never track the mirror or the caller. The fence is an event after
-        the upload on the current stream (None on the CPU)."""
+        never track the mirror or the caller. Under ``mesh`` the view is
+        laid out on its node axis (each block a copy). The fence holds
+        events after the upload on the cards it went to."""
         host = used0.copy()
         src = torch.from_numpy(host)
+        if mesh is not None:
+            dev = shard_put(src, ("nodes",), mesh)
+            if not is_sharded(dev) and dev.device.type == "cpu":
+                dev = dev.clone()
+            return dev, host, _fences(dev)
         if self.device.type != "cuda":
-            return src.clone(), host, None
+            return src.clone(), host, []
         dev = src.to(self.device)
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(self.device))
-        return dev, host, ev
+        return dev, host, _fences(dev)
 
-    def _score_rebuild_locked(self, used0, layout_gen: int):
-        dev, host, fence = self._upload(used0)
+    def _score_rebuild_locked(self, used0, layout_gen: int, mesh=None):
+        dev, host, fence = self._upload(used0, mesh)
         base = self._score_staged or self._score
         gen = 1 if base is None else base.gen + 1
         self._score_staged = ScoreState(dev, host, layout_gen, gen, fence)
@@ -260,10 +347,29 @@ class DeviceStateCache:
         self.score_rows_rescored += int(used0.shape[0])
         return dev
 
+    def _score_patch_locked(self, base: ScoreState, used0, dirty, mesh):
+        """(view, mirror, fence) for ``used0`` from ``base``: under a
+        node-axis mesh a new carrier whose shards holding ``dirty`` rows
+        are uploaded afresh around the clean shards' tensors (the
+        capacity protocol); without one a whole upload — there is no
+        partial placement of an unsharded tensor, and the reuse win
+        there is the zero-dirty case."""
+        arr = base.used_dev
+        if mesh is None or not is_sharded(arr):
+            return self._upload(used0)
+        host = used0.copy()
+        seg = host.shape[0] // mesh.mp
+        fresh = {
+            int(j): torch.from_numpy(host[j * seg:(j + 1) * seg])
+            for j in np.unique(dirty // seg)
+        }
+        dev = arr.with_blocks(fresh)
+        return dev, host, _fences(dev)
+
     def score_commit(self) -> None:
         """Swap the staged score-state generation in as committed — the
         double buffer's merge point. The one wait of the pipeline lives
-        here: it waits on the staged generation's CUDA event (its
+        here: it waits on the staged generation's CUDA events (its
         upload), never on the whole device; on the CPU it waits on
         nothing."""
         with self._lock:
@@ -275,8 +381,8 @@ class DeviceStateCache:
                 return  # zero-dirty pass: same generation, no swap
             self._score = staged
             self.score_swaps += 1
-        if staged.fence is not None:
-            staged.fence.synchronize()
+        for ev in staged.fence:
+            ev.synchronize()
 
     def score_abort(self) -> None:
         """Drop the staged generation (a pass that died before commit);
@@ -287,41 +393,84 @@ class DeviceStateCache:
             self._score_staged = None
 
     def verify_score_view(self) -> list[str] | None:
-        """Invariant law 12 (shard_consistency), score half: copy the
-        newest score-state generation back to the host and compare it
-        *bitwise* (uint32 views) against its mirror. One card is one
-        shard. Returns None when no score state is materialized
-        (incremental off, or never accessed); else a list of mismatch
-        details (empty == consistent)."""
+        """Invariant law 12 (shard_consistency), score half: copy every
+        shard of the newest score-state generation back to the host (one
+        card is one shard) and compare it *bitwise* (uint32 views)
+        against its mirror. Returns None when no score state is
+        materialized (incremental off, or never accessed); else a list
+        of mismatch details (empty == consistent)."""
         with self._lock:
             state = self._score_staged or self._score
             if state is None:
                 return None
-            host = state.used_dev.detach().cpu().numpy()
-            want = state.used_host
-            if host.shape != want.shape or not np.array_equal(
-                host.view(np.uint32), want.view(np.uint32)
-            ):
-                return [
-                    f"score rows[0:{host.shape[0]}] on "
-                    f"{state.used_dev.device} diverge bitwise from the "
-                    f"gen-{state.gen} mirror"
-                ]
-            return []
+            return [
+                f"{p} diverge bitwise from the gen-{state.gen} mirror"
+                for p in _bitwise_problems(state.used_dev, state.used_host, "score")
+            ]
 
-    def _device_capacity_locked(self, ct: ClusterTensors) -> torch.Tensor:
+    def _device_capacity_locked(self, ct: ClusterTensors, cfg):
+        """The resident capacity view of generation ``ct``. Under a
+        node-axis mesh that divides the bucket: a ``ShardedTensor`` whose
+        steady-state refreshes re-upload ONLY the shards holding rows of
+        dirty regions (``shard_uploads``); a layout change (full
+        reflatten), another mesh, or a dropped shard refresh (chaos site
+        ``mesh.shard_refresh_drop``) uploads it whole (``full_uploads``).
+        Else one tensor on the device, re-uploaded when a refresh rewrote
+        capacity rows."""
+        mp = cfg.n_node_shards
+        pn = ct.padded_n
+        if mp <= 1 or pn % mp != 0 or ct.region_ids is None:
+            if (
+                self._dev_capacity is None
+                or is_sharded(self._dev_capacity)
+                or self._capacity_dirty
+                or self._dev_layout_gen != ct.layout_gen
+                or tuple(self._dev_capacity.shape) != ct.capacity.shape
+            ):
+                # a private copy: the host array belongs to the generation
+                self._dev_capacity = torch.from_numpy(
+                    np.array(ct.capacity, dtype=np.float32)
+                ).to(self.device)
+                self._dev_layout_gen = ct.layout_gen
+                self._capacity_dirty = False
+                self._dirty_regions.clear()
+            return self._dev_capacity
+        arr = self._dev_capacity
         if (
-            self._dev_capacity is None
-            or self._capacity_dirty
+            not is_sharded(arr)
+            or arr.cfg is not cfg
             or self._dev_layout_gen != ct.layout_gen
-            or tuple(self._dev_capacity.shape) != ct.capacity.shape
+            or tuple(arr.shape) != ct.capacity.shape
         ):
-            # a private copy: the host array belongs to the generation
-            self._dev_capacity = torch.from_numpy(
-                np.array(ct.capacity, dtype=np.float32)
-            ).to(self.device)
-            self._dev_layout_gen = ct.layout_gen
-            self._capacity_dirty = False
+            return self._capacity_whole_locked(ct, cfg)
+        if not self._dirty_regions:
+            return arr
+        from ..chaos.plane import chaos_site
+
+        if chaos_site("mesh.shard_refresh_drop") == "drop":
+            # a dropped shard upload must never serve stale capacity:
+            # recovery is a whole upload on this access
+            return self._capacity_whole_locked(ct, cfg)
+        seg = pn // mp
+        rows = np.flatnonzero(np.isin(ct.region_ids, list(self._dirty_regions)))
+        fresh = {
+            int(j): torch.from_numpy(np.array(ct.capacity[j * seg:(j + 1) * seg], dtype=np.float32))
+            for j in np.unique(rows // seg)
+        }
+        self._dev_capacity = arr.with_blocks(fresh)
+        self._dirty_regions.clear()
+        self._capacity_dirty = False
+        self.shard_uploads += 1
+        return self._dev_capacity
+
+    def _capacity_whole_locked(self, ct: ClusterTensors, cfg):
+        self._dev_capacity = shard_put(
+            np.array(ct.capacity, dtype=np.float32), ("nodes",), cfg
+        )
+        self._dev_layout_gen = ct.layout_gen
+        self._dirty_regions.clear()
+        self._capacity_dirty = False
+        self.full_uploads += 1
         return self._dev_capacity
 
     # -- refresh machinery -------------------------------------------------
@@ -468,6 +617,7 @@ class DeviceStateCache:
                 region_ids[row] = region_vocab.setdefault(
                     _region_name(region_key(node)), len(region_vocab)
                 )
+                self._dirty_regions.add(int(region_ids[row]))
 
         for nid in node_keys:
             row = node_row[nid]
@@ -478,6 +628,8 @@ class DeviceStateCache:
             capacity[row] = node_comparable_capacity(node).to_vector()
             ready[row] = node.ready()
             used[row] = _node_used(snap, nid, dims)
+            if region_ids is not None:
+                self._dirty_regions.add(int(region_ids[row]))
 
         for nid in alloc_nodes:
             if nid in node_keys:

@@ -26,6 +26,13 @@ version, which is what a CPU tensor runs, and a wrapper that launches
 the hand-written kernel on a CUDA tensor (``csrc/closed_form.cu``,
 ``csrc/coupled.cu`` and ``score_triton.py``). A CUDA tensor never runs
 the plain version here: the wrapper launches its kernel or raises.
+
+Under a node-axis mesh (``backend.MeshConfig``; ``PlacementKernel``'s
+``mesh=``) the pass's inputs are laid out over it (``_BATCH_SPECS``).
+The closed form then runs a launch per mesh cell and the cross-shard
+top-k merge (``closed_form_topk_merge``, ``csrc/closed_form.cu``) — the
+reference's hierarchical ``_topk_nodes`` — and the score matrix a launch
+per cell; the coupled kernels take their inputs gathered onto the lead.
 """
 
 from __future__ import annotations
@@ -43,9 +50,13 @@ from ..backend import (
     count_launch,
     cuda_library,
     current_stream,
+    gather,
+    get_mesh,
     guarded,
+    is_sharded,
     resolve_device,
     same_device,
+    shard_put,
 )
 from ..obs.trace import global_tracer as _tracer
 from ..structs.resources import BINPACK_MAX_SCORE
@@ -156,7 +167,10 @@ def component_scores(
     return torch.where(fits, final, -torch.inf), fits
 
 
-@guarded("score_matrix_kernel")
+@guarded(
+    "score_matrix_kernel",
+    sharded=lambda *a, **kw: score_matrix_sharded(*a, **kw),
+)
 def score_matrix(
     capacity,  # f32[N, D]
     used,  # f32[N, D]
@@ -174,7 +188,20 @@ def score_matrix(
     """The dense groups×nodes score matrix — the port of
     ``score_matrix_kernel``: (final f32[G, N], fits bool[G, N]). CPU
     tensors run the plain version; CUDA tensors run the Triton kernel
-    (``score_triton.score_matrix_triton``)."""
+    (``score_triton.score_matrix_triton``). Inputs laid out over a mesh
+    run ``score_matrix_sharded``."""
+    return _score_matrix_one(
+        capacity, used, asks, eligible, job_counts, desired_totals,
+        penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+        algorithm_spread, throughputs,
+    )
+
+
+def _score_matrix_one(
+    capacity, used, asks, eligible, job_counts, desired_totals,
+    penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+    algorithm_spread, throughputs=None, layout=None,
+):
     if capacity.device.type == "cpu":
         return component_scores(
             capacity, used, asks, eligible, job_counts, desired_totals,
@@ -186,8 +213,56 @@ def score_matrix(
     return score_matrix_triton(
         capacity, used, asks, eligible, job_counts, desired_totals,
         penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
-        algorithm_spread, throughputs,
+        algorithm_spread, throughputs, layout=layout,
     )
+
+
+def score_matrix_sharded(
+    capacity, used, asks, eligible, job_counts, desired_totals,
+    penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+    algorithm_spread, throughputs=None,
+):
+    """``score_matrix`` with its inputs laid out over a mesh: a launch per
+    cell on its group slice (where the groups axis divides G) x node
+    slice, on the cell's device. The cells are independent, so the parts
+    are copied into the whole (final, fits) on the mesh's lead with no
+    merge; a node axis the mesh does not divide runs one launch there."""
+    args = (capacity, used, asks, eligible, job_counts, desired_totals,
+            penalty_nodes, affinity_scores, has_affinities, distinct_hosts)
+    cfg = next(x.cfg for x in (*args, throughputs) if is_sharded(x))
+    lead = cfg.lead
+    g, n = asks.shape[0], capacity.shape[0]
+    if n % cfg.mp != 0:
+        return _score_matrix_one(
+            *[gather(x, lead) for x in args], algorithm_spread,
+            gather(throughputs, lead), layout="gathered",
+        )
+    rows_split = cfg.dp if g % cfg.dp == 0 else 1
+    gseg, seg = g // rows_split, n // cfg.mp
+    final = torch.empty((g, n), dtype=torch.float32, device=lead)
+    fits = torch.empty((g, n), dtype=torch.bool, device=lead)
+    axes = [axes for _name, axes in _CLOSED_FORM_AXES[:10]]
+    for i in range(rows_split):
+        gs = slice(i * gseg, (i + 1) * gseg)
+        for j in range(cfg.mp):
+            dev = cfg.device(i, j)
+            ns = slice(j * seg, (j + 1) * seg)
+
+            def part(x, ax):
+                want = tuple(
+                    gs if a == "groups" else ns if a == "nodes" else slice(0, x.shape[d])
+                    for d, a in enumerate(ax)
+                )
+                return _cell_part(x, want, i, j, dev)
+
+            tp = None if throughputs is None else part(throughputs, ("groups", "nodes"))
+            f, ok = _score_matrix_one(
+                *[part(x, ax) for x, ax in zip(args, axes)], algorithm_spread, tp,
+                layout="shard",
+            )
+            final[gs, ns].copy_(f)
+            fits[gs, ns].copy_(ok)
+    return final, fits
 
 
 # -- closed-form greedy ------------------------------------------------------
@@ -397,7 +472,10 @@ def _check_inputs(what: str, want) -> None:
             raise ValueError(f"{what}: {name} must be contiguous")
 
 
-@guarded("place_closed_form_kernel")
+@guarded(
+    "place_closed_form_kernel",
+    sharded=lambda *a, **kw: place_closed_form_sharded(*a, **kw),
+)
 def place_closed_form(
     capacity,  # f32[N, 4] shared
     used0,  # f32[N, 4] shared snapshot usage
@@ -420,7 +498,23 @@ def place_closed_form(
     feasible candidates are −1/−inf; entries in [count, k) are overflow
     candidates for conflict repair. CPU tensors run the plain version;
     CUDA tensors launch ``csrc/closed_form.cu`` in the form
-    ``closed_form_plan`` picks for the shape."""
+    ``closed_form_plan`` picks for the shape. Inputs laid out over a
+    mesh (``ShardedTensor``) run ``place_closed_form_sharded``."""
+    return _closed_form_one(
+        capacity, used0, asks, eligible, job_counts, desired_totals,
+        penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+        slot_caps, algorithm_spread, max_j, k, jitter,
+    )
+
+
+def _closed_form_one(
+    capacity, used0, asks, eligible, job_counts, desired_totals,
+    penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+    slot_caps, algorithm_spread, max_j, k, jitter=None, layout=None,
+):
+    """``place_closed_form`` on one device: the plain version on the
+    CPU, else one launch of the kernel, counted (``layout``: the mesh
+    layout it is filed under, "shard" for a shard's launch)."""
     dev = capacity.device
     if dev.type == "cpu":
         return place_closed_form_plain(
@@ -465,12 +559,196 @@ def place_closed_form(
         current_stream(dev),
     )
     check_launch(status, "place_closed_form")
-    count_launch(place_closed_form, form=blocks)
+    count_launch(place_closed_form, form=blocks, layout=layout)
     return choices, scores
 
 
 place_closed_form.launches = 0
 place_closed_form.forms = {}  # launches by blocks a lane
+
+
+# -- the closed form under a node-axis mesh ------------------------------------
+#
+# Each (groups row i, nodes column j) cell of the mesh runs the closed
+# form on its group slice x node slice, on its device, for its own top
+# k' = min(k, seg * J); the rows' candidates cross to the row's lead and
+# ``closed_form_topk_merge`` (csrc/closed_form.cu) makes the global top k
+# — the reference's hierarchical ``_topk_nodes`` (device/score.py),
+# bit for bit the one-device result.
+
+# (name, axes) of the closed form's inputs, in its argument order
+_CLOSED_FORM_AXES = (
+    ("capacity", ("nodes", None)),
+    ("used0", ("nodes", None)),
+    ("asks", ("groups", None)),
+    ("eligible", ("groups", "nodes")),
+    ("job_counts", ("groups", "nodes")),
+    ("desired_totals", ("groups",)),
+    ("penalty_nodes", ("groups", "nodes")),
+    ("affinity_scores", ("groups", "nodes")),
+    ("has_affinities", ("groups",)),
+    ("distinct_hosts", ("groups",)),
+    ("slot_caps", ("groups", "nodes")),
+)
+
+
+def _order_keys(scores):
+    """The kernels' ``order_key`` (csrc/candidate.cuh) as int64: a larger
+    float gives a larger key, -0 folds onto +0."""
+    u = torch.where(scores == 0, 0.0, scores).view(torch.int32).to(torch.int64)
+    u = u & 0xFFFFFFFF
+    return torch.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u | 0x80000000)
+
+
+def closed_form_topk_merge_plain(rows, scores, seg: int, k: int):
+    """The plain version of ``closed_form_topk_merge``: ``rows`` and
+    ``scores`` are S lists' [G, k'] candidates (node rows local to each
+    shard's slice of ``seg`` nodes, unclamped scores, each list in
+    (clamped desc, index asc) order). A candidate's clamped key is the
+    prefix minimum of the order keys along its list (csrc/closed_form.cu
+    proves it); the global top k orders by it descending, then by
+    position, shard-major. Returns the fused i32 [G, 2k]: global rows,
+    then the scores' bits."""
+    r = torch.stack(rows, dim=1)  # [G, S, k']
+    sc = torch.stack(scores, dim=1)
+    g, s, kl = r.shape
+    keys = torch.cummin(_order_keys(sc), dim=2).values.reshape(g, s * kl)
+    offs = (torch.arange(s, dtype=torch.int32, device=r.device) * seg)[None, :, None]
+    r = torch.where(r >= 0, r + offs, -1).reshape(g, s * kl)
+    sc = sc.reshape(g, s * kl)
+    _, pos = torch.sort(keys, dim=1, descending=True, stable=True)
+    pos = pos[:, :k]
+    fused = torch.empty((g, 2 * k), dtype=torch.int32, device=r.device)
+    fused[:, :k] = -1
+    fused[:, k:] = torch.full((), -torch.inf, device=r.device).view(torch.int32)
+    fused[:, : pos.shape[1]] = torch.gather(r, 1, pos)
+    fused[:, k : k + pos.shape[1]] = torch.gather(sc, 1, pos).view(torch.int32)
+    return fused
+
+
+def _merge_library():
+    lib = cuda_library("closed_form")
+    fn = lib.nomad_closed_form_topk_merge
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def closed_form_topk_merge(rows, scores, seg: int, k: int):
+    """The cross-shard merge of ``place_closed_form_sharded``: the
+    global top k of S lists of closed-form candidates (see
+    ``closed_form_topk_merge_plain``), as the fused i32 [G, 2k] on the
+    device of ``rows[0]``, where every list must lie. CPU tensors run
+    the plain version; CUDA tensors launch ``csrc/closed_form.cu``'s
+    ``closed_form_topk_merge_kernel``. It runs inside the closed form's
+    guard (``place_closed_form_kernel``)."""
+    dev = rows[0].device
+    if dev.type == "cpu":
+        return closed_form_topk_merge_plain(rows, scores, seg, k)
+    g, kl = rows[0].shape
+    for t, dtype in [(t, torch.int32) for t in rows] + [(t, torch.float32) for t in scores]:
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != (g, kl) or not t.is_contiguous():
+            raise ValueError(
+                f"closed_form_topk_merge: candidates must be contiguous {dtype} "
+                f"({g}, {kl}) on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+    s = len(rows)
+    fn = _merge_library()
+    keys = torch.empty((g, s * kl), dtype=torch.int32, device=dev)
+    out = torch.empty((g, 2 * k), dtype=torch.int32, device=dev)
+    row_ptrs = (ctypes.c_void_p * s)(*[t.data_ptr() for t in rows])
+    score_ptrs = (ctypes.c_void_p * s)(*[t.data_ptr() for t in scores])
+    status = fn(
+        row_ptrs, score_ptrs, s, g, kl, seg, k, keys.data_ptr(), out.data_ptr(),
+        current_stream(dev),
+    )
+    check_launch(status, "closed_form_topk_merge")
+    count_launch(closed_form_topk_merge, layout="merge")
+    return out
+
+
+closed_form_topk_merge.launches = 0
+
+
+def _cell_part(x, want, i: int, j: int, dev):
+    """The part ``want`` (a slice per dimension) of input ``x`` for mesh
+    cell (i, j), contiguous on ``dev``: a view of the cell's own block
+    where it holds the part (no copy when it is exactly the block), else
+    cut from the whole tensor."""
+    if is_sharded(x):
+        held = x.index(i, j)
+        rel = []
+        for d, w in enumerate(want):
+            hs = held[d].start or 0
+            he = x.shape[d] if held[d].stop is None else held[d].stop
+            if w.start < hs or w.stop > he:
+                rel = None
+                break
+            rel.append(slice(w.start - hs, w.stop - hs))
+        t = x.block(i, j)[tuple(rel)] if rel is not None else x.gather(dev)[want]
+    else:
+        t = x[want]
+    return t.to(device=dev, memory_format=torch.contiguous_format)
+
+
+def place_closed_form_sharded(
+    capacity, used0, asks, eligible, job_counts, desired_totals,
+    penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+    slot_caps, algorithm_spread, max_j, k, jitter=None,
+):
+    """``place_closed_form`` with its inputs laid out over a mesh (any of
+    them a ``ShardedTensor``): a shard launch per cell on the cell's
+    group slice (the groups axis splits when it divides G) x node slice,
+    each for k' = min(k, seg * J) candidates, then a
+    ``closed_form_topk_merge`` per groups row on the row's lead. Returns
+    (choices i32[G, k], scores f32[G, k]) on the mesh's lead, identical
+    to the one-device call. A node axis the mesh does not divide runs
+    one launch on the lead (gathered)."""
+    args = (capacity, used0, asks, eligible, job_counts, desired_totals,
+            penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+            slot_caps)
+    cfg = next(x.cfg for x in (*args, jitter) if is_sharded(x))
+    lead = cfg.lead
+    g, n = asks.shape[0], capacity.shape[0]
+    if n % cfg.mp != 0:
+        return _closed_form_one(
+            *[gather(x, lead) for x in args], algorithm_spread, max_j, k,
+            gather(jitter, lead), layout="gathered",
+        )
+    rows_split = cfg.dp if g % cfg.dp == 0 else 1
+    gseg, seg = g // rows_split, n // cfg.mp
+    kl = min(k, seg * max_j)
+    fused_rows = []
+    for i in range(rows_split):
+        gs = slice(i * gseg, (i + 1) * gseg)
+        row_lead = cfg.device(i, 0)
+        cand_rows, cand_scores = [], []
+        for j in range(cfg.mp):
+            dev = cfg.device(i, j)
+            ns = slice(j * seg, (j + 1) * seg)
+            parts = []
+            for x, (_name, axes) in zip(args, _CLOSED_FORM_AXES):
+                want = tuple(
+                    gs if ax == "groups" else ns if ax == "nodes" else slice(0, x.shape[d])
+                    for d, ax in enumerate(axes)
+                )
+                parts.append(_cell_part(x, want, i, j, dev))
+            jit = None if jitter is None else _cell_part(jitter, (ns,), i, j, dev)
+            c, sc = _closed_form_one(
+                *parts, algorithm_spread, max_j, kl if cfg.mp > 1 else k, jit,
+                layout="shard",
+            )
+            cand_rows.append(c.to(row_lead))
+            cand_scores.append(sc.to(row_lead))
+        if cfg.mp == 1:
+            fused_rows.append((cand_rows[0], cand_scores[0]))
+            continue
+        fused = closed_form_topk_merge(cand_rows, cand_scores, seg, k)
+        fused_rows.append((fused[:, :k], fused[:, k:].view(torch.float32)))
+    choices = torch.cat([c.to(lead) for c, _ in fused_rows], dim=0)
+    scores = torch.cat([s.to(lead) for _, s in fused_rows], dim=0)
+    return choices, scores
 
 
 # -- coupled placement (spread / distinct_property groups) -------------------
@@ -1056,9 +1334,36 @@ def _shared_batch(asks: list, pn: int) -> dict:
     )
 
 
-def _device_batch(batch: dict, device: torch.device) -> dict:
+# Mesh axes of each batch tensor (the upload seam): group lanes ride the
+# data-parallel "groups" axis, dense per-node columns shard on "nodes";
+# ``shard_put`` leaves any axis the mesh size doesn't divide whole.
+_BATCH_SPECS = {
+    "asks": ("groups",),
+    "eligible": ("groups", "nodes"),
+    "job_counts": ("groups", "nodes"),
+    "desired_totals": ("groups",),
+    "penalty_nodes": ("groups", "nodes"),
+    "affinity_scores": ("groups", "nodes"),
+    "has_affinities": ("groups",),
+    "distinct_hosts": ("groups",),
+    "slot_caps": ("groups", "nodes"),
+    "counts": ("groups",),
+    "block_value_ids": ("groups", None, "nodes"),
+    "block_counts0": ("groups",),
+    "block_desired": ("groups",),
+    "block_caps": ("groups",),
+    "block_weights": ("groups",),
+    "block_kinds": ("groups",),
+    "throughputs": ("groups", "nodes"),
+}
+
+
+def _device_batch(batch: dict, device: torch.device, cfg=None) -> dict:
     """Move a host batch dict onto ``device`` (fresh arrays from
-    ``_shared_batch``, so aliasing them on the CPU is safe)."""
+    ``_shared_batch``, so aliasing them on the CPU is safe), or, under an
+    active mesh ``cfg``, lay it out over the mesh through ``shard_put``."""
+    if cfg is not None and cfg.active:
+        return {k: shard_put(v, _BATCH_SPECS.get(k, ()), cfg) for k, v in batch.items()}
     return {
         k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
         for k, v in batch.items()
@@ -1084,7 +1389,7 @@ class PlacementResult:
     explanation: Optional[object] = None
 
 
-def used_device(cluster, used0, device: torch.device) -> torch.Tensor:
+def used_device(cluster, used0, device: torch.device, cfg=None, *, split=True):
     """The one seam every kernel's per-pass ``used`` upload routes
     through. With incremental rescoring on (the tensors carry a
     ``score_cache``), the DeviceStateCache serves a device-resident
@@ -1093,22 +1398,36 @@ def used_device(cluster, used0, device: torch.device) -> torch.Tensor:
     pre-incremental one. The tensor has the same shape and dtype either
     way, and no kernel writes into it. ``used0`` is the very array the
     kernel reads (padded rows included), so the cache diffs what the
-    kernel sees."""
+    kernel sees. Under an active mesh ``cfg`` the cache's view is laid
+    out on the node axis (a ``ShardedTensor``: the cache patches only the
+    dirty shards), and so is a fresh upload unless ``split`` is False:
+    a kernel that takes its inputs gathered onto the lead gets a fresh
+    upload whole on ``device``."""
     cache = getattr(cluster, "score_cache", None)
     if cache is not None:
-        dev = cache.score_view(cluster, used0)
+        dev = cache.score_view(cluster, used0, cfg)
         if dev is not None:
             return dev
-    return torch.from_numpy(
-        np.ascontiguousarray(used0, dtype=np.float32)
-    ).to(device)
+    used0 = np.ascontiguousarray(used0, dtype=np.float32)
+    if split and cfg is not None and cfg.active:
+        return shard_put(used0, ("nodes",), cfg)
+    return torch.from_numpy(used0).to(device)
 
 
-def capacity_on(cluster, device: torch.device) -> torch.Tensor:
-    """The cluster's f32[N, 4] capacity on ``device``: the
-    DeviceStateCache's resident tensor when one rode along on the tensors
-    and lies there, else a fresh upload."""
+def capacity_on(cluster, device: torch.device, cfg=None, *, split=True):
+    """The cluster's f32[N, 4] capacity on ``device`` — or, under an
+    active mesh ``cfg``, laid out over its node axis: the
+    DeviceStateCache's resident (per-shard refreshed) view when one rode
+    along on the tensors for that device or mesh, else a fresh upload,
+    laid out over ``cfg`` unless ``split`` is False (a kernel that takes
+    its inputs gathered onto the lead gets it whole on ``device``)."""
     dev = cluster.device_capacity
+    if cfg is not None and cfg.active:
+        if is_sharded(dev) and dev.cfg is cfg:
+            return dev
+        if split:
+            return shard_put(np.ascontiguousarray(cluster.capacity, dtype=np.float32),
+                         ("nodes",), cfg)
     if isinstance(dev, torch.Tensor) and dev.device == device:
         return dev
     return torch.from_numpy(
@@ -1125,18 +1444,35 @@ class PlacementKernel:
         self,
         algorithm: str = "binpack",
         force_scan: bool = False,
-        mesh=None,
+        mesh=None,  # backend.MeshConfig override; None = the process mesh
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "nomad_tpu_torch: node-axis sharding over a mesh is not "
-                "ported yet (ROADMAP A13)"
-            )
         self.device = resolve_device(device)
         self.algorithm = algorithm
         self.algorithm_spread = algorithm == "spread"
         self.force_scan = force_scan  # parity testing: disable the fast path
+        self._mesh = mesh
+        if mesh is not None:
+            self.mesh_cfg()
+
+    def mesh_cfg(self):
+        """The mesh this kernel lays its passes out over: the one it was
+        built with, else the process mesh (``backend.get_mesh``). An
+        active mesh's lead must be the kernel's device."""
+        cfg = self._mesh if self._mesh is not None else get_mesh()
+        if cfg.active and cfg.lead != self.device:
+            raise ValueError(
+                f"PlacementKernel on {self.device}: the mesh's lead device is "
+                f"{cfg.lead} ({cfg.source})"
+            )
+        return cfg
+
+    def _n_shards(self, pn: int) -> int:
+        """Node-axis shards of a pass over ``pn`` padded nodes: the mesh's
+        node axis where it divides the bucket, else 1 (a tiny cluster on
+        a big mesh runs on the lead)."""
+        mp = self.mesh_cfg().n_node_shards
+        return mp if mp > 1 and pn % mp == 0 else 1
 
     def place(
         self,
@@ -1240,11 +1576,20 @@ class PlacementKernel:
             # part of the score semantics being explained
             from ..obs.explain import explain_group
 
+            sharded = self.mesh_cfg().n_node_shards > 1
             for a, res in zip(asks, out):
+                cand = None
+                if sharded:
+                    # node axis sharded: rank only the columns the kernel
+                    # surfaced (primary + overflow) — the per-shard top-k
+                    # union holds every global winner
+                    cand = np.unique(np.concatenate([res.node_rows, res.overflow_rows]))
+                    cand = cand[cand >= 0]
                 res.explanation = explain_group(
                     cluster, a, used0,
                     algorithm=self.algorithm,
                     algorithm_spread=self.algorithm_spread,
+                    candidate_rows=cand,
                 )
         return out
 
@@ -1309,10 +1654,16 @@ class PlacementKernel:
         asks = _pad_group_axis(asks, pn)
         batch = _shared_batch(asks, pn)
         dev = self.device
+        cfg = self.mesh_cfg()
+        if self._n_shards(pn) > 1 or cfg.dp > 1:
+            # the mesh's layout: each input split over its cells
+            jitter = None if jitter is None else shard_put(jitter, ("nodes",), cfg)
+        else:
+            cfg = None
         choices_t, scores_t = place_closed_form(
-            capacity_on(cluster, self.device),
-            used_device(cluster, used0, dev),
-            **_device_batch(batch, dev),
+            capacity_on(cluster, self.device, cfg),
+            used_device(cluster, used0, dev, cfg),
+            **_device_batch(batch, dev, cfg),
             algorithm_spread=self.algorithm_spread,
             max_j=max_j,
             k=k,
@@ -1340,9 +1691,13 @@ class PlacementKernel:
         pn = cluster.padded_n
         batch = _shared_batch(asks, pn)
         batch.update(pad_value_blocks([a.blocks for a in asks], pn))
+        cfg = self.mesh_cfg() if self._n_shards(pn) > 1 else None
+        # the coupled kernels take their inputs gathered onto the lead:
+        # the batch goes there whole, and under a node-axis mesh only the
+        # cache's resident capacity and usage views come laid out over it
         out = _device_batch(batch, self.device)
-        out["capacity"] = capacity_on(cluster, self.device)
-        out["used0"] = used_device(cluster, used0, self.device)
+        out["capacity"] = capacity_on(cluster, self.device, cfg, split=False)
+        out["used0"] = used_device(cluster, used0, self.device, cfg, split=False)
         return out
 
     def _lane_counts(self, asks: list, overflow: int, cap: int):

@@ -144,10 +144,11 @@ def _build():
 def score_matrix_triton(
     capacity, used, asks, eligible, job_counts, desired_totals,
     penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
-    algorithm_spread: bool, throughputs=None,
+    algorithm_spread: bool, throughputs=None, layout=None,
 ):
     """Launch the Triton score-matrix kernel on CUDA tensors; returns
-    (final f32[G, N], fits bool[G, N])."""
+    (final f32[G, N], fits bool[G, N]). ``layout``: the mesh layout the
+    launch is filed under ("shard" for a node slice's launch)."""
     dev = capacity.device
     if dev.type != "cuda":
         raise ValueError(f"score_matrix_triton: needs CUDA tensors, got {dev}")
@@ -208,7 +209,7 @@ def score_matrix_triton(
         num_warps=NUM_WARPS,
         enable_fp_fusion=False,
     )
-    count_launch(score_matrix_triton)
+    count_launch(score_matrix_triton, layout=layout)
     return final, fits
 
 

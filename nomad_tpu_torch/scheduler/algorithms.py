@@ -183,30 +183,40 @@ def _normalized_throughputs(ga):
 
 
 def score_groups(ct, asks: list, desired_totals, algorithm_spread: bool = False,
-                 device="cuda"):
+                 device="cuda", mesh=None):
     """Dense score rows of several flattened group asks against one
     cluster snapshot: row i equals ``score_group(ct, asks[i],
     desired_totals[i], algorithm_spread)``. One ``score_matrix`` launch
     over every ask, or two where only some carry a throughput axis (with
     and without it); each input is copied to the device once a launch.
+    Under an active ``mesh`` the inputs are laid out over it and the
+    matrix runs a launch per node slice (``score_matrix_sharded``), read
+    back gathered on the lead.
 
     Returns (finals f32[G, N], fits bool[G, N]) as numpy."""
     import torch
 
-    from ..backend import resolve_device
-    from ..device.score import score_matrix, used_device
+    from ..backend import resolve_device, shard_put
+    from ..device.score import _BATCH_SPECS, capacity_on, score_matrix, used_device
 
     dev = resolve_device(device)
     g, pn = len(asks), ct.capacity.shape[0]
     finals = np.empty((g, pn), dtype=np.float32)
     fits = np.empty((g, pn), dtype=bool)
     tps = [_normalized_throughputs(ga) for ga in asks]
+    cfg = mesh if mesh is not None and mesh.active else None
 
-    def t(x, dtype):
-        return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(dev)
+    def t(x, dtype, name=None):
+        x = np.ascontiguousarray(x, dtype=dtype)
+        if cfg is not None and name is not None:
+            return shard_put(x, _BATCH_SPECS[name], cfg)
+        return torch.from_numpy(x).to(dev)
 
-    capacity = t(ct.capacity, np.float32)
-    used = used_device(ct, np.asarray(ct.used), dev)
+    if cfg is not None:
+        capacity = capacity_on(ct, dev, cfg)
+    else:
+        capacity = t(ct.capacity, np.float32)
+    used = used_device(ct, np.asarray(ct.used), dev, cfg)
     for with_tp in (False, True):
         rows = [i for i, tp in enumerate(tps) if (tp is not None) == with_tp]
         if not rows:
@@ -215,16 +225,16 @@ def score_groups(ct, asks: list, desired_totals, algorithm_spread: bool = False,
         f, ok = score_matrix(
             capacity,
             used,
-            t(np.stack([ga.ask for ga in sub]), np.float32),
-            t(np.stack([ga.eligible for ga in sub]), bool),
-            t(np.stack([ga.job_counts for ga in sub]), np.int32),
-            t([float(max(desired_totals[i], 1)) for i in rows], np.float32),
-            t(np.stack([ga.penalty_nodes for ga in sub]), bool),
-            t(np.stack([ga.affinity_scores for ga in sub]), np.float32),
-            t([ga.has_affinities for ga in sub], bool),
-            t([ga.distinct_hosts for ga in sub], bool),
+            t(np.stack([ga.ask for ga in sub]), np.float32, "asks"),
+            t(np.stack([ga.eligible for ga in sub]), bool, "eligible"),
+            t(np.stack([ga.job_counts for ga in sub]), np.int32, "job_counts"),
+            t([float(max(desired_totals[i], 1)) for i in rows], np.float32, "desired_totals"),
+            t(np.stack([ga.penalty_nodes for ga in sub]), bool, "penalty_nodes"),
+            t(np.stack([ga.affinity_scores for ga in sub]), np.float32, "affinity_scores"),
+            t([ga.has_affinities for ga in sub], bool, "has_affinities"),
+            t([ga.distinct_hosts for ga in sub], bool, "distinct_hosts"),
             bool(algorithm_spread),
-            t(np.stack([tps[i] for i in rows]), np.float32) if with_tp else None,
+            t(np.stack([tps[i] for i in rows]), np.float32, "throughputs") if with_tp else None,
         )
         finals[rows] = f.cpu().numpy()
         fits[rows] = ok.cpu().numpy()
@@ -238,6 +248,7 @@ def score_group(
     algorithm_spread: bool = False,
     explain: bool = False,
     device="cuda",
+    mesh=None,
 ):
     """Dense score row for one flattened group ask — the registry-routed
     wrapper over the port's ``score_matrix`` for matrix consumers
@@ -247,8 +258,11 @@ def score_group(
 
     Returns (finals f32[N], fits bool[N]) as numpy; with ``explain`` the
     return grows a third element, an ``obs.explain.PlacementExplanation``
-    carrying top-k candidates and the feasibility-rejection histogram."""
-    finals, fits = score_groups(ct, [ga], [desired_total], algorithm_spread, device)
+    carrying top-k candidates and the feasibility-rejection histogram.
+    Under an active ``mesh`` the row is scored a node slice a launch."""
+    finals, fits = score_groups(
+        ct, [ga], [desired_total], algorithm_spread, device, mesh=mesh
+    )
     finals, fits = finals[0], fits[0]
     if not explain:
         return finals, fits

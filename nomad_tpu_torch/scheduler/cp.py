@@ -119,21 +119,23 @@ def perturb_prices(pn: int) -> np.ndarray:
 
 
 def build_cp_batch(cluster, asks: list, used_override=None,
-                   lam0=None, device="cuda") -> CpBatch:
+                   lam0=None, device="cuda", mesh=None) -> CpBatch:
     """Score rows come from the registry's score seam on ``device``
     (``score_groups``: every ask of the pass in one score-matrix launch,
     each row what ``score_group`` gives that ask) — the identical finals
     binpack ranks by, so the A/B compares solvers, not scoring functions.
     Scoring runs against the cluster's base usage snapshot; feasibility
     inside the solver is exact against ``used_override`` + committed
-    rounds."""
+    rounds. Under an active ``mesh`` the score matrix runs a launch per
+    node slice."""
     from .algorithms import score_groups
 
     pn = cluster.padded_n
     ask_m = np.stack([a.ask for a in asks]).astype(np.float32)
     counts = np.array([a.count for a in asks], dtype=np.int32)
     finals, fits = score_groups(
-        cluster, asks, [float(a.desired_total) for a in asks], device=device
+        cluster, asks, [float(a.desired_total) for a in asks], device=device,
+        mesh=mesh,
     )
     scores = np.where(fits, finals, np.float32(0.0))
     eligible = np.stack([a.eligible for a in asks]) & fits
@@ -239,12 +241,21 @@ class CpPlacementKernel:
     def __init__(self, force_scan: bool = False, mesh=None, device="cuda"):
         from ..device.score import PlacementKernel
 
-        # the base kernel raises for a mesh (ROADMAP A13) and resolves
-        # the device (raising without CUDA)
+        # the base kernel resolves the device (raising without CUDA) and
+        # the mesh
         self._base = PlacementKernel("binpack", force_scan, mesh=mesh, device=device)
         self.device = self._base.device
         self.algorithm_spread = False
         self.force_scan = force_scan
+
+    def mesh_cfg(self):
+        return self._base.mesh_cfg()
+
+    def _layout(self, cluster):
+        """The mesh a pass lays the score matrix out over, and whose
+        resident capacity and usage views the auction takes gathered onto
+        the lead; or None."""
+        return self.mesh_cfg() if self._base._n_shards(cluster.padded_n) > 1 else None
 
     def _cp_eligible(self, asks: list) -> bool:
         # value blocks (spread / distinct_property) and device slot caps
@@ -269,7 +280,7 @@ class CpPlacementKernel:
             global_metrics.incr("nomad.cp.chaos_perturbs")
         return build_cp_batch(
             cluster, asks, used_override=kwargs.get("used_override"),
-            lam0=lam0, device=self.device,
+            lam0=lam0, device=self.device, mesh=self._layout(cluster),
         )
 
     def place(self, cluster, asks: list, **kwargs):
@@ -281,10 +292,11 @@ class CpPlacementKernel:
         if not self._cp_eligible(asks):
             return self._base.place(cluster, asks, **kwargs)
         batch = self._batch(cluster, asks, kwargs)
+        cfg = self._layout(cluster)
         out = device_cp.cp_place(
             *batch.tensors(
-                self.device, capacity_on(cluster, self.device),
-                used_device(cluster, batch.used, self.device),
+                self.device, capacity_on(cluster, self.device, cfg, split=False),
+                used_device(cluster, batch.used, self.device, cfg, split=False),
             ),
             steps=batch.steps, max_c=batch.max_c,
         )
@@ -430,9 +442,10 @@ class CpGangPlacementKernel(CpPlacementKernel):
             )
         batch = self._batch(cluster, asks, kwargs)
         gi = build_gang_inputs(cluster, asks)
+        cfg = self._layout(cluster)
         common = batch.tensors(
-            self.device, capacity_on(cluster, self.device),
-            used_device(cluster, batch.used, self.device),
+            self.device, capacity_on(cluster, self.device, cfg, split=False),
+            used_device(cluster, batch.used, self.device, cfg, split=False),
         )
         out = device_cp.cp_gang_place_ids(
             *common[:10], *gi.id_tensors(self.device), common[10],

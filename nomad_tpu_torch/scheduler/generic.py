@@ -184,7 +184,10 @@ class GenericScheduler:
         )
         cfg = self.snapshot.scheduler_config()
         self.scheduler_config = cfg
-        self.kernel = make_kernel(cfg.scheduler_algorithm, device=self.device)
+        self.kernel = make_kernel(
+            cfg.scheduler_algorithm, mesh=getattr(self.cache, "mesh", None),
+            device=self.device,
+        )
         wire_throughput_source(self.kernel, cfg)
         self._explain = bool(getattr(cfg, "placement_explanations", True))
 
@@ -296,7 +299,10 @@ class GenericScheduler:
         self.batch = self.batch or evaluation.type == "batch"
         cfg = self.snapshot.scheduler_config()
         self.scheduler_config = cfg
-        self.kernel = make_kernel(cfg.scheduler_algorithm, device=self.device)
+        self.kernel = make_kernel(
+            cfg.scheduler_algorithm, mesh=getattr(self.cache, "mesh", None),
+            device=self.device,
+        )
         wire_throughput_source(self.kernel, cfg)
         self._explain = bool(getattr(cfg, "placement_explanations", True))
         placements = self._start_attempt()

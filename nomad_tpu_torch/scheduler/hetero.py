@@ -42,9 +42,9 @@ to the binpack/spread kernels.
 
 In learned mode (``throughput_source="learned"``) the kernel object
 reads the calibration plane's ThroughputEstimator through
-``obs.calibrate.learned_tp_matrix`` and launches the same kernel. Left
-out of the port, raising where reached: the node-axis mesh (ROADMAP
-A13).
+``obs.calibrate.learned_tp_matrix`` and launches the same kernel. Under
+a node-axis mesh (``mesh=``) capacity and usage are laid out over it and
+the kernel takes them gathered onto the mesh's lead device.
 """
 
 from __future__ import annotations
@@ -402,8 +402,8 @@ class HeteroPlacementKernel:
             raise ValueError(
                 f"unknown throughput source {throughput_source!r}"
             )
-        # the base kernel raises for a mesh (ROADMAP A13) and resolves
-        # the device (raising without CUDA)
+        # the base kernel resolves the device (raising without CUDA) and
+        # the mesh
         self._base = PlacementKernel("binpack", force_scan, mesh=mesh, device=device)
         self.device = self._base.device
         self.policy = policy
@@ -416,6 +416,9 @@ class HeteroPlacementKernel:
         # Declared mode never consults the estimator (bit-identity gate).
         self.throughput_source = throughput_source
         self.estimator = estimator
+
+    def mesh_cfg(self):
+        return self._base.mesh_cfg()
 
     def _learned(self) -> bool:
         return (
@@ -463,10 +466,14 @@ class HeteroPlacementKernel:
             )
             elig_tp = np.where(batch.eligible, batch.tp, np.float32(0.0))
             batch.tpmax = elig_tp.max(axis=1).astype(np.float32)
+        # the kernel takes its inputs gathered onto the lead: under a
+        # node-axis mesh only the cache's resident capacity and usage
+        # views come laid out over it
+        cfg = self.mesh_cfg() if self._base._n_shards(cluster.padded_n) > 1 else None
         choices, choice_tp, _ = hetero_place(
             *batch.tensors(
-                self.device, capacity_on(cluster, self.device),
-                used_device(cluster, batch.used, self.device),
+                self.device, capacity_on(cluster, self.device, cfg, split=False),
+                used_device(cluster, batch.used, self.device, cfg, split=False),
             ),
             policy=self.policy_id,
             steps=batch.steps,

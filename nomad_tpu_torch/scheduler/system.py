@@ -153,7 +153,7 @@ class SystemScheduler:
             )
             scored = score_group(
                 ct, ga, float(max(tg.count, 1)), explain=self._explain,
-                device=self.device,
+                device=self.device, mesh=getattr(self.cache, "mesh", None),
             )
             if self._explain:
                 finals, fits_np, ex = scored

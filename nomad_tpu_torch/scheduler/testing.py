@@ -7,7 +7,8 @@ partial-commit/refresh retry path (:18). The benchmark grid drives this
 same harness (scheduler/benchmarks/benchmarks_test.go).
 
 ``device`` names where the placement kernels run: "cuda" by default
-(raising when CUDA is absent), "cpu" for the plain PyTorch versions.
+(raising when CUDA is absent), "cpu" for the plain PyTorch versions;
+``mesh`` a node-axis mesh whose lead is that device.
 
 ``Harness.process_merged`` runs several service/batch evals as ONE
 batched device pass through ``GenericScheduler``'s multi-eval methods —
@@ -28,9 +29,11 @@ from .scheduler import new_scheduler
 
 
 class Harness:
-    def __init__(self, store: Optional[StateStore] = None, device="cuda"):
+    def __init__(self, store: Optional[StateStore] = None, device="cuda", mesh=None):
         self.store = store or StateStore()
-        self.device_cache = DeviceStateCache(device)
+        # ``mesh`` (a backend.MeshConfig; None is the process mesh) lays
+        # the device views and every placement pass out over its devices
+        self.device_cache = DeviceStateCache(device, mesh=mesh)
         self.device = self.device_cache.device
         self.plans: list[Plan] = []
         self.evals: list[Evaluation] = []

@@ -481,3 +481,53 @@ def test_task_outlives_its_driver_plugin(tmp_path, tasks, monkeypatch):
     assert port == (True, True, "complete", "dead", False,
                     [("Driver Failure", None), ("Terminated", 0)])
     assert ref[:4] == (True, False, "running", "running")
+
+
+# -- C-R13: a task's requests after its driver plugin died ---------------------
+
+
+def test_a_plugin_whose_output_ended_is_replaced(tmp_path, tasks, monkeypatch):
+    """A killed plugin's output ends (its reader sees EOF) before the kernel
+    reports the process exited. The next call spawns a fresh plugin; it is
+    not written into the dying one's stdin, which a task it started still
+    holds open, where it would wait unanswered for its timeout."""
+    d = PORT.plugin.PluginDriverClient("raw_exec")
+    try:
+        h = tasks.add(d.start(sh_task(PORT, "t", "sleep 60"), {}, str(tmp_path)))
+        old = d._proc
+        old.kill()
+        assert wait_until(lambda: old in d._ended, timeout=10)
+        monkeypatch.setattr(old, "poll", lambda: None)  # its exit not visible yet
+        assert d.recover(h)
+        assert d._proc is not old and d._proc.poll() is None
+    finally:
+        d.close()
+
+
+def test_wait_after_a_respawn_asks_for_recovery(tmp_path, tasks):
+    """A wait issued after the task's plugin died goes to no other plugin:
+    the respawned one does not hold the task, so the port's caller gets a
+    DriverError, recovers the task through it and waits again (the task
+    runner's path). The JAX package sends the wait to the new plugin,
+    which answers at once with no exit code while the task still runs."""
+
+    def run(pkg):
+        work = tmp_path / pkg.name
+        work.mkdir()
+        d = pkg.plugin.PluginDriverClient("raw_exec")
+        try:
+            h = tasks.add(d.start(sh_task(pkg, "t", "sleep 1"), {}, str(work)))
+            kill_plugin(d)
+            try:
+                first = ("returned", d.wait(h, timeout=10), alive(h.pid))
+            except pkg.drivers.DriverError:
+                first = ("raised", None, alive(h.pid))
+            if first[0] == "returned":
+                return first
+            return first + (d.recover(h), d.wait(h, timeout=10), alive(h.pid))
+        finally:
+            d.close()
+
+    ref, port = both(run)
+    assert port == ("raised", None, True, True, 0, False)
+    assert ref == ("returned", None, True)

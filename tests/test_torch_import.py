@@ -320,11 +320,14 @@ def test_score_group_raises_without_cuda(monkeypatch):
         score_group(ct, ga, 1)
 
 
-def test_unported_paths_raise_not_implemented():
-    """What is not ported raises naming its ROADMAP item: the mesh
-    (A13), for every algorithm. Learned throughputs (A10's calibrate
-    half) are ported and construct. Every registered algorithm builds its kernel on the device
-    asked for, and the system and sysbatch schedulers construct there."""
+def test_unported_paths_raise_not_implemented(monkeypatch):
+    """Nothing on the placement path is left unported: every registered
+    algorithm builds its kernel on the device asked for and takes a mesh
+    (A13, ported), which ``mesh_cfg()`` returns as given; a mesh whose
+    lead is another device is refused. Learned throughputs (A10's
+    calibrate half) are ported and construct. The system and sysbatch
+    schedulers construct on the device asked for."""
+    from nomad_tpu_torch.backend import make_mesh
     from nomad_tpu_torch.device.score import PlacementKernel
     from nomad_tpu_torch.scheduler import SystemScheduler, new_scheduler
     from nomad_tpu_torch.scheduler.algorithms import available, make_kernel
@@ -339,15 +342,17 @@ def test_unported_paths_raise_not_implemented():
         "cp-pack": CpPlacementKernel, "cp-gang": CpGangPlacementKernel,
     }
     assert sorted(kinds) == available()
+    cfg = make_mesh(2, 4, "cpu")
     for name, kind in kinds.items():
         kern = make_kernel(name, device="cpu")
         assert type(kern) is kind and kern.device == torch.device("cpu")
-        with pytest.raises(NotImplementedError, match="A13"):
-            make_kernel(name, mesh=object(), device="cpu")
+        assert make_kernel(name, mesh=cfg, device="cpu").mesh_cfg() is cfg
     learned = HeteroPlacementKernel("cost", throughput_source="learned", device="cpu")
     assert learned.throughput_source == "learned"
-    with pytest.raises(NotImplementedError, match="A13"):
-        PlacementKernel(mesh=object(), device="cpu")
+    assert PlacementKernel(mesh=cfg, device="cpu").mesh_cfg() is cfg
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh(1, 4, "cuda:0")
     for name in ("system", "sysbatch"):
         sched = new_scheduler(name, None, None, device="cpu")
         assert isinstance(sched, SystemScheduler)
