@@ -308,7 +308,22 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
    cluster of 8 blocks a lane each) and two blocks of 16,384 values (one
    block a lane from global scratch); identical to the plain version, µs
    a step and blocks a lane logged;
-12. a ``[server]`` line with the summaries of "incremental", "batch"
+12. the "analysis" phase (the port's analysis plane on the card):
+   ``python -m nomad_tpu_torch.analysis --json`` as a subprocess (exit
+   0, no new source finding, the baseline's 28 fingerprints all still
+   firing, no kernel finding over the 12 kernels); the kernel fleet
+   (``analysis/kernellint/exercise.py``) twice on the card, the launch
+   counters zeroed before the first run and read after it (each of the
+   12 kernels launched at least once), every recorded call against its
+   plain version on the same inputs (integers exactly, floats within
+   ``MAX_ABS_ERR``), the second run equal to the first as uint32 views,
+   no dtype but float32, int32 and bool/uint8 at any kernel's boundary;
+   a third run inside ``retrace.budget_window()`` starting no build
+   (each kernel's builds and budget logged); ``GET /v1/agent/trace``
+   from an in-process API server whose ``kernel_fingerprints`` covers
+   every kernel launched and equals ``fingerprint_table()``; and the
+   "calib" path's ``added_retraces`` (0);
+13. a ``[server]`` line with the summaries of "incremental", "batch"
    (its kernel ms beside the same evals' 10 calls one by one, and host
    seconds beside the incremental path's first off arm), "plan", "calib",
    "leader" (the drain, each defrag cycle's row, the bench with its
@@ -889,11 +904,7 @@ def check_score_matrix(name, args, spread, tp, timed):
         out["stream_ms"] = cuda_ms(launch)
         out["plain_ms"] = graph_ms(plain)
         out["plain_stream_ms"] = cuda_ms(plain)
-        g, n = args[3].shape
-        t_bytes = (nbytes(*args, tp) + g * n * 5) / HBM_BYTES_PER_S * 1e3
-        t_ops = g * n * SCORE_MATRIX_OPS_PER_CELL / F32_OPS_PER_S * 1e3
-        out["bound_ms"] = max(t_bytes, t_ops)
-        out["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        out["bound_ms"], out["bound_by"] = score_matrix_bound(args, tp)
         log(
             f"[score_matrix:{name}] kernel_ms={out['ms']!r} plain_ms="
             f"{out['plain_ms']!r} (graph replay; back to back on the stream "
@@ -901,6 +912,16 @@ def check_score_matrix(name, args, spread, tp, timed):
             f"{out['bound_ms']!r} ({out['bound_by']})"
         )
     return out
+
+
+def score_matrix_bound(args, tp) -> tuple:
+    """(bound_ms, bound_by) of one score-matrix call: its inputs read once
+    and its outputs (f32 and a byte a cell) written once over the card's
+    memory rate, or its f32 operations over the peak rate."""
+    g, n = args[3].shape
+    t_bytes = (nbytes(*args, tp) + g * n * 5) / HBM_BYTES_PER_S * 1e3
+    t_ops = g * n * SCORE_MATRIX_OPS_PER_CELL / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def score_matrix_inputs(b, dev):
@@ -1711,6 +1732,33 @@ def coupled_steps(name, c, choices):
     return torch.clamp(with_pick + 1, max=total), width
 
 
+def coupled_bound(name, c, choices) -> dict:
+    """The bound of one coupled call ``c`` (its arguments by name) from
+    the steps this run's data made it take (``choices``): the closed-form
+    planes once, then each step's node pass and table update, in f32
+    operations over the peak rate, or its inputs read once and its two
+    outputs written once over the memory rate."""
+    steps, width = coupled_steps(name, c, choices)
+    g, n = c["eligible"].shape
+    nb, nv = c["block_counts0"].shape[1:]
+    passes = 2 if name == "place_spread_opv" else 1
+    picks = int((choices >= 0).sum())
+    ran = int(steps.sum())
+    ops = (
+        (g * n + picks) * CLOSED_FORM_OPS_PER_CANDIDATE
+        + ran * passes * n * (COUPLED_OPS_PER_NODE + COUPLED_OPS_PER_BLOCK * nb)
+        + ran * passes * nb * nv * COUPLED_OPS_PER_TABLE_ENTRY
+    )
+    in_bytes = nbytes(*[v for v in c.values() if isinstance(v, torch.Tensor)])
+    t_bytes = (in_bytes + choices.numel() * 8) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return {
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "steps": steps, "width": width, "picks": picks,
+    }
+
+
 def check_coupled(name, c, timed, label=" (last call of the path)"):
     """One coupled call through the kernel and its plain version on the
     same inputs: choices identical, scores exact; the kernel timed by
@@ -1733,27 +1781,17 @@ def check_coupled(name, c, timed, label=" (last call of the path)"):
     launch = lambda: kernel(**c)  # noqa: E731
     out = {"max_abs_err": err, "choice_mismatches": mismatches, "ms": graph_ms(launch)}
     if timed:
-        steps, width = coupled_steps(name, c, chp)
+        bound = coupled_bound(name, c, chp)
+        steps, width, picks = bound["steps"], bound["width"], bound["picks"]
         g, n = c["eligible"].shape
         nb, nv = c["block_counts0"].shape[1:]
-        passes = 2 if name == "place_spread_opv" else 1
-        picks = int((chp >= 0).sum())
-        ran = int(steps.sum())
-        ops = (
-            (g * n + picks) * CLOSED_FORM_OPS_PER_CANDIDATE
-            + ran * passes * n * (COUPLED_OPS_PER_NODE + COUPLED_OPS_PER_BLOCK * nb)
-            + ran * passes * nb * nv * COUPLED_OPS_PER_TABLE_ENTRY
-        )
-        in_bytes = nbytes(*[v for v in c.values() if isinstance(v, torch.Tensor)])
-        t_bytes = (in_bytes + ch.numel() * 8) / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / F32_OPS_PER_S * 1e3
         run_plain = lambda: plain(**c)  # noqa: E731
         out.update({
             "stream_ms": cuda_ms(launch),
             "plain_ms": graph_ms(run_plain, iters=3),
             "plain_stream_ms": cuda_ms(run_plain, iters=3, warmup=1),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"],
             "steps_per_launch": int(steps.max()),
             "us_per_step": out["ms"] * 1e3 / int(steps.max()),
             "slots_per_step": width,
@@ -4150,7 +4188,11 @@ def calib_path(dev):
     est = report["estimator"]
     assert est["learned_cells"] == est["cell_count"] > 0
     assert launches["hetero_place"] == len(calls) > 0
-    return launches, calls, {"seconds": seconds, "ok": report["ok"], "ab": report["ab"]}
+    assert report["added_retraces"] == 0, report["added_retraces"]
+    return launches, calls, {
+        "seconds": seconds, "ok": report["ok"], "ab": report["ab"],
+        "added_retraces": report["added_retraces"],
+    }
 
 
 def restore_path(dev, h):
@@ -6247,10 +6289,12 @@ def mesh_closed_form(dev, devices, shapes=MESH_SHAPES, fleet=None):
     sm_got = S.score_matrix(*sm_sharded, False, None)
     torch.cuda.synchronize()
     assert same_bits(sm_got, sm_one), "mesh: the sharded score matrix differs"
+    sm_bound, sm_by = score_matrix_bound(sm_args, None)
     out["score_matrix_1x4"] = {
         "shape": f"G={fleet['n_groups']} N={n}", "identical": True,
         "ms": graph_ms(lambda: S.score_matrix(*sm_sharded, False, None)),
         "unsharded_ms": graph_ms(lambda: S.score_matrix(*sm_args, False, None)),
+        "bound_ms": sm_bound, "bound_by": sm_by,
     }
     log("[mesh] score matrix 1x4: " + json.dumps(out["score_matrix_1x4"]))
     return out
@@ -6320,10 +6364,17 @@ def mesh_dryrun(dev, devices, sizes=None):
     assert same_bits(got, one) and same_bits(got, plain), "mesh dryrun: value scan differs"
     assert (got[0] >= 0).all(), "mesh dryrun: a value-scan placement failed"
     gathered = backend.mesh_layouts()
+    bound = coupled_bound(
+        "place_value_scan",
+        dict(t, algorithm_spread=False, max_j=16, max_steps=sz["steps"]), plain[0],
+    )
     out = {"value_scan": {"identical": True, "layouts": gathered,
                           "ms": cuda_ms(lambda: S.place_value_scan(
                               **sharded, algorithm_spread=False, max_j=16,
-                              max_steps=sz["steps"]))}}
+                              max_steps=sz["steps"])),
+                          "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+                          "steps_per_launch": int(bound["steps"].max())}}
+    log("[mesh] dryrun value scan 2x2: " + json.dumps(out["value_scan"], sort_keys=True))
     cf_keys = [name for name, _ax in S._CLOSED_FORM_AXES]
     args = [t[k] for k in cf_keys]
     one_cf = S.place_closed_form(*args, False, 16, 16)
@@ -6549,6 +6600,139 @@ def mesh_path(dev):
         log("mesh: 1 card, shards share cuda:0; distinct-card half not exercised")
     out["seconds"] = time.perf_counter() - t0
     return launches, out
+
+
+def analysis_plain(call):
+    """A recorded kernel call's plain version on the same inputs (a mesh
+    carrier's inputs gathered onto its lead): the wrapper's module's
+    ``<wrapper>_plain``, by the wrapper's argument names."""
+    from nomad_tpu_torch import backend
+    from nomad_tpu_torch.analysis.kernellint import import_fleet
+
+    mod = sys.modules[import_fleet()[call.name].module]
+    plain = getattr(mod, "component_scores" if call.wrapper == "score_matrix"
+                    else f"{call.wrapper}_plain")
+    bound = inspect.signature(getattr(mod, call.wrapper)).bind(*call.args, **call.kwargs)
+    return plain(**{k: backend.gather(v) for k, v in bound.arguments.items()})
+
+
+def outputs_err(got, want, what) -> float:
+    """Integers and masks identical; floats at the same -inf places and
+    within ``MAX_ABS_ERR`` elsewhere. Returns the largest float error."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want), what
+    err = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and g.dtype == w.dtype, (what, i, g.shape, w.shape)
+        if g.dtype.is_floating_point:
+            fin = torch.isfinite(w)
+            assert torch.equal(fin, torch.isfinite(g)) and torch.equal(g[~fin], w[~fin]), (what, i)
+            if fin.any():
+                err = max(err, float((g[fin] - w[fin]).abs().max()))
+        else:
+            assert torch.equal(g, w), f"{what}: output {i} differs from plain"
+    assert err <= MAX_ABS_ERR, f"{what}: {err} from plain"
+    return err
+
+
+def analysis_path(dev, calib) -> dict:
+    """The "analysis" phase, (a) to (e); returns its summary."""
+    from nomad_tpu_torch.analysis import retrace
+    from nomad_tpu_torch.analysis.kernellint import (
+        FLEET, exercise, fingerprint_table, import_fleet, rules,
+    )
+    from nomad_tpu_torch.analysis.kernellint.rules import outputs_equal
+    from nomad_tpu_torch.api.http import HTTPAgent
+    from nomad_tpu_torch.server import Server, ServerConfig
+
+    t_phase = time.perf_counter()
+    out = {"card": card_line()}
+    # (a) the analysis CLI as a user runs it: both halves, on the card
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "nomad_tpu_torch.analysis", "--json"],
+        capture_output=True, text=True, cwd=REPO_DIR, timeout=300,
+    )
+    assert r.returncode == 0, (r.returncode, r.stdout[-4000:], r.stderr[-4000:])
+    cli = json.loads(r.stdout)
+    baseline_path = os.path.join(REPO_DIR, "nomad_tpu_torch", "analysis", "baseline.json")
+    with open(baseline_path) as f:
+        ratcheted = [e["fingerprint"] for e in json.load(f)["entries"]]
+    assert cli["source"]["new"] == [] and cli["source"]["fixed"] == [], cli["source"]
+    assert len(ratcheted) == 28
+    assert cli["kernels"]["new"] == [] and cli["kernels"]["analyzed"] == 12, cli["kernels"]
+    out["cli"] = {
+        "seconds": time.perf_counter() - t0,
+        "source_new": 0, "ratcheted_fingerprints": len(ratcheted),
+        "ratcheted_findings": cli["source"]["ratcheted"],
+        "kernels_analyzed": cli["kernels"]["analyzed"],
+        "kernel_configs": cli["kernels"]["configs"], "kernel_new": 0,
+    }
+    log(f"[analysis] cli {json.dumps(out['cli'], sort_keys=True)}")
+
+    # (b) the fleet on the card, twice: launches, plain versions, bits, dtypes
+    reg = import_fleet()
+    zero_counters()
+    t0 = time.perf_counter()
+    first = exercise.exercise_fleet(dev)
+    torch.cuda.synchronize()
+    fleet_s = time.perf_counter() - t0
+    launches = counters()
+    launches["find_preemption"] += launches.pop(CARRIED)
+    by_kernel = {name: launches[name.removesuffix("_kernel")] for name in FLEET}
+    assert all(n >= 1 for n in by_kernel.values()), by_kernel
+    second = exercise.exercise_fleet(dev)
+    assert [c.name for c in first] == [c.name for c in second]
+    errs, dtype_findings = {}, []
+    for a, b in zip(first, second):
+        assert outputs_equal(a.out, b.out), f"{a.name}: the second run differs"
+        errs[a.name] = max(errs.get(a.name, 0.0),
+                           outputs_err(a.out, analysis_plain(a), f"{a.name} ({a.wrapper})"))
+    for name in FLEET:
+        dtype_findings += rules.check_dtype_discipline(
+            reg[name], [c for c in first + second if c.name == name]
+        )
+    assert dtype_findings == [], [f.render() for f in dtype_findings]
+    out["fleet"] = {
+        "seconds": fleet_s, "calls": len(first), "launches": by_kernel,
+        "max_abs_err": errs, "second_run_identical": True, "dtype_findings": 0,
+    }
+
+    # (c) a third run inside the budget window: no build
+    before = retrace.counts()
+    with retrace.budget_window():
+        exercise.exercise_fleet(dev)
+    after = retrace.counts()
+    window = {k: after.get(k, 0) - before.get(k, 0) for k in after}
+    assert sum(window.values()) == 0, window
+    out["builds"] = retrace.report()
+    out["window_builds"] = sum(window.values())
+    log(f"[analysis] builds against budgets {json.dumps(out['builds'], sort_keys=True)}; "
+        f"in the budget window {out['window_builds']}")
+
+    # (d) the API's fingerprints of the kernels this process launched
+    server = Server(ServerConfig(num_workers=1, device=dev))
+    http = HTTPAgent(server, None, port=0)
+    http.start()
+    try:
+        import urllib.request
+
+        with urllib.request.urlopen(f"{http.address}/v1/agent/trace", timeout=60) as resp:
+            trace = json.loads(resp.read())
+    finally:
+        http.stop()
+        server.shutdown()
+    fps = trace["kernel_fingerprints"]
+    assert set(fps) >= set(FLEET), sorted(fps)
+    assert fps == fingerprint_table(launched_only=True)
+    out["fingerprints"] = fps
+
+    # (e) the calib path's builds beyond its declared run
+    out["calib_added_retraces"] = calib["added_retraces"]
+    assert calib["added_retraces"] == 0, calib
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
 
 
 def find_launches(by_path) -> dict:
@@ -6840,6 +7024,13 @@ def main() -> int:
     # one-block forms
     cluster_phase = coupled_cluster_phase(dev)
     mark("phases 7-11")
+
+    # the "analysis" phase: the analysis CLI on the card, the kernel
+    # fleet twice against its plain versions and inside the build budget
+    # window, and the API's kernel fingerprints
+    analysis = analysis_path(dev, calib)
+    log("[analysis] " + json.dumps(analysis, sort_keys=True))
+    mark("analysis")
 
     def headline(r, shape):
         return {

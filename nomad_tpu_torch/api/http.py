@@ -1710,17 +1710,25 @@ class HTTPAgent:
             return trace
         from ..backend import kernel_profile
 
+        # the source fingerprints of every kernel this process has
+        # launched (analysis/kernellint): lets an operator diff two
+        # agents' device code from their trace surfaces alone. Built from
+        # source bytes (no compile) and best-effort: the flight-recorder
+        # surface must never 500 because a table could not be built, and
+        # {} is then the JAX package's own answer.
+        try:
+            from ..analysis.kernellint import fingerprint_table
+
+            fingerprints = fingerprint_table(launched_only=True)
+        except Exception:  # noqa: BLE001
+            fingerprints = {}
         return {
             "traces": flight_recorder.list(int(query.get("n", 50))),
             "errors": flight_recorder.errors(),
             # the kernel guard's per-kernel table (backend.guarded_call),
             # keyed by the JAX package's kernel names
             "kernels": kernel_profile(),
-            # the JAX package's jaxpr fingerprints; the port's kernels
-            # have no jaxpr and their lint is not ported yet (ROADMAP
-            # A17). {} is the JAX package's own answer when its table
-            # cannot be built.
-            "kernel_fingerprints": {},
+            "kernel_fingerprints": fingerprints,
             # incremental-rescoring accounting (device/cache.py):
             # rows patched vs served resident, generation swaps, and
             # the pipeline-overlap wall time the commit thread hid

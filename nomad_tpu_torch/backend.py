@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -106,13 +107,23 @@ def nvcc_path() -> str:
     return found
 
 
-def _library_path(name: str) -> tuple[Path, Path]:
-    src = CSRC_DIR / f"{name}.cu"
+def library_hash(name: str, csrc: Path | None = None) -> str:
+    """16 hex digits of ``csrc/<name>.cu``, every shared header
+    (``csrc/*.cuh``) and the flags: the build's name, so an edited source
+    or header never loads a stale library, and the kernel lint's
+    fingerprint of it (``csrc`` another tree's sources)."""
+    csrc = CSRC_DIR if csrc is None else csrc
+    src = csrc / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
-    for header in sorted(CSRC_DIR.glob("*.cuh")):
+    for header in sorted(csrc.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
+
+
+def _library_path(name: str) -> tuple[Path, Path]:
+    src = CSRC_DIR / f"{name}.cu"
+    return src, BUILD_DIR / f"lib{name}-{library_hash(name)}.so"
 
 
 def build_all(names=None) -> dict[str, Path]:
@@ -749,7 +760,7 @@ def guarded_call(name: str, device: torch.device, launch, sig=None):
     return out
 
 
-def guarded(name: str, sharded=None):
+def guarded(name: str, sharded=None, build_budget=None, library=None, symbols=()):
     """Decorator form of ``guarded_call`` for a kernel wrapper whose first
     argument (or ``capacity``) is a tensor on the call's device. The
     decorated function is the module's wrapper: its counters
@@ -758,7 +769,13 @@ def guarded(name: str, sharded=None):
     Inputs laid out over a mesh (``ShardedTensor``) go to ``sharded``
     (same arguments), behind the same guard on the mesh's lead device;
     without one, the wrapper's kernel takes them gathered onto the lead
-    (each launch this makes is filed under the "gathered" layout)."""
+    (each launch this makes is filed under the "gathered" layout).
+
+    The wrapper joins the kernel registry (``kernel_registry``) under
+    ``name``, with its build budget (the builds a process may start for
+    it, ``analysis/retrace.py``) and where its device code comes from:
+    ``library`` (``csrc/<library>.cu``) and the exported ``symbols`` it
+    launches, or no library for the Triton kernel."""
 
     def wrap(fn):
         @functools.wraps(fn)
@@ -770,13 +787,142 @@ def guarded(name: str, sharded=None):
                     launch = lambda: sharded(*args, **kwargs)  # noqa: E731
                 else:
                     launch = lambda: _gathered(fn, first.device, args, kwargs)  # noqa: E731
-            return guarded_call(
+            out = guarded_call(
                 name, first.device, launch, sig=lambda: _shape_sig(args, kwargs),
             )
+            _record_call(name, fn.__name__, args, kwargs, out)
+            return out
 
+        _register_kernel(name, call, build_budget, library, symbols, guard=name)
         return call
 
     return wrap
+
+
+def inside_guard(name: str, guard: str, build_budget=None, library=None, symbols=()):
+    """Registers a kernel wrapper that launches only inside another
+    kernel's guarded call (``guard``): the mesh's cross-shard merge runs
+    inside the closed form's. Its calls are recorded like a guarded
+    wrapper's; the breaker, watchdog and profile are the outer guard's."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            _record_call(name, fn.__name__, args, kwargs, out)
+            return out
+
+        _register_kernel(name, call, build_budget, library, symbols, guard=guard)
+        return call
+
+    return wrap
+
+
+# -- the kernel registry --------------------------------------------------------
+#
+# The port of the JAX package's ``traced_jit`` registry: every kernel
+# wrapper, keyed by the JAX package's kernel names, with its build
+# budget and its device code's origin. The kernel lint
+# (``analysis/kernellint``) exercises, fingerprints and audits the fleet
+# through it; ``recording_calls`` hands it every wrapper call (inputs
+# and outputs) made inside the block.
+
+
+@dataclasses.dataclass
+class KernelEntry:
+    name: str  # the JAX package's kernel name (the guard's name)
+    wrappers: list  # the decorated functions registered under it
+    build_budget: int | None  # builds a process may start for it
+    library: str | None  # csrc/<library>.cu; None: the Triton kernel
+    symbols: tuple  # the library's exported launchers it calls
+    guard: str  # the guarded call it launches under
+    called: bool = False  # a wrapper call returned in this process
+
+    @property
+    def module(self) -> str:
+        return self.wrappers[0].__module__
+
+    @property
+    def route(self) -> str:
+        return "triton" if self.library is None else "cuda"
+
+
+_registry_lock = threading.Lock()
+_kernel_registry: dict[str, KernelEntry] = {}
+_recorders: list[list] = []
+
+
+def _register_kernel(name, fn, build_budget, library, symbols, guard) -> None:
+    with _registry_lock:
+        entry = _kernel_registry.get(name)
+        if entry is None:
+            _kernel_registry[name] = KernelEntry(
+                name, [fn], build_budget, library, tuple(symbols), guard,
+            )
+            return
+        # a second wrapper under one name (the gang auction's id form)
+        # adds its symbols; its budget and library are the name's
+        if (build_budget, library) != (entry.build_budget, entry.library):
+            raise ValueError(
+                f"kernel {name}: wrappers disagree on its budget or library"
+            )
+        entry.wrappers.append(fn)
+        entry.symbols = tuple(dict.fromkeys(entry.symbols + tuple(symbols)))
+
+
+def kernel_registry() -> dict[str, KernelEntry]:
+    """The registered kernels, by name (a snapshot)."""
+    with _registry_lock:
+        return dict(_kernel_registry)
+
+
+def build_counts() -> dict[str, int]:
+    """Builds a process has started, per guarded kernel: its calls that
+    started one (``kernel_profile``'s ``traces``)."""
+    return {name: st["traces"] for name, st in kernel_profile().items()}
+
+
+def build_budgets() -> dict[str, int]:
+    with _registry_lock:
+        return {
+            name: e.build_budget for name, e in _kernel_registry.items()
+            if e.build_budget is not None
+        }
+
+
+@dataclasses.dataclass
+class KernelCall:
+    name: str  # the kernel's registry name
+    wrapper: str  # the wrapper function called (a name may have two)
+    args: tuple
+    kwargs: dict
+    out: object
+
+
+@contextlib.contextmanager
+def recording_calls():
+    """Every registered wrapper's calls on any thread inside the block,
+    in order, as ``KernelCall`` (inputs and outputs kept alive)."""
+    calls: list = []
+    with _registry_lock:
+        _recorders.append(calls)
+    try:
+        yield calls
+    finally:
+        with _registry_lock:
+            _recorders.remove(calls)
+
+
+def _record_call(name, wrapper, args, kwargs, out) -> None:
+    entry = _kernel_registry.get(name)
+    if entry is not None and not entry.called:
+        entry.called = True
+    if not _recorders:
+        return
+    call = KernelCall(name, wrapper, tuple(args), dict(kwargs), out)
+    with _registry_lock:
+        for calls in _recorders:
+            calls.append(call)
 
 
 def _gathered(fn, lead, args, kwargs):

@@ -6,10 +6,10 @@ eligibility, alloc status, eval status, operator scheduler-config,
 server members. Talks to the HTTP API via the SDK (never in-process),
 matching the reference CLI's strict HTTP boundary.
 
-The JAX package's ``cli/main.py`` on the port: ``agent -dev`` and
-``chaos run`` take ``--device`` (default ``cuda``; ``cpu`` to ask for the
-CPU), ``version`` reads this package, and ``analyze kernels`` (the jaxpr
-lint) is not ported yet (ROADMAP A17). A command that only speaks HTTP
+The JAX package's ``cli/main.py`` on the port: ``agent -dev``, ``chaos
+run`` and ``analyze kernels`` (the kernel lint, ``analysis/kernellint``)
+take ``--device`` (default ``cuda``; ``cpu`` to ask for the CPU), and
+``version`` reads this package. A command that only speaks HTTP
 imports neither the server nor PyTorch (the scheduler algorithms behind
 ``operator scheduler --algorithm`` load when that flag is given).
 """
@@ -1202,10 +1202,65 @@ def cmd_chaos_run(args) -> int:
 
 
 def cmd_analyze_kernels(args) -> int:
-    """`nomad-tpu analyze kernels` — the JAX package's jaxpr lint over
-    its traced fleet. The port's kernels are CUDA and Triton sources with
-    no jaxpr; their static analysis is not ported yet."""
-    return _fail("analyze kernels is not ported yet (ROADMAP A17)")
+    """`nomad-tpu analyze kernels` — the kernel lint over the port's
+    hand-written fleet (``analysis/kernellint``), on ``--device`` (the
+    card by default; without CUDA it raises unless ``--device cpu``).
+    In-process (not behind the HTTP boundary): the fleet runs where the
+    kernels are importable. Exit 0 when every finding is baselined, 1 on
+    any new finding or failed invariance proof."""
+    from ..analysis.kernellint import engine
+
+    code, new, fixed, reports = engine.run_kernellint(
+        fix_baseline=args.fix_baseline, device=args.device,
+    )
+    diff_report = None
+    if args.diff:
+        from ..analysis.kernellint.diff import prove_all
+
+        diff_report = prove_all(args.device)
+        code = code or (0 if diff_report["ok"] else 1)
+
+    if args.json:
+        print(json.dumps({
+            "kernels": {
+                name: r | {"fingerprints": r["configs"]}
+                for name, r in reports.items()
+            },
+            "new": [
+                f.__dict__ | {"fingerprint": f.fingerprint} for f in new
+            ],
+            "fixed": sorted(fixed),
+            "diff": diff_report,
+        }, indent=2, default=str))
+        return code
+
+    rows = [("Kernel", "Route", "Calls", "Builds", "Budget", "Findings", "Fingerprints")]
+    for name, r in sorted(reports.items()):
+        rows.append((
+            name, r["route"], str(r["calls"]), str(r["builds"]),
+            str(r["build_budget"]), str(r["findings"]),
+            "; ".join(
+                f"{label}: {fp}" for label, fp in sorted(r["configs"].items())
+            ) or "-",
+        ))
+    w = [max(len(r[i]) for r in rows) for i in range(len(rows[0]))]
+    for r in rows:
+        print("  ".join(v.ljust(x) for v, x in zip(r, w)))
+    for f in new:
+        print(f.render())
+    if fixed:
+        print(
+            f"note: {len(fixed)} baselined finding(s) no longer fire — "
+            "run --fix-baseline to tighten the ratchet"
+        )
+    if diff_report is not None:
+        for key in ("explain", "incremental", "mesh"):
+            rep = diff_report[key]
+            print(f"invariant [{'OK' if rep['ok'] else 'FAIL'}] {rep['claim']}")
+    print(
+        f"{len(new)} new finding(s) across {len(reports)} kernel(s)"
+    )
+    return code
 
 
 def cmd_operator_raft_list(args) -> int:
@@ -1799,21 +1854,27 @@ def build_parser() -> argparse.ArgumentParser:
     crun.set_defaults(fn=cmd_chaos_run)
 
     analyze = sub.add_parser(
-        "analyze", help="static analysis over the traced kernel fleet"
+        "analyze", help="static analysis over the hand-written kernel fleet"
     ).add_subparsers(dest="analyze_cmd", required=True)
     akern = analyze.add_parser(
         "kernels",
-        help="the JAX package's jaxpr lint; not ported yet (ROADMAP A17)",
+        help="exercise every kernel twice, run the JXL rules, and print "
+        "the fingerprint table (ratchets vs kernellint/baseline.json)",
     )
     akern.add_argument("--json", action="store_true")
     akern.add_argument(
         "--fix-baseline", action="store_true",
-        help="absorb current findings into the jaxpr baseline and exit 0",
+        help="absorb current findings into the kernel baseline and exit 0",
     )
     akern.add_argument(
         "--diff", action="store_true",
-        help="also run the JXL006 invariance differ (mesh-on/off and "
-        "explain-on/off jaxpr equality, fleet-wide)",
+        help="also run the invariance differ (explain, incremental and "
+        "mesh on/off over the kernels launched)",
+    )
+    akern.add_argument(
+        "--device", default="cuda",
+        help="where the fleet runs: cuda (default) or cpu (the plain "
+        "versions)",
     )
     akern.set_defaults(fn=cmd_analyze_kernels)
 

@@ -153,7 +153,8 @@ def _onehot_ids(oh, what="level_oh"):
     one 1, column 0 (the coordinate-less id) is zero, as ``topo_onehot``
     builds them."""
     bad = (oh < 0) | (oh > 1)
-    if bool(bad.any() | (oh.sum(dim=1) > 1).any() | (oh[:, 0] != 0).any()):
+    # one host sync: the kernel indexes its coordinate tables by these ids
+    if bool(bad.any() | (oh.sum(dim=1) > 1).any() | (oh[:, 0] != 0).any()):  # nta: allow=NTA002
         raise ValueError(f"{what}: not a one-hot with column 0 zeroed")
     return torch.where(oh.any(dim=1), oh.argmax(dim=1), 0).to(torch.int32)
 
@@ -322,7 +323,8 @@ def _check_gang(what, common, gang_args) -> None:
     if len(widths) != 3 or min(widths) < 1:
         raise ValueError(f"{what}: unsupported level widths {tuple(widths)}")
     top = torch.tensor(widths, dtype=torch.int32, device=level_ids.device)
-    if bool(((level_ids < 0) | (level_ids >= top[:, None])).any()):
+    # one host sync: the kernel indexes its coordinate tables by these ids
+    if bool(((level_ids < 0) | (level_ids >= top[:, None])).any()):  # nta: allow=NTA002
         raise ValueError(f"{what}: a level id outside [0, width)")
 
 
@@ -498,7 +500,13 @@ def _auction_call(what, common, steps, max_c, gang_args=None):
     return _AuctionCall(what, common, steps, max_c, gang_args)
 
 
-@guarded("cp_place_kernel")
+@guarded(
+    "cp_place_kernel",
+    # a build budget of 1: the one load of csrc/cp.cu a process makes
+    build_budget=1,
+    library="cp",
+    symbols=("nomad_cp_place",),
+)
 def cp_place(
     capacity,  # f32[N, 4]
     used0,  # f32[N, 4]
@@ -529,7 +537,13 @@ def cp_place(
 cp_place.launches = 0
 
 
-@guarded("cp_gang_place_kernel")
+@guarded(
+    "cp_gang_place_kernel",
+    # a build budget of 1: the one load of csrc/cp.cu a process makes
+    build_budget=1,
+    library="cp",
+    symbols=("nomad_cp_place",),
+)
 def cp_gang_place(
     capacity, used0, asks, counts, eligible, scores, prio, job_counts,
     distinct, jobgrp,
@@ -563,7 +577,13 @@ def cp_gang_place(
 cp_gang_place.launches = 0
 
 
-@guarded("cp_gang_place_kernel")
+@guarded(
+    "cp_gang_place_kernel",
+    # a build budget of 1: the one load of csrc/cp.cu a process makes
+    build_budget=1,
+    library="cp",
+    symbols=("nomad_cp_place",),
+)
 def cp_gang_place_ids(
     capacity, used0, asks, counts, eligible, scores, prio, job_counts,
     distinct, jobgrp, gang, w_rack, w_pod, w_ici,

@@ -267,7 +267,13 @@ def _launch_migrate(inputs, budget, steps):
     return call.outputs
 
 
-@guarded("migrate_plan_kernel")
+@guarded(
+    "migrate_plan_kernel",
+    # a build budget of 1: the one load of csrc/migrate.cu a process makes
+    build_budget=1,
+    library="migrate",
+    symbols=("nomad_migrate_plan",),
+)
 def migrate_plan(
     capacity,  # f32[N, D]
     used0,  # f32[N, D] committed usage (sources NOT pre-freed)

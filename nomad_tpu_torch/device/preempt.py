@@ -265,7 +265,13 @@ _CHOOSE_ARGTYPES = (
 )
 
 
-@guarded("find_preemption_kernel")
+@guarded(
+    "find_preemption_kernel",
+    # a build budget of 1: the one load of csrc/preempt.cu a process makes
+    build_budget=1,
+    library="preempt",
+    symbols=("nomad_find_preemption",),
+)
 def find_preemption(
     capacity,  # f32[N, 4]
     used,  # f32[N, 4] (incl. victims)
@@ -346,7 +352,13 @@ find_preemption.forms = {}
 find_preemption.carried = 0
 
 
-@guarded("choose_preemption_node_kernel")
+@guarded(
+    "choose_preemption_node_kernel",
+    # a build budget of 1: the one load of csrc/preempt.cu a process makes
+    build_budget=1,
+    library="preempt",
+    symbols=("nomad_find_choose_preemption", "nomad_choose_preemption_node"),
+)
 def choose_preemption_node(
     capacity, used, ask, eligible, victim_res, victim_prio, victim_mask
 ):

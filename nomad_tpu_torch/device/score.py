@@ -53,6 +53,7 @@ from ..backend import (
     gather,
     get_mesh,
     guarded,
+    inside_guard,
     is_sharded,
     resolve_device,
     same_device,
@@ -170,6 +171,10 @@ def component_scores(
 @guarded(
     "score_matrix_kernel",
     sharded=lambda *a, **kw: score_matrix_sharded(*a, **kw),
+    # a build budget of 12: Triton compiles one binary per specialization
+    # key (score_triton.py: algorithm_spread x throughputs given x N % 16
+    # == 0 x N == 1, and N == 1 is never a multiple of 16: 2 x 2 x 3)
+    build_budget=12,
 )
 def score_matrix(
     capacity,  # f32[N, D]
@@ -475,6 +480,10 @@ def _check_inputs(what: str, want) -> None:
 @guarded(
     "place_closed_form_kernel",
     sharded=lambda *a, **kw: place_closed_form_sharded(*a, **kw),
+    # a build budget of 1: the one load of csrc/closed_form.cu a process makes
+    build_budget=1,
+    library="closed_form",
+    symbols=("nomad_place_closed_form",),
 )
 def place_closed_form(
     capacity,  # f32[N, 4] shared
@@ -635,6 +644,14 @@ def _merge_library():
     return fn
 
 
+@inside_guard(
+    "closed_form_topk_merge",
+    guard="place_closed_form_kernel",
+    # a build budget of 1: it shares csrc/closed_form.cu's one load
+    build_budget=1,
+    library="closed_form",
+    symbols=("nomad_closed_form_topk_merge",),
+)
 def closed_form_topk_merge(rows, scores, seg: int, k: int):
     """The cross-shard merge of ``place_closed_form_sharded``: the
     global top k of S lists of closed-form candidates (see
@@ -1164,7 +1181,13 @@ def _launch_coupled(what, symbol, lane, blocks, counts, algorithm_spread,
     return choices, scores
 
 
-@guarded("place_value_scan_kernel")
+@guarded(
+    "place_value_scan_kernel",
+    # a build budget of 1: the one load of csrc/coupled.cu a process makes
+    build_budget=1,
+    library="coupled",
+    symbols=("nomad_place_value_scan",),
+)
 def place_value_scan(
     capacity, used0, asks, eligible, job_counts, desired_totals,
     penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
@@ -1196,7 +1219,13 @@ def place_value_scan(
 place_value_scan.launches = 0
 
 
-@guarded("place_spread_chunked_kernel")
+@guarded(
+    "place_spread_chunked_kernel",
+    # a build budget of 1: the one load of csrc/coupled.cu a process makes
+    build_budget=1,
+    library="coupled",
+    symbols=("nomad_place_spread_chunked",),
+)
 def place_spread_chunked(
     capacity, used0, asks, eligible, job_counts, desired_totals,
     penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
@@ -1230,7 +1259,13 @@ def place_spread_chunked(
 place_spread_chunked.launches = 0
 
 
-@guarded("place_spread_opv_kernel")
+@guarded(
+    "place_spread_opv_kernel",
+    # a build budget of 1: the one load of csrc/coupled.cu a process makes
+    build_budget=1,
+    library="coupled",
+    symbols=("nomad_place_spread_opv",),
+)
 def place_spread_opv(
     capacity, used0, asks, eligible, job_counts, desired_totals,
     penalty_nodes, affinity_scores, has_affinities, distinct_hosts,

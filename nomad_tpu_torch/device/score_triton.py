@@ -47,6 +47,8 @@ from ..backend import BUILD_DIR, count_launch, note_compile, same_device
 # Triton kernels may read only constexpr globals
 BLOCK_N = 128
 NUM_WARPS = 4
+# no FMA contraction: each sum rounds as the plain version's does
+ENABLE_FP_FUSION = False
 
 _build_lock = threading.Lock()
 _kernel = None
@@ -141,6 +143,18 @@ def _build():
         return _kernel
 
 
+def specialization_key(algorithm_spread, has_throughputs: bool, n: int) -> tuple:
+    """The key Triton compiles one binary for: the constexprs and the
+    node count's divisibility by 16 (``n == 1`` specializes too)."""
+    return (bool(algorithm_spread), bool(has_throughputs), n % 16 == 0, n == 1)
+
+
+def launched_specializations() -> list[tuple]:
+    """The specialization keys this process has launched, sorted."""
+    with _build_lock:
+        return sorted(_specializations)
+
+
 def score_matrix_triton(
     capacity, used, asks, eligible, job_counts, desired_totals,
     penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
@@ -190,7 +204,7 @@ def score_matrix_triton(
     # Triton compiles one binary per constexpr set and per integer
     # argument's divisibility by 16 (n == 1 specializes too): tell the
     # kernel guard's watchdog that this call may be compiling
-    spec = (bool(algorithm_spread), throughputs is not None, n % 16 == 0, n == 1)
+    spec = specialization_key(algorithm_spread, throughputs is not None, n)
     with _build_lock:
         if spec not in _specializations:
             _specializations.add(spec)
@@ -207,7 +221,7 @@ def score_matrix_triton(
         HAS_TP=throughputs is not None,
         BLOCK=BLOCK_N,
         num_warps=NUM_WARPS,
-        enable_fp_fusion=False,
+        enable_fp_fusion=ENABLE_FP_FUSION,
     )
     count_launch(score_matrix_triton, layout=layout)
     return final, fits

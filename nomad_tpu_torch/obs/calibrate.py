@@ -31,7 +31,8 @@ already measures the sustainable rate. This module closes both loops:
   A/B with throughputs learned ONLINE from span telemetry (declared
   coefficients hidden from the policies) and require the Gavel wins to
   reproduce within tolerance of the declared run, with
-  ``throughput_source=declared`` pinned bit-identical.
+  ``throughput_source=declared`` pinned bit-identical and zero added
+  retraces (builds, ``analysis/retrace.py``).
 
 Like ``flight_recorder`` and ``global_metrics`` there is one
 process-global ``global_table`` / ``global_estimator`` pair; servers
@@ -39,10 +40,9 @@ and kernels share them so learned values observed through one seam are
 visible at every other.
 
 The port's copy differs from the JAX package's in one respect:
-``run_calib_ab`` runs on ``device`` and its report has no
-``added_retraces`` field. Retrace budgets are an XLA notion
-(``analysis/retrace``); the port's counterpart, compile counts per
-kernel specialization, is not ported yet (ROADMAP A17). The chaos site
+``run_calib_ab`` runs on ``device``. Its ``added_retraces`` counts the
+port's "trace", a build a call starts (a library's first load, a new
+Triton specialization; ``analysis/retrace.py``). The chaos site
 ``calib.telemetry_drop`` is live here, as in the reference.
 """
 
@@ -655,8 +655,10 @@ def run_calib_ab(
     true coefficient. Gate: the learned run must reproduce the hetero
     wins (maxmin worst-share lift, makespan reduction) within
     ``tolerance`` of the declared run, the declared mode must stay
-    byte-identical with the estimator in the room. Every pass runs on
+    byte-identical with the estimator in the room, and the learned run
+    must start no build beyond the declared run's. Every pass runs on
     ``device``."""
+    from ..analysis import retrace
     from ..backend import resolve_device
     from ..device.score import PlacementKernel
     from ..scheduler.hetero import (
@@ -717,6 +719,7 @@ def run_calib_ab(
     estimator.detach()
 
     blind = _blind_asks(asks)
+    retrace_before = dict(retrace.counts())
 
     base = PlacementKernel("binpack", device=dev)
     base_results = base.place(ct, asks)
@@ -763,6 +766,12 @@ def run_calib_ab(
             ):
                 declared_identical = False
 
+    retrace_after = dict(retrace.counts())
+    added_retraces = sum(
+        retrace_after.get(k, 0) - retrace_before.get(k, 0)
+        for k in retrace_after
+    )
+
     b = report["binpack"]
     mm = report["policies"]["hetero-maxmin"]
     ms = report["policies"]["hetero-makespan"]
@@ -789,6 +798,7 @@ def run_calib_ab(
         ),
     }
     report["declared_mode_identical"] = declared_identical
+    report["added_retraces"] = added_retraces
     report["ok"] = (
         declared_report["ok"]
         and learned_ab["maxmin_improves_worst_share"]
@@ -796,5 +806,6 @@ def run_calib_ab(
         and report["ab"]["worst_share_within_tolerance"]
         and report["ab"]["makespan_within_tolerance"]
         and declared_identical
+        and added_retraces == 0
     )
     return report

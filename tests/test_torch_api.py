@@ -22,7 +22,8 @@ Two things differ by design and are checked for their own shape:
 ``/v1/agent/trace``'s ``kernels`` (the port's guard table, keyed by the
 reference's kernel names, with the reference's five keys, beside the
 reference's jax profile keyed by module path) with ``kernel_fingerprints``
-(``{}`` on the port, ROADMAP A17), and ``version`` (the port's
+(the port's source fingerprints of the kernels it launched), and
+``version`` (the port's
 ``__version__``). Profiles and thread dumps (``/v1/agent/pprof``) are
 samples of a live process and compare by their keys.
 
@@ -59,6 +60,7 @@ from nomad_tpu.utils.metrics import global_metrics as ref_metrics
 from nomad_tpu_torch import __version__ as port_version
 from nomad_tpu_torch import backend as port_backend
 from nomad_tpu_torch.agent import DevAgent
+from nomad_tpu_torch.analysis.kernellint import fingerprint_table
 from nomad_tpu_torch.api.client import APIException, NomadClient
 from nomad_tpu_torch.api.http import HTTPAgent
 from nomad_tpu_torch.client import fingerprint as port_fp
@@ -415,7 +417,9 @@ def test_agent_self_metrics_and_trace(pair):
     ref_kernels, port_kernels = ref.pop("kernels"), port.pop("kernels")
     ref_fps, port_fps = ref.pop("kernel_fingerprints"), port.pop("kernel_fingerprints")
     assert_same(ref, port, pair.ref, pair.port, "agent trace")
-    assert port_fps == {} and isinstance(ref_fps, dict)
+    assert isinstance(ref_fps, dict)
+    assert port_fps == fingerprint_table(launched_only=True)
+    assert "place_closed_form_kernel" in port_fps
     keys = {"calls", "traces", "total_ms", "last_trace_shape", "recent_traces"}
     assert port_kernels["place_closed_form_kernel"]["calls"] >= 1
     by_short = {k.rsplit(".", 1)[-1]: v for k, v in ref_kernels.items()}

@@ -16,8 +16,8 @@ anchors. Beside them, each package against the other:
   recorder fan-out, learned-mode hetero placements equal the
   reference's (node rows and uint32 scores);
 - ``run_calib_ab`` passes its gate at a small size, and its report
-  equals the reference's less ``added_retraces`` (a jaxpr retrace count,
-  which the port leaves out until ROADMAP A17);
+  equals the reference's, ``added_retraces`` 0 in both (the reference's
+  jaxpr retraces; the port's builds, ``analysis/retrace.py``);
 - the recorder's feeds: the tracer hands completed traces to the flight
   recorder, ``count_swallowed`` rings its error, and a Harness eval rings
   its explanations.
@@ -571,11 +571,12 @@ class TestCalibAB:
         assert port["declared_mode_identical"] is True
 
     def test_report_equals_reference_less_retraces(self, reports):
-        """The port's report is the reference's without ``added_retraces``
-        (an XLA retrace count; the port's compile counts are A17's)."""
+        """The port's report is the reference's, ``added_retraces`` 0 in
+        both (the reference's XLA retraces; the port's builds a call
+        started, ``analysis/retrace.py``)."""
         port, ref = reports
-        assert "added_retraces" not in port
-        assert ref.pop("added_retraces") == 0
+        assert ref["added_retraces"] == 0
+        assert port["added_retraces"] == 0
         assert port == ref
 
     def test_estimator_learned_every_cell(self, reports):

@@ -16,9 +16,10 @@ applies to text: it is exact.
 
 Then ``python -m nomad_tpu_torch.cli agent -dev --device cpu`` runs as a
 subprocess: it serves an HCL ``job run`` to ``complete`` and stops on
-SIGINT. The command tree equals the reference's but for ``analyze
-kernels`` (the jaxpr lint, ROADMAP A17), which the port names and
-refuses; a command that only speaks HTTP starts without PyTorch.
+SIGINT; its ``/v1/agent/trace`` fingerprints the kernels it launched.
+The command tree equals the reference's, ``analyze kernels`` (the port's
+kernel lint) included; a command that only speaks HTTP starts without
+PyTorch.
 """
 
 import argparse
@@ -303,9 +304,9 @@ class _ServerSide:
 # -- the command tree ----------------------------------------------------------
 
 
-# the one reference command the port lacks (the jaxpr lint, ROADMAP A17):
-# it parses as the reference's does, and refuses naming A17
-LACKS = {("analyze", "kernels")}
+# the reference commands the port lacks: none since the kernel lint
+# (``analyze kernels``) was ported
+LACKS = set()
 
 
 def _commands(parser, prefix=()):
@@ -326,12 +327,10 @@ def test_the_port_lacks_only_analyze_kernels(capsys):
     refusing = {cmd for cmd, fn in port.items()
                 if fn is not None and "not ported yet" in inspect.getsource(fn)}
     assert refusing == LACKS
-    for cmd in LACKS:
-        assert port_cli.main(list(cmd)) == 1
-        assert "A17" in capsys.readouterr().err
     agent = port_cli.build_parser().parse_args(["agent", "-dev"])
     assert agent.device == "cuda"
     assert port_cli.build_parser().parse_args(["chaos", "run"]).device == "cuda"
+    assert port_cli.build_parser().parse_args(["analyze", "kernels"]).device == "cuda"
 
 
 def test_http_commands_start_without_torch():
@@ -415,7 +414,9 @@ def test_agent_dev_subprocess_serves_hcl_job_run(tmp_path):
         assert status.returncode == 0 and "web" in status.stdout
         trace = c.get("/v1/agent/trace")
         assert trace["kernels"]["place_closed_form_kernel"]["calls"] >= 1
-        assert trace["kernel_fingerprints"] == {}
+        fps = trace["kernel_fingerprints"]
+        assert set(fps) >= {"place_closed_form_kernel"}
+        assert all(len(fp) == 16 for cfg in fps.values() for fp in cfg.values())
         proc.send_signal(signal.SIGINT)
         out, _ = proc.communicate(timeout=15)
         assert proc.returncode == 0 and "shutting down" in out
