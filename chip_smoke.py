@@ -192,7 +192,18 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
      closed-form call identical to plain. (e) One ``run_chaos`` at the
      "resilience" size with the process mesh 1x4 and
      ``mesh.shard_refresh_drop`` scheduled: law 12's capacity half
-     checked and passing. (f) Distinct cards where there are several,
+     checked and passing. (f) The value scan, the chunked scan and the
+     one-per-value scan alone at (a)'s 131,072 padded nodes (16 groups,
+     250 racks) under 1x4, 2x2 and 2x4: identical to the one-device
+     kernel and to plain, every launch a shard step, merge or apply
+     (counted, none gathered), the call's ms and µs a step beside the
+     one-device kernel's and its bound. (g) The "spread" recipe through
+     ``Harness(mesh=1x4)``, counted apart ("mesh_spread"): the (job,
+     node) counts of the run without a mesh, every coupled launch filed
+     "shard" or "merge", no fallback call; then each mesh kernel of the
+     coupled scans against its plain version on a step of one of its
+     recorded one-per-value calls and of one of its chunked calls
+     (the step loop counts each launch in C, where it launches). (h) Distinct cards where there are several,
      else one line saying they were not exercised;
    - "spread": the JAX package's ``bench.py end_to_end`` node recipe
      (10,000 nodes over 25 racks, ssd on every 4th, every 3rd at
@@ -311,10 +322,10 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
 12. the "analysis" phase (the port's analysis plane on the card):
    ``python -m nomad_tpu_torch.analysis --json`` as a subprocess (exit
    0, no new source finding, the baseline's 28 fingerprints all still
-   firing, no kernel finding over the 12 kernels); the kernel fleet
+   firing, no kernel finding over the 15 kernels); the kernel fleet
    (``analysis/kernellint/exercise.py``) twice on the card, the launch
    counters zeroed before the first run and read after it (each of the
-   12 kernels launched at least once), every recorded call against its
+   15 kernels launched at least once), every recorded call against its
    plain version on the same inputs (integers exactly, floats within
    ``MAX_ABS_ERR``), the second run equal to the first as uint32 views,
    no dtype but float32, int32 and bool/uint8 at any kernel's boundary;
@@ -1171,6 +1182,11 @@ COUPLED = {
 }
 
 
+# the coupled scans' kernels under a node-axis mesh (their wrappers in
+# nomad_tpu_torch.device.score)
+MESH_COUPLED = ("coupled_shard_step", "coupled_step_merge", "coupled_shard_apply")
+
+
 # the preemption kernels' wrappers in nomad_tpu_torch.device.preempt
 PREEMPT = ("find_preemption", "choose_preemption_node")
 # the find passes carried inside the choice's launch (V <= 32), counted
@@ -1187,6 +1203,7 @@ def counters() -> dict:
     return {
         "place_closed_form": S.place_closed_form.launches,
         "closed_form_topk_merge": S.closed_form_topk_merge.launches,
+        **{name: getattr(S, name).launches for name in MESH_COUPLED},
         "score_matrix": ST.score_matrix_triton.launches,
         **{name: getattr(S, name).launches for name in COUPLED},
         **{name: getattr(P, name).launches for name in PREEMPT},
@@ -1204,6 +1221,8 @@ def zero_counters() -> None:
     S.place_closed_form.launches = 0
     S.place_closed_form.forms.clear()
     S.closed_form_topk_merge.launches = 0
+    for name in MESH_COUPLED:
+        getattr(S, name).launches = 0
     ST.score_matrix_triton.launches = 0
     for name in COUPLED:
         getattr(S, name).launches = 0
@@ -1460,6 +1479,7 @@ def main_path(dev, n_nodes=10_000, n_jobs=10, count=1000):
     assert statuses == ["complete"]
     idle = {name: 0 for name in (
         *COUPLED, *PREEMPT_COUNTS, *PLUGIN, "migrate_plan", "closed_form_topk_merge",
+        *MESH_COUPLED,
     )}
     assert schedule == {"place_closed_form": passes, "score_matrix": 0, **idle} and passes > 0
     assert annotate == {"place_closed_form": 0, "score_matrix": n_jobs, **idle}
@@ -6363,12 +6383,14 @@ def mesh_dryrun(dev, devices, sizes=None):
     torch.cuda.synchronize()
     assert same_bits(got, one) and same_bits(got, plain), "mesh dryrun: value scan differs"
     assert (got[0] >= 0).all(), "mesh dryrun: a value-scan placement failed"
-    gathered = backend.mesh_layouts()
+    layouts = backend.mesh_layouts()
+    assert set(layouts) == {"coupled_shard_step:shard", "coupled_step_merge:merge",
+                            "coupled_shard_apply:shard"}, layouts
     bound = coupled_bound(
         "place_value_scan",
         dict(t, algorithm_spread=False, max_j=16, max_steps=sz["steps"]), plain[0],
     )
-    out = {"value_scan": {"identical": True, "layouts": gathered,
+    out = {"value_scan": {"identical": True, "layouts": layouts,
                           "ms": cuda_ms(lambda: S.place_value_scan(
                               **sharded, algorithm_spread=False, max_j=16,
                               max_steps=sz["steps"])),
@@ -6572,9 +6594,366 @@ def mesh_chaos(dev, devices):
     }
 
 
+# (f) the coupled scans on the mesh: each scan alone at MESH_FLEET's
+# 100,000 nodes (131,072 padded) under every MESH_SHAPES mesh, against the
+# one-device kernel and the plain version; and (g) the spread recipe
+# through Harness(mesh=1x4), against the unsharded Harness
+
+MESH_SCANS = {"groups": 16, "racks": 250, "value_steps": 32, "chunks": 8}
+MESH_SCAN_TIMED = 5  # sharded calls timed a case (a launch a cell a step: ms each)
+MESH_SPREAD = (1, 4)  # the spread recipe through Harness(mesh=...)
+MESH_SCAN_NAMES = {"value_scan": "place_value_scan", "chunked": "place_spread_chunked",
+                   "opv": "place_spread_opv"}
+
+
+def mesh_scan_inputs(dev, kind, sz=None):
+    """One scan's inputs at MESH_FLEET's size: the dryrun's batch (an even
+    spread and a loose distinct cap over ``racks`` values, 16 groups) on
+    100,000 nodes padded to 131,072 (the padding rows empty and eligible
+    nowhere), block 0 a target spread for the chunked scan; and the
+    scan's statics."""
+    from nomad_tpu_torch.device import score as S
+
+    sz = sz or MESH_SCANS
+    n = MESH_FLEET["n_nodes"]
+    pn = 1 << (n - 1).bit_length()
+    g, steps = sz["groups"], sz["value_steps"]
+    host, _ = example_batch(dev, pn, g, steps, sz["racks"])
+    host["capacity"][n:] = 0.0
+    host["used0"][n:] = 0.0
+    host["eligible"][:, n:] = False
+    host["block_value_ids"][:, :, n:] = -1
+    if kind == "value_scan":
+        statics = {"max_steps": steps}
+    else:
+        host["counts"][:] = sz["chunks"] * S.CHUNK
+        if kind == "chunked":
+            host["block_kinds"][:, 0] = S.BLOCK_TARGET_SPREAD
+            host["block_desired"][:, 0, :] = 2.0
+            statics = {"chunk": S.CHUNK, "n_chunks": sz["chunks"]}
+        else:
+            host["enforce_idx"] = np.zeros(g, dtype=np.int32)
+            statics = {"k_seg": min(S.CHUNK, sz["racks"] + 1), "n_chunks": sz["chunks"]}
+    t = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    return t, dict(statics, algorithm_spread=False, max_j=16)
+
+
+def expected_mesh_launches(kind, steps, rows, mp) -> dict:
+    """Launches of one sharded scan call: a shard step a cell a step (two
+    for one-per-value), a merge a groups row a step (two), an apply a cell
+    a step."""
+    sweeps = 2 if kind == "opv" else 1
+    return {
+        "coupled_shard_step": steps * rows * mp * sweeps,
+        "coupled_step_merge": steps * rows * sweeps,
+        "coupled_shard_apply": steps * rows * mp,
+    }
+
+
+def mesh_scan_case(kind, t, statics, cfg, one, plain, steps):
+    """One scan under one mesh: the sharded call identical (uint32 views)
+    to the one-device kernel and to plain, its launches and layouts, and
+    its ms (CUDA events: the step loop makes streams and events, which a
+    graph does not capture) and µs a step."""
+    from nomad_tpu_torch import backend
+    from nomad_tpu_torch.device import score as S
+
+    name = MESH_SCAN_NAMES[kind]
+    specs = dict(S._BATCH_SPECS, capacity=("nodes",), used0=("nodes",))
+    sharded = {k: v if k == "enforce_idx" else backend.shard_put(v, specs[k], cfg)
+               for k, v in t.items()}
+    call = lambda: getattr(S, name)(**sharded, **statics)  # noqa: E731
+    zero_counters()
+    backend.reset_mesh_layouts()
+    got = call()
+    torch.cuda.synchronize()
+    launches = {n: getattr(S, n).launches for n in MESH_COUPLED}
+    layouts = backend.mesh_layouts()
+    g = t["asks"].shape[0]
+    rows = cfg.dp if g % cfg.dp == 0 else 1
+    label = f"{kind} {cfg.dp}x{cfg.mp}"
+    assert same_bits(got, one), f"mesh {label}: sharded differs from the one-device kernel"
+    assert same_bits(got, plain), f"mesh {label}: sharded differs from plain"
+    assert launches == expected_mesh_launches(kind, steps, rows, cfg.mp), (label, launches)
+    assert not any(k.endswith(":gathered") for k in layouts), (label, layouts)
+    ms = cuda_ms(call, iters=MESH_SCAN_TIMED, warmup=1)
+    return {
+        "mesh": [cfg.dp, cfg.mp], "identical": True, "ms": ms,
+        "us_per_step": ms * 1e3 / steps, "launches": launches, "layouts": layouts,
+    }
+
+
+def mesh_coupled_scans(dev, devices, shapes=MESH_SHAPES, sz=None):
+    """(f) each coupled scan at 131,072 padded nodes: the one-device
+    kernel (graph replay) beside its bound (``coupled_bound``) and the
+    plain version, then the sharded call under each mesh."""
+    from nomad_tpu_torch.device import score as S
+
+    out = {}
+    for kind, name in MESH_SCAN_NAMES.items():
+        t, statics = mesh_scan_inputs(dev, kind, sz)
+        steps = statics.get("max_steps", statics.get("n_chunks"))
+        kernel, plain_fn = getattr(S, name), getattr(S, f"{name}_plain")
+        one = kernel(**t, **statics)
+        plain = plain_fn(**t, **statics)
+        torch.cuda.synchronize()
+        assert same_bits(one, plain), f"mesh {kind}: the one-device kernel differs from plain"
+        bound = coupled_bound(name, dict(t, **statics), plain[0])
+        g, n = t["eligible"].shape
+        res = {
+            "shape": f"G={g} N={n} J=16 B={t['block_counts0'].shape[1]} "
+                     f"V={t['block_counts0'].shape[2]}",
+            "steps": steps, "picks": bound["picks"],
+            "unsharded_ms": graph_ms(lambda: kernel(**t, **statics)),
+            "plain_ms": cuda_ms(lambda: plain_fn(**t, **statics), iters=1, warmup=0),
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "meshes": {
+                f"{dp}x{mp}": mesh_scan_case(kind, t, statics, mesh_of(dp, mp, devices),
+                                             one, plain, steps)
+                for dp, mp in shapes
+            },
+        }
+        res["unsharded_us_per_step"] = res["unsharded_ms"] * 1e3 / steps
+        log(f"[mesh] coupled {kind}: " + json.dumps(res, sort_keys=True))
+        out[name] = res
+        del t, one, plain
+    return out
+
+
+def mesh_spread(dev, devices, shape=MESH_SPREAD):
+    """(g) the spread recipe (the "spread" path's 10,000 nodes and 30 jobs)
+    through ``Harness(mesh=1x4)``: every coupled pass runs the sharded
+    scans, and the allocs land as without the mesh, as (job, node) counts
+    (ROADMAP C-S1). Its launch counts are read around the mesh run alone:
+    every coupled launch is a shard step, merge or apply ("shard" or
+    "merge"), none the one-device scans', none gathered, no fallback.
+    Returns (the launch counts, the recorded one-per-value and chunked
+    calls, a summary)."""
+    from nomad_tpu_torch import backend
+    from nomad_tpu_torch.device import score as S
+    from nomad_tpu_torch.utils.metrics import global_metrics
+
+    cfg = mesh_of(*shape, devices)
+    nodes = spread_fleet()
+    jobs = [j for _, j in spread_jobs()]
+
+    def run(mesh):
+        h = fleet_harness(dev, nodes, jobs, mesh=mesh)
+        t0 = time.perf_counter()
+        for j in jobs:
+            h.process(eval_of(h, j, "spread"))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        placed = collections.Counter(
+            (j.id, a.node_id) for j in jobs
+            for a in h.store.allocs_by_job(j.namespace, j.id) if not a.terminal_status()
+        )
+        return placed, seconds, sum(j.task_groups[0].count for j in jobs)
+
+    want, unsharded_s, total = run(None)
+    fallback0 = global_metrics.snapshot()["counters"].get(FALLBACK_CALLS, 0)
+    zero_counters()
+    backend.reset_mesh_layouts()
+    with recording(S, "place_spread_opv", GatheredRecorder) as calls, \
+            recording(S, "place_spread_chunked", GatheredRecorder) as chunked:
+        got, seconds, _ = run(cfg)
+    launches = counters()
+    layouts = backend.mesh_layouts()
+    fallback = global_metrics.snapshot()["counters"].get(FALLBACK_CALLS, 0) - fallback0
+    assert got == want, "mesh spread: the (job, node) counts differ from the run without"
+    assert sum(got.values()) == total, "mesh spread: not every alloc placed"
+    assert all(launches[n] > 0 for n in MESH_COUPLED), launches
+    assert all(launches[n] == 0 for n in COUPLED), launches
+    assert set(layouts) == {"coupled_shard_step:shard", "coupled_step_merge:merge",
+                            "coupled_shard_apply:shard"}, layouts
+    assert fallback == 0, fallback
+    assert calls and all(c["sharded"] for c in calls), "mesh spread: an opv call was not sharded"
+    assert chunked and all(c["sharded"] for c in chunked), \
+        "mesh spread: a chunked call was not sharded"
+    out = {"mesh": list(shape), "seconds": seconds, "unsharded_seconds": unsharded_s,
+           "allocs": total, "identical": True, "layouts": layouts, "fallback_calls": fallback,
+           "opv_calls": len(calls), "chunked_calls": len(chunked)}
+    log("[mesh] spread recipe " + json.dumps(out, sort_keys=True))
+    return launches, (calls, chunked), out
+
+
+def mesh_cells_of(a, mp):
+    """A recorded coupled call's gathered inputs ``a`` cut into ``mp``
+    node slices, as a 1 x ``mp`` mesh's cells hold them (the counts
+    ride in the record)."""
+    from nomad_tpu_torch.device import score as S
+
+    seg = a["eligible"].shape[1] // mp
+    cells = []
+    for j in range(mp):
+        cell = {}
+        for name, axes in S._COUPLED_AXES:
+            if name == "block_counts0":  # the record carries the counts
+                continue
+            x = a[name]
+            if "nodes" in axes:
+                d = axes.index("nodes")
+                x = x.narrow(d, j * seg, seg).contiguous()
+            cell[name] = x
+        if a.get("jitter") is not None:
+            cell["jitter"] = a["jitter"][j * seg:(j + 1) * seg].contiguous()
+        cells.append(cell)
+    return cells
+
+
+def mesh_chunked_step_check(call, mp):
+    """One step of a recorded chunked call of the spread recipe's mesh
+    run, cut into ``mp`` node slices: every cell's top ``chunk`` of its
+    clamped plane (``coupled_shard_step``, segments off), the rank merge
+    (``coupled_step_merge`` "chunked") and every cell's apply, each
+    identical to its plain version on the same inputs. Returns what the
+    step took."""
+    from nomad_tpu_torch.device import score as S
+
+    a = call["kwargs"]
+    cells = mesh_cells_of(a, mp)
+    g, n = a["eligible"].shape
+    seg = n // mp
+    nb, nv = a["block_counts0"].shape[1:]
+    chunk = a["chunk"]
+    dev = a["capacity"].device
+    record = S._record_start(a["block_counts0"], nb, nv)
+    jn = torch.zeros((g, seg), dtype=torch.int32, device=dev)
+    present = torch.zeros((g, nv), dtype=torch.int32, device=dev)
+    common = dict(counts=a["counts"], enforce_idx=None, jn=jn,
+                  algorithm_spread=a["algorithm_spread"], max_j=a["max_j"], record=record,
+                  segments=False, chunk=chunk, first_step=False)
+    merge_args = (record, a["counts"], a["block_kinds"], None, present, "chunked", chunk, False)
+    step_c = [S.coupled_shard_step(**cells[j], **common, col0=j * seg) for j in range(mp)]
+    step_p = [S.coupled_shard_step_plain(**cells[j], **common, col0=j * seg) for j in range(mp)]
+    merged = S.coupled_step_merge(torch.stack(step_c), *merge_args)
+    merged_p = S.coupled_step_merge_plain(torch.stack(step_p), *merge_args)
+    app_c = [S.coupled_shard_apply(jn, merged[0], j * seg) for j in range(mp)]
+    app_p = [S.coupled_shard_apply_plain(jn, merged[0], j * seg) for j in range(mp)]
+    torch.cuda.synchronize()
+    for what, got, want in (
+        ("coupled_shard_step (chunked)", step_c, step_p),
+        ("coupled_step_merge (chunked)", list(merged), list(merged_p)),
+        ("coupled_shard_apply (chunked)", app_c, app_p),
+    ):
+        assert same_bits(got, want), f"mesh: {what} differs from its plain version"
+    took = int(merged[0][:, 0].sum())
+    assert took > 0, "mesh: the checked chunked step took nothing"
+    return {"shape": f"G={g} S={mp} cells x {seg} nodes, B={nb} V={nv}, chunk={chunk}",
+            "identical": True, "took": took}
+
+
+def mesh_kernel_checks(calls, shape=MESH_SPREAD):
+    """Each mesh kernel of the coupled scans on recorded calls of the
+    spread recipe's mesh run, their gathered inputs cut into ``shape``'s
+    node slices, groups row 0. The one-per-value scan: one step's first
+    picks and segment maxima on every cell (``coupled_shard_step``), the
+    two merges (``coupled_step_merge``) and every cell's apply
+    (``coupled_shard_apply``); the chunked scan: one step of each
+    (``mesh_chunked_step_check``). Each against its plain version on the
+    same inputs (outputs identical). The one-per-value step's kernels are
+    timed by graph replay (the plain versions by CUDA events), beside
+    their bounds: the inputs read once and the outputs written once over
+    the memory rate, or (the shard step) each slice node's head and score
+    in f32 operations over the peak rate."""
+    from nomad_tpu_torch.device import score as S
+
+    opv_calls, chunked_calls = calls
+    call = opv_calls[-1]
+    a = call["kwargs"]
+    mp = shape[1]
+    g, n = a["eligible"].shape
+    seg = n // mp
+    nb, nv = a["block_counts0"].shape[1:]
+    k_seg = a["k_seg"]
+    cells = mesh_cells_of(a, mp)
+    chunked_step = mesh_chunked_step_check(chunked_calls[-1], mp)
+    dev = a["capacity"].device
+    record = S._record_start(a["block_counts0"], nb, nv)
+    jn = torch.zeros((g, seg), dtype=torch.int32, device=dev)
+    present = torch.zeros((g, nv), dtype=torch.int32, device=dev)
+    common = dict(counts=a["counts"], enforce_idx=a["enforce_idx"], jn=jn,
+                  algorithm_spread=a["algorithm_spread"], max_j=a["max_j"])
+
+    def steps(fn, rec, segments, first_step):
+        return [fn(**cells[j], **common, record=rec, segments=segments,
+                   chunk=k_seg if segments else 1, col0=j * seg, first_step=first_step)
+                for j in range(mp)]
+
+    merge_args = (a["counts"], a["block_kinds"], a["enforce_idx"])
+    first_c = steps(S.coupled_shard_step, record, False, False)
+    first_p = steps(S.coupled_shard_step_plain, record, False, False)
+    first_m = S.coupled_step_merge(torch.stack(first_c), record, *merge_args, present,
+                                   "first", k_seg, False)
+    first_mp = S.coupled_step_merge_plain(torch.stack(first_p), record, *merge_args, present,
+                                          "first", k_seg, False)
+    rec1 = first_m[0]
+    seg_c = steps(S.coupled_shard_step, rec1, True, True)
+    seg_p = steps(S.coupled_shard_step_plain, rec1, True, True)
+    seg_m = S.coupled_step_merge(torch.stack(seg_c), rec1, *merge_args, first_m[1],
+                                 "segments", k_seg, True)
+    seg_mp = S.coupled_step_merge_plain(torch.stack(seg_p), rec1, *merge_args, first_m[1],
+                                        "segments", k_seg, True)
+    rec2 = seg_m[0]
+    app_c = [S.coupled_shard_apply(jn, rec2, j * seg) for j in range(mp)]
+    app_p = [S.coupled_shard_apply_plain(jn, rec2, j * seg) for j in range(mp)]
+    torch.cuda.synchronize()
+    for what, got, want in (
+        ("coupled_shard_step", first_c + seg_c, first_p + seg_p),
+        ("coupled_step_merge", [*first_m, *seg_m], [*first_mp, *seg_mp]),
+        ("coupled_shard_apply", app_c, app_p),
+    ):
+        assert same_bits(got, want), f"mesh: {what} differs from its plain version"
+    assert int(rec2[:, 0].sum()) > 0, "mesh: the checked step took nothing"
+
+    gathered1, gathered2 = torch.stack(first_c), torch.stack(seg_c)
+    shard = lambda fn: steps(fn, rec1, True, True)  # noqa: E731
+    merge = lambda fn: fn(gathered2, rec1, *merge_args, first_m[1], "segments", k_seg, True)  # noqa: E731
+    apply = lambda fn: [fn(jn, rec2, j * seg) for j in range(mp)]  # noqa: E731
+    cell_bytes = nbytes(*[x for x in cells[0].values()], jn, record)
+    ops = g * seg * (CLOSED_FORM_OPS_PER_CANDIDATE + COUPLED_OPS_PER_NODE
+                     + COUPLED_OPS_PER_BLOCK * nb) + g * nb * nv * COUPLED_OPS_PER_TABLE_ENTRY
+    bounds = {
+        "coupled_shard_step": (mp * (cell_bytes + nbytes(seg_c[0])), mp * ops),
+        "coupled_step_merge": (nbytes(gathered2, rec1, *seg_m), 0),
+        "coupled_shard_apply": (mp * nbytes(jn, rec2, jn), 0),
+    }
+    shapes = {
+        "coupled_shard_step": f"G={g} S={mp} cells x {seg} nodes, B={nb} V={nv}, segments "
+                              f"(the one-per-value scan's second exchange)",
+        "coupled_step_merge": f"G={g} S={mp} lists of V+1={nv + 1} segments, k_seg={k_seg}",
+        "coupled_shard_apply": f"G={g} S={mp} cells x {seg} nodes",
+    }
+    out = {}
+    for name, (fn, plain) in {
+        "coupled_shard_step": (lambda: shard(S.coupled_shard_step),
+                               lambda: shard(S.coupled_shard_step_plain)),
+        "coupled_step_merge": (lambda: merge(S.coupled_step_merge),
+                               lambda: merge(S.coupled_step_merge_plain)),
+        "coupled_shard_apply": (lambda: apply(S.coupled_shard_apply),
+                                lambda: apply(S.coupled_shard_apply_plain)),
+    }.items():
+        b, o = bounds[name]
+        t_bytes = b / HBM_BYTES_PER_S * 1e3
+        t_ops = o / F32_OPS_PER_S * 1e3
+        launches = mp if name != "coupled_step_merge" else 1
+        out[name] = {
+            "max_abs_err": 0.0, "choice_mismatches": 0,
+            "ms": graph_ms(fn) / launches, "stream_ms": cuda_ms(fn) / launches,
+            "plain_ms": cuda_ms(plain, iters=3, warmup=1) / launches,
+            "bound_ms": max(t_bytes, t_ops) / launches,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "shape": shapes[name] + " (a launch)",
+        }
+        out[name]["plain_stream_ms"] = out[name]["plain_ms"]
+    out["chunked_step"] = chunked_step
+    log("[mesh] coupled kernels " + json.dumps(out, sort_keys=True))
+    return out
+
+
 def mesh_path(dev):
-    """The "mesh" phase, (a) to (f); returns (the mesh path's launch
-    counts, the phase's summary)."""
+    """The "mesh" phase, (a) to (h); returns (the mesh path's launch
+    counts, those of its spread recipe, the phase's summary)."""
     t0 = time.perf_counter()
     devices = mesh_devices(dev)
     out = {"card": card_line()}
@@ -6585,6 +6964,10 @@ def mesh_path(dev):
     del calls
     assert launches["closed_form_topk_merge"] > 0 and launches["place_closed_form"] > 0, launches
     out["chaos"] = mesh_chaos(dev, devices)
+    out["coupled_scans"] = mesh_coupled_scans(dev, devices)
+    spread_launches, spread_calls, out["spread"] = mesh_spread(dev, devices)
+    out["coupled_kernels"] = mesh_kernel_checks(spread_calls)
+    del spread_calls
     count = torch.cuda.device_count()
     if count > 1:
         distinct = [torch.device("cuda", i) for i in range(count)]
@@ -6593,13 +6976,14 @@ def mesh_path(dev):
             "cards": n,
             "closed_form": mesh_closed_form(dev, distinct, shapes=((1, n),)),
             "schedule": mesh_schedule(dev, distinct, shape=(1, n))[2],
+            "coupled_scans": mesh_coupled_scans(dev, distinct, shapes=((1, n),)),
         }
         log(f"[mesh] distinct cards: {n} of {count} exercised")
     else:
         out["distinct_cards"] = None
         log("mesh: 1 card, shards share cuda:0; distinct-card half not exercised")
     out["seconds"] = time.perf_counter() - t0
-    return launches, out
+    return launches, spread_launches, out
 
 
 def analysis_plain(call):
@@ -6661,7 +7045,7 @@ def analysis_path(dev, calib) -> dict:
         ratcheted = [e["fingerprint"] for e in json.load(f)["entries"]]
     assert cli["source"]["new"] == [] and cli["source"]["fixed"] == [], cli["source"]
     assert len(ratcheted) == 28
-    assert cli["kernels"]["new"] == [] and cli["kernels"]["analyzed"] == 12, cli["kernels"]
+    assert cli["kernels"]["new"] == [] and cli["kernels"]["analyzed"] == 15, cli["kernels"]
     out["cli"] = {
         "seconds": time.perf_counter() - t0,
         "source_new": 0, "ratcheted_fingerprints": len(ratcheted),
@@ -6979,7 +7363,7 @@ def main() -> int:
     # the card, the score matrix, the dryrun's sizes, the schedule recipe
     # through Harness(mesh=1x4) (the path whose launches are counted) and
     # a chaos run with the process mesh; distinct cards where there are
-    by_path["mesh"], mesh = mesh_path(dev)
+    by_path["mesh"], by_path["mesh_spread"], mesh = mesh_path(dev)
     log("[mesh] " + json.dumps(mesh, sort_keys=True))
     mark("mesh")
     batch.update(
@@ -7207,7 +7591,32 @@ def main() -> int:
                                                          "layouts", "calls")},
         },
     ))
-    assert len(kernels) == 12, len(kernels)
+    mk, scans = mesh["coupled_kernels"], mesh["coupled_scans"]
+    for name, replaces in (
+        ("coupled_shard_step", "nomad_tpu/device/score.py:642"),
+        ("coupled_step_merge", "nomad_tpu/device/score.py:104"),
+        ("coupled_shard_apply", "nomad_tpu/device/score.py:647"),
+    ):
+        kernels.append(kernel_entry(
+            name, "cuda", "nomad_tpu_torch/csrc/coupled.cu", replaces, "mesh_spread", by_path,
+            mk[name],
+            {
+                "spread": {k: mesh["spread"][k] for k in ("seconds", "unsharded_seconds",
+                                                          "layouts", "opv_calls",
+                                                          "chunked_calls")},
+                "chunked_step": mk["chunked_step"],
+                "scans": {
+                    scan: {
+                        "unsharded_ms": r["unsharded_ms"], "bound_ms": r["bound_ms"],
+                        "steps": r["steps"], "shape": r["shape"],
+                        "by_mesh": {m: {k: c[k] for k in ("ms", "us_per_step", "launches")}
+                                    for m, c in r["meshes"].items()},
+                    }
+                    for scan, r in scans.items()
+                },
+            },
+        ))
+    assert len(kernels) == 15, len(kernels)
     log(f"[total] {time.perf_counter() - t_start:.1f} s, builds included; by phase "
         + json.dumps({k: round(v, 1) for k, v in seconds_by_phase.items()}))
     log(json.dumps({"kernels": kernels}))

@@ -12,10 +12,14 @@ each side (``fingerprint.call_configs``), with the builds the "on" side
 started:
 
 - explain and incremental on/off: the same set, no build;
-- mesh on/off: the "on" side adds exactly ``closed_form_topk_merge``
-  and nothing else, no build. In the reference the mesh leaves every
-  jaxpr as it is; in the port the cross-shard merge is the mesh's own
-  kernel.
+- mesh on/off: the "on" side adds exactly the mesh's own kernels and
+  nothing else, no build: ``closed_form_topk_merge`` and the coupled
+  scans' ``coupled_shard_step``, ``coupled_step_merge`` and
+  ``coupled_shard_apply``. Their step loop launches them without a
+  wrapper call, so they are read from the launches it counted
+  (``backend.mesh_layouts``; on a CPU mesh, its plain calls). In the
+  reference the mesh leaves every jaxpr as it is; in the port the
+  cross-shard reductions are kernels of their own.
 
 Each prover restores the ambient state it touched (the variables, the
 resolved mesh and incremental decisions) and returns a report dict
@@ -30,6 +34,10 @@ import os
 _MESH_ENV = "NOMAD_TPU_MESH"
 _INCR_ENV = "NOMAD_TPU_INCREMENTAL"
 MERGE = "closed_form_topk_merge"
+#: the coupled scans' kernels under a mesh, launched by their step loop
+LOOP_KERNELS = frozenset({"coupled_shard_step", "coupled_step_merge", "coupled_shard_apply"})
+#: the kernels a node-axis mesh adds to the placement exercise
+MESH_KERNELS = frozenset({MERGE}) | LOOP_KERNELS
 
 
 def _launched(calls) -> set:
@@ -43,6 +51,17 @@ def _launched(calls) -> set:
         fps = kernel_configs(entry)
         for label in call_configs(entry, c):
             out.add((c.name, label, fps.get(label, "")))
+    return out
+
+
+def _loop_launched(before: dict, after: dict) -> set:
+    """The step loop's kernels whose count under a layout rose between
+    two reads of ``backend.mesh_layouts``."""
+    out = set()
+    for key, n in after.items():
+        name, layout = key.split(":")
+        if name in LOOP_KERNELS and n > before.get(key, 0):
+            out.add((name, f"step loop ({layout})", ""))
     return out
 
 
@@ -134,8 +153,9 @@ def prove_incremental_invariance(device="cuda") -> dict:
 def prove_mesh_invariance(device="cuda") -> dict:
     """Run the placement exercise with the mesh off, then under a 1x2
     node-axis mesh (both cells on ``device``), and prove the mesh adds
-    exactly the cross-shard merge: every kernel launched without it is
-    launched with it under the same fingerprint, and no build starts."""
+    exactly its own kernels (``MESH_KERNELS``): every kernel launched
+    without it is launched with it under the same fingerprint, and no
+    build starts."""
     from ... import backend
     from .exercise import MESH_SHAPE, run_placement_paths
 
@@ -145,12 +165,14 @@ def prove_mesh_invariance(device="cuda") -> dict:
         try:
             off, _ = _run(lambda: run_placement_paths(dev))
             mesh = backend.make_mesh(*MESH_SHAPE, devices=dev)
+            before = backend.mesh_layouts()
             on, builds = _run(lambda: run_placement_paths(dev, mesh=mesh))
+            on |= _loop_launched(before, backend.mesh_layouts())
         finally:
             backend.reset_mesh()
     rep = _report(
-        "mesh-on/off adds exactly the cross-shard merge", off, on, builds,
-        expect_added={MERGE},
+        "mesh-on/off adds exactly the cross-shard reductions", off, on, builds,
+        expect_added=MESH_KERNELS,
     )
     rep["mesh_shape"] = list(MESH_SHAPE)
     return rep

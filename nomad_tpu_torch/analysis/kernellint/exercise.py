@@ -5,11 +5,13 @@ The port of ``nomad_tpu/analysis/jaxlint/exercise.py``, the same
 the real dispatch (closed form, exact scan, chunked, one-per-value), the
 score matrix in its class-less and throughput configs, the two
 preemption kernels, the hetero greedy, the CP auction and its gang
-form, and the migration auction. One pass more than the reference's:
+form, and the migration auction. Two passes more than the reference's:
 the closed form under a 1x2 node-axis mesh (``backend.make_mesh``, both
 cells on ``device``), so the mesh's cross-shard merge
-(``closed_form_topk_merge``) runs too. Every registered kernel is
-called at least once.
+(``closed_form_topk_merge``) runs too; and one step of the chunked and
+the one-per-value scans over two node slices, each of the coupled
+scans' mesh kernels called through its wrapper. Every registered kernel
+is called at least once.
 
 Everything runs on ``device`` (default the card; ``"cpu"`` runs the
 plain versions) and is seeded, so the recorded calls are a pure
@@ -159,6 +161,72 @@ def run_sharded_closed_form(device="cuda"):
     ct = _cluster()
     asks = _asks(ct)[:2]
     return PlacementKernel("binpack", mesh=mesh, device=device).place(ct, asks)
+
+
+def run_coupled_mesh_kernels(device="cuda") -> None:
+    """One step of the chunked scan and of the one-per-value scan as a
+    1x2 node-axis mesh runs them (the "chunked" and "opv" asks over two
+    node slices): both cells' candidates (``coupled_shard_step``), the
+    row's merges (``coupled_step_merge``) and both cells' applies
+    (``coupled_shard_apply``), each through its wrapper."""
+    import numpy as np
+    import torch
+
+    from ...device import score as S
+    from ...device.flatten import pad_value_blocks
+
+    ct = _cluster()
+    asks = _asks(ct)[3:5]
+    pn = ct.padded_n
+    batch = S._shared_batch(asks, pn)
+    batch.update(pad_value_blocks([a.blocks for a in asks], pn))
+    batch.update(capacity=ct.capacity, used0=ct.used)
+    g, nb, nv = batch["block_counts0"].shape
+    seg = pn // MESH_SHAPE[1]
+    cells = []
+    for j in range(MESH_SHAPE[1]):
+        cell = {}
+        for name, axes in S._COUPLED_AXES:
+            if name == "block_counts0":  # the record carries the counts
+                continue
+            x = batch[name]
+            if "nodes" in axes:
+                x = np.take(x, np.arange(j * seg, (j + 1) * seg), axis=axes.index("nodes"))
+            cell[name] = _t(x, device)
+        cells.append(cell)
+    counts = _t(np.array([a.count for a in asks], dtype=np.int32), device)
+    enforce = _t(np.zeros(g, dtype=np.int32), device)
+    kinds = _t(batch["block_kinds"], device)
+    present = torch.zeros((g, nv), dtype=torch.int32, device=device)
+    start = S._record_start(_t(batch["block_counts0"], device), nb, nv)
+    jns = [torch.zeros((g, seg), dtype=torch.int32, device=device) for _ in cells]
+    k_seg = min(S.CHUNK, nv + 1)
+
+    def candidates(record, segments, chunk, first_step):
+        return torch.stack([
+            S.coupled_shard_step(
+                **cell, counts=counts, enforce_idx=enforce, jn=jns[j], record=record,
+                algorithm_spread=False, max_j=16, segments=segments, chunk=chunk,
+                col0=j * seg, first_step=first_step,
+            )
+            for j, cell in enumerate(cells)
+        ])
+
+    chunked, _, _, _ = S.coupled_step_merge(
+        candidates(start, False, 4, False), start, counts, kinds, enforce, present,
+        "chunked", 4, False,
+    )
+    first, present, _, _ = S.coupled_step_merge(
+        candidates(start, False, 1, False), start, counts, kinds, enforce, present,
+        "first", k_seg, False,
+    )
+    opv, present, _, _ = S.coupled_step_merge(
+        candidates(first, True, k_seg, True), first, counts, kinds, enforce, present,
+        "segments", k_seg, True,
+    )
+    for j in range(len(cells)):
+        S.coupled_shard_apply(jns[j], chunked, j * seg)
+        S.coupled_shard_apply(jns[j], opv, j * seg)
 
 
 def run_score_matrix(device="cuda") -> None:
@@ -340,6 +408,7 @@ def exercise_fleet(device="cuda", explain: bool = False) -> list:
     with backend.recording_calls() as calls:
         run_placement_paths(dev, explain=explain)
         run_sharded_closed_form(dev)
+        run_coupled_mesh_kernels(dev)
         run_score_matrix(dev)
         run_preemption(dev)
         run_hetero(dev)

@@ -4,9 +4,11 @@ The reference's fleet is its ``traced_jit`` registry, whose recorded
 abstract specs ``jaxlint/retracer.py`` re-traces into jaxprs. The port's
 kernels are hand-written and have no jaxpr, so nothing is re-traced: the
 fleet is the registry of kernel wrappers, keyed by the reference's
-kernel names — the 11 ``@guarded`` wrappers and
-``closed_form_topk_merge``, which launches inside the closed form's
-guard.
+kernel names — the 11 ``@guarded`` wrappers, ``closed_form_topk_merge``,
+which launches inside the closed form's guard, and the three kernels of
+the coupled scans under a mesh (``coupled_shard_step``,
+``coupled_step_merge``, ``coupled_shard_apply``), which launch inside
+the calling scan's.
 """
 
 from __future__ import annotations
@@ -27,6 +29,9 @@ FLEET = (
     "cp_gang_place_kernel",
     "migrate_plan_kernel",
     "closed_form_topk_merge",
+    "coupled_shard_step",
+    "coupled_step_merge",
+    "coupled_shard_apply",
 )
 
 #: kernels whose wrappers are defined under these module prefixes are

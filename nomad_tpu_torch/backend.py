@@ -35,10 +35,11 @@ needs: where the tensors live, and how the device programs are built.
   grid of devices, ``NOMAD_TPU_MESH`` read with the JAX package's
   grammar (off on the CPU and on one card unless asked for; the CPU
   counts as 8 devices). A mesh built by hand may name one card in every
-  cell. The closed form and the score matrix launch a kernel per cell;
-  every other kernel takes its sharded inputs gathered onto the lead
-  (cell (0, 0)). Collectives are copies onto the lead, never
-  ``torch.distributed``.
+  cell. The closed form and the score matrix launch a kernel per cell,
+  the three coupled scans a kernel per cell every step with a merge on
+  each groups row's lead between (``device/score.py``); every other
+  kernel takes its sharded inputs gathered onto the lead (cell (0, 0)).
+  Collectives are copies onto the lead, never ``torch.distributed``.
 """
 
 from __future__ import annotations
@@ -180,22 +181,23 @@ def current_stream(device: torch.device) -> int:
 _COUNT_LOCK = threading.Lock()
 
 
-def count_launch(wrapper, attr: str = "launches", form=None, layout=None) -> None:
-    """Add one to ``wrapper.<attr>`` (and to ``wrapper.forms[form]`` when
-    a form is given) under a lock: ``+=`` on an attribute is a read, an
-    add and a write, and two host threads launching at once would lose
-    counts. ``layout`` files a launch under a mesh layout as well
+def count_launch(wrapper, attr: str = "launches", form=None, layout=None, n: int = 1) -> None:
+    """Add ``n`` (one launch, or the launches one C call made) to
+    ``wrapper.<attr>`` (and to ``wrapper.forms[form]`` when a form is
+    given) under a lock: ``+=`` on an attribute is a read, an add and a
+    write, and two host threads launching at once would lose counts.
+    ``layout`` files a launch under a mesh layout as well
     (``mesh_layouts``): "shard", "merge" or "gathered"; a launch made
     inside ``_gathered`` on this thread is "gathered"."""
     if layout is None and attr == "launches":
         layout = getattr(_launch_layout, "name", None)
     with _COUNT_LOCK:
-        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+        setattr(wrapper, attr, getattr(wrapper, attr) + n)
         if form is not None:
-            wrapper.forms[form] = wrapper.forms.get(form, 0) + 1
+            wrapper.forms[form] = wrapper.forms.get(form, 0) + n
         if layout is not None:
             key = (wrapper.__name__, layout)
-            _layouts[key] = _layouts.get(key, 0) + 1
+            _layouts[key] = _layouts.get(key, 0) + n
 
 
 # launches under a mesh, by (wrapper name, layout)
@@ -205,7 +207,10 @@ _launch_layout = threading.local()
 
 
 def mesh_layouts() -> dict[str, int]:
-    """``{"<wrapper>:<layout>": launches}`` since the last reset."""
+    """``{"<wrapper>:<layout>": launches}`` since the last reset. On a
+    CPU mesh the coupled scans' step loop files its plain calls here
+    instead (``count_launch(..., "plain_calls", layout=...)``): one a
+    step for all its cells, where the card launches one a cell."""
     with _COUNT_LOCK:
         return {f"{name}:{layout}": n for (name, layout), n in sorted(_layouts.items())}
 

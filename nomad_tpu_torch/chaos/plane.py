@@ -290,8 +290,13 @@ class FaultPlane:
         rate: float = 0.04,
         schedule: Optional[list[FaultSpec]] = None,
         sleep: Callable[[float], None] = time.sleep,
+        hang_scale: float = 1.0,
     ):
         self.seed = seed
+        # a hang sleeps its planned length times this (a run on the CPU
+        # scales its kernel deadline and its hangs alike); the schedule's
+        # rows keep the planned length
+        self.hang_scale = hang_scale
         self.steps = steps
         self.faults = tuple(faults)
         self.clock = ChaosClock()
@@ -335,7 +340,7 @@ class FaultPlane:
             self._sleep(spec.arg)
             return "delay"
         if action == "hang":
-            self._sleep(spec.arg)
+            self._sleep(spec.arg * self.hang_scale)
             return "hang"
         if action == "skew":
             self.clock.skew(spec.arg)

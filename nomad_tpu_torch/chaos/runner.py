@@ -53,6 +53,14 @@ SETTLE_TIMEOUT_S = 10.0
 # op time: how far the run's monotonic clock moves per workload op
 # (``_RunClock``); one admission re-evaluation interval
 RUN_OP_SECONDS = 0.25
+# the kernel guard's execute deadline in a run on the card, and the factor
+# a run on the CPU scales it and every injected kernel hang by: the plain
+# versions a CPU run computes take far longer than the card's kernels,
+# and on a slow host more than 0.1 s, so an unscaled deadline refuses
+# legitimate calls there (an injected hang, 0.2-0.5 s, is still at least
+# twice the deadline either way and trips the breaker the first time)
+RUN_EXECUTE_DEADLINE = 0.1
+CPU_DEADLINE_SCALE = 10.0
 
 
 class _RunClock:
@@ -454,21 +462,27 @@ def run_chaos(
         _backend.reset_incremental()
 
     faults = tuple(faults)
+    import torch
+
+    scale = CPU_DEADLINE_SCALE if torch.device(device).type == "cpu" else 1.0
     plane = FaultPlane(
-        seed=seed, steps=steps, faults=faults, rate=rate, schedule=schedule
+        seed=seed, steps=steps, faults=faults, rate=rate, schedule=schedule,
+        hang_scale=scale,
     )
     baseline = metrics_baseline()
     # breaker deadlines scaled like the broker deadlines above: injected
     # kernel hangs run 0.2-0.5 s, so a 0.1 s execute deadline trips on
     # the first hang (≤3-consecutive-failures acceptance bound) while
-    # legitimate executes at this cluster size stay sub-millisecond;
-    # compile still gets the full production allowance via the
-    # trace-started probe
+    # legitimate executes at this cluster size stay sub-millisecond on
+    # the card; on the CPU both are scaled by CPU_DEADLINE_SCALE (the
+    # schedule's rows, and so the canonical report, keep the unscaled
+    # hang lengths); compile still gets the full production allowance
+    # via the trace-started probe
     from ..resilience import breaker as _breaker
 
     _breaker.reset_all()
     _prev_breaker = _breaker.configure(
-        execute_deadline=0.1,
+        execute_deadline=RUN_EXECUTE_DEADLINE * scale,
         backoff_base=0.05,
         backoff_cap=0.25,
     )

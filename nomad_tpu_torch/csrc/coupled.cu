@@ -113,6 +113,7 @@
 #include <cooperative_groups.h>
 
 #include <utility>
+#include <vector>
 
 #include "candidate.cuh"
 #include "cluster.cuh"
@@ -321,6 +322,14 @@ __device__ float head_score(const Lane& L, int n) {
                    __fadd_rn(static_cast<float>(L.t.head_den[n]), on ? 1.0f : 0.0f));
 }
 
+// Columns of lane g's ask that fit on node n: column j fits iff j < the
+// cap. j < jmax for an integer j is j < ceil(jmax); the cap is at most J.
+__device__ int column_cap(const Inputs& in, int g, int n) {
+  const float jmax = feasible_columns(in, g, n);
+  return jmax >= static_cast<float>(in.j) ? in.j
+       : jmax > 0.0f ? static_cast<int>(ceilf(jmax)) : 0;
+}
+
 // Node n takes one more instance: its next column and that column's head.
 __device__ void set_head(const Lane& L, int n, int j) {
   float den;
@@ -365,12 +374,8 @@ __device__ Lane setup(const Inputs& in, const Blocks& bl, unsigned char* scratch
     L.any_spread |= L.kinds[b] == kTargetSpread || L.kinds[b] == kEvenSpread;
   }
   for (int n = threadIdx.x; n < N; n += kThreads) {
-    // j < jmax for an integer j is j < ceil(jmax); the cap is at most J
-    const float jmax = feasible_columns(in, L.g, n);
-    const int jcap = jmax >= static_cast<float>(in.j) ? in.j
-                   : jmax > 0.0f ? static_cast<int>(ceilf(jmax)) : 0;
     L.t.jn[n] = 0;
-    L.t.jcap[n] = static_cast<uint16_t>(jcap);
+    L.t.jcap[n] = static_cast<uint16_t>(column_cap(in, L.g, n));
     set_head(L, n, 0);
   }
   for (int i = threadIdx.x; i < B * V; i += kThreads) {
@@ -732,11 +737,8 @@ opv_cluster_kernel(Inputs in, Blocks bl, const int32_t* enforce_idx,
   for (int b = tid; b < B; b += kThreads) kinds[b] = L.kinds[b];
   for (int i = tid; i < sl.len; i += kThreads) {
     const int n = sl.lo + i;
-    const float jmax = feasible_columns(in, L.g, n);
-    const int jcap = jmax >= static_cast<float>(in.j) ? in.j
-                   : jmax > 0.0f ? static_cast<int>(ceilf(jmax)) : 0;
     sl.jn[i] = 0;
-    sl.jcap[i] = static_cast<uint16_t>(jcap);
+    sl.jcap[i] = static_cast<uint16_t>(column_cap(in, L.g, n));
     slice_head(L, sl, i, 0);
     for (int b = 0; b < B; ++b) {
       sl.vids[static_cast<size_t>(b) * sl.ns + i] =
@@ -1087,11 +1089,8 @@ chunked_cluster_kernel(Inputs in, Blocks bl, const int32_t* counts, int chunk, i
   for (int b = tid; b < B; b += kThreads) kinds[b] = L.kinds[b];
   for (int i = tid; i < sl.len; i += kThreads) {
     const int n = sl.lo + i;
-    const float jmax = feasible_columns(in, L.g, n);
-    const int jcap = jmax >= static_cast<float>(in.j) ? in.j
-                   : jmax > 0.0f ? static_cast<int>(ceilf(jmax)) : 0;
     sl.jn[i] = 0;
-    sl.jcap[i] = static_cast<uint16_t>(jcap);
+    sl.jcap[i] = static_cast<uint16_t>(column_cap(in, L.g, n));
     slice_head(L, sl, i, 0);
     for (int b = 0; b < B; ++b) {
       sl.vids[static_cast<size_t>(b) * sl.ns + i] =
@@ -1425,6 +1424,662 @@ int launch_chunked(const Inputs& in, const Blocks& bl, const int32_t* counts, in
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// -- the coupled scans under a node-axis mesh ---------------------------------
+//
+// Under a dp x mp mesh each groups row of cells (i, 0..S-1) runs its
+// lanes' scan over S node slices, one per cell, step by step, with a
+// cross-shard reduction every step (the reference lays the same inputs
+// out over its mesh, and XLA partitions every step of its lax.scan):
+//  1. coupled_shard_step, a launch a cell: a block a lane scores the
+//     cell's slice under the replicated count state and writes the
+//     cell's candidates -- the chunked scan's top `want` entries of the
+//     slice's clamped plane (chunk 1: the value scan's and the
+//     one-per-value scan's first pick), or the one-per-value scan's
+//     per-segment maxima -- each with its node's value ids, which only
+//     the cell that owns the node holds;
+//  2. the candidates cross to the row's lead, where coupled_step_merge
+//     picks the step's winners, counts their values into c and writes
+//     them, with c, into the row's record;
+//  3. the record crosses back to every cell, and coupled_shard_apply
+//     moves on the columns of the winners in the cell's slice.
+// The one-per-value scan makes steps 1-2 twice a step: the first pick,
+// then the segments under the count state after it.
+//
+// The candidates are exactly what the one-device kernels would pick from
+// those nodes: a cell scores a node with head_score / advance /
+// compute_tables (the same code, the same -fmad=false build, the boost
+// summed over blocks in the same order), so a node's bits do not depend
+// on the cell. A chunk's top entries of the whole plane are the top of
+// the union of each slice's own top (the slices are disjoint and a
+// node's clamped sequence is non-increasing), ordered by (value desc,
+// node asc, column asc); argmax ties go to the lowest global node, as
+// jnp.argmax; -0 folds onto +0 (order_key).
+//
+// What bounds it: sequential depth, as the one-device kernels, plus a
+// launch on every cell and two copies a step (four for one-per-value);
+// on one card the copies are same-device copies. The step loop runs in
+// host code (coupled_sharded_scan): per-cell streams ordered by events,
+// no host sync inside.
+
+constexpr int kShardChunked = 0;   // top entries of the clamped plane
+constexpr int kShardSegments = 1;  // per-segment maxima (one-per-value)
+constexpr int kMergeChunked = 0;   // the chunked scan's (and value scan's) picks
+constexpr int kMergeFirst = 1;     // the one-per-value scan's first pick
+constexpr int kMergeSegments = 2;  // the one-per-value scan's segment picks
+
+// A row's record, per lane, int32 words: the step's winners (their
+// count, then up to kMaxPicks global nodes), the first pick's segment,
+// whether it was taken, the lane's placements so far, then c [B, V] as
+// float bits.
+constexpr int kRecWins = 1;
+constexpr int kRecVFirst = kRecWins + kMaxPicks;
+constexpr int kRecOk0 = kRecVFirst + 1;
+constexpr int kRecPlaced = kRecOk0 + 1;
+constexpr int kRecordHead = kRecPlaced + 1;
+// A candidate, int32 words: order key of its value (0: no candidate),
+// global node, column offset from the node's next column (segments: the
+// segment's presence flag on a call's first step), unclamped score as
+// float bits, then the node's B value ids.
+constexpr int kEntryHead = 4;
+
+__host__ __device__ int record_words(int b, int v) { return kRecordHead + b * v; }
+
+__device__ void empty_entry(int32_t* e, int b) {
+  e[0] = 0;
+  e[1] = -1;
+  e[2] = 0;
+  e[3] = __float_as_int(-INFINITY);
+  for (int i = 0; i < b; ++i) e[kEntryHead + i] = -1;
+}
+
+// (key desc, node asc, column asc): whether entry a goes before entry b
+__device__ __forceinline__ bool entry_before(const int32_t* a, const int32_t* b) {
+  const uint32_t ka = static_cast<uint32_t>(a[0]);
+  const uint32_t kb = static_cast<uint32_t>(b[0]);
+  if (ka != kb) return ka > kb;
+  if (a[1] != b[1]) return a[1] < b[1];
+  return a[2] < b[2];
+}
+
+__device__ void count_values(float* c, const int32_t* e, int b, int v) {
+  for (int i = 0; i < b; ++i) {
+    const int x = e[kEntryHead + i];
+    if (x >= 0) c[i * v + x] = __fadd_rn(c[i * v + x], 1.0f);
+  }
+}
+
+// One launch a cell, a block a lane. `in.n` is the cell's slice and every
+// node input the cell's part of it; `jn` [G, n] the slice's next columns;
+// `record` the row's record as the cell last received it; `col0` the
+// slice's first global node. Writes the lane's K candidates to `cand`
+// [G, K, kEntryHead + B] (K = chunk, or V + 1 segments). `scratch` holds
+// a lane's region (region_bytes), rebuilt every step.
+template <int Mode>
+__global__ void __launch_bounds__(kThreads)
+coupled_shard_step_kernel(Inputs in, Blocks bl, const int32_t* counts,
+                          const int32_t* enforce_idx, const int32_t* jn,
+                          const int32_t* record, int chunk, int col0, int first_step,
+                          unsigned char* scratch, int32_t* cand) {
+  __shared__ unsigned long long red[kWarps + 1];
+  const int tid = threadIdx.x;
+  const int N = in.n;
+  const int B = bl.b;
+  const int V = bl.v;
+  const size_t g = blockIdx.x;
+  Lane L;
+  L.in = in;
+  L.bl = bl;
+  L.g = static_cast<int>(blockIdx.x);
+  L.t = carve(scratch + g * region_bytes(N, B, V), N, B, V);
+  L.vids = bl.value_ids + g * B * N;
+  L.kinds = bl.kinds + g * B;
+  L.any_spread = false;
+  for (int b = 0; b < B; ++b) {
+    L.any_spread |= L.kinds[b] == kTargetSpread || L.kinds[b] == kEvenSpread;
+  }
+  const int32_t* rec = record + g * record_words(B, V);
+  const float* rec_c = reinterpret_cast<const float*>(rec + kRecordHead);
+  const int32_t* jn_in = jn + g * N;
+  for (int i = tid; i < B * V; i += kThreads) L.t.c[i] = rec_c[i];
+  for (int n = tid; n < N; n += kThreads) {
+    L.t.jn[n] = static_cast<uint16_t>(jn_in[n]);
+    L.t.jcap[n] = static_cast<uint16_t>(column_cap(in, L.g, n));
+    set_head(L, n, jn_in[n]);
+  }
+  const int W = kEntryHead + B;
+  const int K = Mode == kShardChunked ? chunk : V + 1;
+  int32_t* out = cand + g * K * W;
+  for (int i = tid; i < K; i += kThreads) empty_entry(out + static_cast<size_t>(i) * W, B);
+  if (Mode == kShardSegments) {
+    for (int s = tid; s <= V; s += kThreads) L.t.seg_best[s] = 0ull;
+    for (int v = tid; v < V; v += kThreads) L.t.present[v] = 0;
+  }
+  __syncthreads();
+  compute_tables(L);
+
+  if (Mode == kShardChunked) {
+    // chunked_kernel's rounds without the counting: each round's best
+    // clamped head is an entry, its node takes its next column
+    const int want = min(chunk, max(0, counts[g] - rec[kRecPlaced]));
+    unsigned long long mine = 0ull;
+    for (int n = tid; n < N; n += kThreads) {
+      const float s = head_score(L, n);
+      L.t.sel[n] = s;
+      const unsigned long long w = pack(s, static_cast<uint32_t>(n));
+      mine = w > mine ? w : mine;
+    }
+    for (int r = 0; r < want; ++r) {
+      const unsigned long long best = block_max(mine, red);
+      if (!(packed_value(best) > -INFINITY)) break;
+      const int n = static_cast<int>(packed_index(best));
+      if (n % kThreads == tid) {
+        int32_t* e = out + static_cast<size_t>(r) * W;
+        e[0] = static_cast<int32_t>(static_cast<uint32_t>(best >> 32));
+        e[1] = col0 + n;
+        e[2] = static_cast<int>(L.t.jn[n]) - jn_in[n];
+        e[3] = __float_as_int(head_score(L, n));
+        for (int b = 0; b < B; ++b) e[kEntryHead + b] = L.vids[static_cast<size_t>(b) * N + n];
+        advance(L, n);
+        L.t.sel[n] = fminf(L.t.sel[n], head_score(L, n));
+        if (r + 1 < want) {
+          mine = 0ull;
+          for (int m = tid; m < N; m += kThreads) {
+            const unsigned long long w = pack(L.t.sel[m], static_cast<uint32_t>(m));
+            mine = w > mine ? w : mine;
+          }
+        }
+      }
+    }
+  } else {
+    // opv_kernel's segment maxima over the slice, the first pick's
+    // segment excluded, under the count state after the first pick
+    const int eidx = enforce_idx[g];
+    const int32_t* evids = L.vids + static_cast<size_t>(eidx) * N;
+    const uint8_t* elig = in.eligible + g * N;
+    const int v_first = rec[kRecVFirst];
+    for (int n = tid; n < N; n += kThreads) {
+      const int s = evids[n] >= 0 ? evids[n] : V;
+      const float s1 = s == v_first ? -INFINITY : head_score(L, n);
+      atomicMax(&L.t.seg_best[s], pack(s1, static_cast<uint32_t>(col0 + n)));
+      if (first_step && elig[n] && evids[n] >= 0) L.t.present[evids[n]] = 1;
+    }
+    __syncthreads();
+    for (int s = tid; s <= V; s += kThreads) {
+      const unsigned long long w = L.t.seg_best[s];
+      if (w == 0ull) continue;
+      int32_t* e = out + static_cast<size_t>(s) * W;
+      const int node = static_cast<int>(packed_index(w));
+      e[0] = static_cast<int32_t>(static_cast<uint32_t>(w >> 32));
+      e[1] = node;
+      e[2] = first_step && s < V ? L.t.present[s] : 0;
+      e[3] = __float_as_int(packed_value(w));
+      for (int b = 0; b < B; ++b) {
+        e[kEntryHead + b] = L.vids[static_cast<size_t>(b) * N + (node - col0)];
+      }
+    }
+  }
+}
+
+// The row's candidate lists, `gathered` [S, G, K, W] on the row's lead.
+__device__ __forceinline__ const int32_t* entry_at(const int32_t* gathered, int s, int lanes,
+                                                   int g, int k_entries, int q, int w) {
+  return gathered + ((static_cast<size_t>(s) * lanes + g) * k_entries + q) * w;
+}
+
+// Block-wide min and max of one pair per thread; every thread gets both.
+__device__ void block_minmax(float* mn, float* mx, float* red_f) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float a = *mn;
+  float b = *mx;
+  for (int o = 16; o > 0; o >>= 1) {
+    a = fminf(a, __shfl_xor_sync(0xffffffffu, a, o));
+    b = fmaxf(b, __shfl_xor_sync(0xffffffffu, b, o));
+  }
+  if (lane == 0) {
+    red_f[warp] = a;
+    red_f[kWarps + warp] = b;
+  }
+  __syncthreads();
+  a = INFINITY;
+  b = -INFINITY;
+  for (int w = 0; w < kWarps; ++w) {
+    a = fminf(a, red_f[w]);
+    b = fmaxf(b, red_f[kWarps + w]);
+  }
+  __syncthreads();
+  *mn = a;
+  *mx = b;
+}
+
+// On the row's lead, a block a lane: the step's winners from the S lists,
+// written to `out_choices` / `out_scores` (the step's first slot, `slots`
+// a lane), counted into the record's c, and listed in the record.
+// `present` [G, V] keeps the one-per-value scan's enforce-block values
+// held by an eligible node (the OR of the cells' flags on the first step);
+// `seg_words` [G, 2 (V + 1)] is its segment scratch.
+template <int Mode>
+__global__ void __launch_bounds__(kThreads)
+coupled_step_merge_kernel(const int32_t* gathered, int cells, int lanes, int k_entries, int B,
+                          int V, int32_t* record, const int32_t* counts, const int32_t* kinds,
+                          const int32_t* enforce_idx, int32_t* present, int chunk, int first_step,
+                          unsigned long long* seg_words, int32_t* out_choices, float* out_scores,
+                          int slots) {
+  __shared__ unsigned long long red[kWarps + 1];
+  __shared__ float red_f[2 * kWarps];
+  __shared__ int s_src[kMaxChunk];
+  const int tid = threadIdx.x;
+  const int g = static_cast<int>(blockIdx.x);
+  const int W = kEntryHead + B;
+  int32_t* rec = record + static_cast<size_t>(g) * record_words(B, V);
+  float* c = reinterpret_cast<float*>(rec + kRecordHead);
+  const int count = counts[g];
+  const int n_placed = rec[kRecPlaced];
+  int32_t* ch = out_choices + static_cast<size_t>(g) * slots;
+  float* sc = out_scores + static_cast<size_t>(g) * slots;
+  const auto entry = [&](int s, int q) {
+    return entry_at(gathered, s, lanes, g, k_entries, q, W);
+  };
+
+  if (Mode == kMergeChunked) {
+    // each live entry's rank in (key desc, node asc, column asc) among
+    // every list's entries: taken below the lane's remaining count
+    const int want = max(0, min(chunk, count - n_placed));
+    const int total = cells * k_entries;
+    bool take = false;
+    if (tid < total) {
+      const int32_t* e = entry(tid / k_entries, tid % k_entries);
+      if (static_cast<uint32_t>(e[0]) != 0u && key_value(static_cast<uint32_t>(e[0])) > -INFINITY) {
+        int rank = 0;
+        for (int o = 0; o < total; ++o) {
+          rank += entry_before(entry(o / k_entries, o % k_entries), e) ? 1 : 0;
+        }
+        take = rank < want;
+        if (take) s_src[rank] = tid;
+      }
+    }
+    const int taken = __syncthreads_count(take);
+    if (tid < chunk) {
+      const int32_t* e = tid < taken ? entry(s_src[tid] / k_entries, s_src[tid] % k_entries)
+                                     : nullptr;
+      ch[tid] = e != nullptr ? e[1] : -1;
+      sc[tid] = e != nullptr ? __int_as_float(e[3]) : -INFINITY;
+    }
+    if (tid == 0) {
+      for (int r = 0; r < taken; ++r) {
+        const int32_t* e = entry(s_src[r] / k_entries, s_src[r] % k_entries);
+        count_values(c, e, B, V);
+        rec[kRecWins + r] = e[1];
+      }
+      rec[0] = taken;
+      rec[kRecPlaced] = n_placed + taken;
+    }
+    return;
+  }
+
+  if (Mode == kMergeFirst) {
+    if (tid != 0) return;
+    const int32_t* best = nullptr;
+    for (int s = 0; s < cells; ++s) {
+      const int32_t* e = entry(s, 0);
+      if (static_cast<uint32_t>(e[0]) == 0u) continue;
+      if (best == nullptr || entry_before(e, best)) best = e;
+    }
+    const bool ok0 = best != nullptr && key_value(static_cast<uint32_t>(best[0])) > -INFINITY &&
+                     n_placed < count;
+    ch[0] = ok0 ? best[1] : -1;
+    sc[0] = ok0 ? key_value(static_cast<uint32_t>(best[0])) : -INFINITY;
+    const int eidx = enforce_idx[g];
+    const int ev = best != nullptr ? best[kEntryHead + eidx] : -1;
+    if (ok0) count_values(c, best, B, V);
+    rec[0] = ok0 ? 1 : 0;
+    rec[kRecWins] = ok0 ? best[1] : -1;
+    rec[kRecVFirst] = ev >= 0 ? ev : V;
+    rec[kRecOk0] = ok0 ? 1 : 0;
+    rec[kRecPlaced] = n_placed + (ok0 ? 1 : 0);
+    return;
+  }
+
+  // kMergeSegments: the segments' maxima over the S lists, the rotation
+  // guard on the enforced block's counts after the first pick, then the
+  // top (k_seg - 1) allowed segments by (value desc, segment asc) in
+  // rounds of block argmax, as opv_kernel
+  const int k_seg = chunk;
+  const bool ok0 = rec[kRecOk0] != 0;
+  const int eidx = enforce_idx[g];
+  const bool even_enforce = kinds[static_cast<size_t>(g) * B + eidx] == kEvenSpread;
+  int32_t* pres = present + static_cast<size_t>(g) * V;
+  unsigned long long* words = seg_words + static_cast<size_t>(g) * 2 * (V + 1);
+  unsigned long long* src = words + V + 1;
+  if (first_step) {
+    for (int v = tid; v < V; v += kThreads) {
+      int p = 0;
+      for (int s = 0; s < cells; ++s) p |= entry(s, v)[2];
+      pres[v] = p != 0 ? 1 : 0;
+    }
+    __syncthreads();
+  }
+  const float* ec = c + static_cast<size_t>(eidx) * V;
+  float mn = INFINITY;
+  float mx = -INFINITY;
+  int empty = 0;
+  for (int v = tid; v < V; v += kThreads) {
+    if (ec[v] > 0.0f) {
+      mn = fminf(mn, ec[v]);
+      mx = fmaxf(mx, ec[v]);
+    } else if (pres[v]) {
+      empty = 1;
+    }
+  }
+  block_minmax(&mn, &mx, red_f);
+  const bool no_empty = __syncthreads_or(empty) == 0;
+  for (int s = tid; s <= V; s += kThreads) {
+    const int32_t* best = nullptr;
+    int from = 0;
+    for (int o = 0; o < cells; ++o) {
+      const int32_t* e = entry(o, s);
+      if (static_cast<uint32_t>(e[0]) == 0u) continue;
+      if (best == nullptr || entry_before(e, best)) {
+        best = e;
+        from = o;
+      }
+    }
+    bool ok = true;
+    if (s < V && even_enforce) {
+      const bool pos1 = ec[s] > 0.0f;
+      ok = no_empty ? pos1 && ec[s] <= mn && mx > mn : !pos1 && pres[s] != 0;
+    }
+    const float val = ok && best != nullptr ? key_value(static_cast<uint32_t>(best[0])) : -INFINITY;
+    words[s] = val > -INFINITY ? pack(val, static_cast<uint32_t>(s)) : 0ull;
+    src[s] = static_cast<unsigned long long>(from);
+  }
+  __syncthreads();
+  const int limit = ok0 ? max(0, min(k_seg - 1, count - n_placed)) : 0;
+  int taken = 0;
+  for (int r = 0; r < limit; ++r) {
+    unsigned long long mine = 0ull;
+    for (int s = tid; s <= V; s += kThreads) mine = words[s] > mine ? words[s] : mine;
+    const unsigned long long top = block_max(mine, red);
+    if (top == 0ull) break;
+    const int s = static_cast<int>(packed_index(top));
+    if (tid == 0) {
+      const int32_t* e = entry(static_cast<int>(src[s]), s);
+      ch[1 + r] = e[1];
+      sc[1 + r] = packed_value(top);
+      count_values(c, e, B, V);
+      rec[kRecWins + 1 + r] = e[1];
+      words[s] = 0ull;
+    }
+    __syncthreads();
+    ++taken;
+  }
+  for (int r = taken + tid; r < k_seg - 1; r += kThreads) {
+    ch[1 + r] = -1;
+    sc[1 + r] = -INFINITY;
+  }
+  if (tid == 0) {
+    rec[0] = (ok0 ? 1 : 0) + taken;
+    rec[kRecPlaced] = n_placed + taken;
+  }
+}
+
+// One launch a cell, a thread a lane: each winner in the cell's slice
+// [col0, col0 + n) takes its next column (a node the chunked scan took
+// twice, two).
+__global__ void coupled_shard_apply_kernel(int32_t* jn, const int32_t* record, int lanes, int n,
+                                           int rec_words, int col0) {
+  const int g = static_cast<int>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (g >= lanes) return;
+  const int32_t* rec = record + static_cast<size_t>(g) * rec_words;
+  for (int w = 0; w < rec[0]; ++w) {
+    const int i = rec[kRecWins + w] - col0;
+    if (i >= 0 && i < n) jn[static_cast<size_t>(g) * n + i] += 1;
+  }
+}
+
+// The launch just made: its error, and one more in `launched` (when
+// given) if it was accepted. The launchers return before launching when
+// there is no lane, and count nothing then.
+cudaError_t launched_ok(long long* launched) {
+  const cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess && launched != nullptr) ++*launched;
+  return e;
+}
+
+cudaError_t launch_shard_step(int segments, const Inputs& in, const Blocks& bl,
+                              const int32_t* counts, const int32_t* enforce_idx,
+                              const int32_t* jn, const int32_t* record, int chunk, int col0,
+                              int first_step, unsigned char* scratch, int32_t* cand, int lanes,
+                              cudaStream_t stream, long long* launched = nullptr) {
+  if (lanes == 0) return cudaSuccess;
+  if (segments) {
+    coupled_shard_step_kernel<kShardSegments><<<lanes, kThreads, 0, stream>>>(
+        in, bl, counts, enforce_idx, jn, record, chunk, col0, first_step, scratch, cand);
+  } else {
+    coupled_shard_step_kernel<kShardChunked><<<lanes, kThreads, 0, stream>>>(
+        in, bl, counts, enforce_idx, jn, record, chunk, col0, first_step, scratch, cand);
+  }
+  return launched_ok(launched);
+}
+
+cudaError_t launch_merge(int mode, const int32_t* gathered, int cells, int lanes, int k_entries,
+                         int b, int v, int32_t* record, const int32_t* counts,
+                         const int32_t* kinds, const int32_t* enforce_idx, int32_t* present,
+                         int chunk, int first_step, unsigned long long* seg_words,
+                         int32_t* out_choices, float* out_scores, int slots,
+                         cudaStream_t stream, long long* launched = nullptr) {
+  if (lanes == 0) return cudaSuccess;
+  if (mode == kMergeChunked && (chunk > kMaxChunk || cells * k_entries > kThreads)) {
+    return cudaErrorInvalidValue;
+  }
+  if (mode == kMergeSegments && chunk > kMaxPicks) return cudaErrorInvalidValue;
+#define NOMAD_MERGE_ARGS                                                                    \
+  gathered, cells, lanes, k_entries, b, v, record, counts, kinds, enforce_idx, present, chunk, \
+      first_step, seg_words, out_choices, out_scores, slots
+  if (mode == kMergeChunked) {
+    coupled_step_merge_kernel<kMergeChunked><<<lanes, kThreads, 0, stream>>>(NOMAD_MERGE_ARGS);
+  } else if (mode == kMergeFirst) {
+    coupled_step_merge_kernel<kMergeFirst><<<lanes, 32, 0, stream>>>(NOMAD_MERGE_ARGS);
+  } else {
+    coupled_step_merge_kernel<kMergeSegments><<<lanes, kThreads, 0, stream>>>(NOMAD_MERGE_ARGS);
+  }
+#undef NOMAD_MERGE_ARGS
+  return launched_ok(launched);
+}
+
+cudaError_t launch_apply(int32_t* jn, const int32_t* record, int lanes, int n, int rec_words,
+                         int col0, cudaStream_t stream, long long* launched = nullptr) {
+  if (lanes == 0) return cudaSuccess;
+  coupled_shard_apply_kernel<<<(lanes + 127) / 128, 128, 0, stream>>>(
+      jn, record, lanes, n, rec_words, col0);
+  return launched_ok(launched);
+}
+
+// The per-cell pointers the step loop takes, in this order.
+enum CellPtr {
+  kPtrCapacity, kPtrUsed0, kPtrAsks, kPtrEligible, kPtrJobCounts, kPtrDesiredTotals,
+  kPtrPenalty, kPtrAffinity, kPtrHasAff, kPtrDistinct, kPtrSlotCaps, kPtrValueIds,
+  kPtrDesired, kPtrCaps, kPtrWeights, kPtrKinds, kPtrJitter, kPtrCounts, kPtrEnforce,
+  kPtrJn,        // i32 [G, n]: the slice's next columns, zero at the start
+  kPtrScratch,   // G regions (region_bytes)
+  kPtrCand,      // i32 [G, K, W]: the cell's candidates
+  kPtrRecord,    // i32 [G, R]: the row's record as the cell received it
+  kPtrGathered,  // the row's lead only: i32 [S, G, K, W]
+  kPtrMaster,    // the row's lead only: i32 [G, R], c = counts0 and zeros at the start
+  kPtrPresent,   // the row's lead only: i32 [G, V]
+  kPtrSegWords,  // the row's lead only: u64 [G, 2 (V + 1)]
+  kPtrChoices,   // the row's lead only: i32 [G, slots]
+  kPtrScores,    // the row's lead only: f32 [G, slots]
+  kPtrHomeStream,  // the stream the cell's tensors were made on
+  kCellPtrs
+};
+
+// The entries of the step loop's launch counts.
+enum Launched { kLaunchedStep, kLaunchedMerge, kLaunchedApply };
+
+// The sharded scan of one call: `rows` groups rows of `mp` cells each
+// (cell (i, j) is index i * mp + j), `lanes` lanes a row over `n` slice
+// nodes a cell; `opv` the one-per-value scan (`chunk` is then k_seg),
+// else the chunked scan (chunk 1: the value scan). Every cell's work runs
+// on a stream of its own on its device, each after its home stream's work
+// so far; every home stream waits for its cell's last step. Candidates
+// and records cross between cells with cudaMemcpyPeerAsync. Launches
+// per cell and step: one shard step (two for opv) and one apply; per row
+// and step one merge (two for opv). `launched` [3] gains the shard steps,
+// merges and applies this call launched, counted where each launches.
+int coupled_sharded_scan(int opv, int rows, int mp, const int* devices, void* const* ptrs,
+                         int lanes, int n, int j, int b, int v, int spread, int chunk,
+                         int n_steps, long long* launched) {
+  const int cells = rows * mp;
+  const int W = kEntryHead + b;
+  const int k_first = opv ? 1 : chunk;
+  const size_t rec_bytes = static_cast<size_t>(lanes) * record_words(b, v) * 4;
+  const size_t cand_bytes = static_cast<size_t>(lanes) * k_first * W * 4;
+  const size_t seg_bytes = static_cast<size_t>(lanes) * (v + 1) * W * 4;
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return err;
+  std::vector<cudaStream_t> st(cells, nullptr);
+  std::vector<cudaEvent_t> done(cells, nullptr);
+  std::vector<cudaEvent_t> merged(rows, nullptr);
+  const auto P = [&](int cell, int k) { return ptrs[static_cast<size_t>(cell) * kCellPtrs + k]; };
+  const auto check = [&](cudaError_t e) {
+    if (err == cudaSuccess && e != cudaSuccess) err = e;
+    return err == cudaSuccess;
+  };
+  for (int c = 0; c < cells && err == cudaSuccess; ++c) {
+    check(cudaSetDevice(devices[c])) &&
+        check(cudaStreamCreateWithFlags(&st[c], cudaStreamNonBlocking)) &&
+        check(cudaEventCreateWithFlags(&done[c], cudaEventDisableTiming)) &&
+        check(cudaEventRecord(done[c], static_cast<cudaStream_t>(P(c, kPtrHomeStream)))) &&
+        check(cudaStreamWaitEvent(st[c], done[c], 0));
+  }
+  for (int i = 0; i < rows && err == cudaSuccess; ++i) {
+    check(cudaSetDevice(devices[i * mp])) &&
+        check(cudaEventCreateWithFlags(&merged[i], cudaEventDisableTiming));
+  }
+  const auto cell_inputs = [&](int c) {
+    Inputs in{static_cast<const float*>(P(c, kPtrCapacity)),
+              static_cast<const float*>(P(c, kPtrUsed0)),
+              static_cast<const float*>(P(c, kPtrAsks)),
+              static_cast<const uint8_t*>(P(c, kPtrEligible)),
+              static_cast<const int32_t*>(P(c, kPtrJobCounts)),
+              static_cast<const float*>(P(c, kPtrDesiredTotals)),
+              static_cast<const uint8_t*>(P(c, kPtrPenalty)),
+              static_cast<const float*>(P(c, kPtrAffinity)),
+              static_cast<const uint8_t*>(P(c, kPtrHasAff)),
+              static_cast<const uint8_t*>(P(c, kPtrDistinct)),
+              static_cast<const float*>(P(c, kPtrSlotCaps)),
+              static_cast<const float*>(P(c, kPtrJitter)),
+              spread, n, j};
+    return in;
+  };
+  const auto cell_blocks = [&](int c) {
+    Blocks bl{static_cast<const int32_t*>(P(c, kPtrValueIds)), nullptr,
+              static_cast<const float*>(P(c, kPtrDesired)),
+              static_cast<const float*>(P(c, kPtrCaps)),
+              static_cast<const float*>(P(c, kPtrWeights)),
+              static_cast<const int32_t*>(P(c, kPtrKinds)), b, v};
+    return bl;
+  };
+  // the record from every row's lead to each of its cells (the lead's own
+  // stream already follows its merge)
+  const auto broadcast = [&]() {
+    for (int c = 0; c < cells && err == cudaSuccess; ++c) {
+      const int lead = c / mp * mp;
+      check(cudaSetDevice(devices[c])) &&
+          (c == lead || check(cudaStreamWaitEvent(st[c], merged[c / mp], 0))) &&
+          check(cudaMemcpyPeerAsync(P(c, kPtrRecord), devices[c], P(lead, kPtrMaster),
+                                    devices[lead], rec_bytes, st[c]));
+    }
+  };
+  // every cell's candidates, then each row's merge on its lead
+  const auto exchange = [&](int segments, int k, int merge_mode, int first_step, int slot0) {
+    const size_t bytes = segments ? seg_bytes : cand_bytes;
+    for (int c = 0; c < cells && err == cudaSuccess; ++c) {
+      const int lead = c / mp * mp;
+      const int col0 = (c % mp) * n;
+      char* slot = static_cast<char*>(P(lead, kPtrGathered)) + static_cast<size_t>(c % mp) * bytes;
+      check(cudaSetDevice(devices[c])) &&
+          check(launch_shard_step(segments, cell_inputs(c), cell_blocks(c),
+                                  static_cast<const int32_t*>(P(c, kPtrCounts)),
+                                  static_cast<const int32_t*>(P(c, kPtrEnforce)),
+                                  static_cast<const int32_t*>(P(c, kPtrJn)),
+                                  static_cast<const int32_t*>(P(c, kPtrRecord)), k, col0,
+                                  first_step, static_cast<unsigned char*>(P(c, kPtrScratch)),
+                                  static_cast<int32_t*>(P(c, kPtrCand)), lanes, st[c],
+                                  launched + kLaunchedStep)) &&
+          check(cudaMemcpyPeerAsync(slot, devices[lead], P(c, kPtrCand), devices[c], bytes,
+                                    st[c])) &&
+          check(cudaEventRecord(done[c], st[c]));
+    }
+    for (int i = 0; i < rows && err == cudaSuccess; ++i) {
+      const int lead = i * mp;
+      check(cudaSetDevice(devices[lead]));
+      for (int c = lead + 1; c < lead + mp && err == cudaSuccess; ++c) {
+        check(cudaStreamWaitEvent(st[lead], done[c], 0));
+      }
+      const int slots = n_steps * chunk;
+      err == cudaSuccess &&
+          check(launch_merge(merge_mode, static_cast<const int32_t*>(P(lead, kPtrGathered)), mp,
+                             lanes, segments ? v + 1 : k, b, v,
+                             static_cast<int32_t*>(P(lead, kPtrMaster)),
+                             static_cast<const int32_t*>(P(lead, kPtrCounts)),
+                             static_cast<const int32_t*>(P(lead, kPtrKinds)),
+                             static_cast<const int32_t*>(P(lead, kPtrEnforce)),
+                             static_cast<int32_t*>(P(lead, kPtrPresent)), chunk, first_step,
+                             static_cast<unsigned long long*>(P(lead, kPtrSegWords)),
+                             static_cast<int32_t*>(P(lead, kPtrChoices)) + slot0,
+                             static_cast<float*>(P(lead, kPtrScores)) + slot0, slots,
+                             st[lead], launched + kLaunchedMerge)) &&
+          check(cudaEventRecord(merged[i], st[lead]));
+    }
+    broadcast();
+  };
+  // the master record as the rows' leads hold it at the start
+  for (int i = 0; i < rows && err == cudaSuccess; ++i) {
+    check(cudaSetDevice(devices[i * mp])) && check(cudaEventRecord(merged[i], st[i * mp]));
+  }
+  broadcast();
+  for (int step = 0; step < n_steps && err == cudaSuccess; ++step) {
+    if (opv) {
+      exchange(0, 1, kMergeFirst, 0, step * chunk);
+      exchange(1, v + 1, kMergeSegments, step == 0, step * chunk);
+    } else {
+      exchange(0, chunk, kMergeChunked, 0, step * chunk);
+    }
+    for (int c = 0; c < cells && err == cudaSuccess; ++c) {
+      check(cudaSetDevice(devices[c])) &&
+          check(launch_apply(static_cast<int32_t*>(P(c, kPtrJn)),
+                             static_cast<const int32_t*>(P(c, kPtrRecord)), lanes, n,
+                             record_words(b, v), (c % mp) * n, st[c],
+                             launched + kLaunchedApply));
+    }
+  }
+  // every home stream waits for its cell; then the streams and events go
+  // (their resources are released once the device is done with them)
+  for (int c = 0; c < cells; ++c) {
+    if (st[c] == nullptr) continue;
+    cudaSetDevice(devices[c]);
+    if (done[c] != nullptr) {
+      check(cudaEventRecord(done[c], st[c]));
+      check(cudaStreamWaitEvent(static_cast<cudaStream_t>(P(c, kPtrHomeStream)), done[c], 0));
+    }
+  }
+  for (int c = 0; c < cells; ++c) {
+    cudaSetDevice(devices[c]);
+    if (done[c] != nullptr) cudaEventDestroy(done[c]);
+    if (st[c] != nullptr) cudaStreamDestroy(st[c]);
+  }
+  for (int i = 0; i < rows; ++i) {
+    cudaSetDevice(devices[i * mp]);
+    if (merged[i] != nullptr) cudaEventDestroy(merged[i]);
+  }
+  cudaSetDevice(prev);
+  return err;
+}
+
 }  // namespace
 
 // C entry points, bound with ctypes (nomad_tpu_torch/device/score.py).
@@ -1517,3 +2172,84 @@ extern "C" int nomad_place_spread_opv(
       out_choices, out_scores);
   return static_cast<int>(cudaGetLastError());
 }
+
+// -- the coupled scans under a node-axis mesh ---------------------------------
+
+// Bytes of one lane's region (a shard step's per-step scratch).
+extern "C" int nomad_coupled_region_bytes(int n, int b, int v, size_t* bytes) {
+  *bytes = region_bytes(n, b, v);
+  return 0;
+}
+
+// One shard step on one cell (`segments`: the one-per-value scan's
+// segment maxima, else the top `chunk` entries); `g` lanes over the
+// cell's `n` slice nodes, `col0` the slice's first global node.
+extern "C" int nomad_coupled_shard_step(
+    const float* capacity, const float* used0, const float* asks, const uint8_t* eligible,
+    const int32_t* job_counts, const float* desired_totals, const uint8_t* penalty,
+    const float* affinity, const uint8_t* has_aff, const uint8_t* distinct,
+    const float* slot_caps, const int32_t* value_ids, const float* desired, const float* caps,
+    const float* weights, const int32_t* kinds, const float* jitter, const int32_t* counts,
+    const int32_t* enforce_idx, const int32_t* jn, const int32_t* record, int algorithm_spread,
+    int g, int n, int j, int b, int v, int segments, int chunk, int col0, int first_step,
+    unsigned char* scratch, int32_t* cand, void* stream) {
+  Inputs in{capacity, used0,     asks,     eligible, job_counts,
+            desired_totals, penalty, affinity, has_aff,  distinct,
+            slot_caps, jitter, algorithm_spread, n, j};
+  Blocks bl{value_ids, nullptr, desired, caps, weights, kinds, b, v};
+  if (!segments && (chunk < 1 || chunk > kMaxChunk)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_shard_step(segments, in, bl, counts, enforce_idx, jn, record,
+                                            chunk, col0, first_step, scratch, cand, g,
+                                            static_cast<cudaStream_t>(stream)));
+}
+
+// One merge of `cells` candidate lists on a row's lead (`mode`: 0 the
+// chunked scan, 1 the one-per-value first pick, 2 its segments).
+extern "C" int nomad_coupled_step_merge(
+    int mode, const int32_t* gathered, int cells, int lanes, int k_entries, int b, int v,
+    int32_t* record, const int32_t* counts, const int32_t* kinds, const int32_t* enforce_idx,
+    int32_t* present, int chunk, int first_step, unsigned long long* seg_words,
+    int32_t* out_choices, float* out_scores, int slots, void* stream) {
+  return static_cast<int>(launch_merge(mode, gathered, cells, lanes, k_entries, b, v, record,
+                                       counts, kinds, enforce_idx, present, chunk, first_step,
+                                       seg_words, out_choices, out_scores, slots,
+                                       static_cast<cudaStream_t>(stream)));
+}
+
+// One apply on one cell.
+extern "C" int nomad_coupled_shard_apply(int32_t* jn, const int32_t* record, int lanes, int n,
+                                         int rec_words, int col0, void* stream) {
+  return static_cast<int>(
+      launch_apply(jn, record, lanes, n, rec_words, col0, static_cast<cudaStream_t>(stream)));
+}
+
+// The step loops: `ptrs` holds kCellPtrs pointers a cell (CellPtr order),
+// `devices` each cell's device, `launched` i64[3] the launches made (shard
+// steps, merges, applies), added to; see coupled_sharded_scan.
+extern "C" int nomad_sharded_value_scan(int rows, int mp, const int* devices,
+                                        void* const* ptrs, int lanes, int n, int j, int b,
+                                        int v, int spread, int max_steps, long long* launched) {
+  return static_cast<int>(coupled_sharded_scan(0, rows, mp, devices, ptrs, lanes, n, j, b, v,
+                                               spread, 1, max_steps, launched));
+}
+
+extern "C" int nomad_sharded_spread_chunked(int rows, int mp, const int* devices,
+                                            void* const* ptrs, int lanes, int n, int j, int b,
+                                            int v, int spread, int chunk, int n_chunks,
+                                            long long* launched) {
+  if (chunk < 1 || chunk > kMaxChunk) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(coupled_sharded_scan(0, rows, mp, devices, ptrs, lanes, n, j, b, v,
+                                               spread, chunk, n_chunks, launched));
+}
+
+extern "C" int nomad_sharded_spread_opv(int rows, int mp, const int* devices,
+                                        void* const* ptrs, int lanes, int n, int j, int b,
+                                        int v, int spread, int k_seg, int n_chunks,
+                                        long long* launched) {
+  if (k_seg < 2 || k_seg > kMaxPicks) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(coupled_sharded_scan(1, rows, mp, devices, ptrs, lanes, n, j, b, v,
+                                               spread, k_seg, n_chunks, launched));
+}
+
+// The per-cell pointer count the step loops read.
+extern "C" int nomad_sharded_cell_ptrs() { return kCellPtrs; }

@@ -32,7 +32,9 @@ Under a node-axis mesh (``backend.MeshConfig``; ``PlacementKernel``'s
 The closed form then runs a launch per mesh cell and the cross-shard
 top-k merge (``closed_form_topk_merge``, ``csrc/closed_form.cu``) — the
 reference's hierarchical ``_topk_nodes`` — and the score matrix a launch
-per cell; the coupled kernels take their inputs gathered onto the lead.
+per cell. The three coupled scans run step by step over the cells, with
+a cross-shard reduction every step (``coupled_shard_step``,
+``coupled_step_merge``, ``coupled_shard_apply``).
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ import numpy as np
 import torch
 
 from ..backend import (
+    _gathered,
     check_launch,
     count_launch,
     cuda_library,
@@ -1129,6 +1132,28 @@ def coupled_cluster_size(symbol: str, n: int, nb: int, nv: int) -> int:
     return out.value
 
 
+def _coupled_want(what, lane, blocks, counts, jitter, extra=()):
+    """Check the coupled inputs (``blocks``: the value ids, then the
+    block tables with or without counts0) and ``extra`` (name, tensor,
+    dtype, shape) entries; returns (G, N, B, V)."""
+    g, n = lane[3].shape  # eligible
+    vids, *tables, weights, kinds = blocks
+    nb, nv = tables[0].shape[1], tables[0].shape[2]
+    want = _lane_specs(*lane, jitter) + [
+        ("block_value_ids", vids, torch.int32, (g, nb, n)),
+        *[(name, t, torch.float32, (g, nb, nv)) for name, t in zip(
+            ("block_counts0", "block_desired", "block_caps")[-len(tables):], tables
+        )],
+        ("block_weights", weights, torch.float32, (g, nb)),
+        ("block_kinds", kinds, torch.int32, (g, nb)),
+        ("counts", counts, torch.int32, (g,)),
+        *[x for x in extra if x[1] is not None],
+    ]
+    same_device([t for _, t, _, _ in want], lane[0].device, what)
+    _check_inputs(what, want)
+    return g, n, nb, nv
+
+
 def _launch_coupled(what, symbol, lane, blocks, counts, algorithm_spread,
                     max_j, slots, extra, jitter):
     """Check a coupled kernel's inputs, allocate its outputs (and its
@@ -1137,24 +1162,11 @@ def _launch_coupled(what, symbol, lane, blocks, counts, algorithm_spread,
     ``lane`` holds the eleven lane inputs in kernel order, ``blocks`` the
     six block inputs, ``extra`` the kernel's own arguments between the
     shared head and the scratch (the enforce index tensor or ints)."""
-    vids, counts0, desired, caps, weights, kinds = blocks
     dev = lane[0].device  # capacity
-    g, n = lane[3].shape  # eligible
-    nb, nv = counts0.shape[1], counts0.shape[2]
-    want = _lane_specs(*lane, jitter) + [
-        ("block_value_ids", vids, torch.int32, (g, nb, n)),
-        ("block_counts0", counts0, torch.float32, (g, nb, nv)),
-        ("block_desired", desired, torch.float32, (g, nb, nv)),
-        ("block_caps", caps, torch.float32, (g, nb, nv)),
-        ("block_weights", weights, torch.float32, (g, nb)),
-        ("block_kinds", kinds, torch.int32, (g, nb)),
-        ("counts", counts, torch.int32, (g,)),
-    ] + [
-        ("enforce_idx", e, torch.int32, (g,))
+    g, n, nb, nv = _coupled_want(what, lane, blocks, counts, jitter, [
+        ("enforce_idx", e, torch.int32, (lane[2].shape[0],))
         for e in extra if isinstance(e, torch.Tensor)
-    ]
-    same_device([t for _, t, _, _ in want], dev, what)
-    _check_inputs(what, want)
+    ])
     # the kernels keep a node's next column in 16 bits
     if not 1 <= max_j < 2**16 or nb < 1 or nv < 1 or n < 1:
         raise ValueError(f"{what}: unsupported shape N={n} J={max_j} B={nb} V={nv}")
@@ -1183,10 +1195,11 @@ def _launch_coupled(what, symbol, lane, blocks, counts, algorithm_spread,
 
 @guarded(
     "place_value_scan_kernel",
+    sharded=lambda *a, **kw: place_value_scan_sharded(*a, **kw),
     # a build budget of 1: the one load of csrc/coupled.cu a process makes
     build_budget=1,
     library="coupled",
-    symbols=("nomad_place_value_scan",),
+    symbols=("nomad_place_value_scan", "nomad_sharded_value_scan"),
 )
 def place_value_scan(
     capacity, used0, asks, eligible, job_counts, desired_totals,
@@ -1199,7 +1212,8 @@ def place_value_scan(
     port of ``place_value_scan_kernel``: (choices i32[G, max_steps],
     scores f32[G, max_steps]), −1/−inf in steps that took nothing. CPU
     tensors run the plain version; CUDA tensors launch
-    ``csrc/coupled.cu``."""
+    ``csrc/coupled.cu``. Inputs laid out over a mesh run
+    ``place_value_scan_sharded``."""
     args = (
         capacity, used0, asks, eligible, job_counts, desired_totals,
         penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
@@ -1217,14 +1231,16 @@ def place_value_scan(
 
 
 place_value_scan.launches = 0
+place_value_scan.plain_calls = 0  # a CPU mesh's gathered calls
 
 
 @guarded(
     "place_spread_chunked_kernel",
+    sharded=lambda *a, **kw: place_spread_chunked_sharded(*a, **kw),
     # a build budget of 1: the one load of csrc/coupled.cu a process makes
     build_budget=1,
     library="coupled",
-    symbols=("nomad_place_spread_chunked",),
+    symbols=("nomad_place_spread_chunked", "nomad_sharded_spread_chunked"),
 )
 def place_spread_chunked(
     capacity, used0, asks, eligible, job_counts, desired_totals,
@@ -1236,7 +1252,8 @@ def place_spread_chunked(
     """Chunked greedy placement for large spread-coupled groups — the
     port of ``place_spread_chunked_kernel``: (choices i32[G, n_chunks ·
     chunk], scores f32[…]). CPU tensors run the plain version; CUDA
-    tensors launch ``csrc/coupled.cu``."""
+    tensors launch ``csrc/coupled.cu``. Inputs laid out over a mesh run
+    ``place_spread_chunked_sharded``."""
     args = (
         capacity, used0, asks, eligible, job_counts, desired_totals,
         penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
@@ -1257,14 +1274,16 @@ def place_spread_chunked(
 
 
 place_spread_chunked.launches = 0
+place_spread_chunked.plain_calls = 0  # a CPU mesh's gathered calls
 
 
 @guarded(
     "place_spread_opv_kernel",
+    sharded=lambda *a, **kw: place_spread_opv_sharded(*a, **kw),
     # a build budget of 1: the one load of csrc/coupled.cu a process makes
     build_budget=1,
     library="coupled",
-    symbols=("nomad_place_spread_opv",),
+    symbols=("nomad_place_spread_opv", "nomad_sharded_spread_opv"),
 )
 def place_spread_opv(
     capacity, used0, asks, eligible, job_counts, desired_totals,
@@ -1276,7 +1295,8 @@ def place_spread_opv(
     """One-per-value chunked placement for even-mode spread groups — the
     port of ``place_spread_opv_kernel``: (choices i32[G, n_chunks ·
     k_seg], scores f32[…]). CPU tensors run the plain version; CUDA
-    tensors launch ``csrc/coupled.cu``."""
+    tensors launch ``csrc/coupled.cu``. Inputs laid out over a mesh run
+    ``place_spread_opv_sharded``."""
     args = (
         capacity, used0, asks, eligible, job_counts, desired_totals,
         penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
@@ -1298,6 +1318,867 @@ def place_spread_opv(
 
 
 place_spread_opv.launches = 0
+place_spread_opv.plain_calls = 0  # a CPU mesh's gathered calls
+
+
+# -- the coupled scans under a node-axis mesh ----------------------------------
+#
+# Each groups row of cells (i, 0..S-1) runs its lanes' scan over the S
+# node slices step by step, with a cross-shard reduction every step (the
+# reference lays the same inputs out over its mesh and XLA partitions
+# every step of its scan): every cell scores its slice under the
+# replicated count state and emits candidates (``coupled_shard_step``),
+# the row's lead merges them into the step's winners and counts their
+# values (``coupled_step_merge``), and every cell moves on the columns of
+# the winners it holds (``coupled_shard_apply``). The one-per-value scan
+# exchanges twice a step: its first pick, then its segments. The
+# results equal the one-device call's bit for bit (proof in
+# csrc/coupled.cu). On the card one C call runs the whole loop
+# (``nomad_sharded_*``: per-cell streams ordered by events, copies with
+# cudaMemcpyPeerAsync); on the CPU a Python loop runs the plain versions.
+
+# a row's record, per lane (csrc/coupled.cu): the step's winners (their
+# count, then up to CHUNK global nodes), the first pick's segment, whether
+# it was taken, the lane's placements so far; then c [B, V] as float bits
+_REC_WINS = 1
+_REC_V_FIRST = _REC_WINS + CHUNK
+_REC_OK0 = _REC_V_FIRST + 1
+_REC_PLACED = _REC_OK0 + 1
+_REC_HEAD = _REC_PLACED + 1
+# a candidate: the order key of its value (0: none), its global node, its
+# column offset from the node's next column (segments: the segment's
+# presence flag on a call's first step), its unclamped score's bits, then
+# the node's B value ids
+_ENTRY_HEAD = 4
+_NEG_INF_BITS = int(np.array(-np.inf, dtype=np.float32).view(np.int32))
+# the order key of -inf: a candidate above it has a finite value
+_NEG_INF_KEY = 0x007FFFFF
+_MERGE_MODES = {"chunked": 0, "first": 1, "segments": 2}
+
+# (name, axes) of the coupled scans' lane and block inputs, in their order
+_COUPLED_AXES = _CLOSED_FORM_AXES + (
+    ("block_value_ids", ("groups", None, "nodes")),
+    ("block_counts0", ("groups", None, None)),
+    ("block_desired", ("groups", None, None)),
+    ("block_caps", ("groups", None, None)),
+    ("block_weights", ("groups", None)),
+    ("block_kinds", ("groups", None)),
+)
+
+
+def _i32(u):
+    """int64 u32 bit patterns as int32 tensors of the same bits."""
+    return torch.where(u >= 2**31, u - 2**32, u).to(torch.int32)
+
+
+def _key_floats(keys):
+    """The floats int64 order keys stand for (``key_value``)."""
+    u = torch.where(keys >= 0x80000000, keys & 0x7FFFFFFF, ~keys & 0xFFFFFFFF)
+    return _i32(u).view(torch.float32)
+
+
+def _record_counts(record, nb: int, nv: int):
+    """The count state c f32[G, B, V] a record carries (a copy)."""
+    return record[:, _REC_HEAD:].contiguous().view(torch.float32).reshape(-1, nb, nv)
+
+
+def _empty_entries(g: int, k: int, nb: int, dev):
+    e = torch.zeros((g, k, _ENTRY_HEAD + nb), dtype=torch.int32, device=dev)
+    e[..., 1] = -1
+    e[..., 3] = _NEG_INF_BITS
+    e[..., _ENTRY_HEAD:] = -1
+    return e
+
+
+def _entry_vids(vids, rows):
+    """[G, K, B] value ids of the local node ``rows`` [G, K]."""
+    nb, k = vids.shape[1], rows.shape[1]
+    return torch.gather(vids, 2, rows[:, None, :].expand(-1, nb, k)).permute(0, 2, 1)
+
+
+def coupled_shard_step_plain(
+    capacity, used0, asks, eligible, job_counts, desired_totals,
+    penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+    slot_caps, block_value_ids, block_desired, block_caps, block_weights,
+    block_kinds, counts, enforce_idx, jn, record, algorithm_spread: bool,
+    max_j: int, segments: bool, chunk: int, col0: int, first_step: bool,
+    jitter=None,
+):
+    """The plain version of ``coupled_shard_step``: one cell's candidates
+    i32[G, K, 4 + B] over its slice of nodes (every node input its part,
+    ``jn`` i32[G, n] its next columns, ``record`` the row's record with
+    the count state). Chunked (``segments`` False): the top ``want`` =
+    min(chunk, count − placed) entries of the slice's clamped plane under
+    the tables of the record's counts, in (value desc, node asc, column
+    asc) order. Segments: per enforce-block segment (value-less nodes
+    form segment V) the best head under the record's counts, the first
+    pick's segment excluded, with the lowest node at that value. Slots
+    with no candidate hold key 0, node −1, score −inf, value ids −1."""
+    planes = _score_planes(
+        capacity, used0, asks, eligible, job_counts, desired_totals,
+        penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+        slot_caps, algorithm_spread, max_j, jitter=jitter,
+    )
+    cells = _ShardCells(
+        planes, eligible, block_value_ids, block_desired, block_caps, block_weights,
+        block_kinds, counts, enforce_idx, max_j, 1, col0,
+    )
+    return cells.step(jn, record, segments, chunk, first_step)[0]
+
+
+class _ShardCells:
+    """What the shard steps of S cells read that stays the same for a
+    whole scan: the cells' [G, S·n, J] planes side by side on the node
+    axis (cell s holds nodes [s·n, (s + 1)·n), its first global node
+    ``col0`` + s·n), their block inputs and the derived value segments,
+    made once a call. ``step`` gives every cell's candidates
+    [S, G, K, 4 + B], each from its own nodes alone: one cell for
+    ``coupled_shard_step_plain``, every cell of a CPU mesh at once."""
+
+    def __init__(self, planes, eligible, block_value_ids, block_desired, block_caps,
+                 block_weights, block_kinds, counts, enforce_idx, max_j, cells, col0):
+        self.planes = planes
+        self.eligible = eligible
+        self.vids = block_value_ids
+        self.tables = (block_desired, block_caps, block_weights, block_kinds)
+        self.counts = counts.long()
+        self.max_j = max_j
+        self.cp = _Coupling(block_value_ids, block_kinds)
+        g, big_n = eligible.shape
+        self.s, self.n = cells, big_n // cells
+        self.nb, self.nv = block_desired.shape[1], block_desired.shape[2]
+        dev = eligible.device
+        # each cell's first global node, [1, S, 1]
+        self.col0 = (col0 + torch.arange(cells, device=dev) * self.n)[None, :, None]
+        self.ar = torch.arange(self.n, device=dev)
+        if enforce_idx is not None:
+            eidx = enforce_idx.long()
+            evids = torch.gather(self.cp.vids, 1, eidx[:, None, None].expand(g, 1, big_n))[:, 0]
+            self.seg = torch.where(evids >= 0, evids, self.nv)  # [G, S·n]
+            self.seg_plane = (
+                self.seg[:, None, :] == torch.arange(self.nv + 1, device=dev)[:, None]
+            ).view(g, self.nv + 1, cells, self.n)
+            held = (evids[:, None, :] == torch.arange(self.nv, device=dev)[:, None]) & eligible[:, None, :]
+            self.present = held.view(g, self.nv, cells, self.n).any(dim=3).permute(2, 0, 1)
+
+    def _vids(self, rows):
+        """[S, G, K, B] value ids of the cells' local nodes ``rows`` [G, S, K]."""
+        g, nb, k = rows.shape[0], self.nb, rows.shape[2]
+        v = self.vids.view(g, nb, self.s, self.n)
+        idx = rows[:, None].expand(g, nb, self.s, k)
+        return torch.gather(v, 3, idx).permute(2, 0, 3, 1)
+
+    def _entries(self, live, key, rows, k, raw_bits):
+        """[S, G, K, W] candidates from [G, S, K] fields (``rows`` local)."""
+        g = live.shape[0]
+        out = _empty_entries(self.s * g, k, self.nb, live.device).view(self.s, g, k, -1)
+        t = lambda x: x.permute(1, 0, 2)  # noqa: E731
+        out[..., 0] = t(torch.where(live, key, 0))
+        out[..., 1] = t(torch.where(live, rows + self.col0, -1)).to(torch.int32)
+        out[..., 3] = t(torch.where(live, raw_bits, _NEG_INF_BITS))
+        out[..., _ENTRY_HEAD:] = torch.where(t(live)[..., None], self._vids(rows), -1)
+        return out
+
+    def step(self, jn, record, segments, chunk, first_step):
+        num, den, fits = self.planes
+        g = self.eligible.shape[0]
+        s, n, nb, nv, max_j, cp = self.s, self.n, self.nb, self.nv, self.max_j, self.cp
+        dev = num.device
+        c = _record_counts(record, nb, nv)
+        boost, allowed = cp.node_terms(*_block_tables(c, *self.tables))
+        jn = jn.long()
+        want = torch.clamp(
+            torch.clamp(self.counts - record[:, _REC_PLACED].long(), max=chunk), min=0
+        )
+        if segments:
+            score1 = cp.scores(*_heads(num, den, fits, jn, max_j), boost, allowed)
+            v_first = record[:, _REC_V_FIRST].long()
+            score1 = torch.where(self.seg == v_first[:, None], -torch.inf, score1)
+            keys = _order_keys(score1).view(g, 1, s, n)
+            best = torch.where(self.seg_plane, keys, -1).amax(dim=3)  # [G, V+1, S]
+            low = torch.where(
+                self.seg_plane & (keys == best[..., None]), self.ar, n
+            ).amin(dim=3)
+            held = (best >= 0).permute(0, 2, 1)  # [G, S, V+1]
+            rows = low.clamp(max=n - 1).permute(0, 2, 1)
+            key = best.permute(0, 2, 1)
+            out = self._entries(held, _i32(key), rows, nv + 1,
+                                _key_floats(key).view(torch.int32))
+            if first_step:
+                out[:, :, :nv, 2] = self.present
+            return out
+        if chunk == 1:
+            # the top entry of the clamped plane is the best head (a node's
+            # later columns lie at or below its head, after it in flat order)
+            score = cp.scores(*_heads(num, den, fits, jn, max_j), boost, allowed).view(g, s, n)
+            best, _ = _first_argmax(score)  # [G, S]
+            raw = torch.gather(score, 2, best[..., None])  # [G, S, 1]
+            live = (want[:, None, None] > 0) & (raw > -torch.inf)
+            return self._entries(live, _i32(_order_keys(raw)), best[..., None], 1,
+                                 raw.view(torch.int32))
+        spread_on = cp.has_spread_any & (boost != 0.0)
+        den_t = den + torch.where(spread_on, 1.0, 0.0)[..., None]
+        s_raw = (num + torch.where(spread_on, boost, 0.0)[..., None]) / den_t
+        consumed = torch.arange(max_j, device=dev) < jn[..., None]
+        feas = fits & allowed[..., None] & ~consumed
+        s_for_min = torch.where(consumed, torch.inf, torch.where(feas, s_raw, -torch.inf))
+        s_sel = torch.where(feas, torch.cummin(s_for_min, dim=2).values, -torch.inf)
+        vals, idx = torch.sort(s_sel.view(g, s, n * max_j), dim=2, descending=True, stable=True)
+        k_eff = min(chunk, n * max_j)
+        vals, idx = vals[..., :k_eff], idx[..., :k_eff]
+        live = (torch.arange(k_eff, device=dev) < want[:, None, None]) & (vals > -torch.inf)
+        rows = torch.div(idx, max_j, rounding_mode="floor")
+        raw = torch.gather(s_raw.view(g, s, n * max_j), 2, idx)
+        cols = idx % max_j - torch.gather(jn.view(g, s, n), 2, rows)
+        out = _empty_entries(s * g, chunk, nb, dev).view(s, g, chunk, -1)
+        out[:, :, :k_eff] = self._entries(live, _i32(_order_keys(vals)), rows, k_eff,
+                                          raw.view(torch.int32))
+        out[:, :, :k_eff, 2] = torch.where(live, cols, 0).permute(1, 0, 2).to(torch.int32)
+        return out
+
+
+def _count_entries(c, entries, take):
+    """c + one count per taken candidate's value in every block;
+    ``entries`` [G, P, 4 + B], ``take`` bool[G, P]."""
+    vids = entries[..., _ENTRY_HEAD:].long()  # [G, P, B]
+    ar_v = torch.arange(c.shape[2], device=c.device)
+    onehot = (vids[..., None] == ar_v) & take[..., None, None]  # [G, P, B, V]
+    return c + onehot.sum(dim=1).to(c.dtype)
+
+
+def _sorted_entries(entries):
+    """``entries`` [G, P, W] sorted by (key desc, node asc, column asc)."""
+    key = entries[..., 0].long() & 0xFFFFFFFF
+    tail = entries[..., 1].long().clamp(min=0) * CHUNK + entries[..., 2].long()
+    order = torch.argsort(key * 2**31 + (2**31 - 1 - tail), dim=1, descending=True)
+    return torch.gather(entries, 1, order[..., None].expand(-1, -1, entries.shape[2]))
+
+
+def coupled_step_merge_plain(
+    gathered, record, counts, block_kinds, enforce_idx, present,
+    mode: str, chunk: int, first_step: bool,
+):
+    """The plain version of ``coupled_step_merge``: a row's S candidate
+    lists ``gathered`` i32[S, G, K, 4 + B] (shard-major) become the step's
+    winners. Returns (record, present, choices, scores): the record with
+    the winners counted into c and listed, ``present`` i32[G, V] (the OR
+    of the lists' presence flags on a call's first step), and the step's
+    slots. ``mode`` "chunked": the top ``want`` entries by (value desc,
+    node asc, column asc), ``chunk`` slots. "first": the one-per-value
+    scan's first pick, one slot. "segments": each segment's best entry
+    over the lists, the rotation guard on the enforced block, then the top
+    min(chunk − 1, count − placed) allowed segments by (value desc,
+    segment asc), ``chunk`` − 1 slots."""
+    s, g, k, w = gathered.shape
+    nb = w - _ENTRY_HEAD
+    nv = present.shape[1]
+    dev = gathered.device
+    record = record.clone()
+    c = _record_counts(record, nb, nv)
+    n_placed = record[:, _REC_PLACED].long()
+    counts = counts.long()
+    if mode == "segments":
+        if first_step:
+            present = (gathered[:, :, :nv, 2] != 0).any(dim=0).to(torch.int32)
+        ok0 = record[:, _REC_OK0] != 0
+        eidx = enforce_idx.long()
+        ec = c[torch.arange(g, device=dev), eidx]  # [G, V]
+        pos1 = ec > 0
+        minc1 = torch.where(pos1, ec, torch.inf).amin(dim=1, keepdim=True)
+        maxc1 = torch.where(pos1, ec, -torch.inf).amax(dim=1, keepdim=True)
+        empty_v = ~pos1 & (present != 0)
+        no_empty = ~empty_v.any(dim=1, keepdim=True)
+        rotate_ok = torch.where(
+            no_empty, pos1 & (ec <= minc1) & (maxc1 > minc1), empty_v
+        )
+        even = torch.gather(block_kinds, 1, eidx[:, None]) == BLOCK_EVEN_SPREAD  # [G, 1]
+        seg_ok = torch.cat(
+            [torch.where(even, rotate_ok, True), torch.ones((g, 1), dtype=torch.bool, device=dev)],
+            dim=1,
+        )
+        # each segment's best entry over the lists (nodes differ between lists)
+        key = gathered[..., 0].long() & 0xFFFFFFFF  # [S, G, V+1]
+        rank = torch.where(key > 0, key * 2**31 + (2**31 - 1 - gathered[..., 1].long()), -1)
+        src = rank.argmax(dim=0)  # [G, V+1]
+        best = torch.gather(
+            gathered, 0, src[None, ..., None].expand(1, g, nv + 1, w)
+        )[0]  # [G, V+1, W]
+        bkey = best[..., 0].long() & 0xFFFFFFFF
+        val = torch.where(seg_ok & (bkey > 0), _key_floats(bkey), -torch.inf)
+        cand = val > -torch.inf
+        ar_s = torch.arange(nv + 1, device=dev)
+        order = torch.argsort(
+            torch.where(cand, _order_keys(val) * 2**31 + (2**31 - 1 - ar_s), -1),
+            dim=1, descending=True,
+        )[:, : chunk - 1]
+        limit = torch.where(
+            ok0, torch.clamp(torch.clamp(counts - n_placed, max=chunk - 1), min=0), 0
+        )
+        picks = torch.gather(best, 1, order[..., None].expand(-1, -1, w))
+        take = (torch.arange(order.shape[1], device=dev) < limit[:, None]) & torch.gather(
+            cand, 1, order
+        )
+        taken = take.sum(dim=1)
+        width = chunk - 1
+        choices = torch.full((g, width), -1, dtype=torch.int32, device=dev)
+        scores = torch.full((g, width), -torch.inf, device=dev)
+        m = order.shape[1]
+        choices[:, :m] = torch.where(take, picks[..., 1], -1)
+        scores[:, :m] = torch.where(take, torch.gather(val, 1, order), -torch.inf)
+        c = _count_entries(c, picks, take)
+        wins = record[:, _REC_WINS + 1 : _REC_WINS + 1 + m]
+        record[:, _REC_WINS + 1 : _REC_WINS + 1 + m] = torch.where(take, picks[..., 1], wins)
+        record[:, 0] = (ok0.long() + taken).to(torch.int32)
+        record[:, _REC_PLACED] = (n_placed + taken).to(torch.int32)
+    else:
+        entries = _sorted_entries(gathered.permute(1, 0, 2, 3).reshape(g, s * k, w))
+        key = entries[..., 0].long() & 0xFFFFFFFF
+        finite = key > _NEG_INF_KEY
+        if mode == "chunked":
+            want = torch.clamp(torch.clamp(counts - n_placed, max=chunk), min=0)
+            m = min(chunk, s * k)
+            picks = entries[:, :m]
+            take = (torch.arange(m, device=dev) < want[:, None]) & finite[:, :m]
+            taken = take.sum(dim=1)
+            choices = torch.full((g, chunk), -1, dtype=torch.int32, device=dev)
+            scores = torch.full((g, chunk), -torch.inf, device=dev)
+            choices[:, :m] = torch.where(take, picks[..., 1], -1)
+            scores[:, :m] = torch.where(
+                take, picks[..., 3].contiguous().view(torch.float32), -torch.inf
+            )
+            c = _count_entries(c, picks, take)
+            wins = record[:, _REC_WINS : _REC_WINS + m]
+            record[:, _REC_WINS : _REC_WINS + m] = torch.where(take, picks[..., 1], wins)
+            record[:, 0] = taken.to(torch.int32)
+            record[:, _REC_PLACED] = (n_placed + taken).to(torch.int32)
+        else:  # "first"
+            top = entries[:, 0]
+            held = key[:, 0] > 0
+            ok0 = finite[:, 0] & (n_placed < counts)
+            choices = torch.where(ok0, top[:, 1], -1)[:, None].to(torch.int32)
+            scores = torch.where(ok0, _key_floats(key[:, 0]), -torch.inf)[:, None]
+            ev = torch.gather(top[:, _ENTRY_HEAD:], 1, enforce_idx.long()[:, None])[:, 0]
+            c = _count_entries(c, top[:, None], ok0[:, None])
+            record[:, 0] = ok0.to(torch.int32)
+            record[:, _REC_WINS] = torch.where(ok0, top[:, 1], -1)
+            record[:, _REC_V_FIRST] = torch.where(held & (ev >= 0), ev, nv)
+            record[:, _REC_OK0] = ok0.to(torch.int32)
+            record[:, _REC_PLACED] = (n_placed + ok0.long()).to(torch.int32)
+    record[:, _REC_HEAD:] = c.reshape(g, -1).view(torch.int32)
+    return record, present, choices, scores
+
+
+def coupled_shard_apply_plain(jn, record, col0: int):
+    """The plain version of ``coupled_shard_apply``: ``jn`` i32[G, n] with
+    one more column for every winner the record lists inside the slice
+    [col0, col0 + n) (``col0`` an int, or i64[G, 1] for stacked cells)."""
+    g, n = jn.shape
+    wins = record[:, _REC_WINS : _REC_WINS + CHUNK].long() - col0
+    live = torch.arange(CHUNK, device=jn.device) < record[:, :1].long()
+    inside = live & (wins >= 0) & (wins < n)
+    add = torch.zeros((g, n + 1), dtype=torch.int64, device=jn.device)
+    add.scatter_add_(1, torch.where(inside, wins, n), inside.long())
+    return (jn.long() + add[:, :n]).to(torch.int32)
+
+
+def _region_bytes(n: int, nb: int, nv: int) -> int:
+    lib = cuda_library("coupled")
+    fn = lib.nomad_coupled_region_bytes
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_size_t)]
+        fn.restype = ctypes.c_int
+    out = ctypes.c_size_t(0)
+    check_launch(fn(n, nb, nv, ctypes.byref(out)), "coupled_shard_step")
+    return out.value
+
+
+@inside_guard(
+    "coupled_shard_step",
+    # it launches inside the calling scan's guard (the value scan's, the
+    # chunked scan's or the one-per-value scan's), registered under the first
+    guard="place_value_scan_kernel",
+    # a build budget of 1: it shares csrc/coupled.cu's one load
+    build_budget=1,
+    library="coupled",
+    symbols=("nomad_coupled_shard_step",),
+)
+def coupled_shard_step(
+    capacity, used0, asks, eligible, job_counts, desired_totals,
+    penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+    slot_caps, block_value_ids, block_desired, block_caps, block_weights,
+    block_kinds, counts, enforce_idx, jn, record, algorithm_spread: bool,
+    max_j: int, segments: bool, chunk: int, col0: int, first_step: bool,
+    jitter=None,
+):
+    """One mesh cell's candidates for one step of a sharded coupled scan
+    (see ``coupled_shard_step_plain``). CPU tensors run the plain
+    version; CUDA tensors launch ``csrc/coupled.cu``'s
+    ``coupled_shard_step_kernel``, a block a lane."""
+    args = (
+        capacity, used0, asks, eligible, job_counts, desired_totals,
+        penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+        slot_caps, block_value_ids, block_desired, block_caps, block_weights,
+        block_kinds, counts, enforce_idx, jn, record,
+    )
+    if capacity.device.type == "cpu":
+        return coupled_shard_step_plain(
+            *args, algorithm_spread, max_j, segments, chunk, col0, first_step, jitter
+        )
+    dev = capacity.device
+    g, n, nb, nv = _coupled_want(
+        "coupled_shard_step", args[:11], args[11:16], counts, jitter, [
+            ("enforce_idx", enforce_idx, torch.int32, (asks.shape[0],)),
+            ("jn", jn, torch.int32, (asks.shape[0], capacity.shape[0])),
+        ],
+    )
+    _check_inputs("coupled_shard_step", [
+        ("record", record, torch.int32, (g, _REC_HEAD + nb * nv)),
+    ])
+    if not 1 <= max_j < 2**16 or (not segments and not 1 <= chunk <= CHUNK):
+        raise ValueError(f"coupled_shard_step: unsupported J={max_j} chunk={chunk}")
+    if segments and enforce_idx is None:
+        raise ValueError("coupled_shard_step: the segments need enforce_idx")
+    k = nv + 1 if segments else chunk
+    cand = torch.empty((g, k, _ENTRY_HEAD + nb), dtype=torch.int32, device=dev)
+    if g == 0:
+        return cand
+    scratch = torch.empty((g * _region_bytes(n, nb, nv),), dtype=torch.uint8, device=dev)
+    fn = _sharded_fn("nomad_coupled_shard_step")
+    status = fn(
+        *[t.data_ptr() for t in args[:16]],
+        None if jitter is None else jitter.data_ptr(),
+        counts.data_ptr(), None if enforce_idx is None else enforce_idx.data_ptr(),
+        jn.data_ptr(), record.data_ptr(),
+        int(bool(algorithm_spread)), g, n, max_j, nb, nv, int(bool(segments)), chunk,
+        col0, int(bool(first_step)), scratch.data_ptr(), cand.data_ptr(),
+        current_stream(dev),
+    )
+    check_launch(status, "coupled_shard_step")
+    count_launch(coupled_shard_step)
+    return cand
+
+
+coupled_shard_step.launches = 0
+coupled_shard_step.plain_calls = 0  # a CPU mesh's step loop: its plain calls
+
+
+@inside_guard(
+    "coupled_step_merge",
+    guard="place_value_scan_kernel",
+    # a build budget of 1: it shares csrc/coupled.cu's one load
+    build_budget=1,
+    library="coupled",
+    symbols=("nomad_coupled_step_merge",),
+)
+def coupled_step_merge(
+    gathered, record, counts, block_kinds, enforce_idx, present,
+    mode: str, chunk: int, first_step: bool,
+):
+    """One merge of a row's candidate lists on the row's lead (see
+    ``coupled_step_merge_plain``); returns (record, present, choices,
+    scores), the inputs left as they were. CPU tensors run the plain
+    version; CUDA tensors launch ``csrc/coupled.cu``'s
+    ``coupled_step_merge_kernel``, a block a lane."""
+    dev = gathered.device
+    if dev.type == "cpu":
+        return coupled_step_merge_plain(
+            gathered, record, counts, block_kinds, enforce_idx, present,
+            mode, chunk, first_step,
+        )
+    s, g, k, w = gathered.shape
+    nb, nv = w - _ENTRY_HEAD, present.shape[1]
+    _check_inputs("coupled_step_merge", [
+        ("gathered", gathered, torch.int32, (s, g, k, w)),
+        ("record", record, torch.int32, (g, _REC_HEAD + nb * nv)),
+        ("counts", counts, torch.int32, (g,)),
+        ("present", present, torch.int32, (g, nv)),
+    ] + [(name, t, torch.int32, shape) for name, t, shape in (
+        ("block_kinds", block_kinds, (g, nb)), ("enforce_idx", enforce_idx, (g,)),
+    ) if t is not None])
+    same_device([gathered, record, counts, present, block_kinds, enforce_idx], dev,
+                "coupled_step_merge")
+    if mode != "chunked" and (block_kinds is None or enforce_idx is None):
+        raise ValueError(f"coupled_step_merge: mode {mode} needs block_kinds and enforce_idx")
+    record, present = record.clone(), present.clone()
+    width = {"chunked": chunk, "first": 1, "segments": chunk}[mode]
+    choices = torch.empty((g, width), dtype=torch.int32, device=dev)
+    scores = torch.empty((g, width), dtype=torch.float32, device=dev)
+    if g == 0:
+        return record, present, choices, scores
+    seg_words = torch.empty((g, 2 * (nv + 1)), dtype=torch.int64, device=dev)
+    fn = _sharded_fn("nomad_coupled_step_merge")
+    status = fn(
+        _MERGE_MODES[mode], gathered.data_ptr(), s, g, k, nb, nv, record.data_ptr(),
+        counts.data_ptr(), None if block_kinds is None else block_kinds.data_ptr(),
+        None if enforce_idx is None else enforce_idx.data_ptr(), present.data_ptr(),
+        chunk, int(bool(first_step)), seg_words.data_ptr(), choices.data_ptr(),
+        scores.data_ptr(), width, current_stream(dev),
+    )
+    check_launch(status, "coupled_step_merge")
+    count_launch(coupled_step_merge)
+    if mode == "segments":  # the kernel writes the segment picks after the first's slot
+        choices, scores = choices[:, 1:].contiguous(), scores[:, 1:].contiguous()
+    return record, present, choices, scores
+
+
+coupled_step_merge.launches = 0
+coupled_step_merge.plain_calls = 0
+
+
+@inside_guard(
+    "coupled_shard_apply",
+    guard="place_value_scan_kernel",
+    # a build budget of 1: it shares csrc/coupled.cu's one load
+    build_budget=1,
+    library="coupled",
+    symbols=("nomad_coupled_shard_apply",),
+)
+def coupled_shard_apply(jn, record, col0: int):
+    """One mesh cell's next columns after a step (see
+    ``coupled_shard_apply_plain``), ``jn`` left as it was. CPU tensors
+    run the plain version; CUDA tensors launch ``csrc/coupled.cu``'s
+    ``coupled_shard_apply_kernel``."""
+    dev = jn.device
+    if dev.type == "cpu":
+        return coupled_shard_apply_plain(jn, record, col0)
+    g, n = jn.shape
+    _check_inputs("coupled_shard_apply", [
+        ("jn", jn, torch.int32, (g, n)),
+        ("record", record, torch.int32, (g, record.shape[1])),
+    ])
+    same_device([jn, record], dev, "coupled_shard_apply")
+    out = jn.clone()
+    if g == 0:
+        return out
+    fn = _sharded_fn("nomad_coupled_shard_apply")
+    status = fn(out.data_ptr(), record.data_ptr(), g, n, record.shape[1], col0,
+                current_stream(dev))
+    check_launch(status, "coupled_shard_apply")
+    count_launch(coupled_shard_apply)
+    return out
+
+
+coupled_shard_apply.launches = 0
+coupled_shard_apply.plain_calls = 0
+
+_SHARDED_ARGTYPES = {
+    "nomad_coupled_shard_step": (
+        [ctypes.c_void_p] * 21 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 3
+    ),
+    "nomad_coupled_step_merge": (
+        [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    ),
+    "nomad_coupled_shard_apply": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    # rows, mp, devices, ptrs, lanes, n, j, b, v, spread, the scan's ints,
+    # then the launch counts
+    "nomad_sharded_value_scan": (
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    ),
+    "nomad_sharded_spread_chunked": (
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    ),
+    "nomad_sharded_spread_opv": (
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    ),
+}
+
+
+def _sharded_fn(symbol: str):
+    fn = getattr(cuda_library("coupled"), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = _SHARDED_ARGTYPES[symbol]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+# the C step loop of each sharded scan, by kind
+_SHARDED_SCANS = {
+    "value_scan": "nomad_sharded_value_scan",
+    "chunked": "nomad_sharded_spread_chunked",
+    "opv": "nomad_sharded_spread_opv",
+}
+
+
+def _coupled_sharded(wrapper, kind, args, algorithm_spread, counts, max_j, chunk,
+                     n_steps, jitter, enforce_idx=None):
+    """A coupled scan with inputs laid out over a mesh (``args``: its 17
+    lane and block inputs, any of them a ``ShardedTensor``): the step loop
+    over every groups row's cells (the groups axis splits when it divides
+    G, else row 0 alone runs), ``chunk`` picks a step (the value scan 1,
+    the one-per-value scan k_seg). Returns (choices, scores) on the mesh's
+    lead, identical to the one-device call. A node axis the mesh does not
+    divide runs the one-device kernel on the lead (gathered)."""
+    extras = (counts, jitter, enforce_idx)
+    cfg = next(x.cfg for x in (*args, *extras) if is_sharded(x))
+    lead = cfg.lead
+    g, n = args[2].shape[0], args[0].shape[0]
+    if n % cfg.mp != 0:
+        kwargs = dict(zip([name for name, _ in _COUPLED_AXES], args))
+        kwargs.update(
+            {"value_scan": {"max_steps": n_steps},
+             "chunked": {"chunk": chunk, "n_chunks": n_steps},
+             "opv": {"k_seg": chunk, "n_chunks": n_steps, "enforce_idx": enforce_idx}}[kind],
+            algorithm_spread=algorithm_spread, counts=counts, max_j=max_j, jitter=jitter,
+        )
+        out = _gathered(wrapper.__wrapped__, lead, [], kwargs)
+        if lead.type == "cpu":  # the plain version ran where the card launches
+            count_launch(wrapper, "plain_calls", layout="gathered")
+        return out
+    rows_split = cfg.dp if g % cfg.dp == 0 else 1
+    gseg, seg = g // rows_split, n // cfg.mp
+    nb, nv = args[12].shape[1], args[12].shape[2]
+    slots = n_steps * chunk
+    cells = {}
+    for i in range(rows_split):
+        gs = slice(i * gseg, (i + 1) * gseg)
+        for j in range(cfg.mp):
+            dev = cfg.device(i, j)
+            ns = slice(j * seg, (j + 1) * seg)
+            parts = {}
+            for x, (name, axes) in zip(args, _COUPLED_AXES):
+                want = tuple(
+                    gs if ax == "groups" else ns if ax == "nodes" else slice(0, x.shape[d])
+                    for d, ax in enumerate(axes)
+                )
+                parts[name] = _cell_part(x, want, i, j, dev)
+            parts["counts"] = _cell_part(counts, (gs,), i, j, dev)
+            parts["enforce_idx"] = (
+                None if enforce_idx is None else _cell_part(enforce_idx, (gs,), i, j, dev)
+            )
+            parts["jitter"] = None if jitter is None else _cell_part(jitter, (ns,), i, j, dev)
+            cells[i, j] = parts
+    _coupled_want(
+        f"place_{kind} (sharded)",
+        [cells[0, 0][name] for name, _ in _CLOSED_FORM_AXES],
+        [cells[0, 0][name] for name, _ in _COUPLED_AXES[11:]],
+        cells[0, 0]["counts"], cells[0, 0]["jitter"],
+        [("enforce_idx", cells[0, 0]["enforce_idx"], torch.int32, (gseg,))],
+    )
+    if not 1 <= max_j < 2**16:
+        raise ValueError(f"place_{kind} (sharded): unsupported J={max_j}")
+    run = _sharded_loop_cpu if lead.type == "cpu" else _sharded_loop_cuda
+    rows = run(kind, cfg, cells, rows_split, gseg, seg, nb, nv, algorithm_spread,
+               max_j, chunk, n_steps, slots)
+    choices = torch.cat([c.to(lead) for c, _ in rows], dim=0)
+    scores = torch.cat([s.to(lead) for _, s in rows], dim=0)
+    return choices, scores
+
+
+def _record_start(counts0, nb: int, nv: int):
+    """A row's record at the start: no winners, no placements, c = counts0."""
+    g = counts0.shape[0]
+    rec = torch.zeros((g, _REC_HEAD + nb * nv), dtype=torch.int32, device=counts0.device)
+    rec[:, _REC_HEAD:] = counts0.reshape(g, nb * nv).view(torch.int32)
+    return rec
+
+
+# the block inputs a shard step reads (the record carries the counts)
+_SHARD_BLOCKS = ("block_value_ids", "block_desired", "block_caps", "block_weights",
+                 "block_kinds")
+
+
+def _sharded_loop_cpu(kind, cfg, cells, rows_split, gseg, seg, nb, nv,
+                      algorithm_spread, max_j, chunk, n_steps, slots):
+    """The step loop through the plain versions (a CPU mesh). Every cell
+    lies on the CPU, so each step runs them all as one call: the rows'
+    lanes one after another and the cells' node parts side by side
+    (``_ShardCells``), each cell's candidates from its own nodes; then
+    every groups row's merge as one call over the rows' lanes, and every
+    cell's apply as one over the node axis. Each of these calls is
+    counted (``plain_calls``) and filed under the layout the card's
+    launches take ("shard" or "merge")."""
+    mp = cfg.mp
+
+    def assemble(name, axes):
+        if "groups" not in axes:  # capacity, used0: the cells side by side
+            return torch.cat([cells[0, j][name] for j in range(mp)])
+        per_row = [
+            torch.cat([cells[i, j][name] for j in range(mp)], dim=axes.index("nodes"))
+            if "nodes" in axes else cells[i, 0][name]
+            for i in range(rows_split)
+        ]
+        return torch.cat(per_row)
+
+    t = {name: assemble(name, axes) for name, axes in _COUPLED_AXES}
+    t["counts"] = assemble("counts", ("groups",))
+    t["enforce_idx"] = None if kind != "opv" else assemble("enforce_idx", ("groups",))
+    jitter = cells[0, 0]["jitter"]
+    if jitter is not None:
+        jitter = torch.cat([cells[0, j]["jitter"] for j in range(mp)])
+    planes = _score_planes(
+        *[t[name] for name, _ in _CLOSED_FORM_AXES], algorithm_spread, max_j, jitter=jitter,
+    )
+    step_cells = _ShardCells(
+        planes, t["eligible"], *[t[name] for name in _SHARD_BLOCKS], t["counts"],
+        t["enforce_idx"], max_j, mp, 0,
+    )
+    g = rows_split * gseg
+    record = _record_start(t["block_counts0"], nb, nv)
+    present = torch.zeros((g, nv), dtype=torch.int32)
+    jn = torch.zeros((g, mp * seg), dtype=torch.int32)
+    choices = torch.empty((g, slots), dtype=torch.int32)
+    scores = torch.empty((g, slots), dtype=torch.float32)
+    merge_args = (t["counts"], t["block_kinds"], t["enforce_idx"])
+
+    def exchange(record, present, segments, k, mode, first_step):
+        gathered = step_cells.step(jn, record, segments, k, first_step)
+        count_launch(coupled_shard_step, "plain_calls", layout="shard")
+        out = coupled_step_merge_plain(
+            gathered, record, *merge_args, present, mode, chunk, first_step,
+        )
+        count_launch(coupled_step_merge, "plain_calls", layout="merge")
+        return out
+
+    for step in range(n_steps):
+        at = step * chunk
+        if kind == "opv":
+            record, present, ch, sc = exchange(record, present, False, 1, "first", False)
+            choices[:, at], scores[:, at] = ch[:, 0], sc[:, 0]
+            record, present, ch, sc = exchange(
+                record, present, True, chunk, "segments", step == 0
+            )
+            choices[:, at + 1 : at + chunk], scores[:, at + 1 : at + chunk] = ch, sc
+        else:
+            record, present, ch, sc = exchange(record, present, False, chunk, "chunked", False)
+            choices[:, at : at + chunk], scores[:, at : at + chunk] = ch, sc
+        jn = coupled_shard_apply_plain(jn, record, 0)
+        count_launch(coupled_shard_apply, "plain_calls", layout="shard")
+    return [(choices, scores)]
+
+
+# the per-cell pointers of the C step loop, in csrc/coupled.cu's CellPtr order
+_CELL_INPUTS = (
+    "capacity", "used0", "asks", "eligible", "job_counts", "desired_totals",
+    "penalty_nodes", "affinity_scores", "has_affinities", "distinct_hosts",
+    "slot_caps", "block_value_ids", "block_desired", "block_caps",
+    "block_weights", "block_kinds", "jitter", "counts", "enforce_idx",
+)
+_CELL_STATE = (
+    "jn", "scratch", "cand", "record", "gathered", "master", "present",
+    "seg_words", "choices", "scores",
+)
+
+
+def _sharded_loop_cuda(kind, cfg, cells, rows_split, gseg, seg, nb, nv,
+                       algorithm_spread, max_j, chunk, n_steps, slots):
+    """The step loop as one C call (``nomad_sharded_*``). It reports the
+    launches it made, counted in C where each kernel launches; they are
+    added here to each wrapper's count under its layout."""
+    lib = cuda_library("coupled")
+    per_cell = lib.nomad_sharded_cell_ptrs()
+    assert per_cell == len(_CELL_INPUTS) + len(_CELL_STATE) + 1
+    region = _region_bytes(seg, nb, nv)
+    w = _ENTRY_HEAD + nb
+    k_max = max(1 if kind == "opv" else chunk, nv + 1 if kind == "opv" else 0)
+    n_cells = rows_split * cfg.mp
+    ptrs = (ctypes.c_void_p * (n_cells * per_cell))()
+    devices = (ctypes.c_int * n_cells)()
+    keep, out = [], []
+    for i in range(rows_split):
+        for j in range(cfg.mp):
+            dev = cfg.device(i, j)
+            parts = cells[i, j]
+            state = {
+                "jn": torch.zeros((gseg, seg), dtype=torch.int32, device=dev),
+                "scratch": torch.empty((gseg * region,), dtype=torch.uint8, device=dev),
+                "cand": torch.empty((gseg, k_max, w), dtype=torch.int32, device=dev),
+                "record": torch.empty((gseg, _REC_HEAD + nb * nv), dtype=torch.int32, device=dev),
+            }
+            if j == 0:
+                state.update(
+                    gathered=torch.empty((cfg.mp, gseg, k_max, w), dtype=torch.int32, device=dev),
+                    master=_record_start(parts["block_counts0"], nb, nv),
+                    present=torch.zeros((gseg, nv), dtype=torch.int32, device=dev),
+                    seg_words=torch.empty((gseg, 2 * (nv + 1)), dtype=torch.int64, device=dev),
+                    choices=torch.empty((gseg, slots), dtype=torch.int32, device=dev),
+                    scores=torch.empty((gseg, slots), dtype=torch.float32, device=dev),
+                )
+                out.append((state["choices"], state["scores"]))
+            c = i * cfg.mp + j
+            row = [parts[name] for name in _CELL_INPUTS] + [state.get(name) for name in _CELL_STATE]
+            for k, t in enumerate(row):
+                ptrs[c * per_cell + k] = None if t is None else t.data_ptr()
+            ptrs[c * per_cell + len(row)] = current_stream(dev)
+            devices[c] = dev.index
+            keep.append((parts, state))
+    launched = (ctypes.c_longlong * 3)()  # shard steps, merges, applies
+    status = _sharded_fn(_SHARDED_SCANS[kind])(
+        rows_split, cfg.mp, devices, ptrs, gseg, seg, max_j, nb, nv,
+        int(bool(algorithm_spread)), *((n_steps,) if kind == "value_scan" else (chunk, n_steps)),
+        launched,
+    )
+    for fn, layout, n in zip((coupled_shard_step, coupled_step_merge, coupled_shard_apply),
+                             ("shard", "merge", "shard"), launched):
+        if n:
+            count_launch(fn, layout=layout, n=n)
+    check_launch(status, f"place_{kind} (sharded)")
+    return out
+
+
+def place_value_scan_sharded(
+    capacity, used0, asks, eligible, job_counts, desired_totals,
+    penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+    slot_caps, block_value_ids, block_counts0, block_desired, block_caps,
+    block_weights, block_kinds, algorithm_spread: bool, counts,
+    max_j: int, max_steps: int, jitter=None,
+):
+    """``place_value_scan`` with its inputs laid out over a mesh: one
+    argmax a step over every cell's best head, by value desc then lowest
+    global node (see ``_coupled_sharded``)."""
+    args = (
+        capacity, used0, asks, eligible, job_counts, desired_totals,
+        penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+        slot_caps, block_value_ids, block_counts0, block_desired, block_caps,
+        block_weights, block_kinds,
+    )
+    return _coupled_sharded(place_value_scan, "value_scan", args, algorithm_spread,
+                            counts, max_j, 1, max_steps, jitter)
+
+
+def place_spread_chunked_sharded(
+    capacity, used0, asks, eligible, job_counts, desired_totals,
+    penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+    slot_caps, block_value_ids, block_counts0, block_desired, block_caps,
+    block_weights, block_kinds, algorithm_spread: bool, counts,
+    max_j: int, chunk: int, n_chunks: int, jitter=None,
+):
+    """``place_spread_chunked`` with its inputs laid out over a mesh: a
+    step's top ``chunk`` of the clamped plane from every cell's own top
+    ``chunk`` (see ``_coupled_sharded``)."""
+    if not 1 <= chunk <= CHUNK:
+        raise ValueError(f"place_spread_chunked: chunk {chunk} outside [1, CHUNK]")
+    args = (
+        capacity, used0, asks, eligible, job_counts, desired_totals,
+        penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+        slot_caps, block_value_ids, block_counts0, block_desired, block_caps,
+        block_weights, block_kinds,
+    )
+    return _coupled_sharded(place_spread_chunked, "chunked", args, algorithm_spread,
+                            counts, max_j, chunk, n_chunks, jitter)
+
+
+def place_spread_opv_sharded(
+    capacity, used0, asks, eligible, job_counts, desired_totals,
+    penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+    slot_caps, block_value_ids, block_counts0, block_desired, block_caps,
+    block_weights, block_kinds, enforce_idx, algorithm_spread: bool, counts,
+    max_j: int, k_seg: int, n_chunks: int, jitter=None,
+):
+    """``place_spread_opv`` with its inputs laid out over a mesh: a step's
+    first pick from every cell's best head, then its segment picks from
+    the cells' segment maxima merged per segment (see
+    ``_coupled_sharded``)."""
+    if not 2 <= k_seg <= min(CHUNK, block_counts0.shape[2] + 1):
+        raise ValueError(f"place_spread_opv: k_seg {k_seg} outside [2, min(CHUNK, V+1)]")
+    args = (
+        capacity, used0, asks, eligible, job_counts, desired_totals,
+        penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
+        slot_caps, block_value_ids, block_counts0, block_desired, block_caps,
+        block_weights, block_kinds,
+    )
+    return _coupled_sharded(place_spread_opv, "opv", args, algorithm_spread, counts,
+                            max_j, k_seg, n_chunks, jitter, enforce_idx)
 
 
 def _steps_bucket(n: int) -> int:
@@ -1718,21 +2599,24 @@ class PlacementKernel:
         ]
 
 
-    def _coupled_batch(self, cluster, asks: list, used0) -> dict:
-        """Device tensors of a coupled pass: the lane inputs, the padded
-        value blocks, capacity and the base usage."""
+    def _coupled_batch(self, cluster, asks: list, used0, jitter):
+        """Device tensors of a coupled pass (the lane inputs, the padded
+        value blocks, capacity and the base usage) and the pass's jitter:
+        under a mesh, laid out over it as the closed form's."""
         from .flatten import pad_value_blocks
 
         pn = cluster.padded_n
         batch = _shared_batch(asks, pn)
         batch.update(pad_value_blocks([a.blocks for a in asks], pn))
-        cfg = self.mesh_cfg() if self._n_shards(pn) > 1 else None
-        # the coupled kernels take their inputs gathered onto the lead:
-        # the batch goes there whole, and under a node-axis mesh only the
-        # cache's resident capacity and usage views come laid out over it
-        out = _device_batch(batch, self.device)
-        out["capacity"] = capacity_on(cluster, self.device, cfg, split=False)
-        out["used0"] = used_device(cluster, used0, self.device, cfg, split=False)
+        cfg = self.mesh_cfg()
+        if self._n_shards(pn) > 1 or cfg.dp > 1:
+            jitter = None if jitter is None else shard_put(jitter, ("nodes",), cfg)
+        else:
+            cfg = None
+        out = _device_batch(batch, self.device, cfg)
+        out["capacity"] = capacity_on(cluster, self.device, cfg)
+        out["used0"] = used_device(cluster, used0, self.device, cfg)
+        out["jitter"] = jitter
         return out
 
     def _lane_counts(self, asks: list, overflow: int, cap: int):
@@ -1752,12 +2636,11 @@ class PlacementKernel:
         max_steps = _steps_bucket(max(max_count + overflow, 1))
         max_j = self._max_j(cluster, asks)
         choices, scores = place_value_scan(
-            **self._coupled_batch(cluster, asks, used0),
+            **self._coupled_batch(cluster, asks, used0, jitter),
             algorithm_spread=self.algorithm_spread,
             counts=self._lane_counts(asks, overflow, max_steps),
             max_j=max_j,
             max_steps=max_steps,
-            jitter=jitter,
         )
         return self._unpack_coupled(choices, scores, asks[:real_n], overflow)
 
@@ -1772,13 +2655,12 @@ class PlacementKernel:
         # the sequential depth is the dominant cost
         n_chunks = max(4, -(-max(-(-(max_count + overflow) // CHUNK), 1) // 4) * 4)
         choices, scores = place_spread_chunked(
-            **self._coupled_batch(cluster, asks, used0),
+            **self._coupled_batch(cluster, asks, used0, jitter),
             algorithm_spread=self.algorithm_spread,
             counts=self._lane_counts(asks, overflow, n_chunks * CHUNK),
             max_j=max_j,
             chunk=CHUNK,
             n_chunks=n_chunks,
-            jitter=jitter,
         )
         return self._unpack_coupled(choices, scores, asks[:real_n], overflow)
 
@@ -1788,7 +2670,7 @@ class PlacementKernel:
         real_n = len(asks)
         asks = _pad_group_axis(asks, cluster.padded_n)
         max_j = self._max_j(cluster, asks)
-        batch = self._coupled_batch(cluster, asks, used0)
+        batch = self._coupled_batch(cluster, asks, used0, jitter)
         nv = batch["block_counts0"].shape[2]
         k_seg = min(CHUNK, nv + 1)
 
@@ -1826,7 +2708,6 @@ class PlacementKernel:
             max_j=max_j,
             k_seg=k_seg,
             n_chunks=n_chunks,
-            jitter=jitter,
         )
         return self._unpack_coupled(choices, scores, asks[:real_n], overflow)
 

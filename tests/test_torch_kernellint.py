@@ -72,6 +72,10 @@ REPO_ROOT = lint.repo_root()
 RTOL, ATOL = 1e-5, 1e-6
 
 
+# the coupled scans' kernels under a node-axis mesh
+MESH_COUPLED = ("coupled_shard_step", "coupled_step_merge", "coupled_shard_apply")
+
+
 @pytest.fixture(scope="module")
 def fleet_calls():
     """The fleet exercised once on the CPU: its recorded calls."""
@@ -105,11 +109,12 @@ class TestKernelRegistry:
     def test_the_fleet_is_the_guard_s_table(self):
         reg = import_fleet()
         prod = production_kernels(reg)
-        assert set(prod) == set(FLEET) and len(FLEET) == 12
+        assert set(prod) == set(FLEET) and len(FLEET) == 15
         assert {n for n, e in prod.items() if e.guard == n} == set(FLEET) - {
-            "closed_form_topk_merge"
+            "closed_form_topk_merge", *MESH_COUPLED
         }
         assert prod["closed_form_topk_merge"].guard == "place_closed_form_kernel"
+        assert all(prod[n].guard == "place_value_scan_kernel" for n in MESH_COUPLED)
         assert prod["score_matrix_kernel"].route == "triton"
         assert all(e.route == "cuda" for n, e in prod.items() if n != "score_matrix_kernel")
 
@@ -457,7 +462,7 @@ class TestInvarianceDiffer:
     def test_mesh_on_off_adds_exactly_the_merge(self, proofs):
         rep = proofs["mesh"]
         assert rep["ok"], rep
-        assert {k for k, _, _ in rep["added"]} == {"closed_form_topk_merge"}
+        assert {k for k, _, _ in rep["added"]} == {"closed_form_topk_merge", *MESH_COUPLED}
         assert rep["removed"] == [] and rep["mesh_shape"] == [1, 2]
 
     def test_mesh_differ_restores_ambient_state(self, proofs):
@@ -537,7 +542,7 @@ class TestCombinedCLI:
         data = json.loads(r.stdout)
         assert data["source"]["new"] == [] and data["source"]["fixed"] == []
         assert data["kernels"]["new"] == []
-        assert data["kernels"]["analyzed"] == 12
+        assert data["kernels"]["analyzed"] == 15
         assert set(data["kernels"]["fingerprints"]) == set(FLEET)
 
     def test_without_cuda_the_default_raises(self):

@@ -254,6 +254,10 @@ def test_executor_timeout_raises_and_poisons_the_worker():
     release.set()
     assert ex.run(lambda: "ok", name="k", deadline_s=5.0) == "ok"
     assert ex.spawned == 2
+    # the abandoned thread appends on its own time: wait for it (5 s at most)
+    waited = time.monotonic() + 5.0
+    while not seen and time.monotonic() < waited:
+        time.sleep(0.01)
     assert seen == [True]  # the late thunk saw its caller gone
     assert not abandoned()  # and the caller's own thread is no job
 
