@@ -203,8 +203,23 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
      "shard" or "merge", no fallback call; then each mesh kernel of the
      coupled scans against its plain version on a step of one of its
      recorded one-per-value calls and of one of its chunked calls
-     (the step loop counts each launch in C, where it launches). (h) Distinct cards where there are several,
-     else one line saying they were not exercised;
+     (the step loop counts each launch in C, where it launches). (h)
+     The hetero pass (its three policies), the CP auction and its gang
+     form alone at their batch paths' shapes (the "*_batch" paths' last
+     recorded calls: 10,000 nodes, 16,384 padded; G 30, 100 and 300) under
+     1x4, 2x2 and 2x4 (the makespan and cost policies under 1x4), laid
+     out as the reference lays them: identical to the one-device kernel
+     and to plain, every launch a shard step, merge or apply (counted in
+     C, none gathered), the guarded call's seconds beside the execute
+     deadline, the call's ms over 3 calls and µs a step or round. (i)
+     The "hetero", "cp" and "gang" recipes through their kernel objects
+     under ``Harness(mesh=1x4)``, counted apart ("mesh_plugins"): the
+     (job, group, node) counts of the runs without a mesh, no gathered
+     launch, none of the one-device auctions', no fallback call. (j)
+     Each of their mesh kernels alone on (h)'s inputs cut into four node
+     slices, against its plain version, timed by graph replay beside its
+     bound. Distinct cards where there are several, else one line saying
+     they were not exercised;
    - "spread": the JAX package's ``bench.py end_to_end`` node recipe
      (10,000 nodes over 25 racks, ssd on every 4th, every 3rd at
      8,000 MHz / 16,384 MiB) and 30 jobs through the Harness: its 20
@@ -322,10 +337,10 @@ Phases (none is wrapped in a ``try``; any failure exits non-zero):
 12. the "analysis" phase (the port's analysis plane on the card):
    ``python -m nomad_tpu_torch.analysis --json`` as a subprocess (exit
    0, no new source finding, the baseline's 28 fingerprints all still
-   firing, no kernel finding over the 15 kernels); the kernel fleet
+   firing, no kernel finding over the 21 kernels); the kernel fleet
    (``analysis/kernellint/exercise.py``) twice on the card, the launch
    counters zeroed before the first run and read after it (each of the
-   15 kernels launched at least once), every recorded call against its
+   21 kernels launched at least once), every recorded call against its
    plain version on the same inputs (integers exactly, floats within
    ``MAX_ABS_ERR``), the second run equal to the first as uint32 views,
    no dtype but float32, int32 and bool/uint8 at any kernel's boundary;
@@ -1185,6 +1200,16 @@ COUPLED = {
 # the coupled scans' kernels under a node-axis mesh (their wrappers in
 # nomad_tpu_torch.device.score)
 MESH_COUPLED = ("coupled_shard_step", "coupled_step_merge", "coupled_shard_apply")
+# the hetero pass's and the CP auction's kernels under a node-axis mesh,
+# by their wrappers' modules
+MESH_PLUGIN = {
+    "hetero_shard_step": "nomad_tpu_torch.scheduler.hetero",
+    "hetero_step_merge": "nomad_tpu_torch.scheduler.hetero",
+    "hetero_shard_apply": "nomad_tpu_torch.scheduler.hetero",
+    "cp_shard_claim": "nomad_tpu_torch.device.cp",
+    "cp_round_merge": "nomad_tpu_torch.device.cp",
+    "cp_shard_settle": "nomad_tpu_torch.device.cp",
+}
 
 
 # the preemption kernels' wrappers in nomad_tpu_torch.device.preempt
@@ -1209,6 +1234,8 @@ def counters() -> dict:
         **{name: getattr(P, name).launches for name in PREEMPT},
         CARRIED: P.find_preemption.carried,
         **{name: getattr(plugin_module(name), name).launches for name in PLUGIN},
+        **{name: getattr(importlib.import_module(m), name).launches
+           for name, m in MESH_PLUGIN.items()},
         "migrate_plan": migrate_module().migrate_plan.launches,
     }
 
@@ -1232,6 +1259,8 @@ def zero_counters() -> None:
     P.find_preemption.forms.clear()
     for name in PLUGIN:
         getattr(plugin_module(name), name).launches = 0
+    for name, m in MESH_PLUGIN.items():
+        getattr(importlib.import_module(m), name).launches = 0
     migrate_module().migrate_plan.launches = 0
 
 
@@ -1479,7 +1508,7 @@ def main_path(dev, n_nodes=10_000, n_jobs=10, count=1000):
     assert statuses == ["complete"]
     idle = {name: 0 for name in (
         *COUPLED, *PREEMPT_COUNTS, *PLUGIN, "migrate_plan", "closed_form_topk_merge",
-        *MESH_COUPLED,
+        *MESH_COUPLED, *MESH_PLUGIN,
     )}
     assert schedule == {"place_closed_form": passes, "score_matrix": 0, **idle} and passes > 0
     assert annotate == {"place_closed_form": 0, "score_matrix": n_jobs, **idle}
@@ -2950,18 +2979,18 @@ def cp_path(h, seed=43):
     return launches, calls, summary
 
 
-def gang_nodes(h, n_nodes=PLUGIN_NODES, seed=44):
+def gang_fleet(n_nodes=PLUGIN_NODES, seed=44):
     """``build_topo_fleet``'s recipe as mock nodes (4,000 MHz / 8,192 MiB):
     contiguous racks of ``GANG_RACK_NODES``, pods of
     ``GANG_RACKS_PER_POD`` racks, ici slices of half a rack, and a seeded
-    0-30 % background load as one ballast alloc per node."""
+    0-30 % background load as one ballast alloc per node. Returns (the
+    ballast job, the nodes, the allocs)."""
     from nomad_tpu_torch import mock
 
     rng = np.random.default_rng(seed)
     ballast = mock.batch_job(priority=20)
     ballast.id = "gang-ballast"
-    h.store.upsert_job(h.next_index(), ballast)
-    allocs = []
+    nodes, allocs = [], []
     for i in range(n_nodes):
         rack = i // GANG_RACK_NODES
         node = mock.node(topology={
@@ -2969,7 +2998,7 @@ def gang_nodes(h, n_nodes=PLUGIN_NODES, seed=44):
             "pod": f"p{rack // GANG_RACKS_PER_POD:02d}",
             "ici": f"i{i // (GANG_RACK_NODES // 2):04d}",
         })
-        h.store.upsert_node(h.next_index(), node)
+        nodes.append(node)
         load = float(rng.uniform(0.0, 0.3))
         a = mock.alloc(ballast, node)
         a.name = f"{ballast.id}.worker[{i}]"
@@ -2977,28 +3006,33 @@ def gang_nodes(h, n_nodes=PLUGIN_NODES, seed=44):
             a.resources, cpu=int(4000 * load), memory_mb=int(8192 * load)
         )
         allocs.append(a)
+    return ballast, nodes, allocs
+
+
+def gang_nodes(h, fleet=None):
+    """``gang_fleet`` (or copies of ``fleet``, one made before) in the
+    Harness ``h``."""
+    ballast, nodes, allocs = copy.deepcopy(fleet) if fleet is not None else gang_fleet()
+    h.store.upsert_job(h.next_index(), ballast)
+    for node in nodes:
+        h.store.upsert_node(h.next_index(), node)
     h.store.upsert_allocs(h.next_index(), allocs)
 
 
-def gang_path(dev, seed=45):
-    """The "gang" path: 10,000 rack/pod/ici nodes with background load,
-    cp-gang, 16 gang jobs of 3 groups x 4 allocs (even jobs colocate in a
-    rack, odd jobs spread over pods), then one gang whose second group
-    fits nowhere and must release whole. Returns the launch counts, the
-    recorded calls and the summary."""
+def gang_recipe(h, seed=45, fleet=None):
+    """The "gang" path's cluster and jobs on the Harness ``h``: cp-gang,
+    ``gang_nodes`` (of ``fleet`` when given), 16 gang jobs of 3 groups x
+    4 allocs (even jobs colocate in a rack, odd jobs spread over pods)
+    and one gang whose second group fits nowhere. Returns (the jobs, that
+    gang)."""
     from nomad_tpu_torch import mock
-    from nomad_tpu_torch.device import cp as C
-    from nomad_tpu_torch.scheduler import Harness
-    from nomad_tpu_torch.scheduler import cp as SC
     from nomad_tpu_torch.state import SchedulerConfiguration
     from nomad_tpu_torch.structs import Resources, Task, TaskGroup
 
-    t0 = time.perf_counter()
-    h = Harness(device=dev)
     h.store.set_scheduler_config(h.next_index(), SchedulerConfiguration(
         scheduler_algorithm="cp-gang"
     ))
-    gang_nodes(h)
+    gang_nodes(h, fleet)
     rng = np.random.default_rng(seed)
 
     def gang_job(name, asks, stanza):
@@ -3025,6 +3059,22 @@ def gang_path(dev, seed=45):
         jobs.append(gang_job(f"gang-{j}", [(GANG_COUNT, cpu, mem)] * GANG_GROUPS, stanza))
     bad = gang_job("gang-infeasible", [(2, 500, 256), (2, 100_000, 256)],
                    {"colocate": {"level": "rack", "weight": 2.0}})
+    return jobs, bad
+
+
+def gang_path(dev, seed=45):
+    """The "gang" path: 10,000 rack/pod/ici nodes with background load,
+    cp-gang, 16 gang jobs of 3 groups x 4 allocs (even jobs colocate in a
+    rack, odd jobs spread over pods), then one gang whose second group
+    fits nowhere and must release whole. Returns the launch counts, the
+    recorded calls and the summary."""
+    from nomad_tpu_torch.device import cp as C
+    from nomad_tpu_torch.scheduler import Harness
+    from nomad_tpu_torch.scheduler import cp as SC
+
+    t0 = time.perf_counter()
+    h = Harness(device=dev)
+    jobs, bad = gang_recipe(h, seed)
     log(f"[gang] set-up {time.perf_counter() - t0:.3f} s ({PLUGIN_NODES} nodes, {len(jobs) + 1} gang jobs)")
 
     first_result = len(h.results)
@@ -3067,6 +3117,10 @@ def gang_path(dev, seed=45):
     return launches, calls, summary
 
 
+# the batch paths' recorded plugin calls, for the "mesh" phase's (h)
+MESH_BATCH_CALLS = {}
+
+
 def batch_paths(dev):
     """The whole-backlog harnesses at full width: ``run_hetero_ab`` (30
     jobs x 100, one pass a policy), ``run_cp_ab`` (100 jobs x 40) and
@@ -3097,6 +3151,7 @@ def batch_paths(dev):
         by_path[path] = counters()
         calls[path] = rec
         reports[path] = report
+        MESH_BATCH_CALLS[path] = rec
         seconds = time.perf_counter() - t0
         for r in report if isinstance(report, list) else [report]:
             log(f"[{path}] {seconds:.3f} s; report {json.dumps(r, sort_keys=True)}")
@@ -6951,9 +7006,345 @@ def mesh_kernel_checks(calls, shape=MESH_SPREAD):
     return out
 
 
+# (h) the hetero, CP and gang passes on the mesh at their batch paths'
+# shapes (10,000 nodes, 16,384 padded) under every MESH_SHAPES mesh; (i)
+# the "hetero", "cp" and "gang" recipes through their kernel objects under
+# MESH_PLUGIN_RECIPES; (j) each of their mesh kernels alone against its
+# plain version
+
+MESH_PLUGIN_TIMED = 3  # sharded calls timed a case
+MESH_PLUGIN_RECIPES = (1, 4)
+# the reference's layout of each pass's inputs (plugin_args' order; its
+# shard_put calls; () on the lead, None not a tensor)
+_CP_MESH_AXES = (("nodes",), ("nodes",), ("groups",), ("groups",), ("groups", "nodes"),
+                 ("groups", "nodes"), ("groups",), ("groups", "nodes"), ("groups",), ())
+MESH_PLUGIN_AXES = {
+    "hetero_place": (("nodes",), ("nodes",), ("groups",), ("groups",), ("groups", "nodes"),
+                     ("groups", "nodes"), ("groups",), ()),
+    "cp_place": _CP_MESH_AXES + ((),),
+    "cp_gang_place_ids": _CP_MESH_AXES + ((), (), (), (), (None, "nodes"), None, ()),
+}
+# each pass's merge kernel: its launches are the steps or rounds run
+MESH_PLUGIN_MERGE = {"hetero_place": "hetero_step_merge", "cp_place": "cp_round_merge",
+                     "cp_gang_place": "cp_round_merge"}
+
+
+def mesh_plugin_inputs():
+    """(label, kernel name, wrapper, inputs, statics) of the batch paths'
+    last recorded calls: each hetero policy's, cp_batch's and the
+    10,000-node gang_batch call."""
+    from nomad_tpu_torch.scheduler import hetero as H
+
+    out = []
+    for policy, pid in H.POLICY_IDS.items():
+        call = [c for c in MESH_BATCH_CALLS["hetero_batch"] if c["policy"] == pid][-1]
+        out.append((f"hetero-{policy}", "hetero_place", "hetero_place",
+                    *plugin_args("hetero_place", call)))
+    out.append(("cp", "cp_place", "cp_place",
+                *plugin_args("cp_place", MESH_BATCH_CALLS["cp_batch"][-1])))
+    out.append(("gang", "cp_gang_place", "cp_gang_place_ids",
+                *plugin_args("cp_gang_place_ids", MESH_BATCH_CALLS["gang_batch"][-1])))
+    return out
+
+
+def mesh_plugin_case(label, name, fn, args, statics, cfg, one, timed):
+    """One pass under one mesh: the sharded call identical (uint32 views)
+    to the one-device kernel, its launches and layouts (none gathered),
+    the guarded call's seconds beside the execute deadline, and (``timed``)
+    its ms over ``MESH_PLUGIN_TIMED`` calls (CUDA events: the step loop
+    makes streams and events, which a graph does not capture) and µs a
+    step or round."""
+    from nomad_tpu_torch import backend
+    from nomad_tpu_torch.resilience.breaker import breaker_for
+
+    module = plugin_module(name)
+    sharded = [a if ax is None else backend.shard_put(a, ax, cfg)
+               for a, ax in zip(args, MESH_PLUGIN_AXES[fn])]
+    call = lambda: getattr(module, fn)(*sharded, *statics)  # noqa: E731
+    zero_counters()
+    backend.reset_mesh_layouts()
+    t0 = time.perf_counter()
+    got = call()
+    torch.cuda.synchronize()
+    guarded_s = time.perf_counter() - t0
+    launches = {k: v for k, v in counters().items() if v}
+    layouts = backend.mesh_layouts()
+    mesh = f"{cfg.dp}x{cfg.mp}"
+    same_outputs(got, one, f"mesh {label} {mesh} against the one-device kernel")
+    assert not any(k.endswith(":gathered") for k in layouts), (label, mesh, layouts)
+    steps = launches[MESH_PLUGIN_MERGE[name]]
+    guard = {"hetero_place": "hetero_place_kernel", "cp_place": "cp_place_kernel",
+             "cp_gang_place": "cp_gang_place_kernel"}[name]
+    out = {
+        "mesh": [cfg.dp, cfg.mp], "identical": True, "steps_or_rounds": steps,
+        "guarded_call_s": guarded_s, "execute_deadline_s": breaker_for(guard).execute_deadline,
+        "launches": launches, "layouts": layouts,
+    }
+    if timed:
+        out["ms"] = cuda_ms(call, iters=MESH_PLUGIN_TIMED, warmup=0)
+        out["us_per_step"] = out["ms"] * 1e3 / max(steps, 1)
+    return out
+
+
+def mesh_plugin_passes(dev, devices, shapes=MESH_SHAPES):
+    """(h) each pass at its batch path's shape: the one-device kernel
+    (``plugin_ms``) and the plain version, then the sharded call under
+    each mesh. hetero-maxmin, cp and gang are timed under every mesh;
+    the makespan and cost policies are checked under 1x4."""
+    out = {}
+    for label, name, fn, args, statics in mesh_plugin_inputs():
+        module = plugin_module(name)
+        one = getattr(module, fn)(*args, *statics)
+        plain = getattr(module, f"{fn}_plain")(*args, *statics)
+        torch.cuda.synchronize()
+        same_outputs(one, plain, f"mesh {label}: the one-device kernel")
+        full = label in ("hetero-maxmin", "cp", "gang")
+        g, n = args[4].shape
+        res = {"shape": f"G={g} N={n} C={statics[-1]}", "unsharded_ms": plugin_ms(name, args, statics)}
+        if full:
+            bound, by, work = plugin_bound(name, args, statics, one)
+            res.update(bound_ms=bound, bound_by=by, work=work,
+                       plain_ms=cuda_ms(lambda: getattr(module, f"{fn}_plain")(*args, *statics),
+                                        iters=1, warmup=0))
+        res["meshes"] = {
+            f"{dp}x{mp}": mesh_plugin_case(label, name, fn, args, statics,
+                                           mesh_of(dp, mp, devices), one, full)
+            for dp, mp in (shapes if full else shapes[:1])
+        }
+        log(f"[mesh] plugin {label}: " + json.dumps(res, sort_keys=True))
+        out[label] = res
+        del one, plain
+    return out
+
+
+def plugin_recipe(dev, kind, fleet, mesh=None):
+    """The "hetero", "cp" or "gang" path's recipe through a Harness on
+    ``dev`` (its passes laid out over ``mesh`` when one is given), on
+    copies of ``fleet`` (the mixed fleet's nodes, or ``gang_fleet``'s
+    nodes and ballast): the cp recipe on a fresh mixed fleet. Returns the
+    live allocs as (job, group, node) counts and the host seconds of the
+    evals."""
+    from nomad_tpu_torch.scheduler import Harness
+    from nomad_tpu_torch.state import SchedulerConfiguration
+
+    h = Harness(device=dev, mesh=mesh)
+    if kind == "gang":
+        jobs, bad = gang_recipe(h, fleet=fleet)
+        runs = [(None, jobs + [bad])]
+    else:
+        for node in fleet:
+            h.store.upsert_node(h.next_index(), copy.deepcopy(node))
+        if kind == "hetero":
+            jobs = hetero_jobs()
+            runs = [(f"hetero-{p}", jobs[i * HETERO_JOBS_PER_POLICY:(i + 1) * HETERO_JOBS_PER_POLICY])
+                    for i, p in enumerate(HETERO_POLICIES)]
+        else:
+            jobs = cp_jobs()
+            runs = [("cp-pack", jobs)]
+        for job in jobs:
+            h.store.upsert_job(h.next_index(), job)
+    seconds = 0.0
+    for algorithm, batch in runs:
+        if algorithm is not None:
+            h.store.set_scheduler_config(h.next_index(), SchedulerConfiguration(
+                scheduler_algorithm=algorithm
+            ))
+        seconds += sum(run_evals(h, batch))
+    placed = collections.Counter((a.job_id, a.task_group, a.node_id) for a in live(h, jobs))
+    return placed, seconds
+
+
+def mesh_plugin_recipes(dev, devices, shape=MESH_PLUGIN_RECIPES):
+    """(i) the three recipes through their kernel objects, without the
+    mesh and then under ``shape``: the placements identical; the launch
+    counts of the sharded runs alone: every plugin pass a step or round
+    loop of the mesh kernels ("shard" / "merge"), none gathered, none of
+    the one-device auctions', no fallback. Returns (the counts, a
+    summary)."""
+    from nomad_tpu_torch import backend
+    from nomad_tpu_torch.utils.metrics import global_metrics
+
+    cfg = mesh_of(*shape, devices)
+    kinds = ("hetero", "cp", "gang")
+    mixed = mixed_fleet()
+    fleets = {"hetero": mixed, "cp": mixed, "gang": gang_fleet()}
+    want = {k: plugin_recipe(dev, k, fleets[k]) for k in kinds}
+    fallback0 = global_metrics.snapshot()["counters"].get(FALLBACK_CALLS, 0)
+    zero_counters()
+    backend.reset_mesh_layouts()
+    got = {k: plugin_recipe(dev, k, fleets[k], mesh=cfg) for k in kinds}
+    launches = counters()
+    layouts = backend.mesh_layouts()
+    fallback = global_metrics.snapshot()["counters"].get(FALLBACK_CALLS, 0) - fallback0
+    for k in kinds:
+        assert got[k][0] == want[k][0], f"mesh {k} recipe: placements differ from the run without"
+        assert sum(got[k][0].values()) > 0, f"mesh {k} recipe: nothing placed"
+    assert all(launches[n] > 0 for n in MESH_PLUGIN), launches
+    assert launches["cp_place"] == launches["cp_gang_place"] == 0, launches
+    assert not any(k.endswith(":gathered") for k in layouts), layouts
+    assert {f"{n}:{'merge' if 'merge' in n else 'shard'}" for n in MESH_PLUGIN} <= set(layouts)
+    assert fallback == 0, fallback
+    out = {
+        "mesh": list(shape), "identical": True, "layouts": layouts, "fallback_calls": fallback,
+        "allocs": {k: sum(got[k][0].values()) for k in kinds},
+        "seconds": {k: got[k][1] for k in kinds},
+        "unsharded_seconds": {k: want[k][1] for k in kinds},
+    }
+    log("[mesh] plugin recipes " + json.dumps(out, sort_keys=True))
+    return launches, out
+
+
+def mesh_plugin_kernel_checks(shape=MESH_PLUGIN_RECIPES):
+    """(j) each mesh kernel of the hetero pass and the auctions alone, on
+    (h)'s hetero-maxmin, cp and gang inputs cut into ``shape``'s node
+    slices (groups row 0): every cell's first-step candidates, the
+    lead's merge and every cell's apply or settle, each against its plain
+    version on the same inputs (outputs identical); the claim also with
+    the gang term. Each timed by graph replay (the plain versions by CUDA
+    events) beside its bound: the inputs read once and the outputs
+    written once over the memory rate, or (the shard step, the claim) its
+    cells' f32 operations over the peak rate."""
+    from nomad_tpu_torch.device import cp as C
+    from nomad_tpu_torch.scheduler import hetero as H
+
+    mp = shape[1]
+    inputs = {label: (args, statics) for label, _, _, args, statics in mesh_plugin_inputs()}
+
+    def cut(x, j, seg, axis):
+        return x.narrow(axis, j * seg, seg).contiguous()
+
+    # the hetero pass's first step
+    args, (pid, _, max_c) = inputs["hetero-maxmin"]
+    capacity, used0, asks, counts, eligible, tp, tpmax, cost = args
+    g, n = tp.shape
+    seg = n // mp
+    dev = tp.device
+    placed = torch.zeros(g, dtype=torch.int32, device=dev)
+    cells = [(cut(capacity, j, seg, 0), cut(used0, j, seg, 0), asks, counts,
+              cut(eligible, j, seg, 1), cut(tp, j, seg, 1), cut(cost, j, seg, 0), placed)
+             for j in range(mp)]
+    step = lambda fn: torch.cat([fn(*cells[j], pid, j * seg) for j in range(mp)])  # noqa: E731
+    cand = step(H.hetero_shard_step)
+    lead = (placed, torch.zeros(g, dtype=torch.float32, device=dev), counts, tpmax, asks,
+            torch.full((g, max_c), -1, dtype=torch.int32, device=dev),
+            torch.zeros((g, max_c), dtype=torch.float32, device=dev))
+    merge = lambda fn: fn(cand, *lead, pid)  # noqa: E731
+    record = merge(H.hetero_step_merge)[0]
+    apply = lambda fn: [fn(record, cells[j][1], placed, j * seg, 0) for j in range(mp)]  # noqa: E731
+    checks = {
+        "hetero_shard_step": (lambda: step(H.hetero_shard_step),
+                              lambda: step(H.hetero_shard_step_plain)),
+        "hetero_step_merge": (lambda: merge(H.hetero_step_merge),
+                              lambda: merge(H.hetero_step_merge_plain)),
+        "hetero_shard_apply": (lambda: apply(H.hetero_shard_apply),
+                               lambda: apply(H.hetero_shard_apply_plain)),
+    }
+    # (bytes read once and written once, f32 operations, launches)
+    bounds = {
+        "hetero_shard_step": (sum(nbytes(*c) for c in cells) + nbytes(cand),
+                              g * n * HETERO_OPS_PER_CELL, mp),
+        "hetero_step_merge": (nbytes(cand, *lead) + nbytes(record, *lead[:2], *lead[5:]), 0, 1),
+        "hetero_shard_apply": (sum(nbytes(record, *c[1:2]) + nbytes(c[1], placed, placed)
+                                   for c in cells), 0, mp),
+    }
+    shapes = {
+        "hetero_shard_step": f"G={g} S={mp} cells x {seg} nodes (a call's first step: "
+                             f"the cell's lists built, every head walked)",
+        "hetero_step_merge": f"G={g} S={mp} columns, C={max_c}",
+        "hetero_shard_apply": f"G={g} S={mp} cells x {seg} nodes",
+    }
+
+    # the auctions' first round, plain and with the gang term
+    for label in ("cp", "gang"):
+        args, (_, max_c) = inputs[label]
+        (capacity, used0, asks, counts, eligible, scores, prio, job_counts, distinct,
+         jobgrp) = args[:10]
+        lam0 = args[-1]
+        g, n = scores.shape
+        seg = n // mp
+        code, n_jobs = C._codes(jobgrp)
+        job_code = code.to(torch.int32)
+        gang = None
+        if label == "gang":
+            gid, w_rack, w_pod, w_ici, level_ids, widths = args[10:16]
+            gcode, n_gangs = C._codes(torch.where(gid > 0, gid, 0))
+            gang_code = torch.where(gid > 0, gcode, -1).to(torch.int32)
+            tables = [torch.zeros((n_gangs, w), dtype=torch.int32, device=dev) for w in widths]
+            gang = (gang_code, *[C._cp_topo_quant(w) for w in (w_rack, w_pod, w_ici)])
+        zeros = dict(dtype=torch.int32, device=dev)
+        state = [dict(used=cut(used0, j, seg, 0), lam=cut(lam0, j, seg, 0),
+                      assigned=torch.zeros((g, seg), **zeros),
+                      sib=torch.zeros((n_jobs, seg), **zeros), placed=torch.zeros(g, **zeros))
+                 for j in range(mp)]
+        parts = [(cut(capacity, j, seg, 0), state[j]["used"], asks, counts,
+                  cut(eligible, j, seg, 1), cut(scores, j, seg, 1), cut(job_counts, j, seg, 1),
+                  distinct, job_code, state[j]["lam"], state[j]["assigned"], state[j]["sib"],
+                  state[j]["placed"]) for j in range(mp)]
+        cell_gang = [None if gang is None else (*gang, cut(level_ids, j, seg, 1), *tables)
+                     for j in range(mp)]
+        claim = lambda fn, p=parts, cg=cell_gang, s=seg: torch.cat(  # noqa: E731
+            [fn(*p[j], j * s, cg[j]) for j in range(mp)])
+        cp_cand = claim(C.cp_shard_claim)
+        cp_lead = (prio, asks, job_code, None if gang is None else gang[0],
+                   torch.zeros(g, **zeros), torch.zeros(g, **zeros), torch.zeros((), **zeros),
+                   torch.full((g, max_c), -1, **zeros),
+                   torch.zeros((g, max_c), dtype=torch.float32, device=dev),
+                   torch.zeros(C.cp_record_words(g), **zeros))
+        cp_merge = lambda fn, c=cp_cand, lead_=cp_lead: fn(c, *lead_)  # noqa: E731
+        cp_record = cp_merge(C.cp_round_merge)[0]
+        settle = lambda fn, r=cp_record, st=state, s=seg, tb=(  # noqa: E731
+            tables if gang is not None else []): [
+            fn(r, st[j]["used"], st[j]["lam"], st[j]["assigned"], st[j]["sib"], st[j]["placed"],
+               j * s, 0, *tb) for j in range(mp)]
+        suffix = "" if label == "cp" else " (gang)"
+        checks[f"cp_shard_claim{suffix}"] = (lambda f=claim: f(C.cp_shard_claim),
+                                             lambda f=claim: f(C.cp_shard_claim_plain))
+        checks[f"cp_round_merge{suffix}"] = (lambda f=cp_merge: f(C.cp_round_merge),
+                                             lambda f=cp_merge: f(C.cp_round_merge_plain))
+        checks[f"cp_shard_settle{suffix}"] = (lambda f=settle: f(C.cp_shard_settle),
+                                              lambda f=settle: f(C.cp_shard_settle_plain))
+        per_cell = CP_GANG_OPS_PER_CELL if gang is not None else CP_OPS_PER_CELL
+        cell_bytes = nbytes(*parts[0]) + (0 if gang is None else nbytes(*cell_gang[0]))
+        bounds[f"cp_shard_claim{suffix}"] = (mp * cell_bytes + nbytes(cp_cand),
+                                              g * n * per_cell, mp)
+        bounds[f"cp_round_merge{suffix}"] = (
+            nbytes(cp_cand, *[x for x in cp_lead if x is not None]) + nbytes(*cp_lead[4:]), 0, 1)
+        settle_bytes = sum(nbytes(st["used"], st["lam"], st["assigned"], st["placed"])
+                           for st in state) * 2 + mp * nbytes(cp_record)
+        bounds[f"cp_shard_settle{suffix}"] = (settle_bytes, 0, mp)
+        shapes[f"cp_shard_claim{suffix}"] = f"G={g} S={mp} cells x {seg} nodes{suffix}"
+        shapes[f"cp_round_merge{suffix}"] = f"G={g} S={mp} columns, C={max_c}{suffix}"
+        shapes[f"cp_shard_settle{suffix}"] = f"G={g} S={mp} cells x {seg} nodes{suffix}"
+
+    out = {}
+    for name, (fn, plain) in checks.items():
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        flat = lambda x: [t for t in (x if isinstance(x, (list, tuple)) else [x])  # noqa: E731
+                          for t in (t if isinstance(t, (list, tuple)) else [t])]
+        same_outputs(flat(got), flat(want), f"mesh: {name}")
+        b, o, launches = bounds[name]
+        t_bytes = b / HBM_BYTES_PER_S * 1e3
+        t_ops = o / F32_OPS_PER_S * 1e3
+        out[name] = {
+            "max_abs_err": 0.0, "choice_mismatches": 0,
+            "ms": graph_ms(fn) / launches, "stream_ms": cuda_ms(fn) / launches,
+            "plain_ms": cuda_ms(plain, iters=3, warmup=1) / launches,
+            "bound_ms": max(t_bytes, t_ops) / launches,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "shape": shapes[name] + " (a launch)",
+        }
+        out[name]["plain_stream_ms"] = out[name]["plain_ms"]
+    assert int(record[0]) == 0 and int(cp_record[1]) > 0, \
+        "mesh: the checked step or round took nothing"
+    log("[mesh] plugin kernels " + json.dumps(out, sort_keys=True))
+    return out
+
+
 def mesh_path(dev):
-    """The "mesh" phase, (a) to (h); returns (the mesh path's launch
-    counts, those of its spread recipe, the phase's summary)."""
+    """The "mesh" phase, (a) to (j); returns (the mesh path's launch
+    counts, those of its spread recipe, those of its plugin recipes, the
+    phase's summary)."""
     t0 = time.perf_counter()
     devices = mesh_devices(dev)
     out = {"card": card_line()}
@@ -6968,6 +7359,9 @@ def mesh_path(dev):
     spread_launches, spread_calls, out["spread"] = mesh_spread(dev, devices)
     out["coupled_kernels"] = mesh_kernel_checks(spread_calls)
     del spread_calls
+    out["plugin_passes"] = mesh_plugin_passes(dev, devices)
+    plugin_launches, out["plugin_recipes"] = mesh_plugin_recipes(dev, devices)
+    out["plugin_kernels"] = mesh_plugin_kernel_checks()
     count = torch.cuda.device_count()
     if count > 1:
         distinct = [torch.device("cuda", i) for i in range(count)]
@@ -6983,7 +7377,7 @@ def mesh_path(dev):
         out["distinct_cards"] = None
         log("mesh: 1 card, shards share cuda:0; distinct-card half not exercised")
     out["seconds"] = time.perf_counter() - t0
-    return launches, spread_launches, out
+    return launches, spread_launches, plugin_launches, out
 
 
 def analysis_plain(call):
@@ -7045,7 +7439,7 @@ def analysis_path(dev, calib) -> dict:
         ratcheted = [e["fingerprint"] for e in json.load(f)["entries"]]
     assert cli["source"]["new"] == [] and cli["source"]["fixed"] == [], cli["source"]
     assert len(ratcheted) == 28
-    assert cli["kernels"]["new"] == [] and cli["kernels"]["analyzed"] == 15, cli["kernels"]
+    assert cli["kernels"]["new"] == [] and cli["kernels"]["analyzed"] == 21, cli["kernels"]
     out["cli"] = {
         "seconds": time.perf_counter() - t0,
         "source_new": 0, "ratcheted_fingerprints": len(ratcheted),
@@ -7363,7 +7757,7 @@ def main() -> int:
     # the card, the score matrix, the dryrun's sizes, the schedule recipe
     # through Harness(mesh=1x4) (the path whose launches are counted) and
     # a chaos run with the process mesh; distinct cards where there are
-    by_path["mesh"], by_path["mesh_spread"], mesh = mesh_path(dev)
+    by_path["mesh"], by_path["mesh_spread"], by_path["mesh_plugins"], mesh = mesh_path(dev)
     log("[mesh] " + json.dumps(mesh, sort_keys=True))
     mark("mesh")
     batch.update(
@@ -7616,7 +8010,42 @@ def main() -> int:
                 },
             },
         ))
-    assert len(kernels) == 15, len(kernels)
+    pk, passes, recipes = mesh["plugin_kernels"], mesh["plugin_passes"], mesh["plugin_recipes"]
+    for name, source, replaces, labels in (
+        ("hetero_shard_step", "nomad_tpu_torch/csrc/hetero.cu",
+         "nomad_tpu/scheduler/hetero.py:183", ("hetero-maxmin",)),
+        ("hetero_step_merge", "nomad_tpu_torch/csrc/hetero.cu",
+         "nomad_tpu/scheduler/hetero.py:180", ("hetero-maxmin",)),
+        ("hetero_shard_apply", "nomad_tpu_torch/csrc/hetero.cu",
+         "nomad_tpu/scheduler/hetero.py:186", ("hetero-maxmin",)),
+        ("cp_shard_claim", "nomad_tpu_torch/csrc/cp.cu", "nomad_tpu/device/cp.py:115",
+         ("cp", "gang")),
+        ("cp_round_merge", "nomad_tpu_torch/csrc/cp.cu", "nomad_tpu/device/cp.py:171",
+         ("cp", "gang")),
+        ("cp_shard_settle", "nomad_tpu_torch/csrc/cp.cu", "nomad_tpu/device/cp.py:178",
+         ("cp", "gang")),
+    ):
+        kernels.append(kernel_entry(
+            name, "cuda", source, replaces, "mesh_plugins", by_path, pk[name],
+            {
+                **({"gang": pk[f"{name} (gang)"]} if f"{name} (gang)" in pk else {}),
+                "recipes": {k: recipes[k] for k in ("seconds", "unsharded_seconds", "layouts")},
+                "passes": {
+                    label: {
+                        "unsharded_ms": passes[label]["unsharded_ms"],
+                        "bound_ms": passes[label]["bound_ms"],
+                        "plain_ms": passes[label]["plain_ms"],
+                        "shape": passes[label]["shape"],
+                        "by_mesh": {m: {k: c[k] for k in (
+                            "ms", "us_per_step", "steps_or_rounds", "guarded_call_s",
+                            "launches",
+                        )} for m, c in passes[label]["meshes"].items()},
+                    }
+                    for label in labels
+                },
+            },
+        ))
+    assert len(kernels) == 21, len(kernels)
     log(f"[total] {time.perf_counter() - t_start:.1f} s, builds included; by phase "
         + json.dumps({k: round(v, 1) for k, v in seconds_by_phase.items()}))
     log(json.dumps({"kernels": kernels}))

@@ -12,14 +12,18 @@ each side (``fingerprint.call_configs``), with the builds the "on" side
 started:
 
 - explain and incremental on/off: the same set, no build;
-- mesh on/off: the "on" side adds exactly the mesh's own kernels and
-  nothing else, no build: ``closed_form_topk_merge`` and the coupled
+- mesh on/off (the placement exercise and the hetero, CP and gang
+  passes): the "on" side adds exactly the mesh's own kernels and
+  nothing else, no build: ``closed_form_topk_merge``, the coupled
   scans' ``coupled_shard_step``, ``coupled_step_merge`` and
-  ``coupled_shard_apply``. Their step loop launches them without a
-  wrapper call, so they are read from the launches it counted
-  (``backend.mesh_layouts``; on a CPU mesh, its plain calls). In the
-  reference the mesh leaves every jaxpr as it is; in the port the
-  cross-shard reductions are kernels of their own.
+  ``coupled_shard_apply``, the hetero pass's ``hetero_shard_step``,
+  ``hetero_step_merge`` and ``hetero_shard_apply`` and the auctions'
+  ``cp_shard_claim``, ``cp_round_merge`` and ``cp_shard_settle``. Their
+  step loops launch them without a wrapper call, so they are read from
+  the launches each loop counted (``backend.mesh_layouts``; on a CPU
+  mesh, its plain calls). In the reference the mesh leaves every jaxpr
+  as it is; in the port the cross-shard reductions are kernels of their
+  own.
 
 Each prover restores the ambient state it touched (the variables, the
 resolved mesh and incremental decisions) and returns a report dict
@@ -34,8 +38,13 @@ import os
 _MESH_ENV = "NOMAD_TPU_MESH"
 _INCR_ENV = "NOMAD_TPU_INCREMENTAL"
 MERGE = "closed_form_topk_merge"
-#: the coupled scans' kernels under a mesh, launched by their step loop
-LOOP_KERNELS = frozenset({"coupled_shard_step", "coupled_step_merge", "coupled_shard_apply"})
+#: the kernels under a mesh that a step loop launches: the coupled scans',
+#: the hetero pass's and the auctions'
+LOOP_KERNELS = frozenset({
+    "coupled_shard_step", "coupled_step_merge", "coupled_shard_apply",
+    "hetero_shard_step", "hetero_step_merge", "hetero_shard_apply",
+    "cp_shard_claim", "cp_round_merge", "cp_shard_settle",
+})
 #: the kernels a node-axis mesh adds to the placement exercise
 MESH_KERNELS = frozenset({MERGE}) | LOOP_KERNELS
 
@@ -151,22 +160,26 @@ def prove_incremental_invariance(device="cuda") -> dict:
 
 
 def prove_mesh_invariance(device="cuda") -> dict:
-    """Run the placement exercise with the mesh off, then under a 1x2
-    node-axis mesh (both cells on ``device``), and prove the mesh adds
-    exactly its own kernels (``MESH_KERNELS``): every kernel launched
-    without it is launched with it under the same fingerprint, and no
-    build starts."""
+    """Run the placement exercise and the hetero, CP and gang passes with
+    the mesh off, then under a 1x2 node-axis mesh (both cells on
+    ``device``), and prove the mesh adds exactly its own kernels
+    (``MESH_KERNELS``): every kernel launched without it is launched with
+    it under the same fingerprint, and no build starts."""
     from ... import backend
-    from .exercise import MESH_SHAPE, run_placement_paths
+    from .exercise import MESH_SHAPE, run_placement_paths, run_plugin_passes
+
+    def run(mesh=None):
+        run_placement_paths(dev, mesh=mesh)
+        run_plugin_passes(dev, mesh=mesh)
 
     dev = backend.resolve_device(device)
     with _env(_MESH_ENV, "off"):
         backend.reset_mesh()
         try:
-            off, _ = _run(lambda: run_placement_paths(dev))
+            off, _ = _run(run)
             mesh = backend.make_mesh(*MESH_SHAPE, devices=dev)
             before = backend.mesh_layouts()
-            on, builds = _run(lambda: run_placement_paths(dev, mesh=mesh))
+            on, builds = _run(lambda: run(mesh))
             on |= _loop_launched(before, backend.mesh_layouts())
         finally:
             backend.reset_mesh()

@@ -8,10 +8,12 @@ preemption kernels, the hetero greedy, the CP auction and its gang
 form, and the migration auction. Two passes more than the reference's:
 the closed form under a 1x2 node-axis mesh (``backend.make_mesh``, both
 cells on ``device``), so the mesh's cross-shard merge
-(``closed_form_topk_merge``) runs too; and one step of the chunked and
-the one-per-value scans over two node slices, each of the coupled
-scans' mesh kernels called through its wrapper. Every registered kernel
-is called at least once.
+(``closed_form_topk_merge``) runs too; one step of the chunked and the
+one-per-value scans over two node slices, each of the coupled scans'
+mesh kernels called through its wrapper; and one step of the hetero
+pass and one round of the CP auction and of its gang form over two node
+slices, through their mesh kernels' wrappers. Every registered kernel is
+called at least once.
 
 Everything runs on ``device`` (default the card; ``"cpu"`` runs the
 plain versions) and is seeded, so the recorded calls are a pure
@@ -283,91 +285,195 @@ def run_preemption(device="cuda") -> None:
     choose_preemption_node(*args)
 
 
-def run_hetero(device="cuda", policy: int = 0) -> None:
-    import numpy as np
+def _put(mesh, device):
+    """Inputs on ``device``, or laid out over ``mesh`` along the given
+    axes (``backend.shard_put``)."""
+    from ... import backend
 
-    from ...scheduler.hetero import hetero_place
+    if mesh is None:
+        return lambda x, axes=(): _t(x, device)
+    return lambda x, axes=(): backend.shard_put(x, axes, mesh)
+
+
+def _hetero_inputs():
+    import numpy as np
 
     g, n = 2, N_NODES
     capacity = np.full((n, D), 16000.0, dtype=np.float32)
-    used0 = capacity * 0.1
-    asks = np.full((g, D), 250.0, dtype=np.float32)
-    counts = np.full(g, 2, dtype=np.int32)
-    eligible = np.ones((g, n), dtype=bool)
-    tp = np.ones((g, n), dtype=np.float32)
-    tpmax = np.ones(g, dtype=np.float32)
-    cost = np.ones(n, dtype=np.float32)
+    return dict(
+        capacity=capacity,
+        used0=capacity * 0.1,
+        asks=np.full((g, D), 250.0, dtype=np.float32),
+        counts=np.full(g, 2, dtype=np.int32),
+        eligible=np.ones((g, n), dtype=bool),
+        tp=np.ones((g, n), dtype=np.float32),
+        tpmax=np.ones(g, dtype=np.float32),
+        cost=np.ones(n, dtype=np.float32),
+    )
+
+
+def run_hetero(device="cuda", policy: int = 0, mesh=None) -> None:
+    """The hetero greedy, on ``device`` or laid out over ``mesh`` as the
+    kernel object lays it."""
+    from ...scheduler.hetero import _HETERO_AXES, hetero_place
+
+    put = _put(mesh, device)
+    x = _hetero_inputs()
     hetero_place(
-        *[_t(x, device) for x in (capacity, used0, asks, counts, eligible, tp, tpmax, cost)],
+        *[put(x[name], axes if name != "cost" else ()) for name, axes in _HETERO_AXES],
         policy=policy, steps=8, max_c=4,
     )
 
 
-def run_cp(device="cuda") -> None:
+def _cp_inputs():
     import numpy as np
-
-    from ...device.cp import cp_place
 
     g, n = 2, N_NODES
     capacity = np.full((n, D), 16000.0, dtype=np.float32)
-    used0 = capacity * 0.1
-    asks = np.full((g, D), 250.0, dtype=np.float32)
-    counts = np.full(g, 2, dtype=np.int32)
-    eligible = np.ones((g, n), dtype=bool)
-    scores = np.linspace(
-        0.1, 0.9, g * n, dtype=np.float32
-    ).reshape(g, n)
-    prio = np.full(g, 50.0, dtype=np.float32)
-    job_counts = np.zeros((g, n), dtype=np.int32)
-    distinct = np.zeros(g, dtype=bool)
-    jobgrp = np.arange(g, dtype=np.int32)
-    lam0 = np.zeros(n, dtype=np.float32)
-    cp_place(
-        *[_t(x, device) for x in (
-            capacity, used0, asks, counts, eligible, scores, prio,
-            job_counts, distinct, jobgrp, lam0,
-        )],
-        steps=8, max_c=4,
+    return dict(
+        capacity=capacity,
+        used0=capacity * 0.1,
+        asks=np.full((g, D), 250.0, dtype=np.float32),
+        counts=np.full(g, 2, dtype=np.int32),
+        eligible=np.ones((g, n), dtype=bool),
+        scores=np.linspace(0.1, 0.9, g * n, dtype=np.float32).reshape(g, n),
+        prio=np.full(g, 50.0, dtype=np.float32),
+        job_counts=np.zeros((g, n), dtype=np.int32),
+        distinct=np.zeros(g, dtype=bool),
+        jobgrp=np.arange(g, dtype=np.int32),
+        lam0=np.zeros(n, dtype=np.float32),
     )
 
 
-def run_cp_gang(device="cuda") -> None:
+def _gang_inputs(levels=4):
     import numpy as np
 
-    from ...device.cp import cp_gang_place
-
-    g, n, levels = 2, N_NODES, 4
-    capacity = np.full((n, D), 16000.0, dtype=np.float32)
-    used0 = capacity * 0.1
-    asks = np.full((g, D), 250.0, dtype=np.float32)
-    counts = np.full(g, 2, dtype=np.int32)
-    eligible = np.ones((g, n), dtype=bool)
-    scores = np.linspace(
-        0.1, 0.9, g * n, dtype=np.float32
-    ).reshape(g, n)
-    prio = np.full(g, 50.0, dtype=np.float32)
-    job_counts = np.zeros((g, n), dtype=np.int32)
-    distinct = np.zeros(g, dtype=bool)
-    jobgrp = np.zeros(g, dtype=np.int32)
-    gang = np.ones(g, dtype=np.int32)  # both groups in gang 1
-    w_rack = np.full(g, 1.0, dtype=np.float32)
-    w_pod = np.zeros(g, dtype=np.float32)
-    w_ici = np.full(g, 0.5, dtype=np.float32)
+    g, n = 2, N_NODES
     rack_oh = np.zeros((n, levels), dtype=np.int32)
     rack_oh[np.arange(n), 1 + np.arange(n) % (levels - 1)] = 1
     pod_oh = np.zeros((n, 2), dtype=np.int32)
     pod_oh[:, 1] = 1
     ici_oh = np.zeros((n, levels * 2), dtype=np.int32)
     ici_oh[np.arange(n), 1 + np.arange(n) % (levels * 2 - 1)] = 1
-    lam0 = np.zeros(n, dtype=np.float32)
-    cp_gang_place(
-        *[_t(x, device) for x in (
-            capacity, used0, asks, counts, eligible, scores, prio,
-            job_counts, distinct, jobgrp, gang, w_rack, w_pod, w_ici,
-            rack_oh, pod_oh, ici_oh, lam0,
-        )],
+    return dict(
+        gang=np.ones(g, dtype=np.int32),  # both groups in gang 1
+        w_rack=np.full(g, 1.0, dtype=np.float32),
+        w_pod=np.zeros(g, dtype=np.float32),
+        w_ici=np.full(g, 0.5, dtype=np.float32),
+        rack_oh=rack_oh, pod_oh=pod_oh, ici_oh=ici_oh,
+    )
+
+
+def run_cp(device="cuda", mesh=None) -> None:
+    """The CP auction, on ``device`` or laid out over ``mesh`` as the
+    kernel object lays it."""
+    from ...device.cp import _CP_AXES, cp_place
+
+    put = _put(mesh, device)
+    x = _cp_inputs()
+    cp_place(
+        *[put(x[name], () if name in ("jobgrp", "lam0") else axes) for name, axes in _CP_AXES],
         steps=8, max_c=4,
     )
+
+
+def run_cp_gang(device="cuda", mesh=None) -> None:
+    """The gang auction (the reference's one-hot signature), on
+    ``device`` or laid out over ``mesh``."""
+    import numpy as np
+
+    from ...device.cp import _CP_AXES, cp_gang_place
+
+    put = _put(mesh, device)
+    x = dict(_cp_inputs(), jobgrp=np.zeros(2, dtype=np.int32), **_gang_inputs())
+    common = [put(x[name], () if name in ("jobgrp", "lam0") else axes) for name, axes in _CP_AXES]
+    cp_gang_place(
+        *common[:10], *[put(x[k]) for k in ("gang", "w_rack", "w_pod", "w_ici")],
+        *[put(x[k], ("nodes",)) for k in ("rack_oh", "pod_oh", "ici_oh")], common[10],
+        steps=8, max_c=4,
+    )
+
+
+def run_plugin_passes(device="cuda", mesh=None) -> None:
+    """The hetero, CP and gang passes, on ``device`` or under ``mesh``:
+    the mesh prover runs them both ways."""
+    run_hetero(device, mesh=mesh)
+    run_cp(device, mesh=mesh)
+    run_cp_gang(device, mesh=mesh)
+
+
+def run_plugin_mesh_kernels(device="cuda") -> None:
+    """One step of the hetero pass and one round of the CP auction and of
+    its gang form as a 1x2 node-axis mesh runs them, over two node
+    slices: every cell's candidates (``hetero_shard_step``,
+    ``cp_shard_claim``), the lead's merge (``hetero_step_merge``,
+    ``cp_round_merge``) and every cell's apply or settle
+    (``hetero_shard_apply``, ``cp_shard_settle``), each through its
+    wrapper."""
+    import numpy as np
+    import torch
+
+    from ...device import cp as C
+    from ...scheduler import hetero as H
+
+    seg = N_NODES // MESH_SHAPE[1]
+    cols = range(MESH_SHAPE[1])
+    i32 = dict(dtype=torch.int32, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+
+    def part(x, j, axis):
+        return _t(np.take(x, np.arange(j * seg, (j + 1) * seg), axis=axis), device)
+
+    h = _hetero_inputs()
+    g = h["asks"].shape[0]
+    asks, counts = _t(h["asks"], device), _t(h["counts"], device)
+    placed = torch.zeros(g, **i32)
+    used = [part(h["used0"], j, 0) for j in cols]
+    cand = torch.cat([
+        H.hetero_shard_step(part(h["capacity"], j, 0), used[j], asks, counts,
+                            part(h["eligible"], j, 1), part(h["tp"], j, 1),
+                            part(h["cost"], j, 0), placed, policy=0, col0=j * seg)
+        for j in cols
+    ])
+    record, *_ = H.hetero_step_merge(
+        cand, placed, torch.zeros(g, **f32), counts, _t(h["tpmax"], device), asks,
+        torch.full((g, 4), -1, **i32), torch.zeros((g, 4), **f32), policy=0,
+    )
+    for j in cols:
+        H.hetero_shard_apply(record, used[j], placed, j * seg, 0)
+
+    x = dict(_cp_inputs(), **_gang_inputs())
+    asks, counts = _t(x["asks"], device), _t(x["counts"], device)
+    job_code = _t(x["jobgrp"], device)
+    gang_code = torch.zeros(g, **i32)
+    q = [C._cp_topo_quant(_t(x[k], device)) for k in ("w_rack", "w_pod", "w_ici")]
+    ids = np.stack([oh.argmax(axis=1) for oh in (x["rack_oh"], x["pod_oh"], x["ici_oh"])])
+    tables = [torch.zeros((1, x[k].shape[1]), **i32) for k in ("rack_oh", "pod_oh", "ici_oh")]
+    for gang in (None, (gang_code, *q)):
+        state = [dict(used=part(x["used0"], j, 0), lam=part(x["lam0"], j, 0),
+                      assigned=torch.zeros((g, seg), **i32), sib=torch.zeros((g, seg), **i32),
+                      placed=torch.zeros(g, **i32)) for j in cols]
+        cand = torch.cat([
+            C.cp_shard_claim(
+                part(x["capacity"], j, 0), state[j]["used"], asks, counts,
+                part(x["eligible"], j, 1), part(x["scores"], j, 1),
+                part(x["job_counts"], j, 1), _t(x["distinct"], device), job_code,
+                state[j]["lam"], state[j]["assigned"], state[j]["sib"], state[j]["placed"],
+                col0=j * seg,
+                gang=None if gang is None else (*gang, part(ids.astype(np.int32), j, 1), *tables),
+            )
+            for j in cols
+        ])
+        record, *_ = C.cp_round_merge(
+            cand, _t(x["prio"], device), asks, job_code, None if gang is None else gang_code,
+            torch.zeros(g, **i32), torch.zeros(g, **i32), torch.zeros((), **i32),
+            torch.full((g, 4), -1, **i32), torch.zeros((g, 4), **f32),
+            torch.zeros(C.cp_record_words(g), **i32),
+        )
+        for j in cols:
+            st = state[j]
+            C.cp_shard_settle(record, st["used"], st["lam"], st["assigned"], st["sib"],
+                              st["placed"], j * seg, 0, *(tables if gang is not None else ()))
 
 
 def run_migrate(device="cuda") -> None:
@@ -409,6 +515,7 @@ def exercise_fleet(device="cuda", explain: bool = False) -> list:
         run_placement_paths(dev, explain=explain)
         run_sharded_closed_form(dev)
         run_coupled_mesh_kernels(dev)
+        run_plugin_mesh_kernels(dev)
         run_score_matrix(dev)
         run_preemption(dev)
         run_hetero(dev)

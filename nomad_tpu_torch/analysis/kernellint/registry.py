@@ -5,10 +5,14 @@ abstract specs ``jaxlint/retracer.py`` re-traces into jaxprs. The port's
 kernels are hand-written and have no jaxpr, so nothing is re-traced: the
 fleet is the registry of kernel wrappers, keyed by the reference's
 kernel names — the 11 ``@guarded`` wrappers, ``closed_form_topk_merge``,
-which launches inside the closed form's guard, and the three kernels of
-the coupled scans under a mesh (``coupled_shard_step``,
+which launches inside the closed form's guard, the three kernels of the
+coupled scans under a mesh (``coupled_shard_step``,
 ``coupled_step_merge``, ``coupled_shard_apply``), which launch inside
-the calling scan's.
+the calling scan's, and the three of the hetero pass and the three of
+the CP and gang auctions under a mesh (``hetero_shard_step``,
+``hetero_step_merge``, ``hetero_shard_apply``; ``cp_shard_claim``,
+``cp_round_merge``, ``cp_shard_settle``), which launch inside their
+pass's.
 """
 
 from __future__ import annotations
@@ -32,6 +36,12 @@ FLEET = (
     "coupled_shard_step",
     "coupled_step_merge",
     "coupled_shard_apply",
+    "hetero_shard_step",
+    "hetero_step_merge",
+    "hetero_shard_apply",
+    "cp_shard_claim",
+    "cp_round_merge",
+    "cp_shard_settle",
 )
 
 #: kernels whose wrappers are defined under these module prefixes are

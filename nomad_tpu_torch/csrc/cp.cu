@@ -62,6 +62,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <vector>
+
+#include "mesh_loop.cuh"
+
 namespace {
 
 constexpr int kThreads = 1024;
@@ -455,6 +459,478 @@ __global__ void __launch_bounds__(kThreads) barrier_probe_kernel(unsigned* bar, 
   for (int i = 0; i < iters; ++i) grid_barrier(bar);
 }
 
+// -- the auction under a node-axis mesh ----------------------------------------
+//
+// Cell (i, j) of a dp x mp mesh holds groups row i's slice of the groups
+// (g0 its first) and column j's slice of the nodes (col0 its first). It
+// keeps the usage and prices of its nodes, its groups' assignments
+// there, the per-(job, node) sibling counts of its nodes, its groups'
+// placements and a copy of the per-(gang, coordinate) topology tables,
+// which every cell grows by every winner (integer adds: the copies stay
+// equal). A round:
+//  - cp_shard_claim_kernel, a launch a cell, a block a group: the row
+//    pass over the cell's nodes, as row_pass computes it, and the
+//    group's word (order_key(u) << 32 | ~global node; the lowest node on
+//    ties, infeasible nodes at -inf), whether a node of the cell is
+//    feasible, score[g, node]'s bits and the node's coordinates;
+//  - cp_round_merge_kernel, one block on the mesh lead over every group:
+//    each group's claim is its best word over the columns; per claimed
+//    node the claims, the highest (order_key(priority) << 32 |
+//    order_key(u)) and the least group reaching it give the winner and
+//    whose ask the usage grows by, the -inf rule for group 0, waits and
+//    rounds, exactly as settle; it writes the winners' slots and the
+//    round's record: a state, the claimed nodes M, then per claimed
+//    node, sorted by node, (node, claims, winner, its job code, its gang
+//    code, the node's rack / pod / ici ids, the ask's bits);
+//  - cp_shard_settle_kernel, a launch a cell, a thread a node: every node
+//    of the cell takes usage += (claims ? ask : 0.0) and the price update
+//    (an unclaimed node adds +0.0, as the one-device kernel, which turns
+//    a -0.0 into +0.0); the winners' assignments and sibling counts;
+//    block 0 the winners' placements and topology counts.
+// The round where no group can claim runs (its record's state is 1: its
+// decay stands) and ends the pass; the merge of every later round writes
+// state 2, on which every launch returns at once, and the host stops
+// queuing rounds once it reads the lead's stop word (mesh_loop.cuh).
+
+constexpr int kCand = 7;        // a candidate's ints
+constexpr int kEntry = 12;      // a claimed node's ints in the record
+constexpr int kRecHead = 2;     // the record's state and M
+constexpr int kMergeWords = 11; // a group's ints of the merge's scratch
+constexpr int kPollRounds = 16; // rounds between two reads of the lead's stop word
+
+struct CpCell {
+  const float* capacity;      // [n, 4]
+  const float* asks;          // [g, 4]
+  const int32_t* counts;      // [g]
+  const uint8_t* eligible;    // [g, n]
+  const float* scores;        // [g, n]
+  const int32_t* job_counts;  // [g, n]
+  const uint8_t* distinct;    // [g]
+  const int32_t* job_code;    // [g]: rows of sib
+  const int32_t* gang_code;   // [g], -1 = not in a gang (gang only)
+  const int32_t* q_rack;      // [g] (gang only)
+  const int32_t* q_pod;
+  const int32_t* q_ici;
+  const int32_t* level_ids;   // [3, n] (gang only)
+  float* used;                // [n, 4]
+  float* lam;                 // [n]
+  int32_t* assigned;          // [g, n]
+  int32_t* sib;               // [jobs, n]
+  int32_t* t_rack;            // [gangs, wr] (gang only)
+  int32_t* t_pod;             // [gangs, wp]
+  int32_t* t_ici;             // [gangs, wi]
+  int32_t* placed;            // [g]
+  int wr, wp, wi, g, n;
+};
+
+template <bool kGang>
+__global__ void __launch_bounds__(kThreads)
+    cp_shard_claim_kernel(CpCell c, const int32_t* record, int col0, int32_t* cand) {
+  __shared__ float s_k[kWarps];
+  __shared__ int s_r[kWarps];
+  if (record != nullptr && record[0] != 0) return;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = blockIdx.x;
+  int32_t* out = cand + kCand * static_cast<size_t>(g);
+  if (c.placed[g] >= c.counts[g]) {
+    if (threadIdx.x < kCand) out[threadIdx.x] = threadIdx.x == 1 ? -1 : 0;
+    return;
+  }
+  const float* a = c.asks + 4 * static_cast<size_t>(g);
+  const float4 ask = make_float4(a[0], a[1], a[2], a[3]);
+  const int32_t* sib = c.sib + static_cast<size_t>(c.job_code[g]) * c.n;
+  const bool distinct = c.distinct[g] != 0;
+  int gc = -1, qr = 0, qp = 0, qi = 0;
+  if (kGang) {
+    gc = c.gang_code[g];
+    qr = c.q_rack[g];
+    qp = c.q_pod[g];
+    qi = c.q_ici[g];
+  }
+  float bk = -INFINITY;
+  int br = INT_MAX;
+  int any = 0;
+  for (int n = threadIdx.x; n < c.n; n += kThreads) {
+    const float* up = c.used + 4 * static_cast<size_t>(n);
+    const float* cp = c.capacity + 4 * static_cast<size_t>(n);
+    const size_t gn = static_cast<size_t>(g) * c.n + n;
+    const int sib_all = sib[n];
+    const bool fit = (__fadd_rn(up[0], ask.x) <= cp[0]) & (__fadd_rn(up[1], ask.y) <= cp[1]) &
+                     (__fadd_rn(up[2], ask.z) <= cp[2]) & (__fadd_rn(up[3], ask.w) <= cp[3]);
+    const bool taken = c.job_counts[gn] + sib_all > 0;
+    const bool feas = fit && c.eligible[gn] != 0 && !(distinct && taken);
+    // u = (score - lam) - ANTI * (same-job instances of other groups)
+    float u = __fsub_rn(__fsub_rn(c.scores[gn], c.lam[n]),
+                        __fmul_rn(kAnti, __int2float_rn(sib_all - c.assigned[gn])));
+    if (kGang && feas) {
+      int acc = 0;
+      if (gc >= 0) {
+        const int r = c.level_ids[n];
+        const int p = c.level_ids[c.n + n];
+        const int i = c.level_ids[2 * static_cast<size_t>(c.n) + n];
+        const int mr = r > 0 ? c.t_rack[static_cast<size_t>(gc) * c.wr + r] : 0;
+        const int mp = p > 0 ? c.t_pod[static_cast<size_t>(gc) * c.wp + p] : 0;
+        const int mi = i > 0 ? c.t_ici[static_cast<size_t>(gc) * c.wi + i] : 0;
+        acc = qr * mr + qp * mp + qi * mi;
+      }
+      u = __fadd_rn(u, __fmul_rn(__int2float_rn(acc), kTopoScale));
+    }
+    u = feas ? u : -INFINITY;
+    any |= feas;
+    if (before(u, n, bk, br)) {
+      bk = u;
+      br = n;
+    }
+  }
+  warp_argmax(bk, br);
+  if (lane == 0) {
+    s_k[warp] = bk;
+    s_r[warp] = br;
+  }
+  any = __syncthreads_or(any);
+  if (warp != 0) return;
+  bk = lane < kWarps ? s_k[lane] : -INFINITY;
+  br = lane < kWarps ? s_r[lane] : INT_MAX;
+  warp_argmax(bk, br);
+  if (lane != 0) return;
+  if (br == INT_MAX) br = 0;  // every u NaN: none wins, as in the row pass
+  out[0] = bk == bk ? static_cast<int32_t>(order_key(bk)) : 0;
+  out[1] = col0 + br;
+  out[2] = any;
+  out[3] = __float_as_int(c.scores[static_cast<size_t>(g) * c.n + br]);
+  for (int l = 0; l < 3; ++l) {
+    out[4 + l] = kGang ? c.level_ids[static_cast<size_t>(l) * c.n + br] : 0;
+  }
+}
+
+// The best candidate column of group j over `cells` columns [cells, g,
+// kCand] (key desc, node asc), -1 when none is held.
+__device__ int best_column(const int32_t* cand, int cells, int g, int j) {
+  int bc = -1;
+  unsigned long long br = 0;
+  for (int c = 0; c < cells; ++c) {
+    const int32_t* e = cand + kCand * (static_cast<size_t>(c) * g + j);
+    const uint32_t key = static_cast<uint32_t>(e[0]);
+    if (key == 0u) continue;
+    const unsigned long long rank =
+        (static_cast<unsigned long long>(key) << 32) | (kFull - static_cast<uint32_t>(e[1]));
+    if (rank > br) {
+      br = rank;
+      bc = c;
+    }
+  }
+  return bc;
+}
+
+// The merge's scratch, per group: its claimed node (-1: it cannot claim),
+// u's order key, the priority's order key, the score's bits, the node's
+// three ids, whether it is its node's least claimant, its node's claims,
+// winner and ask row.
+enum MergeWord { kMNode, kMU, kMPrio, kMScore, kMIds, kMRep = kMIds + 3, kMClaims, kMWon, kMAsk };
+
+__global__ void __launch_bounds__(kThreads)
+    cp_round_merge_kernel(const int32_t* cand, int cells, int g, const float* prio,
+                          const float* asks, const int32_t* job_code, const int32_t* gang_code,
+                          int max_c, int32_t* placed, int32_t* waits, int32_t* rounds,
+                          int32_t* choices, float* choice_scores, int32_t* record,
+                          int32_t* scratch) {
+  __shared__ int s_m;
+  if (record[0] != 0) {  // past the end of the pass
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      record[0] = 2;
+      record[1] = 0;
+    }
+    return;
+  }
+  // each group's claim over the columns
+  int claimable = 0;
+  for (int j = threadIdx.x; j < g; j += kThreads) {
+    int32_t* w = scratch + kMergeWords * static_cast<size_t>(j);
+    int any = 0;
+    for (int c = 0; c < cells; ++c) any |= cand[kCand * (static_cast<size_t>(c) * g + j) + 2];
+    const int bc = best_column(cand, cells, g, j);
+    if (any == 0 || bc < 0) {
+      w[kMNode] = -1;
+      continue;
+    }
+    const int32_t* e = cand + kCand * (static_cast<size_t>(bc) * g + j);
+    w[kMNode] = e[1];
+    w[kMU] = e[0];
+    w[kMPrio] = static_cast<int32_t>(order_key(prio[j]));
+    w[kMScore] = e[3];
+    for (int l = 0; l < 3; ++l) w[kMIds + l] = e[4 + l];
+    claimable = 1;
+  }
+  if (threadIdx.x == 0) s_m = 0;
+  const int progress = __syncthreads_or(claimable);
+  const int zero_node = g > 0 ? scratch[kMNode] : -1;
+  // per claimant: its node's claims, top rank and least group reaching it
+  for (int j = threadIdx.x; j < g; j += kThreads) {
+    int32_t* w = scratch + kMergeWords * static_cast<size_t>(j);
+    const int node = w[kMNode];
+    if (node < 0) continue;
+    int claims = 0;
+    int rep = 1;
+    int least = INT_MAX;
+    unsigned long long top = 0;
+    for (int h = 0; h < g; ++h) {
+      const int32_t* o = scratch + kMergeWords * static_cast<size_t>(h);
+      if (o[kMNode] != node) continue;
+      ++claims;
+      rep &= h >= j;
+      const unsigned long long rank =
+          (static_cast<unsigned long long>(static_cast<uint32_t>(o[kMPrio])) << 32) |
+          static_cast<uint32_t>(o[kMU]);
+      if (rank > top) {
+        top = rank;
+        least = h;
+      }
+    }
+    const bool finite = key_value(static_cast<uint32_t>(top)) > -INFINITY;
+    const int won = finite ? least : (zero_node == node ? 0 : -1);
+    if (won == j) {
+      const int slot = min(placed[j], max_c - 1);
+      choices[static_cast<size_t>(j) * max_c + slot] = node;
+      choice_scores[static_cast<size_t>(j) * max_c + slot] = __int_as_float(w[kMScore]);
+      placed[j] += 1;
+    } else {
+      waits[j] += 1;
+    }
+    w[kMRep] = rep;
+    w[kMClaims] = claims;
+    w[kMWon] = won;
+    w[kMAsk] = finite ? least : 0;
+    if (rep) atomicAdd(&s_m, 1);
+  }
+  __syncthreads();
+  // the claimed nodes' entries, sorted by node
+  for (int j = threadIdx.x; j < g; j += kThreads) {
+    const int32_t* w = scratch + kMergeWords * static_cast<size_t>(j);
+    if (w[kMNode] < 0 || !w[kMRep]) continue;
+    int at = 0;
+    for (int h = 0; h < g; ++h) {
+      const int32_t* o = scratch + kMergeWords * static_cast<size_t>(h);
+      at += o[kMNode] >= 0 && o[kMRep] && o[kMNode] < w[kMNode];
+    }
+    int32_t* e = record + kRecHead + kEntry * static_cast<size_t>(at);
+    const int won = w[kMWon];
+    e[0] = w[kMNode];
+    e[1] = w[kMClaims];
+    e[2] = won;
+    e[3] = won >= 0 ? job_code[won] : -1;
+    e[4] = won >= 0 && gang_code != nullptr ? gang_code[won] : -1;
+    for (int l = 0; l < 3; ++l) e[5 + l] = w[kMIds + l];
+    for (int d = 0; d < 4; ++d) {
+      e[8 + d] = __float_as_int(asks[4 * static_cast<size_t>(w[kMAsk]) + d]);
+    }
+  }
+  if (threadIdx.x == 0) {
+    record[0] = progress ? 0 : 1;
+    record[1] = s_m;
+    if (progress) rounds[0] += 1;
+  }
+}
+
+// The claimed node `node`'s entry among the record's M, sorted by node.
+__device__ const int32_t* find_entry(const int32_t* record, int node) {
+  int lo = 0;
+  int hi = record[1];
+  const int32_t* entries = record + kRecHead;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (entries[kEntry * static_cast<size_t>(mid)] < node) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo < record[1] && entries[kEntry * static_cast<size_t>(lo)] == node
+             ? entries + kEntry * static_cast<size_t>(lo)
+             : nullptr;
+}
+
+template <bool kGang>
+__global__ void __launch_bounds__(kThreads)
+    cp_shard_settle_kernel(CpCell c, const int32_t* record, int col0, int g0) {
+  if (record[0] == 2) return;
+  const int n = static_cast<int>(blockIdx.x) * kThreads + static_cast<int>(threadIdx.x);
+  if (n < c.n) {
+    const int32_t* e = find_entry(record, col0 + n);
+    const int count = e != nullptr ? e[1] : 0;
+    for (int d = 0; d < 4; ++d) {
+      float* u = c.used + 4 * static_cast<size_t>(n) + d;
+      *u = __fadd_rn(*u, count > 0 ? __int_as_float(e[8 + d]) : 0.0f);
+    }
+    float l = __fadd_rn(c.lam[n], __fmul_rn(kEta, __int2float_rn(max(count - 1, 0))));
+    if (count == 0) l = fmaxf(__fsub_rn(l, kEta), 0.0f);
+    c.lam[n] = l;
+    if (e != nullptr && e[2] >= 0) {
+      // one winner a node: no other thread touches these words
+      c.sib[static_cast<size_t>(e[3]) * c.n + n] += 1;
+      const int row = e[2] - g0;
+      if (row >= 0 && row < c.g) c.assigned[static_cast<size_t>(row) * c.n + n] += 1;
+    }
+  }
+  if (blockIdx.x != 0) return;
+  const int m = record[1];
+  for (int k = threadIdx.x; k < m; k += kThreads) {
+    const int32_t* e = record + kRecHead + kEntry * static_cast<size_t>(k);
+    if (e[2] < 0) continue;
+    const int row = e[2] - g0;
+    if (row >= 0 && row < c.g) c.placed[row] += 1;  // a group wins one node a round
+    if (kGang && e[4] >= 0) {
+      const size_t gc = static_cast<size_t>(e[4]);
+      if (e[5] > 0) atomicAdd(c.t_rack + gc * c.wr + e[5], 1);
+      if (e[6] > 0) atomicAdd(c.t_pod + gc * c.wp + e[6], 1);
+      if (e[7] > 0) atomicAdd(c.t_ici + gc * c.wi + e[7], 1);
+    }
+  }
+}
+
+// The launch just made: its error, and one more in `launched` (when
+// given) if it was accepted.
+cudaError_t launched_ok(long long* launched) {
+  const cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess && launched != nullptr) ++*launched;
+  return e;
+}
+
+cudaError_t launch_claim(bool gang, const CpCell& c, const int32_t* record, int col0,
+                         int32_t* cand, cudaStream_t st, long long* launched) {
+  if (c.g == 0) return cudaSuccess;
+  if (gang) {
+    cp_shard_claim_kernel<true><<<c.g, kThreads, 0, st>>>(c, record, col0, cand);
+  } else {
+    cp_shard_claim_kernel<false><<<c.g, kThreads, 0, st>>>(c, record, col0, cand);
+  }
+  return launched_ok(launched);
+}
+
+cudaError_t launch_settle(bool gang, const CpCell& c, const int32_t* record, int col0, int g0,
+                          cudaStream_t st, long long* launched) {
+  const unsigned blocks = static_cast<unsigned>((c.n + kThreads - 1) / kThreads);
+  if (gang) {
+    cp_shard_settle_kernel<true><<<blocks, kThreads, 0, st>>>(c, record, col0, g0);
+  } else {
+    cp_shard_settle_kernel<false><<<blocks, kThreads, 0, st>>>(c, record, col0, g0);
+  }
+  return launched_ok(launched);
+}
+
+// The per-cell pointers the round loop takes, in this order.
+enum CpPtr {
+  kPCapacity, kPAsks, kPCounts, kPEligible, kPScores, kPJobCounts, kPDistinct, kPJobCode,
+  kPGangCode, kPQRack, kPQPod, kPQIci, kPLevelIds,
+  kPUsed,           // f32 [n, 4]: the cell's copy of its nodes' usage, used0 at the start
+  kPLam,            // f32 [n]: the cell's copy of its nodes' prices, lam0 at the start
+  kPAssigned,       // i32 [g, n], zero at the start
+  kPSib,            // i32 [jobs, n], zero at the start
+  kPTRack, kPTPod, kPTIci,  // i32 [gangs, w], zero at the start (gang only)
+  kPPlaced,         // i32 [g], zero at the start
+  kPCand,           // i32 [g, kCand]
+  kPRecord,         // i32 [kRecHead + G kEntry]: the round's record as the cell received it
+  kPGathered,       // the lead only: i32 [mp, G, kCand]
+  kPEveryPrio,      // the lead only: f32 [G]
+  kPEveryAsks,      // the lead only: f32 [G, 4]
+  kPEveryJobCode,   // the lead only: i32 [G]
+  kPEveryGangCode,  // the lead only: i32 [G] (gang only)
+  kPLeadPlaced,     // the lead only: i32 [G], zero at the start
+  kPWaits,          // the lead only: i32 [G], zero at the start
+  kPRounds,         // the lead only: i32 [1], zero at the start
+  kPChoices,        // the lead only: i32 [G, C], -1 at the start
+  kPChoiceScores,   // the lead only: f32 [G, C], 0 at the start
+  kPMaster,         // the lead only: the record, zero at the start
+  kPMergeScratch,   // the lead only: i32 [G, kMergeWords]
+  kPHomeStream,     // the stream the cell's tensors were made on
+  kPCellPtrs
+};
+
+// The entries of the round loop's launch counts.
+enum PLaunched { kPLaunchedClaim, kPLaunchedMerge, kPLaunchedSettle };
+
+// The sharded auction of one call: `rows` groups rows of `mp` cells each
+// (cell (i, j) is index i * mp + j, cell 0 the mesh lead), `gseg` groups
+// a row over `seg` nodes a cell (mesh_loop.cuh runs the rounds). Launches
+// per round: a claim and a settle a cell, one merge. `launched` [3]
+// gains the claims, merges and settles, counted where each launches.
+int cp_sharded(int rows, int mp, const int* devices, void* const* ptrs, int gseg, int seg,
+               int wr, int wp, int wi, bool gang, int steps, int max_c, int32_t* poll,
+               long long* launched) {
+  const int cells = rows * mp;
+  const int g = rows * gseg;
+  const auto P = [&](int cell, int k) { return ptrs[static_cast<size_t>(cell) * kPCellPtrs + k]; };
+  std::vector<void*> home(cells);
+  for (int c = 0; c < cells; ++c) home[c] = P(c, kPHomeStream);
+  MeshLoop loop(cells, devices, home);
+  const auto cell = [&](int c) {
+    CpCell x{};
+    x.capacity = static_cast<const float*>(P(c, kPCapacity));
+    x.asks = static_cast<const float*>(P(c, kPAsks));
+    x.counts = static_cast<const int32_t*>(P(c, kPCounts));
+    x.eligible = static_cast<const uint8_t*>(P(c, kPEligible));
+    x.scores = static_cast<const float*>(P(c, kPScores));
+    x.job_counts = static_cast<const int32_t*>(P(c, kPJobCounts));
+    x.distinct = static_cast<const uint8_t*>(P(c, kPDistinct));
+    x.job_code = static_cast<const int32_t*>(P(c, kPJobCode));
+    x.gang_code = static_cast<const int32_t*>(P(c, kPGangCode));
+    x.q_rack = static_cast<const int32_t*>(P(c, kPQRack));
+    x.q_pod = static_cast<const int32_t*>(P(c, kPQPod));
+    x.q_ici = static_cast<const int32_t*>(P(c, kPQIci));
+    x.level_ids = static_cast<const int32_t*>(P(c, kPLevelIds));
+    x.used = static_cast<float*>(P(c, kPUsed));
+    x.lam = static_cast<float*>(P(c, kPLam));
+    x.assigned = static_cast<int32_t*>(P(c, kPAssigned));
+    x.sib = static_cast<int32_t*>(P(c, kPSib));
+    x.t_rack = static_cast<int32_t*>(P(c, kPTRack));
+    x.t_pod = static_cast<int32_t*>(P(c, kPTPod));
+    x.t_ici = static_cast<int32_t*>(P(c, kPTIci));
+    x.placed = static_cast<int32_t*>(P(c, kPPlaced));
+    x.wr = wr;
+    x.wp = wp;
+    x.wi = wi;
+    x.g = gseg;
+    x.n = seg;
+    return x;
+  };
+  for (int it = 0; it < steps && loop.go_on(it, kPollRounds, poll, P(0, kPMaster)); ++it) {
+    loop.step(
+        [&](int c, cudaStream_t st) {
+          return launch_claim(gang, cell(c), static_cast<const int32_t*>(P(c, kPRecord)),
+                              c % mp * seg, static_cast<int32_t*>(P(c, kPCand)), st,
+                              launched + kPLaunchedClaim);
+        },
+        static_cast<size_t>(gseg) * kCand * 4, [&](int c) { return P(c, kPCand); },
+        [&](int c) {
+          // column j's candidates for groups [i gseg, (i + 1) gseg) of [mp, G]
+          return static_cast<char*>(P(0, kPGathered)) +
+                 (static_cast<size_t>(c % mp) * g + static_cast<size_t>(c / mp) * gseg) * kCand *
+                     4;
+        },
+        [&](cudaStream_t st) {
+          cp_round_merge_kernel<<<1, kThreads, 0, st>>>(
+              static_cast<const int32_t*>(P(0, kPGathered)), mp, g,
+              static_cast<const float*>(P(0, kPEveryPrio)),
+              static_cast<const float*>(P(0, kPEveryAsks)),
+              static_cast<const int32_t*>(P(0, kPEveryJobCode)),
+              static_cast<const int32_t*>(P(0, kPEveryGangCode)), max_c,
+              static_cast<int32_t*>(P(0, kPLeadPlaced)), static_cast<int32_t*>(P(0, kPWaits)),
+              static_cast<int32_t*>(P(0, kPRounds)), static_cast<int32_t*>(P(0, kPChoices)),
+              static_cast<float*>(P(0, kPChoiceScores)), static_cast<int32_t*>(P(0, kPMaster)),
+              static_cast<int32_t*>(P(0, kPMergeScratch)));
+          return launched_ok(launched + kPLaunchedMerge);
+        },
+        P(0, kPMaster), (kRecHead + static_cast<size_t>(g) * kEntry) * 4,
+        [&](int c) { return P(c, kPRecord); },
+        [&](int c, cudaStream_t st) {
+          return launch_settle(gang, cell(c), static_cast<const int32_t*>(P(c, kPRecord)),
+                               c % mp * seg, c / mp * gseg, st, launched + kPLaunchedSettle);
+        });
+  }
+  return loop.finish();
+}
+
 }  // namespace
 
 // C entry points, bound with ctypes (nomad_tpu_torch/device/cp.py).
@@ -563,3 +1039,85 @@ extern "C" int nomad_cp_barrier_probe(int iters, int32_t* scratch, void* stream)
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
+
+// -- the mesh kernels' entry points ------------------------------------------
+
+// One cell's candidates for a round; the gang term is on when `gang_code`
+// is not null.
+extern "C" int nomad_cp_shard_claim(
+    const float* capacity, const float* used, const float* asks, const int32_t* counts,
+    const uint8_t* eligible, const float* scores, const int32_t* job_counts,
+    const uint8_t* distinct, const int32_t* job_code, const float* lam, const int32_t* assigned,
+    const int32_t* sib, const int32_t* placed, const int32_t* gang_code, const int32_t* q_rack,
+    const int32_t* q_pod, const int32_t* q_ici, const int32_t* level_ids, const int32_t* t_rack,
+    const int32_t* t_pod, const int32_t* t_ici, int wr, int wp, int wi, int g, int n, int col0,
+    int32_t* cand, void* stream) {
+  const bool gang = gang_code != nullptr;
+  if (g < 0 || n < 1 || (gang && (wr < 1 || wp < 1 || wi < 1))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CpCell c{capacity, asks, counts, eligible, scores, job_counts, distinct, job_code, gang_code,
+           q_rack, q_pod, q_ici, level_ids, const_cast<float*>(used), const_cast<float*>(lam),
+           const_cast<int32_t*>(assigned), const_cast<int32_t*>(sib),
+           const_cast<int32_t*>(t_rack), const_cast<int32_t*>(t_pod),
+           const_cast<int32_t*>(t_ici), const_cast<int32_t*>(placed), wr, wp, wi, g, n};
+  return static_cast<int>(
+      launch_claim(gang, c, nullptr, col0, cand, static_cast<cudaStream_t>(stream), nullptr));
+}
+
+// One round's merge on the mesh lead over `cells` columns of `g` groups'
+// candidates; `record` holds the previous round's state and zeros.
+extern "C" int nomad_cp_round_merge(
+    const int32_t* cand, int cells, int g, const float* prio, const float* asks,
+    const int32_t* job_code, const int32_t* gang_code, int max_c, int32_t* placed,
+    int32_t* waits, int32_t* rounds, int32_t* choices, float* choice_scores, int32_t* record,
+    int32_t* scratch, void* stream) {
+  if (cells < 1 || g < 1 || max_c < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cp_round_merge_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      cand, cells, g, prio, asks, job_code, gang_code, max_c, placed, waits, rounds, choices,
+      choice_scores, record, scratch);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One cell's state after a round; the topology tables move when `t_rack`
+// is not null.
+extern "C" int nomad_cp_shard_settle(
+    const int32_t* record, float* used, float* lam, int32_t* assigned, int32_t* sib,
+    int32_t* placed, int32_t* t_rack, int32_t* t_pod, int32_t* t_ici, int wr, int wp, int wi,
+    int n, int g, int col0, int g0, void* stream) {
+  if (n < 1 || g < 0) return static_cast<int>(cudaErrorInvalidValue);
+  CpCell c{};
+  c.used = used;
+  c.lam = lam;
+  c.assigned = assigned;
+  c.sib = sib;
+  c.placed = placed;
+  c.t_rack = t_rack;
+  c.t_pod = t_pod;
+  c.t_ici = t_ici;
+  c.wr = wr;
+  c.wp = wp;
+  c.wi = wi;
+  c.g = g;
+  c.n = n;
+  return static_cast<int>(launch_settle(t_rack != nullptr, c, record, col0, g0,
+                                        static_cast<cudaStream_t>(stream), nullptr));
+}
+
+// The round loop: `ptrs` holds kPCellPtrs pointers a cell (CpPtr order),
+// `devices` each cell's device, `poll` one pinned int32, `launched`
+// i64[3] added to; see cp_sharded.
+extern "C" int nomad_sharded_cp(int rows, int mp, const int* devices, void* const* ptrs,
+                                int gseg, int seg, int jobs, int gangs, int wr, int wp, int wi,
+                                int gang, int steps, int max_c, int32_t* poll,
+                                long long* launched) {
+  if (rows < 1 || mp < 1 || gseg < 1 || seg < 1 || jobs < 1 || gangs < 1 || max_c < 1 ||
+      (gang && (wr < 1 || wp < 1 || wi < 1))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cp_sharded(rows, mp, devices, ptrs, gseg, seg, wr, wp, wi, gang != 0,
+                                     steps, max_c, poll, launched));
+}
+
+// The per-cell pointer count the round loop reads.
+extern "C" int nomad_cp_cell_ptrs() { return kPCellPtrs; }

@@ -88,6 +88,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <vector>
+
+#include "mesh_loop.cuh"
+
 namespace {
 
 using u64 = unsigned long long;
@@ -795,6 +799,367 @@ Layout layout(int g, int n) {
   return l;
 }
 
+// -- the pass under a node-axis mesh ------------------------------------------
+//
+// Cell (i, j) of a dp x mp mesh holds groups row i's slice of the groups
+// (g0 its first) and column j's slice of the nodes (col0 its first),
+// with its own copy of those nodes' usage. Its lists are the one-device
+// lists of its slice, built once a call by the sort and merge launches
+// above (a cell's nodes are contiguous, so its local order is the global
+// order), each with a head: the first entry that fits. The global head of
+// a group is the best of its cells' heads, since each cell's list is the
+// global list restricted to the cell's nodes. A step:
+//  - hetero_shard_step_kernel, a launch a cell, a warp a row: the row's
+//    head as (order key, global node, tp's bits) while the group is short
+//    of its count, else none; on a call's first step it walks every list
+//    from its start first;
+//  - hetero_step_merge_kernel, one block on the mesh lead over every
+//    group: the best head over the columns (key desc, node asc), the
+//    least job key among the placeable groups (first index), the commit
+//    (slot, choice, tp, placed, accum with one f32 add) and the record
+//    (the group, the node, tp's bits, the group's ask);
+//  - hetero_shard_apply_kernel, one block a cell: the committed node's
+//    usage grows by the ask (every cell of its column holds a copy), the
+//    group's placements grow in its row, and the cell's rows whose head
+//    is the node and no longer fits walk on; with a negative ask, a row
+//    the node now fits before its head takes it (a binary search of its
+//    list), as the one-device chain does.
+// A record whose state is 1 (nothing placeable) stops the pass: every
+// later launch returns at once, and the host stops queuing steps once it
+// reads the lead's stop word (mesh_loop.cuh).
+
+constexpr int kCand = 3;     // a candidate: order key, global node, tp's bits
+constexpr int kRecord = 8;   // a record: state, group, node, tp's bits, ask [4]
+constexpr int kPollSteps = 16;  // steps between two reads of the lead's stop word
+
+struct CellLayout {
+  size_t sorted, lists, len, hword, pos, total;
+};
+
+CellLayout cell_layout(int g, int n) {
+  const size_t slots = static_cast<size_t>(g) * ((n + kChunk - 1) / kChunk) * kChunk;
+  CellLayout l;
+  l.sorted = 0;
+  l.lists = 8 * slots;
+  l.len = 16 * slots;
+  l.hword = (l.len + 4 * static_cast<size_t>(g) + 15) & ~static_cast<size_t>(15);
+  l.pos = l.hword + 8 * static_cast<size_t>(g);
+  l.total = l.pos + 4 * static_cast<size_t>(g);
+  return l;
+}
+
+// Warp: row r's head from list position `start` on, the first entry that
+// fits (0 when the list is spent).
+__device__ void cell_walk(const Hetero& h, u64* hword, int32_t* pos, int r, int start) {
+  const int lane = threadIdx.x & 31;
+  const int len = h.len[r];
+  const u64* list = h.lists + r * row_stride(h);
+  const float* a = h.asks + 4 * static_cast<size_t>(r);
+  for (int base = start; base < len; base += 32) {
+    const int i = base + lane;
+    u64 w = 0;
+    bool ok = false;
+    if (i < len) {
+      w = list[i];
+      const size_t n4 = 4 * static_cast<size_t>(word_node(w));
+      ok = room(h.used + n4, h.capacity + n4, a);
+    }
+    const unsigned m = __ballot_sync(kFull, ok);
+    if (m != 0u) {
+      const int src = __ffs(m) - 1;
+      const u64 hw = __shfl_sync(kFull, w, src);
+      if (lane == 0) {
+        pos[r] = base + src;
+        hword[r] = hw;
+      }
+      return;
+    }
+  }
+  if (lane == 0) {
+    pos[r] = len;
+    hword[r] = 0;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    hetero_shard_step_kernel(Hetero h, u64* hword, int32_t* pos, const int32_t* placed,
+                             const int32_t* record, int col0, int first_step, int32_t* cand) {
+  if (record != nullptr && record[0] != 0) return;
+  const int lane = threadIdx.x & 31;
+  const int r = static_cast<int>(blockIdx.x) * kWarps + static_cast<int>(threadIdx.x >> 5);
+  if (r >= h.g) return;
+  if (first_step) cell_walk(h, hword, pos, r, 0);
+  if (lane != 0) return;
+  const u64 w = hword[r];
+  int32_t* c = cand + kCand * static_cast<size_t>(r);
+  if (w != 0 && placed[r] < h.counts[r]) {
+    const int x = word_node(w);
+    c[0] = static_cast<int32_t>(w >> 32);
+    c[1] = col0 + x;
+    c[2] = __float_as_int(h.tp[static_cast<size_t>(r) * h.n + x]);
+  } else {
+    c[0] = 0;
+    c[1] = -1;
+    c[2] = 0;
+  }
+}
+
+// The best head of group j over the `cells` columns' candidates
+// [cells, g, kCand] (key desc, node asc); -1 when none holds one.
+__device__ int best_column(const int32_t* cand, int cells, int g, int j) {
+  int bc = -1;
+  u64 br = 0;
+  for (int c = 0; c < cells; ++c) {
+    const int32_t* e = cand + kCand * (static_cast<size_t>(c) * g + j);
+    const uint32_t key = static_cast<uint32_t>(e[0]);
+    if (key == 0u) continue;
+    const u64 rank = (static_cast<u64>(key) << 32) | (kFull - static_cast<uint32_t>(e[1]));
+    if (rank > br) {
+      br = rank;
+      bc = c;
+    }
+  }
+  return bc;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    hetero_step_merge_kernel(const int32_t* cand, int cells, int g, int policy, int max_c,
+                             const int32_t* counts, const float* tpmax, const float* asks,
+                             int32_t* placed, float* accum, int32_t* choices, float* choice_tp,
+                             int32_t* record) {
+  __shared__ u64 s_least[kWarps];
+  if (record[0] != 0) return;  // the pass stopped: every later step is the same no-op
+  const uint32_t none = order_key(INFINITY);
+  // (order_key(job key) << 32 | group) of the thread's least placeable group
+  u64 mine = ~0ull;
+  for (int j = threadIdx.x; j < g; j += kThreads) {
+    const int p = placed[j];
+    if (p >= counts[j] || best_column(cand, cells, g, j) < 0) continue;
+    const uint32_t k = order_key(job_key(policy, counts[j], tpmax[j], p, accum[j]));
+    if (k >= none) continue;
+    const u64 w = (static_cast<u64>(k) << 32) | static_cast<uint32_t>(j);
+    mine = w < mine ? w : mine;
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    const u64 o = __shfl_xor_sync(kFull, mine, off);
+    mine = o < mine ? o : mine;
+  }
+  if ((threadIdx.x & 31) == 0) s_least[threadIdx.x >> 5] = mine;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  u64 least = ~0ull;
+  for (int w = 0; w < kWarps; ++w) least = s_least[w] < least ? s_least[w] : least;
+  if (least == ~0ull) {  // nothing placeable
+    record[0] = 1;
+    return;
+  }
+  const int j = static_cast<int>(static_cast<uint32_t>(least));
+  const int32_t* e = cand + kCand * (static_cast<size_t>(best_column(cand, cells, g, j)) * g + j);
+  const int slot = placed[j];
+  const float t = __int_as_float(e[2]);
+  choices[static_cast<size_t>(j) * max_c + slot] = e[1];
+  choice_tp[static_cast<size_t>(j) * max_c + slot] = t;
+  placed[j] = slot + 1;
+  accum[j] = __fadd_rn(accum[j], t);
+  record[1] = j;
+  record[2] = e[1];
+  record[3] = e[2];
+  for (int d = 0; d < 4; ++d) record[4 + d] = __float_as_int(asks[4 * static_cast<size_t>(j) + d]);
+}
+
+// One block a cell. Without lists (`hword` null) only the usage and the
+// placements move.
+__global__ void __launch_bounds__(kThreads)
+    hetero_shard_apply_kernel(Hetero h, u64* hword, int32_t* pos, int32_t* placed,
+                              const int32_t* record, int col0, int g0) {
+  __shared__ float s_u[4];
+  if (record[0] != 0) return;
+  const int j = record[1] - g0;
+  const int x = record[2] - col0;
+  const bool inside = x >= 0 && x < h.n;
+  if (threadIdx.x == 0 && j >= 0 && j < h.g) placed[j] += 1;
+  if (inside && threadIdx.x < 4) {
+    float* u = h.used + 4 * static_cast<size_t>(x) + threadIdx.x;
+    const float nu = __fadd_rn(*u, __int_as_float(record[4 + threadIdx.x]));
+    *u = nu;
+    s_u[threadIdx.x] = nu;
+  }
+  __syncthreads();
+  if (!inside || hword == nullptr) return;
+  const int lane = threadIdx.x & 31;
+  float u[4];
+  float cap[4];
+  for (int d = 0; d < 4; ++d) {
+    u[d] = s_u[d];
+    cap[d] = h.capacity[4 * static_cast<size_t>(x) + d];
+  }
+  for (int r = threadIdx.x >> 5; r < h.g; r += kWarps) {
+    if (placed[r] >= h.counts[r]) continue;
+    const u64 hw = hword[r];
+    const float* a = h.asks + 4 * static_cast<size_t>(r);
+    if (hw != 0 && word_node(hw) == x) {
+      if (!room(u, cap, a)) cell_walk(h, hword, pos, r, pos[r] + 1);
+      continue;
+    }
+    const size_t rx = static_cast<size_t>(r) * h.n + x;
+    if (lane != 0 || !h.eligible[rx] || !(h.tp[rx] > 0.0f) || !room(u, cap, a)) continue;
+    const u64 w = node_word(node_key(h, r, x), x);
+    if (w <= hw) continue;
+    const u64* list = h.lists + r * row_stride(h);
+    int lo = 0;
+    int hi = h.len[r];
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (list[mid] > w) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    pos[r] = lo;
+    hword[r] = w;
+  }
+}
+
+// A cell's Hetero over its parts, its lists in `scratch` (cell_layout).
+Hetero cell_hetero(const float* capacity, const float* asks, const int32_t* counts,
+                   const uint8_t* eligible, const float* tp, const float* cost, float* used,
+                   int policy, int g, int n, unsigned char* scratch) {
+  const CellLayout l = cell_layout(g, n);
+  Hetero h{capacity, asks, counts, eligible, tp, nullptr, cost, policy, g, n, 0, 0,
+           (n + kChunk - 1) / kChunk,
+           scratch == nullptr ? nullptr : reinterpret_cast<u64*>(scratch + l.sorted),
+           scratch == nullptr ? nullptr : reinterpret_cast<u64*>(scratch + l.lists),
+           scratch == nullptr ? nullptr : reinterpret_cast<int32_t*>(scratch + l.len),
+           nullptr, nullptr, nullptr, used};
+  return h;
+}
+
+u64* cell_hword(unsigned char* scratch, int g, int n) {
+  return reinterpret_cast<u64*>(scratch + cell_layout(g, n).hword);
+}
+
+int32_t* cell_pos(unsigned char* scratch, int g, int n) {
+  return reinterpret_cast<int32_t*>(scratch + cell_layout(g, n).pos);
+}
+
+// The launch just made: its error, and one more in `launched` (when
+// given) if it was accepted.
+cudaError_t launched_ok(long long* launched) {
+  const cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess && launched != nullptr) ++*launched;
+  return e;
+}
+
+// The cell's lists: the sort and merge launches of the one-device pass.
+cudaError_t build_lists(const Hetero& h, cudaStream_t st, long long* launched) {
+  const unsigned blocks = static_cast<unsigned>(h.g) * static_cast<unsigned>(h.chunks);
+  sort_kernel<<<blocks, kThreads, 0, st>>>(h);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  merge_kernel<<<blocks, kThreads, 0, st>>>(h);
+  return launched_ok(launched);
+}
+
+cudaError_t launch_step(const Hetero& h, unsigned char* scratch, const int32_t* placed,
+                        const int32_t* record, int col0, int first_step, int32_t* cand,
+                        cudaStream_t st, long long* launched) {
+  const unsigned blocks = static_cast<unsigned>((h.g + kWarps - 1) / kWarps);
+  hetero_shard_step_kernel<<<blocks, kThreads, 0, st>>>(
+      h, cell_hword(scratch, h.g, h.n), cell_pos(scratch, h.g, h.n), placed, record, col0,
+      first_step, cand);
+  return launched_ok(launched);
+}
+
+// The per-cell pointers the step loop takes, in this order.
+enum HeteroPtr {
+  kHCapacity, kHAsks, kHCounts, kHEligible, kHTp, kHCost,
+  kHUsed,         // f32 [n, 4]: the cell's copy of its nodes' usage, used0 at the start
+  kHPlaced,       // i32 [g]: placements of the cell's groups, zero at the start
+  kHScratch,      // cell_layout(g, n) bytes: the lists and their heads
+  kHCand,         // i32 [g, kCand]: the cell's candidates
+  kHRecord,       // i32 [kRecord]: the step's record as the cell received it, zero at the start
+  kHGathered,     // the lead only: i32 [mp, G, kCand]
+  kHLeadPlaced,   // the lead only: i32 [G], zero at the start
+  kHAccum,        // the lead only: f32 [G], zero at the start
+  kHEveryCounts,  // the lead only: i32 [G]
+  kHEveryTpmax,   // the lead only: f32 [G]
+  kHEveryAsks,    // the lead only: f32 [G, 4]
+  kHChoices,      // the lead only: i32 [G, C], -1 at the start
+  kHChoiceTp,     // the lead only: f32 [G, C], 0 at the start
+  kHMaster,       // the lead only: i32 [kRecord], zero at the start
+  kHHomeStream,   // the stream the cell's tensors were made on
+  kHCellPtrs
+};
+
+// The entries of the step loop's launch counts.
+enum HLaunched { kHLaunchedStep, kHLaunchedMerge, kHLaunchedApply, kHLaunchedBuild };
+
+// The sharded pass of one call: `rows` groups rows of `mp` cells each
+// (cell (i, j) is index i * mp + j, cell 0 the mesh lead), `gseg` groups
+// a row over `seg` nodes a cell (mesh_loop.cuh runs the steps). Launches:
+// a list build a cell a call, then per step a shard step and an apply a
+// cell and one merge. `launched` [4] gains the shard steps, merges,
+// applies and list builds, counted where each launches.
+int hetero_sharded(int rows, int mp, const int* devices, void* const* ptrs, int gseg, int seg,
+                   int policy, int steps, int max_c, int32_t* poll, long long* launched) {
+  const int cells = rows * mp;
+  const int g = rows * gseg;
+  const auto P = [&](int cell, int k) { return ptrs[static_cast<size_t>(cell) * kHCellPtrs + k]; };
+  std::vector<void*> home(cells);
+  for (int c = 0; c < cells; ++c) home[c] = P(c, kHHomeStream);
+  MeshLoop loop(cells, devices, home);
+  const auto cell = [&](int c) {
+    return cell_hetero(static_cast<const float*>(P(c, kHCapacity)),
+                       static_cast<const float*>(P(c, kHAsks)),
+                       static_cast<const int32_t*>(P(c, kHCounts)),
+                       static_cast<const uint8_t*>(P(c, kHEligible)),
+                       static_cast<const float*>(P(c, kHTp)),
+                       static_cast<const float*>(P(c, kHCost)),
+                       static_cast<float*>(P(c, kHUsed)), policy, gseg, seg,
+                       static_cast<unsigned char*>(P(c, kHScratch)));
+  };
+  const auto scratch = [&](int c) { return static_cast<unsigned char*>(P(c, kHScratch)); };
+  loop.each([&](int c, cudaStream_t st) {
+    return build_lists(cell(c), st, launched + kHLaunchedBuild);
+  });
+  for (int step = 0; step < steps && loop.go_on(step, kPollSteps, poll, P(0, kHMaster)); ++step) {
+    loop.step(
+        [&](int c, cudaStream_t st) {
+          return launch_step(cell(c), scratch(c), static_cast<const int32_t*>(P(c, kHPlaced)),
+                             static_cast<const int32_t*>(P(c, kHRecord)), c % mp * seg, step == 0,
+                             static_cast<int32_t*>(P(c, kHCand)), st, launched + kHLaunchedStep);
+        },
+        static_cast<size_t>(gseg) * kCand * 4, [&](int c) { return P(c, kHCand); },
+        [&](int c) {
+          // column j's candidates for groups [i gseg, (i + 1) gseg) of [mp, G]
+          return static_cast<char*>(P(0, kHGathered)) +
+                 (static_cast<size_t>(c % mp) * g + static_cast<size_t>(c / mp) * gseg) * kCand *
+                     4;
+        },
+        [&](cudaStream_t st) {
+          hetero_step_merge_kernel<<<1, kThreads, 0, st>>>(
+              static_cast<const int32_t*>(P(0, kHGathered)), mp, g, policy, max_c,
+              static_cast<const int32_t*>(P(0, kHEveryCounts)),
+              static_cast<const float*>(P(0, kHEveryTpmax)),
+              static_cast<const float*>(P(0, kHEveryAsks)),
+              static_cast<int32_t*>(P(0, kHLeadPlaced)), static_cast<float*>(P(0, kHAccum)),
+              static_cast<int32_t*>(P(0, kHChoices)), static_cast<float*>(P(0, kHChoiceTp)),
+              static_cast<int32_t*>(P(0, kHMaster)));
+          return launched_ok(launched + kHLaunchedMerge);
+        },
+        P(0, kHMaster), kRecord * 4, [&](int c) { return P(c, kHRecord); },
+        [&](int c, cudaStream_t st) {
+          hetero_shard_apply_kernel<<<1, kThreads, 0, st>>>(
+              cell(c), cell_hword(scratch(c), gseg, seg), cell_pos(scratch(c), gseg, seg),
+              static_cast<int32_t*>(P(c, kHPlaced)), static_cast<const int32_t*>(P(c, kHRecord)),
+              c % mp * seg, c / mp * gseg);
+          return launched_ok(launched + kHLaunchedApply);
+        });
+  }
+  return loop.finish();
+}
+
 }  // namespace
 
 // C entry point, bound with ctypes (nomad_tpu_torch/scheduler/hetero.py).
@@ -845,3 +1210,73 @@ extern "C" int nomad_hetero_place(
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// -- the mesh kernels' entry points (nomad_tpu_torch/scheduler/hetero.py) --
+
+// Bytes of a cell's scratch: its lists and their heads.
+extern "C" int nomad_hetero_cell_scratch_bytes(int g, int n, size_t* bytes) {
+  *bytes = cell_layout(g, n).total;
+  return 0;
+}
+
+// One cell's candidates (a step loop's first step): the cell's lists
+// built in `scratch`, every head walked, the candidates written.
+extern "C" int nomad_hetero_shard_step(
+    const float* capacity, const float* used, const float* asks, const int32_t* counts,
+    const uint8_t* eligible, const float* tp, const float* cost, const int32_t* placed,
+    int policy, int g, int n, int col0, unsigned char* scratch, size_t scratch_bytes,
+    int32_t* cand, void* stream) {
+  if (g < 1 || n < 1 || policy < kMaxmin || policy > kCost ||
+      scratch_bytes < cell_layout(g, n).total) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Hetero h = cell_hetero(capacity, asks, counts, eligible, tp, cost,
+                               const_cast<float*>(used), policy, g, n, scratch);
+  const cudaError_t e = build_lists(h, st, nullptr);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(launch_step(h, scratch, placed, nullptr, col0, 1, cand, st, nullptr));
+}
+
+// One step's merge on the mesh lead over `cells` columns of `g` groups'
+// candidates; `record` zero on entry.
+extern "C" int nomad_hetero_step_merge(
+    const int32_t* cand, int cells, int g, int policy, int max_c, const int32_t* counts,
+    const float* tpmax, const float* asks, int32_t* placed, float* accum, int32_t* choices,
+    float* choice_tp, int32_t* record, void* stream) {
+  if (cells < 1 || g < 1 || max_c < 1 || policy < kMaxmin || policy > kCost) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  hetero_step_merge_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      cand, cells, g, policy, max_c, counts, tpmax, asks, placed, accum, choices, choice_tp,
+      record);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One cell's usage and placements after a step (no lists: only those move).
+extern "C" int nomad_hetero_shard_apply(const int32_t* record, float* used, int32_t* placed,
+                                        int n, int g, int col0, int g0, void* stream) {
+  if (n < 1 || g < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Hetero h = cell_hetero(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, used,
+                               kMaxmin, g, n, nullptr);
+  hetero_shard_apply_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      h, nullptr, nullptr, placed, record, col0, g0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The step loop: `ptrs` holds kHCellPtrs pointers a cell (HeteroPtr
+// order), `devices` each cell's device, `poll` one pinned int32,
+// `launched` i64[4] added to; see hetero_sharded.
+extern "C" int nomad_sharded_hetero(int rows, int mp, const int* devices, void* const* ptrs,
+                                    int gseg, int seg, int policy, int steps, int max_c,
+                                    int32_t* poll, long long* launched) {
+  if (rows < 1 || mp < 1 || gseg < 1 || seg < 1 || max_c < 1 || policy < kMaxmin ||
+      policy > kCost || static_cast<long long>(gseg) * ((seg + kChunk - 1) / kChunk) > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(
+      hetero_sharded(rows, mp, devices, ptrs, gseg, seg, policy, steps, max_c, poll, launched));
+}
+
+// The per-cell pointer count the step loop reads.
+extern "C" int nomad_hetero_cell_ptrs() { return kHCellPtrs; }

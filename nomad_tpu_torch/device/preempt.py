@@ -44,7 +44,7 @@ from ..backend import (
     resolve_device,
     same_device,
 )
-from .score import _check_inputs, _div, _first_argmax, _pow10, capacity_on
+from .score import _check_inputs, _div, _exp, _first_argmax, _pow10, capacity_on
 
 # Priority delta a preemptor must have over its victims
 # (preemption.go:673: delta ≥ 10).
@@ -75,7 +75,7 @@ def preemption_score(net_priority):
     """Down-weight for preempting options: ≈1 for cheap preemptions, →0 as
     summed victim priority passes the inflection (rank.go:834-844)."""
     return torch.reciprocal(
-        1.0 + torch.exp(_div(net_priority - NET_PRIORITY_INFLECTION, 256.0))
+        1.0 + _exp(_div(net_priority - NET_PRIORITY_INFLECTION, 256.0))
     )
 
 

@@ -95,8 +95,22 @@ CHUNK = 16
 SCRATCH_BUDGET_BYTES = 8 << 30
 
 
+def _exp(x):
+    """exp(x) of a float32 tensor. On the CPU NumPy takes it, in float64
+    on the calling thread, rounded once to float32: in about one fresh
+    process in six, PyTorch's CPU threads compute their first large
+    ``torch.exp`` wrong (whole per-thread chunks up to 1,773 ulp off,
+    torch 2.13 on AVX-512, more often under load), so a plain version's
+    bits would depend on its process's history (ROADMAP C-P1). On the
+    card ``torch.exp`` is the kernels' ``expf``."""
+    if x.device.type != "cpu":
+        return torch.exp(x)
+    z = np.exp(x.numpy().astype(np.float64))  # nta: allow=NTA002 (the CPU branch)
+    return torch.from_numpy(z.astype(np.float32))
+
+
 def _pow10(x):
-    return torch.exp(_LN10 * x)
+    return _exp(_LN10 * x)
 
 
 def _div(x, c: float):
@@ -712,6 +726,38 @@ def _cell_part(x, want, i: int, j: int, dev):
     return t.to(device=dev, memory_format=torch.contiguous_format)
 
 
+def _mesh_cells(cfg, args, axes_of, rows_split, gseg, seg) -> dict:
+    """Each cell's part of every input, contiguous on the cell's device:
+    {(i, j): {name: tensor}}."""
+    cells = {}
+    for i in range(rows_split):
+        gs = slice(i * gseg, (i + 1) * gseg)
+        for j in range(cfg.mp):
+            dev = cfg.device(i, j)
+            ns = slice(j * seg, (j + 1) * seg)
+            parts = {}
+            for x, (name, axes) in zip(args, axes_of):
+                want = tuple(
+                    gs if ax == "groups" else ns if ax == "nodes" else slice(0, x.shape[d])
+                    for d, ax in enumerate(axes)
+                )
+                parts[name] = _cell_part(x, want, i, j, dev)
+            cells[i, j] = parts
+    return cells
+
+
+def _stacked(cells, name, axes, rows_split, mp):
+    """One input of every cell stacked as one CPU call sees them: the
+    rows' groups one after another, the columns' nodes side by side."""
+    if "groups" not in axes:
+        return torch.cat([cells[0, j][name] for j in range(mp)], dim=axes.index("nodes"))
+    return torch.cat([
+        torch.cat([cells[i, j][name] for j in range(mp)], dim=axes.index("nodes"))
+        if "nodes" in axes else cells[i, 0][name]
+        for i in range(rows_split)
+    ])
+
+
 def place_closed_form_sharded(
     capacity, used0, asks, eligible, job_counts, desired_totals,
     penalty_nodes, affinity_scores, has_affinities, distinct_hosts,
@@ -739,25 +785,18 @@ def place_closed_form_sharded(
     rows_split = cfg.dp if g % cfg.dp == 0 else 1
     gseg, seg = g // rows_split, n // cfg.mp
     kl = min(k, seg * max_j)
+    extra = [] if jitter is None else [(jitter, ("jitter", ("nodes",)))]
+    cells = _mesh_cells(cfg, [*args, *[x for x, _ in extra]],
+                        [*_CLOSED_FORM_AXES, *[spec for _, spec in extra]], rows_split, gseg, seg)
     fused_rows = []
     for i in range(rows_split):
-        gs = slice(i * gseg, (i + 1) * gseg)
         row_lead = cfg.device(i, 0)
         cand_rows, cand_scores = [], []
         for j in range(cfg.mp):
-            dev = cfg.device(i, j)
-            ns = slice(j * seg, (j + 1) * seg)
-            parts = []
-            for x, (_name, axes) in zip(args, _CLOSED_FORM_AXES):
-                want = tuple(
-                    gs if ax == "groups" else ns if ax == "nodes" else slice(0, x.shape[d])
-                    for d, ax in enumerate(axes)
-                )
-                parts.append(_cell_part(x, want, i, j, dev))
-            jit = None if jitter is None else _cell_part(jitter, (ns,), i, j, dev)
+            parts = cells[i, j]
             c, sc = _closed_form_one(
-                *parts, algorithm_spread, max_j, kl if cfg.mp > 1 else k, jit,
-                layout="shard",
+                *[parts[name] for name, _ in _CLOSED_FORM_AXES], algorithm_spread, max_j,
+                kl if cfg.mp > 1 else k, parts.get("jitter"), layout="shard",
             )
             cand_rows.append(c.to(row_lead))
             cand_scores.append(sc.to(row_lead))
@@ -1929,25 +1968,16 @@ def _coupled_sharded(wrapper, kind, args, algorithm_spread, counts, max_j, chunk
     gseg, seg = g // rows_split, n // cfg.mp
     nb, nv = args[12].shape[1], args[12].shape[2]
     slots = n_steps * chunk
-    cells = {}
-    for i in range(rows_split):
-        gs = slice(i * gseg, (i + 1) * gseg)
-        for j in range(cfg.mp):
-            dev = cfg.device(i, j)
-            ns = slice(j * seg, (j + 1) * seg)
-            parts = {}
-            for x, (name, axes) in zip(args, _COUPLED_AXES):
-                want = tuple(
-                    gs if ax == "groups" else ns if ax == "nodes" else slice(0, x.shape[d])
-                    for d, ax in enumerate(axes)
-                )
-                parts[name] = _cell_part(x, want, i, j, dev)
-            parts["counts"] = _cell_part(counts, (gs,), i, j, dev)
-            parts["enforce_idx"] = (
-                None if enforce_idx is None else _cell_part(enforce_idx, (gs,), i, j, dev)
-            )
-            parts["jitter"] = None if jitter is None else _cell_part(jitter, (ns,), i, j, dev)
-            cells[i, j] = parts
+    named = [(x, spec) for x, spec in zip(
+        (*args, counts, enforce_idx, jitter),
+        (*_COUPLED_AXES, ("counts", ("groups",)), ("enforce_idx", ("groups",)),
+         ("jitter", ("nodes",))),
+    ) if x is not None]
+    cells = _mesh_cells(cfg, [x for x, _ in named], [spec for _, spec in named],
+                        rows_split, gseg, seg)
+    for parts in cells.values():
+        parts.setdefault("enforce_idx", None)
+        parts.setdefault("jitter", None)
     _coupled_want(
         f"place_{kind} (sharded)",
         [cells[0, 0][name] for name, _ in _CLOSED_FORM_AXES],
@@ -1989,23 +2019,13 @@ def _sharded_loop_cpu(kind, cfg, cells, rows_split, gseg, seg, nb, nv,
     counted (``plain_calls``) and filed under the layout the card's
     launches take ("shard" or "merge")."""
     mp = cfg.mp
-
-    def assemble(name, axes):
-        if "groups" not in axes:  # capacity, used0: the cells side by side
-            return torch.cat([cells[0, j][name] for j in range(mp)])
-        per_row = [
-            torch.cat([cells[i, j][name] for j in range(mp)], dim=axes.index("nodes"))
-            if "nodes" in axes else cells[i, 0][name]
-            for i in range(rows_split)
-        ]
-        return torch.cat(per_row)
-
-    t = {name: assemble(name, axes) for name, axes in _COUPLED_AXES}
-    t["counts"] = assemble("counts", ("groups",))
-    t["enforce_idx"] = None if kind != "opv" else assemble("enforce_idx", ("groups",))
+    t = {name: _stacked(cells, name, axes, rows_split, mp) for name, axes in _COUPLED_AXES}
+    t["counts"] = _stacked(cells, "counts", ("groups",), rows_split, mp)
+    t["enforce_idx"] = (None if kind != "opv"
+                        else _stacked(cells, "enforce_idx", ("groups",), rows_split, mp))
     jitter = cells[0, 0]["jitter"]
     if jitter is not None:
-        jitter = torch.cat([cells[0, j]["jitter"] for j in range(mp)])
+        jitter = _stacked(cells, "jitter", ("nodes",), rows_split, mp)
     planes = _score_planes(
         *[t[name] for name, _ in _CLOSED_FORM_AXES], algorithm_spread, max_j, jitter=jitter,
     )
@@ -2305,7 +2325,7 @@ class PlacementResult:
     explanation: Optional[object] = None
 
 
-def used_device(cluster, used0, device: torch.device, cfg=None, *, split=True):
+def used_device(cluster, used0, device: torch.device, cfg=None):
     """The one seam every kernel's per-pass ``used`` upload routes
     through. With incremental rescoring on (the tensors carry a
     ``score_cache``), the DeviceStateCache serves a device-resident
@@ -2316,33 +2336,29 @@ def used_device(cluster, used0, device: torch.device, cfg=None, *, split=True):
     kernel reads (padded rows included), so the cache diffs what the
     kernel sees. Under an active mesh ``cfg`` the cache's view is laid
     out on the node axis (a ``ShardedTensor``: the cache patches only the
-    dirty shards), and so is a fresh upload unless ``split`` is False:
-    a kernel that takes its inputs gathered onto the lead gets a fresh
-    upload whole on ``device``."""
+    dirty shards), and so is a fresh upload."""
     cache = getattr(cluster, "score_cache", None)
     if cache is not None:
         dev = cache.score_view(cluster, used0, cfg)
         if dev is not None:
             return dev
     used0 = np.ascontiguousarray(used0, dtype=np.float32)
-    if split and cfg is not None and cfg.active:
+    if cfg is not None and cfg.active:
         return shard_put(used0, ("nodes",), cfg)
     return torch.from_numpy(used0).to(device)
 
 
-def capacity_on(cluster, device: torch.device, cfg=None, *, split=True):
+def capacity_on(cluster, device: torch.device, cfg=None):
     """The cluster's f32[N, 4] capacity on ``device`` — or, under an
     active mesh ``cfg``, laid out over its node axis: the
     DeviceStateCache's resident (per-shard refreshed) view when one rode
-    along on the tensors for that device or mesh, else a fresh upload,
-    laid out over ``cfg`` unless ``split`` is False (a kernel that takes
-    its inputs gathered onto the lead gets it whole on ``device``)."""
+    along on the tensors for that device or mesh, else a fresh upload
+    laid out over ``cfg``."""
     dev = cluster.device_capacity
     if cfg is not None and cfg.active:
         if is_sharded(dev) and dev.cfg is cfg:
             return dev
-        if split:
-            return shard_put(np.ascontiguousarray(cluster.capacity, dtype=np.float32),
+        return shard_put(np.ascontiguousarray(cluster.capacity, dtype=np.float32),
                          ("nodes",), cfg)
     if isinstance(dev, torch.Tensor) and dev.device == device:
         return dev

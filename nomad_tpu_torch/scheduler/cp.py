@@ -50,7 +50,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..backend import resolve_device
+from ..backend import resolve_device, shard_put
 # the kernel wrappers are called through the module, so that a stand-in
 # (chip_smoke.py's recorder) sees every call
 from ..device import cp as device_cp
@@ -252,10 +252,31 @@ class CpPlacementKernel:
         return self._base.mesh_cfg()
 
     def _layout(self, cluster):
-        """The mesh a pass lays the score matrix out over, and whose
-        resident capacity and usage views the auction takes gathered onto
-        the lead; or None."""
+        """The mesh a pass lays the score matrix and the auction's batch
+        out over (one whose node axis divides the padded nodes); or
+        None."""
         return self.mesh_cfg() if self._base._n_shards(cluster.padded_n) > 1 else None
+
+    def _inputs(self, cluster, batch: CpBatch, cfg) -> tuple:
+        """The auction's inputs in ``cp_place``'s order, lam0 last: on
+        ``device``, or under ``cfg`` laid out as the reference lays them
+        (its shard_put calls; capacity and usage through the cache's
+        per-shard views)."""
+        if cfg is None:
+            return batch.tensors(
+                self.device, capacity_on(cluster, self.device),
+                used_device(cluster, batch.used, self.device),
+            )
+        return (
+            capacity_on(cluster, self.device, cfg),
+            used_device(cluster, batch.used, self.device, cfg),
+            *[shard_put(x, axes, cfg) for x, axes in (
+                (batch.asks, ("groups",)), (batch.counts, ("groups",)),
+                (batch.eligible, ("groups", "nodes")), (batch.scores, ("groups", "nodes")),
+                (batch.prio, ("groups",)), (batch.job_counts, ("groups", "nodes")),
+                (batch.distinct, ("groups",)), (batch.jobgrp, ()), (batch.lam0, ()),
+            )],
+        )
 
     def _cp_eligible(self, asks: list) -> bool:
         # value blocks (spread / distinct_property) and device slot caps
@@ -292,12 +313,8 @@ class CpPlacementKernel:
         if not self._cp_eligible(asks):
             return self._base.place(cluster, asks, **kwargs)
         batch = self._batch(cluster, asks, kwargs)
-        cfg = self._layout(cluster)
         out = device_cp.cp_place(
-            *batch.tensors(
-                self.device, capacity_on(cluster, self.device, cfg, split=False),
-                used_device(cluster, batch.used, self.device, cfg, split=False),
-            ),
+            *self._inputs(cluster, batch, self._layout(cluster)),
             steps=batch.steps, max_c=batch.max_c,
         )
         choices, choice_scores, used_out, rounds, _lam = (
@@ -443,12 +460,12 @@ class CpGangPlacementKernel(CpPlacementKernel):
         batch = self._batch(cluster, asks, kwargs)
         gi = build_gang_inputs(cluster, asks)
         cfg = self._layout(cluster)
-        common = batch.tensors(
-            self.device, capacity_on(cluster, self.device, cfg, split=False),
-            used_device(cluster, batch.used, self.device, cfg, split=False),
-        )
+        common = self._inputs(cluster, batch, cfg)
+        gang = gi.id_tensors(self.device)
+        if cfg is not None:
+            gang = (*gang[:4], shard_put(gi.level_ids, (None, "nodes"), cfg), gi.widths)
         out = device_cp.cp_gang_place_ids(
-            *common[:10], *gi.id_tensors(self.device), common[10],
+            *common[:10], *gang, common[10],
             steps=batch.steps, max_c=batch.max_c,
         )
         choices, choice_scores, used_out, rounds, _lam, waits = (

@@ -43,8 +43,9 @@ to the binpack/spread kernels.
 In learned mode (``throughput_source="learned"``) the kernel object
 reads the calibration plane's ThroughputEstimator through
 ``obs.calibrate.learned_tp_matrix`` and launches the same kernel. Under
-a node-axis mesh (``mesh=``) capacity and usage are laid out over it and
-the kernel takes them gathered onto the mesh's lead device.
+a node-axis mesh (``mesh=``) the batch is laid out over it and the pass
+runs a step loop over the mesh's cells, with a cross-shard reduction on
+the mesh lead every step (``hetero_place_sharded``).
 """
 
 from __future__ import annotations
@@ -56,17 +57,26 @@ import numpy as np
 import torch
 
 from ..backend import (
+    _gathered,
     check_launch,
     count_launch,
     cuda_library,
     current_stream,
+    gather,
     guarded,
+    inside_guard,
+    is_sharded,
     resolve_device,
     same_device,
+    shard_put,
 )
 from ..device.score import (
     _check_inputs,
     _first_argmax,
+    _i32,
+    _mesh_cells,
+    _order_keys,
+    _stacked,
     _steps_bucket,
     capacity_on,
     used_device,
@@ -255,10 +265,11 @@ def _hetero_library():
 
 @guarded(
     "hetero_place_kernel",
+    sharded=lambda *a, **kw: hetero_place_sharded(*a, **kw),
     # a build budget of 1: the one load of csrc/hetero.cu a process makes
     build_budget=1,
     library="hetero",
-    symbols=("nomad_hetero_place",),
+    symbols=("nomad_hetero_place", "nomad_sharded_hetero"),
 )
 def hetero_place(
     capacity,  # f32[N, 4]
@@ -316,6 +327,455 @@ def _hetero_call(args, policy, steps, max_c, scratch, choices, choice_tp, used):
 
 
 hetero_place.launches = 0
+hetero_place.plain_calls = 0  # a CPU mesh's gathered calls
+
+
+# -- the pass under a node-axis mesh ------------------------------------------
+#
+# Cell (i, j) of a dp x mp mesh holds groups row i's slice of the groups
+# and column j's slice of the nodes, and keeps its own copy of the usage
+# of its nodes. A step: each cell reports, for each of its groups still
+# short of its count, the head of the group's list over the cell's nodes
+# (its best node where one more instance fits: the node key, then the
+# lowest node), as the word (order key, global node, tp bits)
+# (``hetero_shard_step``); the mesh lead, cell (0, 0), takes the best
+# head of every group over the columns, the policy's job key over all G
+# and its first-index argmin, commits the placement and writes the
+# step's record (``hetero_step_merge``); the record goes to every cell,
+# and each grows the committed node's usage if it holds it and counts
+# the placement if it holds the group (``hetero_shard_apply``). Every
+# step couples all groups, so the merge runs once, on the lead, over
+# every groups row. A step where nothing is placeable commits nothing
+# and every later step of the reference is the same no-op: the loop
+# stops there.
+
+# the step's record: state (0 a commit, 1 nothing placeable: stop), the
+# group, the global node, tp's bits, then the group's ask as bits
+_HREC_STATE, _HREC_GROUP, _HREC_NODE, _HREC_TP, _HREC_ASK = 0, 1, 2, 3, 4
+HETERO_RECORD = 8
+# a candidate: the node key's order key (0: none), the global node (-1:
+# none), tp's bits
+HETERO_CAND = 3
+
+# (name, axes) of the pass's inputs, in hetero_place's order: the
+# reference's layout (nomad_tpu/scheduler/hetero.py, its shard_put calls)
+_HETERO_AXES = (
+    ("capacity", ("nodes", None)),
+    ("used0", ("nodes", None)),
+    ("asks", ("groups", None)),
+    ("counts", ("groups",)),
+    ("eligible", ("groups", "nodes")),
+    ("tp", ("groups", "nodes")),
+    ("tpmax", ("groups",)),
+    ("cost", ("nodes",)),
+)
+
+
+def hetero_shard_step_plain(capacity, used, asks, counts, eligible, tp, cost, placed,
+                            policy: int, col0: int, cells: int = 1):
+    """The plain version of ``hetero_shard_step``: the candidates
+    i32[cells, G, 3] of ``cells`` cells side by side on the node axis
+    (each ``n / cells`` nodes, the first global node ``col0``): for each
+    group with ``placed`` below its count, the cell's best node where one
+    more instance fits (the greatest node key, then the lowest node), as
+    (order key, global node, tp's bits); (0, -1, 0) otherwise."""
+    g, n = tp.shape
+    seg = n // cells
+    feas = _feasible_matrix(capacity, used, asks, eligible, tp)
+    keys = _order_keys(_node_keys(policy, tp, cost, feas)).view(g, cells, seg)
+    ok = (feas & (placed < counts)[:, None]).view(g, cells, seg)
+    keys = torch.where(ok, keys, -1)
+    best = keys.amax(dim=2)  # [G, cells]
+    ar = torch.arange(seg, device=tp.device)
+    low = torch.where(ok & (keys == best[..., None]), ar, seg).amin(dim=2)
+    held = best >= 0
+    low = low.clamp(max=seg - 1)
+    node = low + col0 + torch.arange(cells, device=tp.device)[None, :] * seg
+    tp_bits = torch.gather(tp.view(g, cells, seg), 2, low[..., None])[..., 0].view(torch.int32)
+    out = torch.zeros((cells, g, HETERO_CAND), dtype=torch.int32, device=tp.device)
+    out[..., 0] = torch.where(held, _i32(best.clamp(min=0)), 0).T
+    out[..., 1] = torch.where(held, node, -1).T.to(torch.int32)
+    out[..., 2] = torch.where(held, tp_bits, 0).T
+    return out
+
+
+def hetero_step_merge_plain(cand, placed, accum, counts, tpmax, asks, choices, choice_tp,
+                            policy: int):
+    """The plain version of ``hetero_step_merge``: the columns' candidates
+    ``cand`` i32[S, G, 3] become the step's commit. Each group's best
+    head over the columns (key desc, node asc); the placeable groups
+    (short of their count, with a head); the least job key, first index;
+    its head takes slot ``placed[j]``. Returns (record i32[8], placed,
+    accum, choices, choice_tp), the inputs left as they were."""
+    g = cand.shape[1]
+    placed, accum = placed.clone(), accum.clone()
+    choices, choice_tp = choices.clone(), choice_tp.clone()
+    record = torch.zeros(HETERO_RECORD, dtype=torch.int32, device=cand.device)
+    key = cand[..., 0].long() & 0xFFFFFFFF
+    rank = torch.where(key > 0, key * 2**31 + (2**31 - 1 - cand[..., 1].long()), -1)
+    best = torch.gather(cand, 0, rank.argmax(dim=0)[None, :, None].expand(1, g, HETERO_CAND))[0]
+    placeable = (placed < counts) & (best[:, 0] != 0)
+    if g == 0 or not bool(placeable.any()):
+        record[_HREC_STATE] = 1
+        return record, placed, accum, choices, choice_tp
+    jkey = _job_keys(policy, placed, accum, counts, tpmax, placeable)
+    j = int(_first_argmax(-jkey)[0])
+    node, tp_bits = best[j, 1], best[j, 2]
+    slot = int(placed[j])
+    tpv = tp_bits.view(1).view(torch.float32)[0]
+    choices[j, slot] = node
+    choice_tp[j, slot] = tpv
+    placed[j] += 1
+    accum[j] = accum[j] + tpv
+    record[_HREC_GROUP] = j
+    record[_HREC_NODE] = node
+    record[_HREC_TP] = tp_bits
+    record[_HREC_ASK:] = asks[j].contiguous().view(torch.int32)
+    return record, placed, accum, choices, choice_tp
+
+
+def hetero_shard_apply_plain(record, used, placed, col0: int, g0: int):
+    """The plain version of ``hetero_shard_apply``: one cell's usage
+    f32[n, 4] of nodes [col0, col0 + n) and placements i32[g] of groups
+    [g0, g0 + g) after a step's record, the inputs left as they were."""
+    used, placed = used.clone(), placed.clone()
+    if int(record[_HREC_STATE]) != 0:
+        return used, placed
+    x = int(record[_HREC_NODE]) - col0
+    if 0 <= x < used.shape[0]:
+        used[x] = used[x] + record[_HREC_ASK:].contiguous().view(torch.float32)
+    j = int(record[_HREC_GROUP]) - g0
+    if 0 <= j < placed.shape[0]:
+        placed[j] += 1
+    return used, placed
+
+
+def _mesh_fn(symbol: str):
+    fn = getattr(cuda_library("hetero"), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = _MESH_ARGTYPES[symbol]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+_MESH_ARGTYPES = {
+    # capacity, used, asks, counts, eligible, tp, cost, placed; policy, g,
+    # n, col0; scratch and its bytes; cand, stream
+    "nomad_hetero_shard_step": (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_size_t]
+        + [ctypes.c_void_p] * 2
+    ),
+    # cand; cells, g, policy, max_c; counts, tpmax, asks, placed, accum,
+    # choices, choice_tp, record, stream
+    "nomad_hetero_step_merge": (
+        [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9
+    ),
+    # record, used, placed; n, g, col0, g0; stream
+    "nomad_hetero_shard_apply": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    "nomad_hetero_cell_scratch_bytes": [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_size_t)],
+    # rows, mp, devices, ptrs, gseg, seg, policy, steps, max_c, poll, launched
+    "nomad_sharded_hetero": (
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+    ),
+    "nomad_hetero_cell_ptrs": [],
+}
+
+
+def _cell_scratch_bytes(g: int, n: int) -> int:
+    out = ctypes.c_size_t(0)
+    check_launch(_mesh_fn("nomad_hetero_cell_scratch_bytes")(g, n, ctypes.byref(out)),
+                 "hetero_shard_step")
+    return out.value
+
+
+@inside_guard(
+    "hetero_shard_step",
+    # it launches inside the hetero pass's guard
+    guard="hetero_place_kernel",
+    # a build budget of 1: it shares csrc/hetero.cu's one load
+    build_budget=1,
+    library="hetero",
+    symbols=("nomad_hetero_shard_step",),
+)
+def hetero_shard_step(capacity, used, asks, counts, eligible, tp, cost, placed,
+                      policy: int, col0: int):
+    """One mesh cell's candidates i32[1, G, 3] for a step of the sharded
+    hetero pass (see ``hetero_shard_step_plain``; the cell's nodes are
+    [col0, col0 + n)). CPU tensors run the plain version; CUDA tensors
+    build the cell's lists (``csrc/hetero.cu``'s sort and merge launches)
+    and launch ``hetero_shard_step_kernel`` on them, as the step loop's
+    first step does."""
+    args = (capacity, used, asks, counts, eligible, tp, cost, placed)
+    if capacity.device.type == "cpu":
+        return hetero_shard_step_plain(*args, policy, col0)
+    dev = capacity.device
+    g, n = tp.shape
+    same_device(args, dev, "hetero_shard_step")
+    _check_inputs("hetero_shard_step", [
+        ("capacity", capacity, torch.float32, (n, 4)),
+        ("used", used, torch.float32, (n, 4)),
+        ("asks", asks, torch.float32, (g, 4)),
+        ("counts", counts, torch.int32, (g,)),
+        ("eligible", eligible, torch.bool, (g, n)),
+        ("tp", tp, torch.float32, (g, n)),
+        ("cost", cost, torch.float32, (n,)),
+        ("placed", placed, torch.int32, (g,)),
+    ])
+    if n < 1:
+        raise ValueError("hetero_shard_step: no node")
+    cand = torch.zeros((1, g, HETERO_CAND), dtype=torch.int32, device=dev)
+    if g == 0:
+        return cand
+    scratch = torch.empty(_cell_scratch_bytes(g, n), dtype=torch.uint8, device=dev)
+    status = _mesh_fn("nomad_hetero_shard_step")(
+        *[t.data_ptr() for t in args], int(policy), g, n, int(col0),
+        scratch.data_ptr(), scratch.numel(), cand.data_ptr(), current_stream(dev),
+    )
+    check_launch(status, "hetero_shard_step")
+    count_launch(hetero_shard_step)
+    return cand
+
+
+hetero_shard_step.launches = 0
+hetero_shard_step.plain_calls = 0  # a CPU mesh's step loop: its plain calls
+
+
+@inside_guard(
+    "hetero_step_merge",
+    guard="hetero_place_kernel",
+    # a build budget of 1: it shares csrc/hetero.cu's one load
+    build_budget=1,
+    library="hetero",
+    symbols=("nomad_hetero_step_merge",),
+)
+def hetero_step_merge(cand, placed, accum, counts, tpmax, asks, choices, choice_tp,
+                      policy: int):
+    """One step's merge on the mesh lead (see ``hetero_step_merge_plain``);
+    returns (record, placed, accum, choices, choice_tp), the inputs left as
+    they were. CPU tensors run the plain version; CUDA tensors launch
+    ``csrc/hetero.cu``'s ``hetero_step_merge_kernel``, one block."""
+    dev = cand.device
+    if dev.type == "cpu":
+        return hetero_step_merge_plain(cand, placed, accum, counts, tpmax, asks, choices,
+                                       choice_tp, policy)
+    s, g, _ = cand.shape
+    max_c = choices.shape[1]
+    _check_inputs("hetero_step_merge", [
+        ("cand", cand, torch.int32, (s, g, HETERO_CAND)),
+        ("placed", placed, torch.int32, (g,)),
+        ("accum", accum, torch.float32, (g,)),
+        ("counts", counts, torch.int32, (g,)),
+        ("tpmax", tpmax, torch.float32, (g,)),
+        ("asks", asks, torch.float32, (g, 4)),
+        ("choices", choices, torch.int32, (g, max_c)),
+        ("choice_tp", choice_tp, torch.float32, (g, max_c)),
+    ])
+    same_device([placed, accum, counts, tpmax, asks, choices, choice_tp], dev,
+                "hetero_step_merge")
+    placed, accum = placed.clone(), accum.clone()
+    choices, choice_tp = choices.clone(), choice_tp.clone()
+    record = torch.zeros(HETERO_RECORD, dtype=torch.int32, device=dev)
+    if g == 0:
+        record[_HREC_STATE] = 1
+        return record, placed, accum, choices, choice_tp
+    status = _mesh_fn("nomad_hetero_step_merge")(
+        cand.data_ptr(), s, g, int(policy), max_c,
+        *[t.data_ptr() for t in (counts, tpmax, asks, placed, accum, choices, choice_tp,
+                                 record)],
+        current_stream(dev),
+    )
+    check_launch(status, "hetero_step_merge")
+    count_launch(hetero_step_merge)
+    return record, placed, accum, choices, choice_tp
+
+
+hetero_step_merge.launches = 0
+hetero_step_merge.plain_calls = 0
+
+
+@inside_guard(
+    "hetero_shard_apply",
+    guard="hetero_place_kernel",
+    # a build budget of 1: it shares csrc/hetero.cu's one load
+    build_budget=1,
+    library="hetero",
+    symbols=("nomad_hetero_shard_apply",),
+)
+def hetero_shard_apply(record, used, placed, col0: int, g0: int):
+    """One mesh cell's usage and placements after a step (see
+    ``hetero_shard_apply_plain``), the inputs left as they were. CPU
+    tensors run the plain version; CUDA tensors launch ``csrc/hetero.cu``'s
+    ``hetero_shard_apply_kernel`` (here without the cell's lists, whose
+    heads only the step loop keeps)."""
+    dev = record.device
+    if dev.type == "cpu":
+        return hetero_shard_apply_plain(record, used, placed, col0, g0)
+    n, g = used.shape[0], placed.shape[0]
+    _check_inputs("hetero_shard_apply", [
+        ("record", record, torch.int32, (HETERO_RECORD,)),
+        ("used", used, torch.float32, (n, 4)),
+        ("placed", placed, torch.int32, (g,)),
+    ])
+    same_device([used, placed], dev, "hetero_shard_apply")
+    used, placed = used.clone(), placed.clone()
+    status = _mesh_fn("nomad_hetero_shard_apply")(
+        record.data_ptr(), used.data_ptr(), placed.data_ptr(), n, g, int(col0), int(g0),
+        current_stream(dev),
+    )
+    check_launch(status, "hetero_shard_apply")
+    count_launch(hetero_shard_apply)
+    return used, placed
+
+
+hetero_shard_apply.launches = 0
+hetero_shard_apply.plain_calls = 0
+
+
+def hetero_place_sharded(capacity, used0, asks, counts, eligible, tp, tpmax, cost,
+                         policy: int, steps: int, max_c: int):
+    """``hetero_place`` with its inputs laid out over a mesh (any of them
+    a ``ShardedTensor``): the step loop over the cells (the groups axis
+    splits when it divides G, else groups row 0 alone runs), one merge a
+    step on the mesh lead over all G. Returns (choices, choice_tp, used)
+    on the lead, identical to the one-device pass. A node axis the mesh
+    does not divide runs the one-device kernel on the lead (gathered)."""
+    args = (capacity, used0, asks, counts, eligible, tp, tpmax, cost)
+    cfg = next(x.cfg for x in args if is_sharded(x))
+    lead = cfg.lead
+    g, n = asks.shape[0], capacity.shape[0]
+    statics = {"policy": policy, "steps": steps, "max_c": max_c}
+    if n % cfg.mp != 0:
+        out = _gathered(hetero_place.__wrapped__, lead, list(args), statics)
+        if lead.type == "cpu":  # the plain version ran where the card launches
+            count_launch(hetero_place, "plain_calls", layout="gathered")
+        return out
+    if g == 0 or steps < 1:
+        return (torch.full((g, max_c), -1, dtype=torch.int32, device=lead),
+                torch.zeros((g, max_c), dtype=torch.float32, device=lead),
+                gather(used0, lead).clone())
+    rows_split = cfg.dp if g % cfg.dp == 0 else 1
+    gseg, seg = g // rows_split, n // cfg.mp
+    cells = _mesh_cells(cfg, args, _HETERO_AXES, rows_split, gseg, seg)
+    # what the merge reads for every group, on the lead
+    every = {name: gather(x, lead) for name, x in (
+        ("asks", asks), ("counts", counts), ("tpmax", tpmax))}
+    _check_hetero("hetero_place (sharded)", *[cells[0, 0][name] for name, _ in _HETERO_AXES[:3]],
+                  cells[0, 0]["counts"], cells[0, 0]["eligible"], cells[0, 0]["tp"],
+                  cells[0, 0]["tpmax"], cells[0, 0]["cost"], max_c)
+    _check_inputs("hetero_place (sharded)", [("counts", every["counts"], torch.int32, (g,))])
+    if g and int(every["counts"].max()) > max_c:  # nta: allow=NTA002
+        raise ValueError(f"hetero_place (sharded): a count exceeds max_c={max_c}")
+    run = _hetero_loop_cpu if lead.type == "cpu" else _hetero_loop_cuda
+    return run(cfg, cells, every, rows_split, gseg, seg, int(policy), int(steps), int(max_c))
+
+
+def _hetero_loop_cpu(cfg, cells, every, rows_split, gseg, seg, policy, steps, max_c):
+    """The step loop through the plain versions (a CPU mesh). Every cell
+    lies on the CPU, so each step runs them all as one call: the rows'
+    groups one after another and the columns' nodes side by side, each
+    column's candidates from its own nodes; then the merge, then every
+    cell's apply as one call. Each of these calls is counted
+    (``plain_calls``) and filed under the layout the card's launches
+    take ("shard" or "merge")."""
+    mp = cfg.mp
+    t = {name: _stacked(cells, name, axes, rows_split, mp) for name, axes in _HETERO_AXES}
+    g = t["tp"].shape[0]
+    used = t["used0"].clone()
+    placed_cells = torch.zeros(g, dtype=torch.int32)
+    placed = torch.zeros(g, dtype=torch.int32)
+    accum = torch.zeros(g, dtype=torch.float32)
+    choices = torch.full((g, max_c), -1, dtype=torch.int32)
+    choice_tp = torch.zeros((g, max_c), dtype=torch.float32)
+    for _ in range(steps):
+        cand = hetero_shard_step_plain(
+            t["capacity"], used, t["asks"], t["counts"], t["eligible"], t["tp"], t["cost"],
+            placed_cells, policy, 0, cells=mp,
+        )
+        count_launch(hetero_shard_step, "plain_calls", layout="shard")
+        record, placed, accum, choices, choice_tp = hetero_step_merge_plain(
+            cand, placed, accum, every["counts"], every["tpmax"], every["asks"], choices,
+            choice_tp, policy,
+        )
+        count_launch(hetero_step_merge, "plain_calls", layout="merge")
+        if int(record[_HREC_STATE]) != 0:
+            break
+        used, placed_cells = hetero_shard_apply_plain(record, used, placed_cells, 0, 0)
+        count_launch(hetero_shard_apply, "plain_calls", layout="shard")
+    return choices, choice_tp, used
+
+
+# the per-cell pointers of the C step loop, in csrc/hetero.cu's HeteroPtr order
+_HETERO_CELL_INPUTS = ("capacity", "asks", "counts", "eligible", "tp", "cost")
+_HETERO_CELL_STATE = (
+    "used", "placed", "scratch", "cand", "record", "gathered", "lead_placed", "accum",
+    "every_counts", "every_tpmax", "every_asks", "choices", "choice_tp", "master",
+)
+# steps between two reads of the lead's stop word by the C step loop
+MESH_POLL_STEPS = 16
+
+
+def _hetero_loop_cuda(cfg, cells, every, rows_split, gseg, seg, policy, steps, max_c):
+    """The step loop as one C call (``nomad_sharded_hetero``). It reports
+    the launches it made, counted in C where each kernel launches; they
+    are added here to each wrapper's count under its layout (each cell's
+    one list build a call to ``hetero_place``, "shard")."""
+    lead = cfg.lead
+    per_cell = _mesh_fn("nomad_hetero_cell_ptrs")()
+    assert per_cell == len(_HETERO_CELL_INPUTS) + len(_HETERO_CELL_STATE) + 1
+    g = rows_split * gseg
+    region = _cell_scratch_bytes(gseg, seg)
+    n_cells = rows_split * cfg.mp
+    ptrs = (ctypes.c_void_p * (n_cells * per_cell))()
+    devices = (ctypes.c_int * n_cells)()
+    keep = []
+    for i in range(rows_split):
+        for j in range(cfg.mp):
+            dev = cfg.device(i, j)
+            parts = cells[i, j]
+            state = {
+                "used": parts["used0"].clone(),
+                "placed": torch.zeros(gseg, dtype=torch.int32, device=dev),
+                "scratch": torch.empty(region, dtype=torch.uint8, device=dev),
+                "cand": torch.empty((gseg, HETERO_CAND), dtype=torch.int32, device=dev),
+                "record": torch.zeros(HETERO_RECORD, dtype=torch.int32, device=dev),
+            }
+            if (i, j) == (0, 0):
+                state.update(
+                    gathered=torch.empty((cfg.mp, g, HETERO_CAND), dtype=torch.int32,
+                                         device=dev),
+                    lead_placed=torch.zeros(g, dtype=torch.int32, device=dev),
+                    accum=torch.zeros(g, dtype=torch.float32, device=dev),
+                    every_counts=every["counts"], every_tpmax=every["tpmax"],
+                    every_asks=every["asks"],
+                    choices=torch.full((g, max_c), -1, dtype=torch.int32, device=dev),
+                    choice_tp=torch.zeros((g, max_c), dtype=torch.float32, device=dev),
+                    master=torch.zeros(HETERO_RECORD, dtype=torch.int32, device=dev),
+                )
+            c = i * cfg.mp + j
+            row = [parts[name] for name in _HETERO_CELL_INPUTS] + [
+                state.get(name) for name in _HETERO_CELL_STATE
+            ]
+            for k, x in enumerate(row):
+                ptrs[c * per_cell + k] = None if x is None else x.data_ptr()
+            ptrs[c * per_cell + len(row)] = current_stream(dev)
+            devices[c] = dev.index
+            keep.append((parts, state))
+    poll = torch.zeros(1, dtype=torch.int32, pin_memory=True)
+    launched = (ctypes.c_longlong * 4)()  # shard steps, merges, applies, list builds
+    status = _mesh_fn("nomad_sharded_hetero")(
+        rows_split, cfg.mp, devices, ptrs, gseg, seg, policy, steps, max_c,
+        poll.data_ptr(), launched,
+    )
+    for fn, layout, k in zip(
+        (hetero_shard_step, hetero_step_merge, hetero_shard_apply, hetero_place),
+        ("shard", "merge", "shard", "shard"), launched,
+    ):
+        if k:
+            count_launch(fn, layout=layout, n=k)
+    check_launch(status, "hetero_place (sharded)")
+    lead_state = keep[0][1]
+    used = torch.cat([keep[j][1]["used"].to(lead) for j in range(cfg.mp)])
+    return lead_state["choices"], lead_state["choice_tp"], used
 
 
 # -- PlacementKernel-compatible wrapper --------------------------------------
@@ -474,15 +934,27 @@ class HeteroPlacementKernel:
             )
             elig_tp = np.where(batch.eligible, batch.tp, np.float32(0.0))
             batch.tpmax = elig_tp.max(axis=1).astype(np.float32)
-        # the kernel takes its inputs gathered onto the lead: under a
-        # node-axis mesh only the cache's resident capacity and usage
-        # views come laid out over it
+        # under a node-axis mesh that divides the padded nodes the batch
+        # is laid out as the reference lays it (its shard_put calls), and
+        # the pass runs sharded (hetero_place_sharded)
         cfg = self.mesh_cfg() if self._base._n_shards(cluster.padded_n) > 1 else None
+        if cfg is None:
+            inputs = batch.tensors(
+                self.device, capacity_on(cluster, self.device),
+                used_device(cluster, batch.used, self.device),
+            )
+        else:
+            inputs = (
+                capacity_on(cluster, self.device, cfg),
+                used_device(cluster, batch.used, self.device, cfg),
+                *[shard_put(x, axes, cfg) for x, axes in (
+                    (batch.asks, ("groups",)), (batch.counts, ("groups",)),
+                    (batch.eligible, ("groups", "nodes")), (batch.tp, ("groups", "nodes")),
+                    (batch.tpmax, ("groups",)), (batch.cost, ()),
+                )],
+            )
         choices, choice_tp, _ = hetero_place(
-            *batch.tensors(
-                self.device, capacity_on(cluster, self.device, cfg, split=False),
-                used_device(cluster, batch.used, self.device, cfg, split=False),
-            ),
+            *inputs,
             policy=self.policy_id,
             steps=batch.steps,
             max_c=batch.max_c,

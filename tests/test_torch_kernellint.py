@@ -74,6 +74,8 @@ RTOL, ATOL = 1e-5, 1e-6
 
 # the coupled scans' kernels under a node-axis mesh
 MESH_COUPLED = ("coupled_shard_step", "coupled_step_merge", "coupled_shard_apply")
+MESH_HETERO = ("hetero_shard_step", "hetero_step_merge", "hetero_shard_apply")
+MESH_CP = ("cp_shard_claim", "cp_round_merge", "cp_shard_settle")
 
 
 @pytest.fixture(scope="module")
@@ -109,12 +111,14 @@ class TestKernelRegistry:
     def test_the_fleet_is_the_guard_s_table(self):
         reg = import_fleet()
         prod = production_kernels(reg)
-        assert set(prod) == set(FLEET) and len(FLEET) == 15
+        assert set(prod) == set(FLEET) and len(FLEET) == 21
         assert {n for n, e in prod.items() if e.guard == n} == set(FLEET) - {
-            "closed_form_topk_merge", *MESH_COUPLED
+            "closed_form_topk_merge", *MESH_COUPLED, *MESH_HETERO, *MESH_CP
         }
         assert prod["closed_form_topk_merge"].guard == "place_closed_form_kernel"
         assert all(prod[n].guard == "place_value_scan_kernel" for n in MESH_COUPLED)
+        assert all(prod[n].guard == "hetero_place_kernel" for n in MESH_HETERO)
+        assert all(prod[n].guard == "cp_place_kernel" for n in MESH_CP)
         assert prod["score_matrix_kernel"].route == "triton"
         assert all(e.route == "cuda" for n, e in prod.items() if n != "score_matrix_kernel")
 
@@ -389,7 +393,7 @@ class TestFingerprints:
         (csrc / "cp.cu").write_text((csrc / "cp.cu").read_text() + "\n// edited\n")
         after = fingerprint.fingerprint_table(csrc=csrc)
         changed = {n for n in before if before[n] != after[n]}
-        assert changed == {"cp_place_kernel", "cp_gang_place_kernel"}
+        assert changed == {"cp_place_kernel", "cp_gang_place_kernel", *MESH_CP}
 
     def test_a_cuh_edit_changes_every_cuda_kernel_and_not_the_triton_one(self, tmp_path):
         csrc = tmp_path / "csrc"
@@ -462,7 +466,9 @@ class TestInvarianceDiffer:
     def test_mesh_on_off_adds_exactly_the_merge(self, proofs):
         rep = proofs["mesh"]
         assert rep["ok"], rep
-        assert {k for k, _, _ in rep["added"]} == {"closed_form_topk_merge", *MESH_COUPLED}
+        assert {k for k, _, _ in rep["added"]} == {
+            "closed_form_topk_merge", *MESH_COUPLED, *MESH_HETERO, *MESH_CP
+        }
         assert rep["removed"] == [] and rep["mesh_shape"] == [1, 2]
 
     def test_mesh_differ_restores_ambient_state(self, proofs):
@@ -542,7 +548,7 @@ class TestCombinedCLI:
         data = json.loads(r.stdout)
         assert data["source"]["new"] == [] and data["source"]["fixed"] == []
         assert data["kernels"]["new"] == []
-        assert data["kernels"]["analyzed"] == 15
+        assert data["kernels"]["analyzed"] == 21
         assert set(data["kernels"]["fingerprints"]) == set(FLEET)
 
     def test_without_cuda_the_default_raises(self):

@@ -1,5 +1,8 @@
 """The cross-shard top-k merge kernel (``closed_form_topk_merge``,
-``csrc/closed_form.cu``) and the sharded closed form on the card.
+``csrc/closed_form.cu``) and the sharded closed form on the card; the
+coupled scans' mesh kernels and sharded scans; the hetero pass's and the
+CP and gang auctions' mesh kernels (``csrc/hetero.cu``, ``csrc/cp.cu``)
+and their sharded passes against the one-device kernels.
 
 Imports no JAX: it runs where the card is. Every test is marked ``cuda``
 and skips without one. Candidates are made as a shard makes them (a
@@ -16,7 +19,9 @@ import pytest
 import torch
 
 from nomad_tpu_torch import backend
+from nomad_tpu_torch.device import cp as C
 from nomad_tpu_torch.device import score as S
+from nomad_tpu_torch.scheduler import hetero as H
 
 
 def _card():
@@ -328,3 +333,249 @@ def test_cuda_step_merge_and_apply_match_plain(mode):
     for c in range(cells):
         want_jn = S.coupled_shard_apply_plain(jn, want[0], c * seg)
         assert torch.equal(S.coupled_shard_apply(on(jn), on(want[0]), c * seg).cpu(), want_jn)
+
+
+# -- the hetero pass and the CP and gang auctions under a mesh -------------------------
+
+
+def _same(got, want, what):
+    assert len(got) == len(want), what
+    for i, (a, b_) in enumerate(zip(got, want)):
+        a, b_ = a.cpu(), b_.cpu()
+        assert a.shape == b_.shape, (what, i)
+        assert torch.equal(a.reshape(-1).view(torch.int32), b_.reshape(-1).view(torch.int32)), \
+            (what, i)
+
+
+def hetero_batch(rng, g=12, n=4096, negative=False):
+    """A hetero batch on the port's mixed fleet: (inputs, steps, max_c)."""
+    ct = H.build_mixed_fleet(n - 100, seed=int(rng.integers(1 << 16)))
+    asks = H.build_mixed_asks(ct, g, 12, seed=int(rng.integers(1 << 16)))
+    b = H.build_hetero_batch(ct, asks)
+    if negative:
+        b.asks[1, 0] = -500.0
+        b.asks[3, 1] = -1024.0
+    return [b.capacity, b.used, b.asks, b.counts, b.eligible, b.tp, b.tpmax, b.cost], \
+        b.steps, b.max_c
+
+
+def cp_batch(rng, g=24, n=4096, gang=False):
+    """A contended CP batch of coarse values (ties), with gang groups on
+    racks that span cells when ``gang``: (inputs, gang inputs, steps,
+    max_c)."""
+    capacity = np.tile(np.array([8000, 16384, 1e5, 1000], np.float32), (n, 1))
+    used = (capacity * rng.choice([0.0, 0.25, 0.5], size=(n, 1))).astype(np.float32)
+    asks = np.tile(np.array([1000, 2048, 300, 0], np.float32), (g, 1))
+    counts = rng.integers(1, 6, size=g).astype(np.int32)
+    eligible = rng.random((g, n)) < 0.02
+    scores = (rng.integers(0, 8, size=(g, n)) / 8).astype(np.float32)
+    prio = rng.choice([50.0, 70.0], size=g).astype(np.float32)
+    job_counts = (rng.random((g, n)) < 0.01).astype(np.int32)
+    distinct = rng.random(g) < 0.3
+    jobgrp = (np.arange(g) // 3).astype(np.int32)
+    lam0 = np.zeros(n, np.float32)
+    common = [capacity, used, asks, counts, eligible, scores, prio, job_counts, distinct,
+              jobgrp, lam0]
+    extra = None
+    if gang:
+        level_ids = np.stack([1 + (np.arange(n) + n // 8) // 512, 1 + np.arange(n) // 2048,
+                              1 + np.arange(n) % 5]).astype(np.int32)
+        level_ids[:, ::97] = 0
+        widths = tuple(int(x.max()) + 1 for x in level_ids)
+        extra = [(np.arange(g) // 3 + 1).astype(np.int32) * (np.arange(g) % 4 != 3),
+                 rng.choice([1.0, -0.5], size=g).astype(np.float32),
+                 np.full(g, 0.25, np.float32), rng.choice([0.0, 0.5], size=g).astype(np.float32),
+                 level_ids, widths]
+    total = int(counts.sum())
+    return common, extra, 1 << total.bit_length(), 8
+
+
+def _gang_call(fn, common, extra, steps, max_c, put):
+    w = [put(x, ()) for x in extra[:4]]
+    return fn(*[put(x, ax) for x, ax in zip(common[:10], CP_SPECS[:10])], *w,
+              put(extra[4], (None, "nodes")), extra[5], put(common[10], ()), steps, max_c)
+
+
+HETERO_SPECS = (("nodes",), ("nodes",), ("groups",), ("groups",), ("groups", "nodes"),
+                ("groups", "nodes"), ("groups",), ())
+CP_SPECS = (("nodes",), ("nodes",), ("groups",), ("groups",), ("groups", "nodes"),
+            ("groups", "nodes"), ("groups",), ("groups", "nodes"), ("groups",), (), ())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dp,mp", [(1, 4), (2, 2), (2, 4)])
+@pytest.mark.parametrize("policy", sorted(H.POLICY_IDS))
+def test_cuda_sharded_hetero_matches_one_device(policy, dp, mp):
+    """The hetero pass laid out over a mesh whose cells all name the one
+    card (with and without negative asks): identical to the one-device
+    kernel and the plain version, launches only "shard" / "merge"."""
+    dev = _card()
+    for negative in (False, True):
+        rng = np.random.default_rng(dp * 10 + mp + negative)
+        args, steps, max_c = hetero_batch(rng, negative=negative)
+        pid = H.POLICY_IDS[policy]
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in args]
+        one = H.hetero_place(*t, pid, steps, max_c)
+        plain = H.hetero_place_plain(*t, pid, steps, max_c)
+        cfg = backend.make_mesh(dp, mp, dev)
+        backend.reset_mesh_layouts()
+        got = H.hetero_place(*[backend.shard_put(a, ax, cfg) for a, ax in zip(args, HETERO_SPECS)],
+                             pid, steps, max_c)
+        torch.cuda.synchronize()
+        _same(got, one, f"hetero {policy} {dp}x{mp} vs the kernel")
+        _same(got, plain, f"hetero {policy} {dp}x{mp} vs plain")
+        assert (one[0] >= 0).sum() > 0
+        layouts = backend.mesh_layouts()
+        assert set(layouts) == {"hetero_shard_step:shard", "hetero_step_merge:merge",
+                                "hetero_shard_apply:shard", "hetero_place:shard"}, layouts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dp,mp", [(1, 4), (2, 2), (2, 4)])
+@pytest.mark.parametrize("form", ["cp", "gang_ids", "gang_onehot"])
+def test_cuda_sharded_auction_matches_one_device(form, dp, mp):
+    """The CP auction and its gang forms laid out over a mesh on the one
+    card: identical to the one-device kernel and the plain version (every
+    output: choices, scores, usage, rounds, prices, waits)."""
+    dev = _card()
+    rng = np.random.default_rng(dp * 10 + mp + len(form))
+    common, extra, steps, max_c = cp_batch(rng, gang=form != "cp")
+    cfg = backend.make_mesh(dp, mp, dev)
+    on = lambda x, ax=(): torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
+    shard = lambda x, ax: backend.shard_put(x, ax, cfg)  # noqa: E731
+    if form == "cp":
+        one = C.cp_place(*[on(x) for x in common], steps, max_c)
+        plain = C.cp_place_plain(*[on(x) for x in common], steps, max_c)
+        backend.reset_mesh_layouts()
+        got = C.cp_place(*[shard(x, ax) for x, ax in zip(common, CP_SPECS)], steps, max_c)
+    elif form == "gang_ids":
+        one = _gang_call(C.cp_gang_place_ids, common, extra, steps, max_c, on)
+        plain = _gang_call(C.cp_gang_place_ids_plain, common, extra, steps, max_c, on)
+        backend.reset_mesh_layouts()
+        got = _gang_call(C.cp_gang_place_ids, common, extra, steps, max_c, shard)
+    else:
+        ids, widths = extra[4], extra[5]
+        onehots = []
+        for row, w in zip(ids, widths):
+            oh = np.zeros((row.size, w), np.int32)
+            oh[np.arange(row.size)[row > 0], row[row > 0]] = 1
+            onehots.append(oh)
+        args = lambda put: (  # noqa: E731
+            *[put(x, ax) for x, ax in zip(common[:10], CP_SPECS[:10])],
+            *[put(x, ()) for x in extra[:4]], *[put(oh, ("nodes",)) for oh in onehots],
+            put(common[10], ()), steps, max_c)
+        one = C.cp_gang_place(*args(on))
+        plain = C.cp_gang_place_plain(*args(on))
+        backend.reset_mesh_layouts()
+        got = C.cp_gang_place(*args(shard))
+    torch.cuda.synchronize()
+    _same(got, one, f"{form} {dp}x{mp} vs the kernel")
+    _same(got, plain, f"{form} {dp}x{mp} vs plain")
+    assert int(one[3]) > 1 and (one[0] >= 0).any()
+    assert set(backend.mesh_layouts()) == {"cp_shard_claim:shard", "cp_round_merge:merge",
+                                           "cp_shard_settle:shard"}, backend.mesh_layouts()
+
+
+@pytest.mark.cuda
+def test_cuda_hetero_mesh_kernels_match_plain():
+    """``hetero_shard_step`` on a cell's slice, ``hetero_step_merge`` of
+    four cells' candidates and ``hetero_shard_apply`` of its record,
+    against their plain versions, bit for bit, each counted once."""
+    dev = _card()
+    rng = np.random.default_rng(3)
+    args, _, max_c = hetero_batch(rng, negative=True)
+    capacity, used, asks, counts, eligible, tp, tpmax, cost = [
+        torch.from_numpy(np.ascontiguousarray(a)) for a in args]
+    g, n = tp.shape
+    cells, seg = 4, n // 4
+    placed = torch.from_numpy(rng.integers(0, 3, g).astype(np.int32))
+    on = lambda x: x.to(dev)  # noqa: E731
+    for pid in H.POLICY_IDS.values():
+        cands = []
+        for c in range(cells):
+            ns = slice(c * seg, (c + 1) * seg)
+            part = (capacity[ns], used[ns], asks, counts, eligible[:, ns].contiguous(),
+                    tp[:, ns].contiguous(), cost[ns], placed)
+            want = H.hetero_shard_step_plain(*part, pid, c * seg)
+            before = H.hetero_shard_step.launches
+            got = H.hetero_shard_step(*[on(x) for x in part], pid, c * seg)
+            assert H.hetero_shard_step.launches == before + 1
+            assert torch.equal(got.cpu(), want), (pid, c)
+            cands.append(want)
+        cand = torch.cat(cands)
+        state = (placed, (placed * 0.5).to(torch.float32), counts, tpmax, asks,
+                 torch.full((g, max_c), -1, dtype=torch.int32),
+                 torch.zeros((g, max_c), dtype=torch.float32))
+        want = H.hetero_step_merge_plain(cand, *state, pid)
+        _same(H.hetero_step_merge(on(cand), *[on(x) for x in state], pid), want, f"merge {pid}")
+        assert int(want[0][0]) == 0
+        for c in range(cells):
+            ns = slice(c * seg, (c + 1) * seg)
+            w = H.hetero_shard_apply_plain(want[0], used[ns], placed, c * seg, 0)
+            _same(H.hetero_shard_apply(on(want[0]), on(used[ns]), on(placed), c * seg, 0), w,
+                  f"apply {pid} {c}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gang", [False, True])
+def test_cuda_cp_mesh_kernels_match_plain(gang):
+    """``cp_shard_claim`` on four cells mid-pass (prices, assignments,
+    sibling and topology counts set), ``cp_round_merge`` of their
+    candidates and ``cp_shard_settle`` of its record, against their plain
+    versions, bit for bit."""
+    dev = _card()
+    rng = np.random.default_rng(11 + gang)
+    common, extra, _, max_c = cp_batch(rng, gang=True)
+    (capacity, used, asks, counts, eligible, scores, prio, job_counts, distinct, jobgrp,
+     _lam0) = [torch.from_numpy(np.ascontiguousarray(a)) for a in common]
+    g, n = scores.shape
+    cells, seg = 4, n // 4
+    job_code = jobgrp.clone()
+    n_jobs = int(job_code.max()) + 1
+    lam = torch.from_numpy(rng.choice([0.0, 0.125, 0.25], size=n).astype(np.float32))
+    assigned = torch.from_numpy((rng.random((g, n)) < 0.01).astype(np.int32))
+    sib = torch.zeros((n_jobs, n), dtype=torch.int32).index_add_(0, job_code.long(), assigned)
+    placed = torch.from_numpy(rng.integers(0, 2, g).astype(np.int32))
+    gang_args = None
+    if gang:
+        gid = torch.from_numpy(extra[0])
+        code, n_gangs = C._codes(torch.where(gid > 0, gid, 0))
+        gang_code = torch.where(gid > 0, code, -1).to(torch.int32)
+        q = [C._cp_topo_quant(torch.from_numpy(w)) for w in extra[1:4]]
+        level_ids = torch.from_numpy(extra[4])
+        tables = [torch.from_numpy(rng.integers(0, 3, (n_gangs + 1, w)).astype(np.int32))
+                  for w in extra[5]]
+        gang_args = (gang_code, *q, level_ids, *tables)
+    on = lambda x: x.to(dev)  # noqa: E731
+    cands = []
+    for c in range(cells):
+        ns = slice(c * seg, (c + 1) * seg)
+        part = (capacity[ns], used[ns], asks, counts, eligible[:, ns].contiguous(),
+                scores[:, ns].contiguous(), job_counts[:, ns].contiguous(), distinct, job_code,
+                lam[ns], assigned[:, ns].contiguous(), sib[:, ns].contiguous(), placed)
+        cg = None if gang_args is None else (
+            *gang_args[:4], gang_args[4][:, ns].contiguous(), *gang_args[5:])
+        want = C.cp_shard_claim_plain(*part, c * seg, cg)
+        before = C.cp_shard_claim.launches
+        got = C.cp_shard_claim(*[on(x) for x in part], c * seg,
+                               None if cg is None else tuple(on(x) for x in cg))
+        assert C.cp_shard_claim.launches == before + 1
+        assert torch.equal(got.cpu(), want), c
+        cands.append(want)
+    cand = torch.cat(cands)
+    state = (prio, asks, job_code, gang_args[0] if gang else None, placed,
+             torch.zeros(g, dtype=torch.int32), torch.tensor(3, dtype=torch.int32),
+             torch.full((g, max_c), -1, dtype=torch.int32),
+             torch.zeros((g, max_c), dtype=torch.float32),
+             torch.zeros(C.cp_record_words(g), dtype=torch.int32))
+    want = C.cp_round_merge_plain(cand, *state)
+    got = C.cp_round_merge(on(cand), *[None if x is None else on(x) for x in state])
+    _same(got, want, "merge")
+    assert int(want[0][1]) > 0
+    for c in range(cells):
+        ns = slice(c * seg, (c + 1) * seg)
+        st = (used[ns], lam[ns], assigned[:, ns].contiguous(), sib[:, ns].contiguous(), placed)
+        tabs = () if not gang else gang_args[5:]
+        w = C.cp_shard_settle_plain(want[0], *st, c * seg, 0, *tabs)
+        _same(C.cp_shard_settle(on(want[0]), *[on(x) for x in st], c * seg, 0,
+                                *[on(x) for x in tabs]), w, f"settle {c}")
